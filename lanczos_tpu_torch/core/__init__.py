@@ -1,0 +1,1 @@
+"""core layer of lanczos_tpu_torch (mirrors lanczos_tpu.core)."""

@@ -1,0 +1,1 @@
+"""utils layer of lanczos_tpu_torch (mirrors lanczos_tpu.utils)."""
