@@ -2,12 +2,16 @@
 """Smoke test of lanczos_tpu_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the port's CUDA kernels from ``lanczos_tpu_torch/csrc``, holds each
-against its plain PyTorch version, and drives the main path —
-``LambdaLanczos.run`` -> deflation driver -> fused engine over a
-``BSROperator`` — at n = 2**20.  Every phase prints one JSON line; any
-failure raises, so the script exits non-zero and prints no result.  The last
-two lines are the kernel table and the device line.  It needs a CUDA device
-and fails at once without one; it imports no JAX.
+against its plain PyTorch version, and drives the port's paths through
+``LambdaLanczos.run``: the main path (deflation driver -> fused engine over
+a ``BSROperator``, kernels K1 and K3) at n = 2**20, the scalar thick-restart
+engine on the same operator, and the block thick-restart engine (kernel K4)
+on the JAX package's block flagship, a float32 DIA chain at n = 2**22.  The
+launch counts are set to 0 just before each path and read just after it.
+Every phase prints one JSON line; any failure raises, so the script exits
+non-zero and prints no result.  The last two lines are the kernel table and
+the device line.  It needs a CUDA device and fails at once without one; it
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -17,13 +21,21 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 K1_REPLACES = "lanczos_tpu/ops/pallas_spmv.py:195"
 K3_REPLACES = "lanczos_tpu/ops/pallas_cgs.py:212"
+K4_REPLACES = "lanczos_tpu/ops/pallas_cgs.py:177"
 SEED = 0
 MAIN_N = 2**20  # main-path problem size
 K3_N = 2**22  # width of the (257, n) basis in the K3 phase
+K4_N = 2**22  # width of the (258, n) basis in the K4 phase (the flagship's buffer)
+FLAGSHIP_N = 2**22  # the block flagship's chain (experiments/tpu_flagship_block.py)
 BENCH_R = 512  # row blocks of the 64 Mi-nnz K1 case (bm = bk = 128, S = 8)
+# NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
+# cores (the kernels use plain FMAs).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def emit(obj) -> None:
@@ -45,6 +57,15 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take (ms) and what bounds it: bytes
+    over the data-sheet HBM rate or float32 operations over the data-sheet
+    rate, whichever is larger."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -85,7 +106,7 @@ def _random_bsr(torch, dev, r, bm, s, bk, dtype, gen):
     return blocks, col_blocks
 
 
-def check_k1(torch, blocks, col_blocks, x, n, tol, label, timing=False):
+def check_k1(torch, blocks, col_blocks, x, n, tol, label, timing=False, library=False):
     import torch.nn.functional as F
 
     from lanczos_tpu_torch.ops import spmv
@@ -111,8 +132,22 @@ def check_k1(torch, blocks, col_blocks, x, n, tol, label, timing=False):
         bytes_moved = blocks.numel() * item + 2 * n_pad * item
         ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
         stream_ms = cuda_ms(torch, lambda: torch.sum(blocks))  # a read-stream probe of the tiles
+        # Each input read once (tiles, column indices, x), y written once.
+        bound_ms, bound_by = bound(bytes_moved + col_blocks.numel() * 4, 2 * blocks.numel())
         out.update(ms=ms, plain_ms=plain_ms, gbps=bytes_moved / ms / 1e6, plain_gbps=bytes_moved / plain_ms / 1e6,
-                   stream_gbps=blocks.numel() * item / stream_ms / 1e6)
+                   stream_gbps=blocks.numel() * item / stream_ms / 1e6, bound_ms=bound_ms, bound_by=bound_by)
+        if library:
+            # The library yardstick: a BSR tensor built once from the same
+            # tiles, times x (cuSPARSE through PyTorch).
+            values = blocks.permute(0, 2, 1, 3).reshape(r * s, bm, bk).contiguous()
+            crow = torch.arange(0, r * s + 1, s, dtype=torch.int64, device=blocks.device)
+            a = torch.sparse_bsr_tensor(crow, col_blocks.reshape(-1).to(torch.int64), values, size=(n_pad, n_pad))
+            xp = F.pad(x, (0, n_pad - x.shape[0]))
+            lib_err, lib_rel = rel_err((a @ xp)[:n], got)
+            if not lib_rel <= tol:
+                raise AssertionError(f"K1 {label}: the sparse library product differs by {lib_rel:.3e}")
+            out.update(library_ms=cuda_ms(torch, lambda: a @ xp), library_max_rel_err=lib_rel)
+            del a, values
     emit(out)
     return out
 
@@ -152,10 +187,18 @@ def check_k3(torch, basis, v, k, tol, timing=False):
            "max_abs_err": err, "max_rel_err": rel, "tol": tol}
     if timing:
         work = v.clone()
+        rows = basis[:k]
         ms = cuda_ms(torch, lambda: cgs.cgs_pass(work, basis, k))
         plain_ms = cuda_ms(torch, lambda: cgs.cgs_pass_reference(v, basis, k))
-        bytes_moved = 2 * k * basis.shape[1] * basis.element_size()
-        out.update(ms=ms, plain_ms=plain_ms, gbps=bytes_moved / ms / 1e6, plain_gbps=bytes_moved / plain_ms / 1e6)
+        library_ms = cuda_ms(torch, lambda: v - torch.mv(rows.T, torch.mv(rows, v)))  # two torch.mv
+        stream_ms = cuda_ms(torch, lambda: torch.sum(rows))
+        n, item = basis.shape[1], basis.element_size()
+        bytes_moved = 2 * k * n * item
+        # Each input read once (the k live rows, v), v written once.
+        bound_ms, bound_by = bound((k + 2) * n * item, 4 * k * n)
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, gbps=bytes_moved / ms / 1e6,
+                   plain_gbps=bytes_moved / plain_ms / 1e6, stream_gbps=k * n * item / stream_ms / 1e6,
+                   bound_ms=bound_ms, bound_by=bound_by)
     emit(out)
     return out
 
@@ -173,6 +216,65 @@ def phase_k3(torch, dev):
         check_k3(torch, basis, v, k, 1e-12)
     del basis, v
     torch.cuda.empty_cache()
+
+
+def check_k4(torch, basis, vblk, k, tol):
+    from lanczos_tpu_torch.ops import cgs
+
+    want = cgs.cgs_pass_block_reference(vblk, basis, k)
+    got = cgs.cgs_pass_block(vblk.clone(), basis, k)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    if not rel <= tol:
+        raise AssertionError(f"K4 b={vblk.shape[0]} k={k}: relative error {rel:.3e} above {tol:.0e}")
+    out = {"phase": "k4", "dtype": str(basis.dtype), "basis": list(basis.shape), "b": vblk.shape[0], "k": k,
+           "max_abs_err": err, "max_rel_err": rel, "tol": tol}
+    emit(out)
+    return out
+
+
+def phase_k4(torch, dev):
+    """K4 against its plain version on the flagship's (258, 2**22) f32
+    buffer and on a ragged f64 basis; then its time at b = 3, k = 255."""
+    from lanczos_tpu_torch.ops import cgs
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    n = K4_N
+    basis = _random_basis(torch, dev, 258, n, torch.float32, gen)
+    for b in (1, 2, 3, 4, 8):
+        vblk = torch.randn((b, n), generator=gen, device=dev, dtype=torch.float32)
+        for k in (1, 3, 129, 255, 258):
+            check_k4(torch, basis, vblk, k, 1e-5)
+
+    b, k = 3, 255
+    vblk = torch.randn((b, n), generator=gen, device=dev, dtype=torch.float32)
+    timed = check_k4(torch, basis, vblk, k, 1e-5)
+    rows = basis[:k]
+    work = vblk.clone()
+    ms = cuda_ms(torch, lambda: cgs.cgs_pass_block(work, basis, k))
+    plain_ms = cuda_ms(torch, lambda: cgs.cgs_pass_block_reference(vblk, basis, k))
+    library_ms = cuda_ms(torch, lambda: vblk - torch.matmul(torch.matmul(rows, vblk.T).T, rows))  # two torch.matmul
+    stream_ms = cuda_ms(torch, lambda: torch.sum(rows))
+    v1 = vblk[0].clone()
+    k3_ms = cuda_ms(torch, lambda: cgs.cgs_pass(v1, basis, k))
+    bytes_moved = 2 * k * n * 4 + 2 * b * n * 4
+    stream_gbps = k * n * 4 / stream_ms / 1e6
+    # Each input read once (the k live rows, the block), the block written once.
+    bound_ms, bound_by = bound(k * n * 4 + 2 * b * n * 4, 4 * k * b * n)
+    timed.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, gbps=bytes_moved / ms / 1e6,
+                 plain_gbps=bytes_moved / plain_ms / 1e6, stream_gbps=stream_gbps,
+                 stream_bound_ms=bytes_moved / stream_gbps / 1e6, k3_ms=k3_ms, b_times_k3_ms=b * k3_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)
+    emit({"phase": "k4_timing", **{key: val for key, val in timed.items() if key != "phase"}})
+    del basis, vblk, work, rows
+
+    basis = _random_basis(torch, dev, 129, 70001, torch.float64, gen)
+    vblk = torch.randn((3, 70001), generator=gen, device=dev, dtype=torch.float64)
+    for k in (1, 64, 129):
+        check_k4(torch, basis, vblk, k, 1e-12)
+    del basis, vblk
+    torch.cuda.empty_cache()
+    return timed
 
 
 def _chain_coo(np, n, potential):
@@ -275,7 +377,7 @@ def phase_main_path(torch, np, dev):
     # The kernels at the shapes the main path gives them.
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     x = torch.randn(n, generator=gen, device=dev, dtype=torch.float32)
-    k1 = check_k1(torch, op.blocks, op.col_blocks, x, n, 1e-5, "main_path", timing=True)
+    k1 = check_k1(torch, op.blocks, op.col_blocks, x, n, 1e-5, "main_path", timing=True, library=True)
     cap = 257
     basis = _random_basis(torch, dev, cap, n, torch.float32, gen)
     k3 = check_k3(torch, basis, x, 128, 1e-5, timing=True)
@@ -306,7 +408,89 @@ def phase_main_path(torch, np, dev):
         tridiagonal.extremal_eigenvalues_device(alpha, beta, 128, 5, False)
     check_ms = (time.perf_counter() - t0) / 5 * 1e3
     emit({"phase": "iteration_rates", "n": n, "rows": 128, "iterations_per_s": rates, "host_check_ms_k128_f32": check_ms})
-    return launches, k1, k3
+    return launches, k1, k3, op, ref
+
+
+def phase_thick_scalar(torch, np, op, ref):
+    """The main path's operator through the scalar thick-restart engine: a
+    128-row basis where the unrestarted solve needed 176 iterations."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cgs, spmv
+
+    eng = tl.LambdaLanczos(op, num_eigs=3, find_maximum=False)
+    eng.restart_policy = "thick"
+    eng.max_iteration = 128
+    eng.eps = 1e-6
+    eng.init_vector = tl.fixed_seed_initializer(torch.float32, seed=SEED)
+    eng.stop_when_full = True  # the pairs are checked against scipy below
+    torch.cuda.synchronize()
+    spmv.bsr_matvec.launches = 0
+    cgs.cgs_pass.launches = 0
+    t0 = time.perf_counter()
+    evals, evecs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k1": spmv.bsr_matvec.launches, "k3": cgs.cgs_pass.launches}
+    if not (launches["k1"] > 0 and launches["k3"] > 0):
+        raise AssertionError(f"thick path did not launch both kernels: {launches}")
+    rel = np.abs(np.asarray(evals) - ref) / np.abs(ref)
+    residuals = eng.residuals(evals, evecs)
+    if not (np.all(np.isfinite(evals)) and bool(torch.isfinite(evecs).all()) and np.all(rel <= 1e-5)):
+        raise AssertionError(f"thick: eigenvalues {evals} vs scipy {ref}: relative error {rel}")
+    if not max(residuals) <= 1e-3:
+        raise AssertionError(f"thick: residuals {residuals}")
+    emit({"phase": "thick_scalar", "n": op.n, "dtype": "float32", "mode": eng._resolve_mode(), "max_iteration": 128,
+          "eigenvalues": list(map(float, evals)), "max_rel_err": float(rel.max()), "residuals": residuals,
+          "iteration_counts": eng.iteration_counts, "wall_s": wall,
+          "iterations_per_s": sum(eng.iteration_counts) / wall, "launches": launches})
+
+
+def phase_block_thick_flagship(torch, np, dev, n):
+    """The JAX package's block flagship (experiments/tpu_flagship_block.py):
+    -1 hopping chain as a float32 DIA operator, the three lowest eigenpairs
+    of a 1e-12-close cluster with a width-3 block thick-restart engine."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cgs
+
+    op = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, device=dev)
+    eng = tl.LambdaLanczos(op, num_eigs=3, find_maximum=False)
+    eng.eigenvalue_offset = -4.0
+    eng.max_iteration = 256  # basis rows
+    eng.restart_policy = "thick"
+    eng.block_size = 3
+    eng.eps = 5e-8
+    eng.max_restarts = 24
+    eng.thick_keep = 24
+    rng = np.random.default_rng(SEED)  # distinct start rows, the same every run
+    eng.init_vector = lambda n_: rng.uniform(-1.0, 1.0, n_).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cgs.cgs_pass_block.launches = 0
+    cgs.cgs_pass.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        evals, evecs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"k4": cgs.cgs_pass_block.launches, "k3": cgs.cgs_pass.launches}
+    if not launches["k4"] > 0:
+        raise AssertionError(f"block flagship did not launch K4: {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    exact = np.array([-2.0 * np.cos((k + 1) * np.pi / (n + 1)) for k in range(3)])
+    errs = np.abs(np.sort(np.asarray(evals)) - exact)
+    residuals = eng.residuals(evals, evecs)
+    if not (evecs.shape == (3, n) and bool(torch.isfinite(evecs).all()) and np.all(np.isfinite(residuals))):
+        raise AssertionError(f"block flagship: misshapen or non-finite output, residuals {residuals}")
+    if not np.all(errs <= 2e-6):
+        raise AssertionError(f"block flagship: eigenvalues {evals} vs {exact}: errors {errs}")
+    rows = (max(256 // 3, 2) + 1) * 3  # the ((cap_b + 1) b, n) basis buffer
+    emit({"phase": "block_thick_flagship", "n": n, "dtype": "float32", "block_size": 3,
+          "eigenvalues": list(map(float, evals)), "exact": exact.tolist(), "abs_errs": errs.tolist(),
+          "residuals": residuals, "iteration_counts": eng.iteration_counts, "wall_s": wall,
+          "block_steps_per_s": sum(eng.iteration_counts) / wall, "launches": launches, "peak_device_gb": peak_gb,
+          "basis_buffer_gb": rows * n * 4 / 1e9, "warnings": [str(w.message)[:200] for w in caught]})
+    return launches
 
 
 def main() -> int:
@@ -323,16 +507,27 @@ def main() -> int:
     phase_build()
     phase_k1(torch, dev)
     phase_k3(torch, dev)
+    k4 = phase_k4(torch, dev)
     phase_small_solves(torch, np, dev)
-    launches, k1, k3 = phase_main_path(torch, np, dev)
+    launches, k1, k3, op, ref = phase_main_path(torch, np, dev)
+    phase_thick_scalar(torch, np, op, ref)
+    del op
+    torch.cuda.empty_cache()
+    flagship = phase_block_thick_flagship(torch, np, dev, FLAGSHIP_N)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+
+    def entry(name, source, replaces, n_launches, timed):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n_launches,
+                "max_abs_err": timed["max_abs_err"], "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+                "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+                "library_ms": timed["library_ms"], "lib_ms": timed["library_ms"]}  # lib_ms: the same, short name
+
+    # launches: K1 and K3 from the main path's run, K4 from the block
+    # flagship's (the path that runs it).
     emit({"kernels": [
-        {"name": "bsr_matvec", "route": "cuda", "source": "lanczos_tpu_torch/csrc/bsr_spmv.cu",
-         "replaces": K1_REPLACES, "launches": launches["k1"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "cgs_pass", "route": "cuda", "source": "lanczos_tpu_torch/csrc/cgs.cu",
-         "replaces": K3_REPLACES, "launches": launches["k3"], "max_abs_err": k3["max_abs_err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
+        entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
+        entry("cgs_pass", "lanczos_tpu_torch/csrc/cgs.cu", K3_REPLACES, launches["k3"], k3),
+        entry("cgs_pass_block", "lanczos_tpu_torch/csrc/cgs_block.cu", K4_REPLACES, flagship["k4"], k4),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,10 +2,11 @@
 
 Extremal eigenpairs of symmetric operators by Lanczos with full
 reorthogonalization and deflated restarts, on an NVIDIA Hopper GPU (or the
-CPU).  The module tree and names mirror ``lanczos_tpu``; the two kernels of
-the main path — the BSR sparse matvec (K1) and the classical Gram-Schmidt
-pass (K3) — are hand-written CUDA in ``csrc/``, built with ``nvcc`` at first
-use on the card.  This package imports PyTorch and never JAX.
+CPU, when asked with ``device="cpu"``).  The module tree and names mirror
+``lanczos_tpu``; the kernels — the BSR sparse matvec (K1), the classical
+Gram-Schmidt pass (K3) and its block form (K4) — are hand-written CUDA in
+``csrc/``, built with ``nvcc`` at first use on the card.  This package
+imports PyTorch and never JAX.
 """
 
 from .api import LambdaLanczos
@@ -17,7 +18,7 @@ from .diagnostics import (
     MissedCopyWarning,
     OverflowGuardWarning,
 )
-from .ops.operators import BSROperator, DenseOperator, FunctionOperator, LinearOperator, as_operator
+from .ops.operators import BSROperator, DenseOperator, DIAOperator, FunctionOperator, LinearOperator, as_operator
 from .solvers.lanczos import EigenPairManager, LanczosConfig, LanczosResult
 from .utils.random import fixed_seed_initializer, random_initializer
 from .utils.stats import RunStats
@@ -28,6 +29,7 @@ __all__ = [
     "FunctionOperator",
     "DenseOperator",
     "BSROperator",
+    "DIAOperator",
     "as_operator",
     "EigenPairManager",
     "LanczosConfig",

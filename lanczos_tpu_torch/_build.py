@@ -2,13 +2,14 @@
 
 The sources in ``csrc/*.cu`` have a plain C interface and are compiled at
 first use by ``nvcc`` into one shared library, loaded with ``ctypes``.  No
-PyTorch header is included, so a build takes seconds, not minutes.
+PyTorch header is included, so a build takes seconds, not minutes: one
+``nvcc -c`` per source, all started together, then one link.
 
 The library lands in ``build/`` beside this file under a name keyed by a
-hash of the sources and the command, so an edited source rebuilds and an
-unchanged one is reused.  The compiler writes to a temporary name that is
-then renamed into place, so processes that build at the same time never load
-a half-written file.
+hash of the sources and the commands, so an edited source rebuilds and an
+unchanged one is reused.  Objects and the library are written under
+temporary names and the library is renamed into place, so processes that
+build at the same time never load a half-written file.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "sources", "nvcc_command", "library", "check"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "sources", "nvcc_compile_command", "nvcc_link_command", "library", "check"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -40,6 +41,10 @@ _SIGNATURES = {
     "lt_cgs_pass_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _P]),
     "lt_cgs_num_tiles_f32": (_I64, [_I64]),
     "lt_cgs_num_tiles_f64": (_I64, [_I64]),
+    "lt_cgs_block_pass_f32": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P]),
+    "lt_cgs_block_pass_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P]),
+    "lt_cgs_block_num_tiles_f32": (_I64, [_I64, _INT]),
+    "lt_cgs_block_num_tiles_f64": (_I64, [_I64, _INT]),
     "lt_error_string": (ctypes.c_char_p, [_INT]),
 }
 
@@ -49,16 +54,18 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def nvcc_command(srcs, output, nvcc: str = "nvcc") -> list[str]:
-    """The compiler command for ``srcs`` into the shared library ``output``
-    (``sm_90a``: Hopper with its architecture-specific instructions)."""
-    return [
-        str(nvcc),
-        "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(output),
-        *[str(s) for s in srcs],
-    ]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]  # Hopper with its architecture-specific instructions
+
+
+def nvcc_compile_command(src, obj, nvcc: str = "nvcc") -> list[str]:
+    """The command that compiles one source into a relocatable object for
+    ``sm_90a``."""
+    return [str(nvcc), *_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c", str(src), "-o", str(obj)]
+
+
+def nvcc_link_command(objs, output, nvcc: str = "nvcc") -> list[str]:
+    """The command that links the objects into the shared library ``output``."""
+    return [str(nvcc), *_ARCH, "-shared", "-o", str(output), *[str(o) for o in objs]]
 
 
 def _find_nvcc() -> str:
@@ -80,19 +87,37 @@ def _library_path(srcs) -> Path:
     for s in srcs + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    h.update(" ".join(nvcc_command([], "out")).encode())
+    h.update(" ".join(nvcc_compile_command("src", "obj") + nvcc_link_command([], "out")).encode())
     return BUILD_DIR / f"liblanczos_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
 def _build(path: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = nvcc_command(sources(), tmp, nvcc=_find_nvcc())
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, path)
+    nvcc = _find_nvcc()
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    srcs = sources()
+    objs = [path.with_name(f"{path.stem}.{s.stem}.{tag}.o") for s in srcs]
+    tmp = path.with_name(f"{path.name}.{tag}.tmp")
+    try:
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for cmd in (nvcc_compile_command(s, o, nvcc=nvcc) for s, o in zip(srcs, objs))
+        ]
+        failed = []
+        for cmd, proc in procs:  # wait for every compiler before reporting
+            _out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = nvcc_link_command(objs, tmp, nvcc=nvcc)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, path)
+    finally:
+        for f in [*objs, tmp]:
+            f.unlink(missing_ok=True)
 
 
 def library() -> ctypes.CDLL:

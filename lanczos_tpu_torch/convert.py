@@ -10,10 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.operators import BSROperator, DenseOperator
+from .ops.operators import BSROperator, DenseOperator, DIAOperator, resolve_device
 from .solvers.lanczos import LanczosConfig
 
-__all__ = ["bsr_operator_from_arrays", "dense_operator_from_array", "config_from_dict"]
+__all__ = ["bsr_operator_from_arrays", "dense_operator_from_array", "dia_operator_from_arrays", "config_from_dict"]
 
 
 def bsr_operator_from_arrays(blocks, col_blocks, n: int, layout: str, device=None) -> BSROperator:
@@ -27,6 +27,7 @@ def bsr_operator_from_arrays(blocks, col_blocks, n: int, layout: str, device=Non
     elif layout != "rmsk":
         raise ValueError(f"layout must be 'rmsk' or 'rsmk', got {layout!r}")
     # np.array copies: the arrays of a JAX package operator are read-only.
+    device = resolve_device(device)
     blocks = torch.from_numpy(np.array(blocks, order="C"))
     col_blocks = torch.from_numpy(np.array(col_blocks, dtype=np.int32, order="C"))
     return BSROperator(blocks.to(device), col_blocks.to(device), int(n))
@@ -35,6 +36,13 @@ def bsr_operator_from_arrays(blocks, col_blocks, n: int, layout: str, device=Non
 def dense_operator_from_array(a, device=None) -> DenseOperator:
     """A :class:`DenseOperator` from a square array."""
     return DenseOperator(torch.from_numpy(np.array(a, order="C")), device=device)
+
+
+def dia_operator_from_arrays(offsets, data, n: int, device=None) -> DIAOperator:
+    """A :class:`DIAOperator` from ``lanczos_tpu.DIAOperator``'s ``offsets``,
+    ``data`` (ndiag, n) and ``n``."""
+    data = torch.from_numpy(np.array(data, order="C"))
+    return DIAOperator(offsets, data.to(resolve_device(device)), int(n))
 
 
 def config_from_dict(d: dict) -> LanczosConfig:

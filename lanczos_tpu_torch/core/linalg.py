@@ -9,7 +9,8 @@ block-MGS is not ported.
 
 The double-float reductions of the JAX package exist because the TPU has no
 float64.  The port takes the float64 dot product of the vectors cast to
-float64 instead (:func:`inner_prod_f64`): for float32 data every product is
+float64 instead (:func:`inner_prod_f64`, and :func:`block_inner_f64` for the
+coefficient blocks of the block engines): for float32 data every product is
 exact there.
 """
 
@@ -29,6 +30,8 @@ __all__ = [
     "orthogonalize_rows",
     "orthogonalize_cgs2",
     "orthogonalize_bcgs_dyn",
+    "orthogonalize_bcgs_dyn_coeffs",
+    "block_inner_f64",
 ]
 
 
@@ -92,3 +95,32 @@ def orthogonalize_bcgs_dyn(v, basis, k: int, passes: int = 2):
     for _ in range(passes):
         v = _cgs.cgs_pass(v, basis, k)
     return v
+
+
+def orthogonalize_bcgs_dyn_coeffs(v, basis, k: int, passes: int = 2):
+    """Like :func:`orthogonalize_bcgs_dyn` but also returns the projection
+    coefficients summed over the passes, ``c`` of shape ``(k,)`` (port of
+    ``lanczos_tpu.core.linalg.orthogonalize_bcgs_dyn_coeffs``).
+
+    For an orthonormal live basis ``c[i]`` equals the first-pass
+    coefficient ``<u_i, v>`` up to O(eps |c|): the new column of the
+    projected matrix of the thick-restart engine.  Plain PyTorch matrix
+    products over the live rows, as the JAX package leaves this pass to XLA.
+    """
+    rows = basis[:k]
+    c_tot = torch.zeros(k, dtype=v.dtype, device=v.device)
+    for _ in range(passes):
+        c = typed_conj(rows) @ v
+        v = v - c @ rows
+        c_tot = c_tot + c
+    return v, c_tot
+
+
+def block_inner_f64(u, w):
+    """All pairwise ``<u_i, w_j>`` of two row blocks, accumulated in float64
+    (complex128 for complex inputs): the ``(rows(u), rows(w))`` coefficient
+    matrix.  Replaces the JAX package's double-float pair dots
+    (``block_thick._pair_dots_df``), which exist because the TPU has no
+    float64."""
+    wide = torch.complex128 if u.is_complex() else torch.float64
+    return typed_conj(u.to(wide)) @ w.to(wide).T

@@ -42,33 +42,6 @@ int64_t num_tiles(int64_t n) {
   return (n + tile_width<T>() - 1) / tile_width<T>();
 }
 
-// Loads the thread's kUnroll*VN elements of one row segment starting at
-// tile_base (zeros past n).
-template <typename T>
-__device__ __forceinline__ void load_seg(const T* __restrict__ row, int64_t tile_base, int64_t n,
-                                         bool vec_ok, T (&out)[kUnroll * lt::Vec<T>::n]) {
-  using V = typename lt::Vec<T>::type;
-  constexpr int VN = lt::Vec<T>::n;
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int64_t e0 = tile_base + (int64_t(u) * kThreads + threadIdx.x) * VN;
-    if (vec_ok) {
-      if (e0 < n) {
-        const V t = *reinterpret_cast<const V*>(row + e0);
-        const T* tt = reinterpret_cast<const T*>(&t);
-#pragma unroll
-        for (int c = 0; c < VN; ++c) out[u * VN + c] = tt[c];
-      } else {
-#pragma unroll
-        for (int c = 0; c < VN; ++c) out[u * VN + c] = T(0);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < VN; ++c) out[u * VN + c] = e0 + c < n ? row[e0 + c] : T(0);
-    }
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     cgs_project_kernel(const T* __restrict__ basis, const T* __restrict__ v,
@@ -83,7 +56,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t tile_base = t * tile_width<T>();
 
   T vr[E];
-  load_seg<T>(v, tile_base, n, vec_ok, vr);
+  lt::load_seg<T, kThreads, kUnroll>(v, tile_base, n, vec_ok, vr);
 
   for (int j0 = 0, g = 0; j0 < k; j0 += kRowGroup, g ^= 1) {
     A s[kRowGroup];
@@ -92,7 +65,7 @@ __global__ void __launch_bounds__(kThreads)
       s[q] = A(0);
       if (j0 + q < k) {
         T br[E];
-        load_seg<T>(basis + int64_t(j0 + q) * n, tile_base, n, vec_ok, br);
+        lt::load_seg<T, kThreads, kUnroll>(basis + int64_t(j0 + q) * n, tile_base, n, vec_ok, br);
 #pragma unroll
         for (int e = 0; e < E; ++e) s[q] = fma(A(br[e]), A(vr[e]), s[q]);
       }
@@ -114,40 +87,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename A>
-__global__ void __launch_bounds__(kThreads)
-    cgs_reduce_kernel(const A* __restrict__ part, A* __restrict__ c, int64_t n_tiles) {
-  __shared__ A red[kWarps];
-  const int j = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  A s = A(0);
-  for (int64_t t = threadIdx.x; t < n_tiles; t += kThreads) s += part[int64_t(j) * n_tiles + t];
-  s = lt::warp_sum(s);
-  if (lane == 0) red[warp] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    A tot = A(0);
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) tot += red[w];
-    c[j] = tot;
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     cgs_update_kernel(const T* __restrict__ basis, T* __restrict__ v,
                       const typename lt::Acc<T>::type* __restrict__ c, int64_t n, int k,
                       bool vec_ok) {
   using A = typename lt::Acc<T>::type;
-  using V = typename lt::Vec<T>::type;
-  constexpr int VN = lt::Vec<T>::n;
-  constexpr int E = kUnroll * VN;
+  constexpr int E = kUnroll * lt::Vec<T>::n;
   __shared__ A cs[kCChunk];
   const int64_t tile_base = int64_t(blockIdx.x) * tile_width<T>();
 
   T vt[E];
-  load_seg<T>(v, tile_base, n, vec_ok, vt);
+  lt::load_seg<T, kThreads, kUnroll>(v, tile_base, n, vec_ok, vt);
   A acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = A(vt[e]);
@@ -160,30 +111,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 4
     for (int j = 0; j < nj; ++j) {
       T br[E];
-      load_seg<T>(basis + int64_t(j0 + j) * n, tile_base, n, vec_ok, br);
+      lt::load_seg<T, kThreads, kUnroll>(basis + int64_t(j0 + j) * n, tile_base, n, vec_ok, br);
       const A cj = cs[j];
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[e] = fma(-cj, A(br[e]), acc[e]);
     }
   }
 
-#pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
-    const int64_t e0 = tile_base + (int64_t(u) * kThreads + threadIdx.x) * VN;
-    if (vec_ok) {
-      if (e0 < n) {
-        V out;
-        T* oo = reinterpret_cast<T*>(&out);
-#pragma unroll
-        for (int q = 0; q < VN; ++q) oo[q] = T(acc[u * VN + q]);
-        *reinterpret_cast<V*>(v + e0) = out;
-      }
-    } else {
-#pragma unroll
-      for (int q = 0; q < VN; ++q)
-        if (e0 + q < n) v[e0 + q] = T(acc[u * VN + q]);
-    }
-  }
+  lt::store_seg<T, kThreads, kUnroll>(v, tile_base, n, vec_ok, acc);
 }
 
 template <typename T>
@@ -198,7 +133,7 @@ cudaError_t cgs_pass(const T* basis, T* v, typename lt::Acc<T>::type* part,
                                                                     n_tiles, vec_ok);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  cgs_reduce_kernel<<<k, kThreads, 0, stream>>>(part, c, n_tiles);
+  lt::reduce_rows_kernel<typename lt::Acc<T>::type, kThreads><<<k, kThreads, 0, stream>>>(part, c, n_tiles);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   cgs_update_kernel<T><<<unsigned(n_tiles), kThreads, 0, stream>>>(basis, v, c, n, k, vec_ok);

@@ -1,16 +1,20 @@
 """Linear-operator layer (port of ``lanczos_tpu.ops.operators``, main-path
 subset): the reference's pluggable ``mv_mul`` closure
 (lambda_lanczos.hpp:120-126) as a small protocol — ``n``, ``dtype``,
-``device`` and ``matvec(x) -> A @ x`` on tensors of that device.
+``device`` and ``matvec(x) -> A @ x`` on tensors of that device, plus
+``matvec_rows`` for a (b, n) block of row vectors (the block engines).
 
-Operators hold their tensors; the device is theirs, set by the
-``device=`` argument of each constructor.  There is no global default.
+Operators hold their tensors; the device is theirs.  A constructor that
+takes host data (numpy arrays, CPU tensors, callables) puts the operator on
+the CUDA card unless its ``device=`` argument says otherwise, and raises
+when there is no card: pass ``device="cpu"`` to run on the CPU.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.types import to_numpy_dtype, to_torch_dtype
 from . import spmv
@@ -20,8 +24,24 @@ __all__ = [
     "FunctionOperator",
     "DenseOperator",
     "BSROperator",
+    "DIAOperator",
     "as_operator",
+    "resolve_device",
 ]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card, and
+    raises when PyTorch sees none (the port never falls back to the CPU
+    unasked)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: lanczos_tpu_torch puts operators on the card by default; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 class LinearOperator:
@@ -41,6 +61,12 @@ class LinearOperator:
     def matvec(self, x):
         raise NotImplementedError
 
+    def matvec_rows(self, x):
+        """``A`` applied to every row of a (b, n) block: one matvec per row
+        (the JAX package's ``vmap(op.matvec)``); operators with a batched
+        product override it."""
+        return torch.stack([self.matvec(row) for row in x])
+
 
 class FunctionOperator(LinearOperator):
     """Matrix-free operator from a callable ``fn(x) -> A @ x`` on tensors
@@ -50,7 +76,7 @@ class FunctionOperator(LinearOperator):
         self.fn = fn
         self.n = int(n)
         self._dtype = to_torch_dtype(dtype)
-        self._device = torch.device(device if device is not None else "cpu")
+        self._device = resolve_device(device)
 
     @property
     def dtype(self):
@@ -66,10 +92,13 @@ class FunctionOperator(LinearOperator):
 
 class DenseOperator(LinearOperator):
     """Dense symmetric/Hermitian operator (sample1_simple.cpp:22-28);
-    ``a`` is anything ``torch.as_tensor`` takes."""
+    ``a`` is anything ``torch.as_tensor`` takes.  A CUDA tensor stays on its
+    device; host data goes to ``device`` (default: the card)."""
 
     def __init__(self, a, device=None):
-        self.a = torch.as_tensor(a, device=device)
+        if device is None and isinstance(a, torch.Tensor) and a.device.type != "cpu":
+            device = a.device
+        self.a = torch.as_tensor(a, device=resolve_device(device))
         if self.a.ndim != 2 or self.a.shape[0] != self.a.shape[1]:
             raise ValueError(f"expected a square matrix, got shape {tuple(self.a.shape)}")
         self.n = int(self.a.shape[0])
@@ -129,7 +158,7 @@ class BSROperator(LinearOperator):
     def from_coo(cls, rows, cols, vals, n: int, *, bm: int = 128, bk: int = 128, dtype=torch.float32, device=None):
         """Pack COO triplets (duplicates summed) into the padded ``rmsk``
         layout with one vectorized numpy pass, then move the tiles to
-        ``device``."""
+        ``device`` (default: the card)."""
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
@@ -139,11 +168,86 @@ class BSROperator(LinearOperator):
                 f"complex values with real block dtype {np_dtype} would silently drop the "
                 "imaginary parts; pass a complex dtype"
             )
+        device = resolve_device(device)
         blocks, col_blocks = _pack_rmsk(rows, cols, vals, int(n), bm, bk, np_dtype)
         return cls(torch.from_numpy(blocks).to(device), torch.from_numpy(col_blocks).to(device), int(n))
 
     def matvec(self, x):
         return spmv.bsr_matvec(self.blocks, self.col_blocks, x, n_out=self.n)
+
+
+class DIAOperator(LinearOperator):
+    """Diagonal (DIA, banded) operator: one length-n row per nonzero
+    diagonal, ``y[i] = sum_d data[d, i] * x[i + offsets[d]]`` with
+    ``data[d, i] = A[i, i + offsets[d]]`` (port of
+    ``lanczos_tpu.ops.operators.DIAOperator``).
+
+    The matvec is plain PyTorch, as the JAX package's is XLA (no Pallas
+    kernel sits behind it): one zero-padded ``x`` and one shifted slice per
+    diagonal, summed in the order of ``offsets``.  Entries of a stored
+    diagonal that run off the matrix are zeroed once here, where the JAX
+    package masks them in every matvec (operators.py:590-595); the products
+    are the same.  ``matvec`` also takes a (b, n) block of rows, so the
+    block engines apply the operator in one call.
+    """
+
+    def __init__(self, offsets, data, n: int):
+        self.offsets = tuple(int(o) for o in offsets)
+        self.n = int(n)
+        if data.ndim != 2 or data.shape != (len(self.offsets), self.n):
+            raise ValueError(f"data of shape {tuple(data.shape)} is not ({len(self.offsets)}, {self.n})")
+        data = data.clone()
+        for j, d in enumerate(self.offsets):
+            if d > 0:
+                data[j, self.n - d :] = 0
+            elif d < 0:
+                data[j, : -d] = 0
+        self.data = data
+
+    @classmethod
+    def from_diagonals(cls, offsets, diagonals, n: int, *, dtype=None, device=None):
+        """``diagonals[d]`` is the length-n array with ``A[i, i + offsets[d]]``
+        at position i (entries running off the matrix are ignored); the rows
+        go to ``device`` (default: the card)."""
+        data = np.stack([np.asarray(diag) for diag in diagonals])
+        if dtype is not None:
+            data = data.astype(to_numpy_dtype(dtype))
+        return cls(offsets, torch.from_numpy(data).to(resolve_device(device)), n)
+
+    @classmethod
+    def from_coo(cls, rows, cols, vals, n: int, *, dtype=None, device=None):
+        """COO triplets (duplicates summed) to one row per distinct
+        ``cols - rows`` offset, in ascending offset order."""
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        vals = np.asarray(vals)
+        offs = np.unique(cols - rows)
+        data = np.zeros((offs.shape[0], int(n)), dtype=vals.dtype if dtype is None else to_numpy_dtype(dtype))
+        for j, d in enumerate(offs):
+            m = (cols - rows) == d
+            np.add.at(data[j], rows[m], vals[m])
+        return cls(offs.tolist(), torch.from_numpy(data).to(resolve_device(device)), n)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def matvec(self, x):
+        n = self.n
+        lo = max([0] + [-d for d in self.offsets])
+        hi = max([0] + [d for d in self.offsets])
+        xp = F.pad(x, (lo, hi)) if (lo or hi) else x
+        y = torch.zeros_like(x)
+        for j, d in enumerate(self.offsets):
+            y = y + self.data[j].to(x.dtype) * xp[..., lo + d : lo + d + n]
+        return y
+
+    def matvec_rows(self, x):
+        return self.matvec(x)
 
 
 def _pack_rmsk(rows, cols, vals, n: int, bm: int, bk: int, dtype):
@@ -175,7 +279,9 @@ def _pack_rmsk(rows, cols, vals, n: int, bm: int, bk: int, dtype):
 
 
 def as_operator(op, n=None, dtype=None, device=None):
-    """Coerce an array / callable / operator into a :class:`LinearOperator`."""
+    """Coerce an array / callable / operator into a :class:`LinearOperator`;
+    an operator keeps its own device, anything else goes to ``device``
+    (default: the card)."""
     if isinstance(op, LinearOperator):
         return op
     if callable(op):

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..core import linalg, tridiagonal
-from ..core.types import machine_eps, real_dtype, to_torch_dtype
+from ..core.types import is_complex_dtype, machine_eps, real_dtype, to_torch_dtype
 
 __all__ = [
     "EigenPairManager",
@@ -119,13 +119,26 @@ class LanczosConfig:
     # follows Simon's omega recurrence and reorthogonalizes only when the
     # estimated drift crosses sqrt(machine_eps).
     reorth_policy: str = "full"
-    restart_policy: str = "warm"  # 'thick' is not ported
+    # 'warm' restarts from the best Ritz vector(s); 'thick' keeps Ritz
+    # vectors with their exact couplings (TRLan; solvers/thick_restart.py,
+    # solvers/block_thick.py).
+    restart_policy: str = "warm"
     max_restarts: int = 16
+    # Thick restart: Ritz vectors kept across a restart (None -> the engine
+    # default: scalar nroot+2, block nroot+max(2, b)).
     thick_keep: int | None = None
     stop_when_full: bool = False
     stop_when_count: int | None = None
     # Fused engine: run the convergence solve every K iterations (None -> 4).
     convergence_check_interval: int | None = None
+
+    def resolve_thick_keep(self, default: int, cap: int) -> int:
+        """Ritz vectors kept across a thick restart, shared by the scalar and
+        block thick engines."""
+        req = default if self.thick_keep is None else int(self.thick_keep)
+        if req < 1:
+            raise ValueError("thick_keep must be >= 1 (None selects the engine default)")
+        return max(min(req, cap), 1)
 
     def resolved(self, dtype):
         cfg = dataclasses.replace(self)
@@ -158,13 +171,32 @@ def _prepare_init_vector(v0, defl, defl_mask):
     return linalg.normalize(linalg.orthogonalize_cgs2(v0, defl, defl_mask))
 
 
+def _unit_rows(vecs):
+    """Each row divided by its Euclidean norm."""
+    return vecs / torch.sqrt(torch.sum(vecs.abs() ** 2, dim=1, keepdim=True))
+
+
 def _ritz_combine(q, u):
     """Ritz recombination eigvecs = normalize(Q @ U) (lambda_lanczos.hpp:51-58).
 
     q: (nroot, m) tridiagonal eigenvectors; u: (m, n) live Krylov rows.
     """
-    vecs = q.to(u.dtype) @ u
-    return vecs / torch.sqrt(torch.sum(vecs.abs() ** 2, dim=1, keepdim=True))
+    return _unit_rows(q.to(u.dtype) @ u)
+
+
+def _host_dtype(dtype):
+    """The host dtype of projected matrices and coefficients: complex128 for
+    complex operators, float64 otherwise."""
+    return np.complex128 if is_complex_dtype(dtype) else np.float64
+
+
+def _rotate(q, rows):
+    """Rows ``q @ rows[:m]`` for (r, m) host coefficients ``q`` (the real
+    part for real ``rows``): a Ritz recombination that reads only the m live
+    rows of a buffer."""
+    if not rows.is_complex():
+        q = q.real
+    return torch.as_tensor(np.ascontiguousarray(q), device=rows.device).to(rows.dtype) @ rows[: q.shape[1]]
 
 
 def _lanczos_step(op, u_buf, defl, defl_mask, k: int, beta_prev, offset: float, precise: bool, reorth_passes: int):
@@ -266,11 +298,11 @@ def run_restarted(iterate_one, v0, cfg: LanczosConfig, warm_rows: int = 1):
 
     ``iterate_one(v0) -> (vals, vecs, itern, converged)``.  When
     ``max_iteration`` caps the basis below convergence, restart from the
-    best Ritz vector until the build converges or the Ritz values stop
-    moving between restarts.  Returns ``(vals, vecs, total_iters, settled)``.
+    best ``warm_rows`` Ritz vectors (a block start for the block engine,
+    padded with copies of the best one) until the build converges or the
+    Ritz values stop moving between restarts.  Returns
+    ``(vals, vecs, total_iters, settled)``.
     """
-    if warm_rows != 1:
-        raise NotImplementedError("block warm restarts belong to the block engines (ROADMAP.md, 'Modules to port')")
     pevs = None
     total = 0
     vals, vecs = [], None
@@ -287,7 +319,11 @@ def run_restarted(iterate_one, v0, cfg: LanczosConfig, warm_rows: int = 1):
                 settled = True
                 break
         pevs = evs
-        v0 = vecs[0]
+        if warm_rows == 1:
+            v0 = vecs[0]
+        else:
+            k = min(warm_rows, vecs.shape[0])
+            v0 = torch.cat([vecs[:k], vecs[:1].expand(warm_rows - k, -1)])
     return vals, vecs, total, settled
 
 
@@ -298,6 +334,7 @@ def deflation_driver(
     dtype,
     *,
     device=None,
+    v0_rows: int = 1,
     use_warm_restarts: bool = True,
     manager: EigenPairManager | None = None,
     iter_counts: list[int] | None = None,
@@ -309,8 +346,11 @@ def deflation_driver(
 
     ``iterate_one(v0, nroot, defl, defl_mask) -> (vals, vecs, itern,
     converged)``.  ``init_vector(n)`` returns an array or tensor; it is moved
-    to ``device`` in ``dtype``.  ``manager``/``iter_counts`` resume a run;
-    ``after_round(manager, iter_counts, finished)`` runs after each round.
+    to ``device`` in ``dtype``.  ``v0_rows`` > 1 stacks that many init
+    vectors into a block start (block engines).  ``use_warm_restarts=False``
+    for engines that restart internally (thick).  ``manager``/``iter_counts``
+    resume a run; ``after_round(manager, iter_counts, finished)`` runs after
+    each round.
     """
     dtype = to_torch_dtype(dtype)
     cfg = cfg.resolved(dtype)
@@ -321,7 +361,7 @@ def deflation_driver(
     rdtype = real_dtype(dtype)
 
     while True:
-        nroot = min(max(cfg.num_eigs_per_iteration, 1), n - len(manager))
+        nroot = min(max(cfg.num_eigs_per_iteration, v0_rows), n - len(manager))
         if nroot <= 0:
             break
         # Only the accepted rows: the JAX package pads to a static capacity
@@ -332,10 +372,15 @@ def deflation_driver(
         else:
             defl = torch.zeros((0, n), dtype=dtype, device=device)
         defl_mask = torch.ones(nd, dtype=rdtype, device=device)
-        v0 = torch.as_tensor(init_vector(n), device=device).to(dtype)
+        if v0_rows == 1:
+            v0 = torch.as_tensor(init_vector(n), device=device).to(dtype)
+        else:
+            v0 = torch.stack([torch.as_tensor(init_vector(n), device=device).to(dtype) for _ in range(v0_rows)])
 
         if use_warm_restarts:
-            vals, vecs, itern, settled = run_restarted(lambda w: iterate_one(w, nroot, defl, defl_mask), v0, cfg)
+            vals, vecs, itern, settled = run_restarted(
+                lambda w: iterate_one(w, nroot, defl, defl_mask), v0, cfg, warm_rows=v0_rows
+            )
         else:
             vals, vecs, itern, settled = iterate_one(v0, nroot, defl, defl_mask)
         iter_counts.append(itern)

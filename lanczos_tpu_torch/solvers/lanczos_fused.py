@@ -18,7 +18,11 @@ iterations and at each stage's capacity, as the JAX loop's checks fall:
   relative-change test.
 
 Capacity is staged as in the JAX engine: the build starts with a small
-buffer and grows it fourfold, resuming without repeating a matvec.
+buffer and grows it fourfold, resuming without repeating a matvec.  The
+thick-restart engine (``thick_restart.thick_lanczos_iteration_fused``) runs
+its cycles on the same build state (``_Build``, reset in place per cycle)
+and stage (``_run_stage`` with its own ``k_lim``), as the JAX engine reuses
+``_fused_stage``.
 
 For float32 storage the JAX engine carries alpha and ||w||^2 as df64 word
 pairs.  The port takes float64 dot products of the float32 vectors instead
@@ -44,7 +48,7 @@ from .lanczos import LanczosConfig, _prepare_init_vector, _ritz_combine
 
 __all__ = ["lanczos_iteration_fused", "fused_krylov", "reorth_total"]
 
-_PV_ITEM = "ROADMAP.md, 'Modules to port': precise paths on native float64"
+_PV_ITEM = "ROADMAP.md, 'Modules to port', item 10: precise paths on native float64"
 
 # Cumulative basis-reorthogonalization count across fused solves in this
 # process; api.run snapshots it around a run to fill RunStats.reorth_count.
@@ -55,21 +59,34 @@ def reorth_total() -> int:
     return _REORTH_TOTAL
 
 
+def _add_reorth(n) -> None:
+    global _REORTH_TOTAL
+    _REORTH_TOTAL += int(n)
+
+
 class _Build:
     """State of one Krylov build (the JAX engine's ``_LoopState``)."""
 
     def __init__(self, v0, cap: int, nroot: int, precise: bool):
         dev = v0.device
         self.rdtype = real_dtype(v0.dtype)
+        self.nroot = int(nroot)
         self.u = torch.zeros((cap + 1, v0.shape[0]), dtype=v0.dtype, device=dev)
-        self.u[0] = v0
         self.alpha = torch.zeros(cap, dtype=self.rdtype, device=dev)
         self.beta = torch.zeros(cap, dtype=self.rdtype, device=dev)
         # float64 alpha and ||w||^2 (precise reductions) for the host solve
         self.wide = torch.zeros((2, cap), dtype=torch.float64, device=dev) if precise else None
+        self.reset(v0)
+
+    def reset(self, v0) -> None:
+        """Start a new build from ``v0`` in the same buffers (thick-restart
+        cycles): rows and coefficients past the new live counts are stale and
+        never read."""
+        self.u[0] = v0
+        cap = self.cap
         self.k = 1  # next iteration (1-based)
         self.screened = 0  # iterations whose beta has been checked for breakdown
-        self.evs_prev = torch.full((nroot,), float("inf"), dtype=self.rdtype)
+        self.evs_prev = torch.full((self.nroot,), float("inf"), dtype=self.rdtype)
         self.have_prev = False
         self.stop = False
         self.itern = 0
@@ -82,6 +99,12 @@ class _Build:
         self.force_reorth = False
         self.alpha_h = np.zeros(cap, npd)
         self.beta_h = np.zeros(cap, npd)
+
+    @property
+    def done(self) -> int:
+        """Iterations of the build so far: up to a breakdown or convergence
+        stop, else every one run."""
+        return self.itern if self.stop else self.k - 1
 
     @property
     def cap(self) -> int:
@@ -231,14 +254,12 @@ def fused_krylov(op, v0, defl, defl_mask, eps, offset, *, nroot: int, m_cap: int
         find_maximum=find_maximum, check_every=max(int(check_every), 1), passes=1,
         selective=reorth_policy == "selective", k_lim=m_cap,
     )
-    itern = st.itern if st.stop else st.k - 1
-    return st.u, st.alpha, st.beta, itern, st.evs_prev
+    return st.u, st.alpha, st.beta, st.done, st.evs_prev
 
 
 def lanczos_iteration_fused(op, v0, nroot: int, defl, defl_mask, cfg: LanczosConfig):
     """One deflated restart with the fused engine; the return contract of
     :func:`lanczos_tpu_torch.solvers.lanczos.lanczos_iteration`."""
-    global _REORTH_TOTAL
     if cfg.precise_vectors:
         raise NotImplementedError(f"precise_vectors is not ported; see {_PV_ITEM}")
     if cfg.reorth_policy not in ("full", "selective"):
@@ -262,9 +283,9 @@ def lanczos_iteration_fused(op, v0, nroot: int, defl, defl_mask, cfg: LanczosCon
         cap = min(4 * cap, m_max)  # staged growth, as the JAX engine (lanczos_fused.py:542-551)
         st.grow(cap)
 
-    m = st.itern if st.stop else st.k - 1
+    m = st.done
     converged = st.stop or m >= cfg.matrix_size  # a full-space basis is exact
-    _REORTH_TOTAL += sum(st.triggers[:m])
+    _add_reorth(sum(st.triggers[:m]))
     if precise:
         wide = st.wide[:, :m].cpu().numpy()
         alphas = wide[0]

@@ -43,7 +43,7 @@ def _dense_case(a):
     import jax.numpy as jnp
     from lanczos_tpu import DenseOperator
 
-    return DenseOperator(jnp.asarray(a)), convert.dense_operator_from_array(a)
+    return DenseOperator(jnp.asarray(a)), convert.dense_operator_from_array(a, device="cpu")
 
 
 def _simple3():
@@ -73,7 +73,7 @@ def _chain_function(n=64):
         y[1:] -= x[:-1]
         return y
 
-    return FunctionOperator(jax_mv, n, np.float64), tl.FunctionOperator(torch_mv, n, torch.float64)
+    return FunctionOperator(jax_mv, n, np.float64), tl.FunctionOperator(torch_mv, n, torch.float64, device="cpu")
 
 
 def _ring_function(n=50):
@@ -86,7 +86,7 @@ def _ring_function(n=50):
     def torch_mv(x):
         return -torch.roll(x, 1) - torch.roll(x, -1)
 
-    return FunctionOperator(jax_mv, n, np.float64), tl.FunctionOperator(torch_mv, n, torch.float64)
+    return FunctionOperator(jax_mv, n, np.float64), tl.FunctionOperator(torch_mv, n, torch.float64, device="cpu")
 
 
 def _bsr_chain(n=300, dtype=np.float64):
@@ -94,7 +94,7 @@ def _bsr_chain(n=300, dtype=np.float64):
 
     pot = np.random.default_rng(3).uniform(0.0, 1.0, n)
     op = BSROperator.from_coo(*_chain_coo(n, pot), n, bm=16, bk=16, dtype=dtype)
-    return op, convert.bsr_operator_from_arrays(np.asarray(op.blocks), np.asarray(op.col_blocks), n, op.layout)
+    return op, convert.bsr_operator_from_arrays(np.asarray(op.blocks), np.asarray(op.col_blocks), n, op.layout, device="cpu")
 
 
 # (case, find_maximum, num_eigs, eps, offset).  A breakdown (beta below
@@ -178,7 +178,7 @@ def test_fused_selective_matches_jax():
     a[i, i + 1] = a[i + 1, i] = -1.0
     v0 = np.random.default_rng(21).uniform(-1.0, 1.0, n)
     out = []
-    for eng in (LambdaLanczos(a, mode="fused"), tl.LambdaLanczos(a, mode="fused")):
+    for eng in (LambdaLanczos(a, mode="fused"), tl.LambdaLanczos(a, mode="fused", device="cpu")):
         eng.eigenvalue_offset = -4.0
         eng.eps = 1e-13
         eng.reorth_policy = "selective"
@@ -234,7 +234,7 @@ def test_config_carries_over_from_jax():
 
 def test_default_init_and_auto_mode_on_cpu():
     a = np.array([[2.0, 1.0, 1.0], [1.0, 2.0, 1.0], [1.0, 1.0, 2.0]])
-    eng = tl.LambdaLanczos(a, find_maximum=True)
+    eng = tl.LambdaLanczos(a, find_maximum=True, device="cpu")
     assert eng._resolve_mode() == "hybrid"
     val, vec = eng.run_one()
     assert abs(val - 4.0) < 4.0 * eng.eps

@@ -116,8 +116,8 @@ def test_packer_matches_jax_packer(dtype, n, bm, bk):
     # duplicates are summed by both packers
     rows, cols, vals = np.concatenate([rows, rows[:7]]), np.concatenate([cols, cols[:7]]), np.concatenate([vals, vals[:7]])
     ref = BSROperator.from_coo(rows, cols, vals, n, bm=bm, bk=bk, dtype=dtype)
-    want = bsr_operator_from_arrays(np.asarray(ref.blocks), np.asarray(ref.col_blocks), n, ref.layout)
-    got = TorchBSR.from_coo(rows, cols, vals, n, bm=bm, bk=bk, dtype=dtype)
+    want = bsr_operator_from_arrays(np.asarray(ref.blocks), np.asarray(ref.col_blocks), n, ref.layout, device="cpu")
+    got = TorchBSR.from_coo(rows, cols, vals, n, bm=bm, bk=bk, dtype=dtype, device="cpu")
     assert torch.equal(got.col_blocks, want.col_blocks)
     np.testing.assert_allclose(got.blocks.numpy(), want.blocks.numpy(), rtol=RTOL[dtype], atol=0)
 
@@ -127,7 +127,7 @@ def test_operator_matvec_unpadded_and_ragged(dtype):
     # n not a multiple of the tile: matvec takes and returns length-n vectors.
     n = 300
     a = _random_sparse(n, 0.05, 16, dtype, seed=6)
-    op = TorchBSR.from_coo(*_coo(a), n, bm=16, bk=16, dtype=dtype)
+    op = TorchBSR.from_coo(*_coo(a), n, bm=16, bk=16, dtype=dtype, device="cpu")
     x = np.random.default_rng(7).standard_normal(n).astype(dtype)
     y = op.matvec(torch.from_numpy(x)).numpy()
     assert y.shape == (n,)
