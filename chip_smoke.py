@@ -2,12 +2,15 @@
 """Smoke test of lanczos_tpu_torch on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
 Builds the port's CUDA kernels from ``lanczos_tpu_torch/csrc``, holds each
-against its plain PyTorch version, and drives the port's paths through
-``LambdaLanczos.run``: the main path (deflation driver -> fused engine over
-a ``BSROperator``, kernels K1 and K3) at n = 2**20, the scalar thick-restart
+against its plain PyTorch version, and drives the port's paths: through
+``LambdaLanczos.run`` the main path (deflation driver -> fused engine over a
+``BSROperator``, kernels K1 and K3) at n = 2**20, the scalar thick-restart
 engine on the same operator, and the block thick-restart engine (kernel K4)
-on the JAX package's block flagship, a float32 DIA chain at n = 2**22.  The
-launch counts are set to 0 just before each path and read just after it.
+on the JAX package's block flagship, a float32 DIA chain at n = 2**22; and
+through ``filtered_lanczos`` the JAX package's Chebyshev flagship on the same
+chain, once with the fused chain (kernel K5, and K3 in the thick engine) and
+once with the default unfused chain.  The launch counts are set to 0 just
+before each path and read just after it.
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero and prints no result.  The last two lines are the kernel table and
 the device line.  It needs a CUDA device and fails at once without one; it
@@ -26,11 +29,16 @@ import warnings
 K1_REPLACES = "lanczos_tpu/ops/pallas_spmv.py:195"
 K3_REPLACES = "lanczos_tpu/ops/pallas_cgs.py:212"
 K4_REPLACES = "lanczos_tpu/ops/pallas_cgs.py:177"
+K5_REPLACES = "lanczos_tpu/ops/pallas_cheby.py:191"
 SEED = 0
 MAIN_N = 2**20  # main-path problem size
 K3_N = 2**22  # width of the (257, n) basis in the K3 phase
 K4_N = 2**22  # width of the (258, n) basis in the K4 phase (the flagship's buffer)
 FLAGSHIP_N = 2**22  # the block flagship's chain (experiments/tpu_flagship_block.py)
+CHEBY_N = 2**22  # the Chebyshev flagship's chain (experiments/tpu_flagship_cheby.py)
+CHEBY_DEGREE = 400
+K5_TOL = 1e-5  # max-abs error over max |plain| at degree <= 129 (tests/test_filtered.py:160-161)
+K5_FLAGSHIP_TOL = 1e-4  # the same at the flagship's degree 400
 BENCH_R = 512  # row blocks of the 64 Mi-nnz K1 case (bm = bk = 128, S = 8)
 # NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
 # cores (the kernels use plain FMAs).
@@ -493,6 +501,138 @@ def phase_block_thick_flagship(torch, np, dev, n):
     return launches
 
 
+def check_k5(torch, data, offsets, x, c, e, degree, tol):
+    """K5 against its plain version on the same inputs; (max abs error,
+    max abs error / max |plain|)."""
+    from lanczos_tpu_torch.ops import cheby
+
+    got = cheby.cheby_chain_apply(data, offsets, x, c, e, degree)
+    want = cheby.cheby_chain_apply_reference(data, offsets, x, c, e, degree)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    if not rel <= tol:
+        raise AssertionError(f"K5 offsets={offsets} degree={degree}: relative error {rel:.3e} above {tol:.0e}")
+    return err, rel
+
+
+def phase_k5(torch, np, dev):
+    """K5 against its plain version on a ragged n for three offset sets and
+    the degrees around one launch's steps; then the Chebyshev flagship's
+    filter apply (n = 2**22 chain, degree 400, window of
+    from_interval(op, 400, -2, 2, 1e-5)), timed beside the plain version and
+    the default unfused chain."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cheby
+    from lanczos_tpu_torch.ops.filters import ChebyshevFilterOperator
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n = 70001
+    for offsets in ((-1, 1), (-1, 0, 1), (-8, -3, 0, 5, 8)):
+        # Rows in [-1.8/k, 1.8/k] keep the spectrum inside the [-1.95, 2.15]
+        # window, so the chain does not grow and the relative bar is tight.
+        data = (torch.rand((len(offsets), n), generator=gen, device=dev) * 2 - 1) * (1.8 / len(offsets))
+        x = torch.randn(n, generator=gen, device=dev)
+        s = cheby.steps_per_launch(max(abs(o) for o in offsets))
+        errs = {d: check_k5(torch, data, offsets, x, 0.1, 2.05, d, K5_TOL)[1] for d in (1, 2, s - 1, s, s + 1, 37)}
+        emit({"phase": "k5", "n": n, "offsets": list(offsets), "steps_per_launch": s,
+              "max_rel_err_by_degree": {str(d): r for d, r in errs.items()}, "tol": K5_TOL})
+        del data, x
+
+    n, degree = CHEBY_N, CHEBY_DEGREE
+    op = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, device=dev)
+    fused = ChebyshevFilterOperator.from_interval(op, degree, -2.0, 2.0, 1e-5)
+    fused.use_fused = True
+    unfused = ChebyshevFilterOperator.from_interval(op, degree, -2.0, 2.0, 1e-5)
+    x = torch.randn(n, generator=gen, device=dev)
+    err, rel = check_k5(torch, op.data, op.offsets, x, fused.c, fused.e, degree, K5_FLAGSHIP_TOL)
+    plain = cheby.cheby_chain_apply_reference(op.data, op.offsets, x, fused.c, fused.e, degree)
+    unfused_err, unfused_rel = rel_err(unfused.matvec(x), plain)
+    ms = cuda_ms(torch, lambda: fused.matvec(x))
+    plain_ms = cuda_ms(torch, lambda: cheby.cheby_chain_apply_reference(op.data, op.offsets, x, fused.c, fused.e, degree),
+                       reps=5, warmup=1)
+    unfused_ms = cuda_ms(torch, lambda: unfused.matvec(x), reps=5, warmup=1)
+    rows, offs = fused._prescaled
+    ndiag = len(offs)
+    s, h, l = cheby.plan(n, ndiag, max(abs(o) for o in offs))
+    n_launch = -(-degree // s)
+    window_cells = -(-n // l) * (l + 2 * h)
+    # What the kernel moves: each launch reads t, t_prev (not in the first)
+    # and the rows over every window, and writes t and t_prev over the cores.
+    kernel_bytes = 4 * (n_launch * (2 + ndiag) * window_cells - window_cells + n_launch * 2 * n)
+    probe = torch.ones(kernel_bytes // 4, device=dev)  # a read stream of the kernel's byte count (past L2)
+    stream_gbps = probe.numel() * 4 / cuda_ms(torch, lambda: torch.sum(probe)) / 1e6
+    del probe
+    # The function's least work: its inputs (the two stored rows, x) read
+    # once and its output written once; 2 ndiag operations per cell and step
+    # (ndiag products, ndiag - 1 sums, one difference or halving).
+    bound_ms, bound_by = bound((len(op.offsets) + 2) * n * 4, 2 * ndiag * n * degree)
+    out = {"phase": "k5_timing", "n": n, "degree": degree, "offsets": list(op.offsets), "c": fused.c, "e": fused.e,
+           "steps_per_launch": s, "halo": h, "core": l, "launches_per_apply": n_launch, "max_abs_err": err,
+           "max_rel_err": rel, "tol": K5_FLAGSHIP_TOL, "unfused_max_rel_err_vs_plain": unfused_rel, "ms": ms,
+           "plain_ms": plain_ms, "unfused_ms": unfused_ms, "library_ms": None, "kernel_gb": kernel_bytes / 1e9,
+           "stream_gbps": stream_gbps, "stream_bound_ms": kernel_bytes / stream_gbps / 1e6,
+           "bound_ms": bound_ms, "bound_by": bound_by, "gflop": 2 * ndiag * n * degree / 1e9}
+    emit(out)
+    del op, fused, unfused, x, plain, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_cheby_flagship(torch, np, dev, n):
+    """The JAX package's Chebyshev flagship (experiments/tpu_flagship_cheby.py):
+    the three lowest eigenpairs of the n = 2**22 float32 chain by
+    filtered_lanczos at degree 400, mu 1e-5, window [-2, 2], B-space budget
+    2 x 48 rows; first with the fused chain (K5), then with the default
+    unfused chain."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cgs, cheby
+
+    op = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, device=dev)
+    exact = np.array([-2.0 * np.cos((k + 1) * np.pi / (n + 1)) for k in range(3)])
+    runs = {}
+    for use_fused in (True, False):
+        rng = np.random.default_rng(SEED)  # the same B-space starts in both runs
+
+        def cfg(eng, use_fused=use_fused, rng=rng):
+            eng.max_restarts = 2
+            eng.max_iteration = 48
+            eng.operator.use_fused = use_fused
+            eng.init_vector = lambda n_: rng.uniform(-1.0, 1.0, n_).astype(np.float32)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cheby.cheby_chain_apply.launches = 0
+        cgs.cgs_pass.launches = 0
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            vals, vecs, info = tl.filtered_lanczos(op, num_eigs=3, degree=CHEBY_DEGREE, mu=1e-5, lo=-2.0, hi=2.0,
+                                                   configure=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"k5": cheby.cheby_chain_apply.launches, "k3": cgs.cgs_pass.launches}
+        errs = np.abs(np.sort(np.asarray(vals)) - exact)
+        residuals = info["residuals"]
+        label = "fused" if use_fused else "unfused"
+        if use_fused and not (launches["k5"] > 0 and launches["k3"] > 0):
+            raise AssertionError(f"Chebyshev flagship did not launch K5 and K3: {launches}")
+        if not (vecs.shape == (3, n) and bool(torch.isfinite(vecs).all()) and np.all(np.isfinite(residuals))):
+            raise AssertionError(f"Chebyshev flagship ({label}): misshapen or non-finite output, residuals {residuals}")
+        if not np.all(errs <= 2e-6):
+            raise AssertionError(f"Chebyshev flagship ({label}): eigenvalues {vals} vs {exact}: errors {errs}")
+        runs[label] = {"phase": "cheby_flagship", "chain": label, "n": n, "dtype": "float32",
+                       "degree": info["filter_degree"], "mu": info["mu"], "eigenvalues": list(map(float, vals)),
+                       "exact": exact.tolist(), "abs_errs": errs.tolist(), "residuals": residuals,
+                       "iteration_counts": info["iteration_counts"], "matvecs": info["matvecs"], "wall_s": wall,
+                       "launches": launches, "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "warnings": [str(w.message)[:200] for w in caught]}
+        emit(runs[label])
+    emit({"phase": "cheby_flagship_walls", "fused_wall_s": runs["fused"]["wall_s"],
+          "unfused_wall_s": runs["unfused"]["wall_s"],
+          "unfused_over_fused": runs["unfused"]["wall_s"] / runs["fused"]["wall_s"]})
+    return runs["fused"]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -514,6 +654,9 @@ def main() -> int:
     del op
     torch.cuda.empty_cache()
     flagship = phase_block_thick_flagship(torch, np, dev, FLAGSHIP_N)
+    torch.cuda.empty_cache()
+    k5 = phase_k5(torch, np, dev)
+    cheby_launches = phase_cheby_flagship(torch, np, dev, CHEBY_N)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     def entry(name, source, replaces, n_launches, timed):
@@ -523,11 +666,14 @@ def main() -> int:
                 "library_ms": timed["library_ms"], "lib_ms": timed["library_ms"]}  # lib_ms: the same, short name
 
     # launches: K1 and K3 from the main path's run, K4 from the block
-    # flagship's (the path that runs it).
+    # flagship's and K5 from the Chebyshev flagship's fused run (the paths
+    # that run them).  No single PyTorch call computes a Chebyshev chain, so
+    # K5's library time is null; its k5_timing line has the unfused chain's.
     emit({"kernels": [
         entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
         entry("cgs_pass", "lanczos_tpu_torch/csrc/cgs.cu", K3_REPLACES, launches["k3"], k3),
         entry("cgs_pass_block", "lanczos_tpu_torch/csrc/cgs_block.cu", K4_REPLACES, flagship["k4"], k4),
+        entry("cheby_chain_apply", "lanczos_tpu_torch/csrc/cheby_chain.cu", K5_REPLACES, cheby_launches["k5"], k5),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

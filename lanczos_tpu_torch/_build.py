@@ -45,6 +45,7 @@ _SIGNATURES = {
     "lt_cgs_block_pass_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P]),
     "lt_cgs_block_num_tiles_f32": (_I64, [_I64, _INT]),
     "lt_cgs_block_num_tiles_f64": (_I64, [_I64, _INT]),
+    "lt_cheby_chain_f32": (_INT, [_P, ctypes.POINTER(_INT), _INT, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _INT, _P]),
     "lt_error_string": (ctypes.c_char_p, [_INT]),
 }
 

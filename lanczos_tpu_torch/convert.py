@@ -10,10 +10,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.filters import ChebyshevFilterOperator
 from .ops.operators import BSROperator, DenseOperator, DIAOperator, resolve_device
 from .solvers.lanczos import LanczosConfig
 
-__all__ = ["bsr_operator_from_arrays", "dense_operator_from_array", "dia_operator_from_arrays", "config_from_dict"]
+__all__ = [
+    "bsr_operator_from_arrays",
+    "dense_operator_from_array",
+    "dia_operator_from_arrays",
+    "chebyshev_filter_from_arrays",
+    "config_from_dict",
+]
 
 
 def bsr_operator_from_arrays(blocks, col_blocks, n: int, layout: str, device=None) -> BSROperator:
@@ -43,6 +50,16 @@ def dia_operator_from_arrays(offsets, data, n: int, device=None) -> DIAOperator:
     ``data`` (ndiag, n) and ``n``."""
     data = torch.from_numpy(np.array(data, order="C"))
     return DIAOperator(offsets, data.to(resolve_device(device)), int(n))
+
+
+def chebyshev_filter_from_arrays(offsets, data, n: int, c, e, degree: int, side: int, use_fused: bool,
+                                 device=None) -> ChebyshevFilterOperator:
+    """A :class:`ChebyshevFilterOperator` over a DIA operator from the
+    values of a ``lanczos_tpu`` ChebyshevFilterOperator: its base's
+    ``offsets``, ``data`` and ``n``, and ``c``, ``e``, ``degree``, ``side``
+    and ``use_fused`` as plain values (``float(fop.c)``)."""
+    op = dia_operator_from_arrays(offsets, data, n, device=device)
+    return ChebyshevFilterOperator(op, float(c), float(e), int(degree), side=int(side), use_fused=bool(use_fused))
 
 
 def config_from_dict(d: dict) -> LanczosConfig:

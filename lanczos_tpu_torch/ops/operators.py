@@ -25,6 +25,7 @@ __all__ = [
     "DenseOperator",
     "BSROperator",
     "DIAOperator",
+    "ShiftSquaredOperator",
     "as_operator",
     "resolve_device",
 ]
@@ -248,6 +249,35 @@ class DIAOperator(LinearOperator):
 
     def matvec_rows(self, x):
         return self.matvec(x)
+
+
+class ShiftSquaredOperator(LinearOperator):
+    """``(A - sigma I)^2``: the polynomial transform for interior targets
+    (port of ``lanczos_tpu.ops.operators.ShiftSquaredOperator``).  The
+    eigenvalues of A nearest ``sigma`` map to the bottom edge of the squared
+    spectrum, where the filtered solve applies.  Two base matvecs per
+    application and no linear solve, so ``sigma`` on an eigenvalue is the
+    best-conditioned case (it maps to exactly 0)."""
+
+    def __init__(self, base, sigma: float = 0.0):
+        self.base = base
+        self.sigma = float(sigma)
+
+    @property
+    def n(self):
+        return self.base.n
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def matvec(self, x):
+        w = self.base.matvec(x) - self.sigma * x
+        return self.base.matvec(w) - self.sigma * w
 
 
 def _pack_rmsk(rows, cols, vals, n: int, bm: int, bk: int, dtype):

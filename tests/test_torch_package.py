@@ -14,7 +14,7 @@ torch.set_num_threads(1)
 
 import lanczos_tpu_torch as tl  # noqa: E402
 from lanczos_tpu_torch import _build  # noqa: E402
-from lanczos_tpu_torch.ops import cgs, spmv  # noqa: E402
+from lanczos_tpu_torch.ops import cgs, cheby, spmv  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -23,7 +23,9 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, lanczos_tpu_torch, lanczos_tpu_torch.convert;"
         "import lanczos_tpu_torch.solvers.thick_restart, lanczos_tpu_torch.solvers.block_lanczos;"
-        "import lanczos_tpu_torch.solvers.block_thick;"
+        "import lanczos_tpu_torch.solvers.block_thick, lanczos_tpu_torch.solvers.filtered;"
+        "import lanczos_tpu_torch.ops.cheby, lanczos_tpu_torch.ops.filters, lanczos_tpu_torch.utils.estimate;"
+        "from lanczos_tpu_torch import filtered_lanczos;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lanczos_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -34,7 +36,7 @@ def test_import_pulls_in_no_jax():
 def test_nvcc_command_targets_hopper_and_names_every_source():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {p.name for p in (REPO / "lanczos_tpu_torch" / "csrc").glob("*.cu")}
-    assert {"bsr_spmv.cu", "cgs.cu", "cgs_block.cu"} <= {p.name for p in srcs}
+    assert {"bsr_spmv.cu", "cgs.cu", "cgs_block.cu", "cheby_chain.cu"} <= {p.name for p in srcs}
     nvcc = "/usr/local/cuda/bin/nvcc"
     objs = [f"{s.stem}.o" for s in srcs]
     for src, obj in zip(srcs, objs):  # one compiler per source, run side by side
@@ -55,6 +57,7 @@ def test_cpu_paths_launch_no_kernel():
     rows, cols = np.concatenate([i, i + 1]), np.concatenate([i + 1, i])
     op = tl.BSROperator.from_coo(rows, cols, -np.ones(2 * (n - 1)), n, bm=8, bk=8, dtype=torch.float64, device="cpu")
     k1, k3, k4 = spmv.bsr_matvec.launches, cgs.cgs_pass.launches, cgs.cgs_pass_block.launches
+    k5 = cheby.cheby_chain_apply.launches
     y = op.matvec(torch.ones(n, dtype=torch.float64))
     assert y.shape == (n,)
     eng = tl.LambdaLanczos(op, mode="fused")
@@ -63,9 +66,13 @@ def test_cpu_paths_launch_no_kernel():
     eng.block_size = 2
     eng.restart_policy = "thick"
     eng.run()
+    dia = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, device="cpu")
+    tl.filtered_lanczos(dia, degree=32, mu=0.05, lo=-2.0, hi=2.0,
+                        configure=lambda e: setattr(e.operator, "use_fused", True))
     assert spmv.bsr_matvec.launches == k1
     assert cgs.cgs_pass.launches == k3
     assert cgs.cgs_pass_block.launches == k4
+    assert cheby.cheby_chain_apply.launches == k5
 
 
 @pytest.mark.parametrize(
