@@ -4,8 +4,10 @@
 Builds the port's CUDA kernels from ``lanczos_tpu_torch/csrc``, holds each
 against its plain PyTorch version, and drives the port's paths: through
 ``LambdaLanczos.run`` the main path (deflation driver -> fused engine over a
-``BSROperator``, kernels K1 and K3) at n = 2**20, the scalar thick-restart
-engine on the same operator, and the block thick-restart engine (kernel K4)
+``BSROperator``, kernels K1 and K3) at n = 2**20, the same problem over a
+``ShardedBSROperator`` in a one-rank NCCL process group (kernels K2 and K3),
+the scalar thick-restart engine on the main path's operator, and the block
+thick-restart engine (kernel K4)
 on the JAX package's block flagship, a float32 DIA chain at n = 2**22; and
 through ``filtered_lanczos`` the JAX package's Chebyshev flagship on the same
 chain, once with the fused chain (kernel K5, and K3 in the thick engine) and
@@ -27,6 +29,7 @@ import time
 import warnings
 
 K1_REPLACES = "lanczos_tpu/ops/pallas_spmv.py:195"
+K2_REPLACES = "lanczos_tpu/ops/pallas_spmv.py:104"
 K3_REPLACES = "lanczos_tpu/ops/pallas_cgs.py:212"
 K4_REPLACES = "lanczos_tpu/ops/pallas_cgs.py:177"
 K5_REPLACES = "lanczos_tpu/ops/pallas_cheby.py:191"
@@ -39,7 +42,8 @@ CHEBY_N = 2**22  # the Chebyshev flagship's chain (experiments/tpu_flagship_cheb
 CHEBY_DEGREE = 400
 K5_TOL = 1e-5  # max-abs error over max |plain| at degree <= 129 (tests/test_filtered.py:160-161)
 K5_FLAGSHIP_TOL = 1e-4  # the same at the flagship's degree 400
-BENCH_R = 512  # row blocks of the 64 Mi-nnz K1 case (bm = bk = 128, S = 8)
+BENCH_R = 512  # row blocks of the 64 Mi-nnz K1 and K2 cases (bm = bk = 128, S = 8)
+K2_TOL = {"torch.float32": 1e-6, "torch.float64": 1e-12}  # relative to max |plain|
 # NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
 # cores (the kernels use plain FMAs).
 HBM_BYTES_PER_S = 3.35e12
@@ -318,6 +322,32 @@ def phase_small_solves(torch, np, dev):
           "iteration_counts": eng.iteration_counts})
 
 
+def _main_path_coo(np):
+    """The main path's problem: the n = 2**20 hopping chain with a random
+    on-site potential and three deep sites (three bound states below the
+    band)."""
+    n = MAIN_N
+    rng = np.random.default_rng(SEED)
+    pot = rng.uniform(0.0, 1.0, n)
+    pot[[n // 4, n // 2, 3 * n // 4]] = [-4.0, -3.5, -3.0]
+    return _chain_coo(np, n, pot)
+
+
+def _main_path_engine(tl, torch, op):
+    """LambdaLanczos over ``op`` as the main path configures it."""
+    eng = tl.LambdaLanczos(op, num_eigs=3, find_maximum=False)
+    eng.eps = 1e-6
+    eng.init_vector = tl.fixed_seed_initializer(torch.float32, seed=SEED)  # same start every run
+    # The three bound states are checked independently (scipy and
+    # residuals), so the confirming deflation round — which would resolve
+    # the gap-less band edge to eps — is skipped.
+    eng.stop_when_full = True
+    mode = eng._resolve_mode()
+    if mode != "fused":
+        raise AssertionError(f"mode='auto' resolved to {mode} on {op.device}")
+    return eng
+
+
 def phase_main_path(torch, np, dev):
     """n = 2**20 hopping chain with a random on-site potential and three deep
     sites (three bound states below the band), f32, three eigenpairs."""
@@ -330,25 +360,14 @@ def phase_main_path(torch, np, dev):
     from lanczos_tpu_torch.solvers import lanczos_fused
 
     n = MAIN_N
-    rng = np.random.default_rng(SEED)
-    pot = rng.uniform(0.0, 1.0, n)
-    pot[[n // 4, n // 2, 3 * n // 4]] = [-4.0, -3.5, -3.0]
-    rows, cols, vals = _chain_coo(np, n, pot)
+    rows, cols, vals = _main_path_coo(np)
     t0 = time.perf_counter()
     op = tl.BSROperator.from_coo(rows, cols, vals, n, bm=128, bk=128, dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
 
-    eng = tl.LambdaLanczos(op, num_eigs=3, find_maximum=False)
-    eng.eps = 1e-6
-    eng.init_vector = tl.fixed_seed_initializer(torch.float32, seed=SEED)  # same start every run
-    # The three bound states are checked independently below (scipy and
-    # residuals), so the confirming deflation round — which would resolve
-    # the gap-less band edge to eps — is skipped.
-    eng.stop_when_full = True
+    eng = _main_path_engine(tl, torch, op)
     mode = eng._resolve_mode()
-    if mode != "fused":
-        raise AssertionError(f"mode='auto' resolved to {mode} on {dev}")
 
     torch.cuda.reset_peak_memory_stats()
     spmv.bsr_matvec.launches = 0
@@ -416,7 +435,158 @@ def phase_main_path(torch, np, dev):
         tridiagonal.extremal_eigenvalues_device(alpha, beta, 128, 5, False)
     check_ms = (time.perf_counter() - t0) / 5 * 1e3
     emit({"phase": "iteration_rates", "n": n, "rows": 128, "iterations_per_s": rates, "host_check_ms_k128_f32": check_ms})
-    return launches, k1, k3, op, ref
+    return launches, k1, k3, op, ref, eng.iteration_counts
+
+
+def check_k2(torch, blocks, col_blocks, x, label):
+    """K2 against its plain version on the same inputs, evaluated in float64
+    (so the error is K2's own rounding), at K2_TOL; then its time beside the
+    bound, the plain version, a read stream of its tiles and the
+    ``torch.sparse_bsr_tensor`` product, whose values tensor is the rsmk
+    tiles as they lie."""
+    from lanczos_tpu_torch.ops import spmv
+
+    r, s, bm, bk = blocks.shape
+    c_rows = x.numel() // bk
+    n_out = r * bm
+
+    def kernel():
+        return spmv.bsr_matvec_rsmk(blocks, col_blocks, x, col_bound=c_rows)
+
+    def plain():
+        return spmv.bsr_matvec_reference(blocks, col_blocks, x, layout="rsmk")
+
+    got = kernel()
+    want = spmv.bsr_matvec_reference(blocks.double(), col_blocks, x.double(), layout="rsmk")
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    tol = K2_TOL[str(blocks.dtype)]
+    if not rel <= tol:
+        raise AssertionError(f"K2 {label} {blocks.dtype}: relative error {rel:.3e} above {tol:.0e}")
+    plain_err, plain_rel = rel_err(plain(), want)
+    item = blocks.element_size()
+    # What the kernel moves: the tiles and col_blocks once, the x segments
+    # its row blocks gather (at most the table, read through L2), y once.
+    bytes_moved = blocks.numel() * item + col_blocks.numel() * 4 + (x.numel() + n_out) * item
+    ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
+    stream_gbps = blocks.numel() * item / cuda_ms(torch, lambda: torch.sum(blocks)) / 1e6
+    bound_ms, bound_by = bound(bytes_moved, 2 * blocks.numel())
+    crow = torch.arange(0, r * s + 1, s, dtype=torch.int64, device=blocks.device)
+    a = torch.sparse_bsr_tensor(crow, col_blocks.reshape(-1).to(torch.int64), blocks.view(-1, bm, bk),
+                                size=(n_out, c_rows * bk))
+    try:
+        lib_rel, library_ms, library_error = rel_err(a @ x, want)[1], cuda_ms(torch, lambda: a @ x), None
+    except RuntimeError as e:  # the sparse library may refuse a case (non-square blocks); K2 is not affected
+        lib_rel, library_ms, library_error = None, None, str(e)[:200]
+    del a
+    out = {"phase": "k2", "case": label, "dtype": str(blocks.dtype), "shape": [r, s, bm, bk], "x_rows": c_rows,
+           "max_abs_err": err, "max_rel_err": rel, "tol": tol, "plain_max_rel_err": plain_rel,
+           "library_max_rel_err": lib_rel, "library_error": library_error, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "gbps": bytes_moved / ms / 1e6, "stream_gbps": stream_gbps,
+           "stream_bound_ms": bytes_moved / stream_gbps / 1e6, "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(out)
+    return out
+
+
+def _random_rsmk(torch, dev, r, s, bm, bk, c_rows, dtype, gen):
+    blocks = torch.randn((r, s, bm, bk), generator=gen, device=dev, dtype=dtype)
+    col_blocks = torch.randint(0, c_rows, (r, s), generator=gen, device=dev, dtype=torch.int32)
+    x = torch.randn(c_rows * bk, generator=gen, device=dev, dtype=dtype)
+    return blocks, col_blocks, x
+
+
+def phase_k2(torch, dev, op):
+    """K2 on the 64 Mi-nnz case in f32 and f64, on the main path's operator
+    in rsmk (the tiles of ``op``, the sharded main path's operator), on a
+    footprint-shaped payload (x of fewer rows than R*bm/bk) and on
+    rectangular tiles (bm = 64, bk = 128)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for dtype in (torch.float32, torch.float64):
+        blocks, cb, x = _random_rsmk(torch, dev, BENCH_R, 8, 128, 128, BENCH_R, dtype, gen)
+        check_k2(torch, blocks, cb, x, "bench_64Mi_nnz")
+        del blocks, cb, x
+    for label, (r, s, bm, bk, c_rows) in {"payload": (BENCH_R, 8, 128, 128, 100),
+                                         "rect_bm64_bk128": (2048, 4, 64, 128, 1024)}.items():
+        blocks, cb, x = _random_rsmk(torch, dev, r, s, bm, bk, c_rows, torch.float32, gen)
+        check_k2(torch, blocks, cb, x, label)
+        del blocks, cb, x
+    x = torch.randn(op.n_padded, generator=gen, device=dev, dtype=torch.float32)
+    main = check_k2(torch, op.blocks, op.col_blocks, x, "main_path")
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_sharded_main_path(torch, np, dev, ref, main_iters):
+    """The main path's problem over a ShardedBSROperator in a one-rank NCCL
+    process group: the fused engine on the rank's slab (the whole vector),
+    the all-gather and the all-reduces over NCCL, the local SpMV on K2."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cgs, spmv
+    from lanczos_tpu_torch.parallel import mesh as pmesh
+    from lanczos_tpu_torch.parallel.sharded import ShardedBSROperator
+
+    torch.cuda.set_device(0)
+    with socket.socket() as sock:  # a free local port for the rendezvous
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    pmesh.initialize_distributed(backend="nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                                 timeout=datetime.timedelta(seconds=300))
+    try:
+        backend = str(dist.get_backend())
+        mesh = pmesh.make_mesh()
+        if backend != "nccl" or mesh.device != dev:
+            raise AssertionError(f"process group on {backend} / {mesh.device}, not NCCL on {dev}")
+        # The first collective creates the NCCL communicator: a one-off cost
+        # of the process group, timed apart from the solve.
+        t0 = time.perf_counter()
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        first_collective_s = time.perf_counter() - t0
+        n = MAIN_N
+        rows, cols, vals = _main_path_coo(np)
+        t0 = time.perf_counter()
+        op = ShardedBSROperator.from_coo(rows, cols, vals, n, mesh, bm=128, bk=128, dtype=torch.float32)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        eng = _main_path_engine(tl, torch, op)
+        torch.cuda.reset_peak_memory_stats()
+        spmv.bsr_matvec.launches = 0
+        spmv.bsr_matvec_rsmk.launches = 0
+        cgs.cgs_pass.launches = 0
+        t0 = time.perf_counter()
+        evals, evecs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"k1": spmv.bsr_matvec.launches, "k2": spmv.bsr_matvec_rsmk.launches, "k3": cgs.cgs_pass.launches}
+        if not (launches["k2"] > 0 and launches["k1"] == 0 and launches["k3"] > 0):
+            raise AssertionError(f"sharded main path: launches {launches} (K2 and K3 expected, no K1)")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rel = np.abs(np.asarray(evals) - ref) / np.abs(ref)
+        residuals = eng.residuals(evals, evecs)
+        if not (np.all(np.isfinite(evals)) and evecs.shape == (3, n) and bool(torch.isfinite(evecs).all())):
+            raise AssertionError("sharded main path: non-finite or misshapen eigenpairs")
+        if not np.all(rel <= 1e-5):
+            raise AssertionError(f"sharded main path: eigenvalues {evals} vs scipy {ref}: relative error {rel}")
+        if not max(residuals) <= 1e-3:
+            raise AssertionError(f"sharded main path: residuals {residuals}")
+        iters = sum(eng.iteration_counts)
+        emit({"phase": "sharded_main_path", "n": n, "dtype": "float32", "backend": backend, "world_size": mesh.size,
+              "comm": op.comm, "mode": eng._resolve_mode(), "tiles": list(op.blocks.shape), "pack_s": pack_s,
+              "first_collective_s": first_collective_s,
+              "eigenvalues": list(map(float, evals)), "scipy_eigsh": list(map(float, ref)),
+              "max_rel_err": float(rel.max()), "residuals": residuals, "iteration_counts": eng.iteration_counts,
+              "main_path_iteration_counts": main_iters, "wall_s": wall, "iterations_per_s": iters / wall,
+              "launches": launches, "peak_device_gb": peak_gb})
+    finally:
+        dist.destroy_process_group()
+    return launches, op
 
 
 def phase_thick_scalar(torch, np, op, ref):
@@ -649,9 +819,13 @@ def main() -> int:
     phase_k3(torch, dev)
     k4 = phase_k4(torch, dev)
     phase_small_solves(torch, np, dev)
-    launches, k1, k3, op, ref = phase_main_path(torch, np, dev)
+    launches, k1, k3, op, ref, main_iters = phase_main_path(torch, np, dev)
     phase_thick_scalar(torch, np, op, ref)
     del op
+    torch.cuda.empty_cache()
+    sharded_launches, sharded_op = phase_sharded_main_path(torch, np, dev, ref, main_iters)
+    k2 = phase_k2(torch, dev, sharded_op)
+    del sharded_op
     torch.cuda.empty_cache()
     flagship = phase_block_thick_flagship(torch, np, dev, FLAGSHIP_N)
     torch.cuda.empty_cache()
@@ -665,12 +839,14 @@ def main() -> int:
                 "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
                 "library_ms": timed["library_ms"], "lib_ms": timed["library_ms"]}  # lib_ms: the same, short name
 
-    # launches: K1 and K3 from the main path's run, K4 from the block
-    # flagship's and K5 from the Chebyshev flagship's fused run (the paths
-    # that run them).  No single PyTorch call computes a Chebyshev chain, so
-    # K5's library time is null; its k5_timing line has the unfused chain's.
+    # launches: K1 and K3 from the main path's run, K2 from the sharded main
+    # path's, K4 from the block flagship's and K5 from the Chebyshev
+    # flagship's fused run (the paths that run them).  No single PyTorch
+    # call computes a Chebyshev chain, so K5's library time is null; its
+    # k5_timing line has the unfused chain's.
     emit({"kernels": [
         entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
+        entry("bsr_matvec_rsmk", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K2_REPLACES, sharded_launches["k2"], k2),
         entry("cgs_pass", "lanczos_tpu_torch/csrc/cgs.cu", K3_REPLACES, launches["k3"], k3),
         entry("cgs_pass_block", "lanczos_tpu_torch/csrc/cgs_block.cu", K4_REPLACES, flagship["k4"], k4),
         entry("cheby_chain_apply", "lanczos_tpu_torch/csrc/cheby_chain.cu", K5_REPLACES, cheby_launches["k5"], k5),

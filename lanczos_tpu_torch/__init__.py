@@ -3,12 +3,13 @@
 Extremal eigenpairs of symmetric operators by Lanczos with full
 reorthogonalization and deflated restarts, on an NVIDIA Hopper GPU (or the
 CPU, when asked with ``device="cpu"``).  The module tree and names mirror
-``lanczos_tpu``; the kernels — the BSR sparse matvec (K1), the classical
-Gram-Schmidt pass (K3), its block form (K4) and the Chebyshev filter's
-recurrence chain (K5) — are hand-written CUDA in ``csrc/``, built with
-``nvcc`` at first use on the card.  ``filtered_lanczos`` is the
-Chebyshev-filtered solve.  This package
-imports PyTorch and never JAX.
+``lanczos_tpu``; the kernels — the BSR sparse matvec (K1), its canonical
+rsmk layout for the sharded operators (K2), the classical Gram-Schmidt pass
+(K3), its block form (K4) and the Chebyshev filter's recurrence chain (K5)
+— are hand-written CUDA in ``csrc/``, built with ``nvcc`` at first use on
+the card.  ``filtered_lanczos`` is the Chebyshev-filtered solve;
+``lanczos_tpu_torch.parallel`` holds the row-partitioned operators over
+``torch.distributed``.  This package imports PyTorch and never JAX.
 """
 
 from .api import LambdaLanczos

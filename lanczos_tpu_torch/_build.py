@@ -37,6 +37,8 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "lt_bsr_spmv_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
     "lt_bsr_spmv_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
+    "lt_bsr_spmv_rsmk_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
+    "lt_bsr_spmv_rsmk_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
     "lt_cgs_pass_f32": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _P]),
     "lt_cgs_pass_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _P]),
     "lt_cgs_num_tiles_f32": (_I64, [_I64]),

@@ -14,6 +14,12 @@ CPU).  ``mode='auto'`` picks the fused engine on a CUDA device and the
 hybrid engine on the CPU; ``restart_policy='thick'`` and ``block_size > 1``
 select the thick, block and block-thick engines as the JAX package does
 (its api.py:152-219).
+
+A row-partitioned operator (:mod:`lanczos_tpu_torch.parallel.sharded`) is
+solved by every rank of its process group together, in the hybrid or the
+fused engine: each rank runs the same solve on its slab, ``matrix_size``
+is the global n, and the eigenvectors come back gathered to length n on
+every rank.
 """
 
 from __future__ import annotations
@@ -24,10 +30,12 @@ import warnings
 import numpy as np
 import torch
 
+from .core import linalg
 from .core.tridiagonal import unconverged_total
 from .core.types import default_lanczos_eps, machine_eps, to_torch_dtype
 from .diagnostics import BudgetExhaustedWarning
 from .ops.operators import LinearOperator, as_operator
+from .parallel.sharded import ShardedOperator, refuse_sharded
 from .solvers import block_lanczos, block_thick, lanczos_fused, thick_restart
 from .solvers import lanczos as _lanczos
 from .solvers.lanczos_fused import _PV_ITEM
@@ -139,6 +147,7 @@ class LambdaLanczos:
         if self.precise_vectors and (self.block_size > 1 or self.restart_policy == "thick"):
             raise NotImplementedError(f"precise_vectors with the block or thick engines is not ported; see {_PV_ITEM}")
         if self.block_size > 1:
+            refuse_sharded(op, "block_size > 1")
             b = int(self.block_size)
             if self.restart_policy == "thick":
                 return (
@@ -153,6 +162,7 @@ class LambdaLanczos:
             )
         fused = self._resolve_mode() == "fused"
         if self.restart_policy == "thick":
+            refuse_sharded(op, "restart_policy='thick'")
             engine = thick_restart.thick_lanczos_iteration_fused if fused else thick_restart.thick_lanczos_iteration
             return lambda v0, nroot, defl, mask: engine(op, v0, nroot, defl, mask, cfg), 1, False
         engine = lanczos_fused.lanczos_iteration_fused if fused else _lanczos.lanczos_iteration
@@ -202,6 +212,7 @@ class LambdaLanczos:
             result = _lanczos.deflation_driver(
                 iterate_one, cfg, self._init_fn(), self.dtype, device=self.operator.device,
                 v0_rows=v0_rows, use_warm_restarts=use_warm,
+                sharded=self.operator if isinstance(self.operator, ShardedOperator) else None,
             )
         self._iteration_counts = result.iteration_counts
         unconv = unconverged_total() - unconv0
@@ -239,10 +250,15 @@ class LambdaLanczos:
 
     def residuals(self, eigenvalues, eigenvectors) -> list[float]:
         """||A v_k - lambda_k v_k|| for each returned pair (one matvec per
-        pair); accepts the outputs of :meth:`run`."""
+        pair); accepts the outputs of :meth:`run`.  For a sharded operator
+        every rank calls it: the matvec and the norm run over the slabs."""
+        op = self.operator
+        sharded = isinstance(op, ShardedOperator)
         out = []
         for k in range(len(eigenvalues)):
-            v = torch.as_tensor(eigenvectors[k], device=self.operator.device).to(self.dtype)
-            r = self.operator.matvec(v) - float(np.asarray(eigenvalues[k])) * v
-            out.append(float(torch.linalg.vector_norm(r)))
+            v = torch.as_tensor(eigenvectors[k], device=op.device).to(self.dtype)
+            if sharded:
+                v = op.scatter(v)
+            r = op.matvec(v) - float(np.asarray(eigenvalues[k])) * v
+            out.append(float(linalg.norm(r, op.group if sharded else None)))
         return out

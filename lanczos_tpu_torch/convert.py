@@ -12,6 +12,7 @@ import torch
 
 from .ops.filters import ChebyshevFilterOperator
 from .ops.operators import BSROperator, DenseOperator, DIAOperator, resolve_device
+from .parallel.sharded import ShardedBSROperator, ShardedDIAOperator
 from .solvers.lanczos import LanczosConfig
 
 __all__ = [
@@ -19,6 +20,8 @@ __all__ = [
     "dense_operator_from_array",
     "dia_operator_from_arrays",
     "chebyshev_filter_from_arrays",
+    "sharded_bsr_operator_from_arrays",
+    "sharded_dia_operator_from_arrays",
     "config_from_dict",
 ]
 
@@ -60,6 +63,24 @@ def chebyshev_filter_from_arrays(offsets, data, n: int, c, e, degree: int, side:
     and ``use_fused`` as plain values (``float(fop.c)``)."""
     op = dia_operator_from_arrays(offsets, data, n, device=device)
     return ChebyshevFilterOperator(op, float(c), float(e), int(degree), side=int(side), use_fused=bool(use_fused))
+
+
+def sharded_bsr_operator_from_arrays(blocks, col_blocks, n: int, mesh, comm: str = "gather") -> ShardedBSROperator:
+    """This rank's :class:`~lanczos_tpu_torch.parallel.sharded.ShardedBSROperator`
+    from ``lanczos_tpu.parallel.sharded.ShardedBSROperator``'s global
+    ``blocks`` (canonical ``rsmk``) and ``col_blocks`` and its ``n``; the
+    JAX operator's mesh has as many devices as ``mesh`` has ranks, so the
+    padding and the row slabs are the same.  ``comm`` is resolved again
+    from the arrays, by the JAX package's rules."""
+    return ShardedBSROperator.from_blocks(np.asarray(blocks), np.asarray(col_blocks), int(n), mesh, comm=comm)
+
+
+def sharded_dia_operator_from_arrays(offsets, data, n: int, mesh) -> ShardedDIAOperator:
+    """This rank's :class:`~lanczos_tpu_torch.parallel.sharded.ShardedDIAOperator`
+    from ``lanczos_tpu.parallel.sharded.ShardedDIAOperator``'s ``offsets``,
+    global ``data`` (ndiag, n) and ``n``."""
+    data = np.asarray(data)
+    return ShardedDIAOperator.from_diagonals(offsets, list(data), int(n), mesh)
 
 
 def config_from_dict(d: dict) -> LanczosConfig:

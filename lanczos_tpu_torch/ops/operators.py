@@ -170,7 +170,7 @@ class BSROperator(LinearOperator):
                 "imaginary parts; pass a complex dtype"
             )
         device = resolve_device(device)
-        blocks, col_blocks = _pack_rmsk(rows, cols, vals, int(n), bm, bk, np_dtype)
+        blocks, col_blocks = _pack_bsr(rows, cols, vals, int(n), bm, bk, np_dtype)
         return cls(torch.from_numpy(blocks).to(device), torch.from_numpy(col_blocks).to(device), int(n))
 
     def matvec(self, x):
@@ -280,8 +280,9 @@ class ShiftSquaredOperator(LinearOperator):
         return self.base.matvec(w) - self.sigma * w
 
 
-def _pack_rmsk(rows, cols, vals, n: int, bm: int, bk: int, dtype):
-    """COO -> (blocks (R, bm, S, bk), col_blocks (R, S) int32).
+def _pack_bsr(rows, cols, vals, n: int, bm: int, bk: int, dtype, layout: str = "rmsk"):
+    """COO -> (blocks, col_blocks (R, S) int32), blocks (R, bm, S, bk) for
+    the ``rmsk`` layout and (R, S, bm, bk) for the canonical ``rsmk``.
 
     Tiles of a row block are ordered by ascending column block, as the JAX
     package packs them.  Duplicates are summed in ``dtype`` (``np.add.at``).
@@ -302,8 +303,14 @@ def _pack_rmsk(rows, cols, vals, n: int, bm: int, bk: int, dtype):
 
     col_blocks = np.zeros((n_row_blocks, s_max), dtype=np.int32)
     col_blocks[rb, slot] = block_ids % n_col_blocks
-    blocks = np.zeros((n_row_blocks, bm, s_max, bk), dtype=dtype)
-    flat = ((rb[inv] * bm + rows % bm) * s_max + slot[inv]) * bk + cols % bk
+    if layout == "rmsk":
+        blocks = np.zeros((n_row_blocks, bm, s_max, bk), dtype=dtype)
+        flat = ((rb[inv] * bm + rows % bm) * s_max + slot[inv]) * bk + cols % bk
+    elif layout == "rsmk":
+        blocks = np.zeros((n_row_blocks, s_max, bm, bk), dtype=dtype)
+        flat = ((rb[inv] * s_max + slot[inv]) * bm + rows % bm) * bk + cols % bk
+    else:
+        raise ValueError(f"layout must be 'rmsk' or 'rsmk', got {layout!r}")
     np.add.at(blocks.reshape(-1), flat, vals.astype(dtype, copy=False))
     return blocks, col_blocks
 

@@ -1,4 +1,4 @@
-"""BSR sparse matvec: kernel K1 and its plain version (port of
+"""BSR sparse matvec: kernels K1 and K2 and their plain version (port of
 ``lanczos_tpu/ops/pallas_spmv.py``).
 
 Layouts (see :class:`lanczos_tpu_torch.ops.operators.BSROperator`):
@@ -8,11 +8,13 @@ Layouts (see :class:`lanczos_tpu_torch.ops.operators.BSROperator`):
   col_blocks  (R, S) int32, block-column of each tile (padding -> 0).
   x           (n_pad,), n_pad = R * bm = C * bk.
 
-:func:`bsr_matvec` runs the hand-written CUDA kernel
-(``csrc/bsr_spmv.cu``) on CUDA tensors and :func:`bsr_matvec_reference` on
-CPU tensors.  The Pallas kernel's VMEM budget (``VMEM_BUDGET``,
-``pallas_t_fits``) has no counterpart: K1 gathers x into shared memory in
-pieces, so every operator that packs runs on the card.
+:func:`bsr_matvec` (K1, ``rmsk``) and :func:`bsr_matvec_rsmk` (K2, ``rsmk``,
+the local SpMV of :class:`~lanczos_tpu_torch.parallel.sharded.ShardedBSROperator`)
+run the hand-written CUDA kernels of ``csrc/bsr_spmv.cu`` on CUDA tensors
+and :func:`bsr_matvec_reference` on CPU tensors.  The Pallas kernel's VMEM
+budget (``VMEM_BUDGET``, ``pallas_t_fits``) has no counterpart: K1 and K2
+gather x into shared memory in pieces, so every operator that packs runs on
+the card.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ import torch.nn.functional as F
 
 from .. import _build
 
-__all__ = ["bsr_matvec", "bsr_matvec_reference"]
+__all__ = ["bsr_matvec", "bsr_matvec_rsmk", "bsr_matvec_reference"]
 
 # ROADMAP.md names the work that would lift each refusal below.
 _DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K1 for complex and bfloat16 tiles"
+_RSMK_DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K2 for complex and bfloat16 tiles"
 
 
 def bsr_matvec_reference(blocks, col_blocks, x, layout: str = "rsmk"):
@@ -90,3 +93,60 @@ def bsr_matvec(blocks, col_blocks, x, n_out: int | None = None):
 
 
 bsr_matvec.launches = 0
+
+
+def bsr_matvec_rsmk(blocks, col_blocks, x, n_out: int | None = None, *, col_bound: int | None = None):
+    """K2: y = A x for canonical ``rsmk`` tiles (R, S, bm, bk); returns the
+    first ``n_out`` rows (default R*bm).
+
+    ``x`` is a table of C rows of width bk, flat (C*bk,) or (C, bk), that
+    ``col_blocks`` indexes: the whole vector, a neighbour's slab or a
+    footprint payload, so C is not tied to R*bm/bk.  Every entry of
+    ``col_blocks`` must be below C; ``col_bound`` is one more than its
+    largest entry when the caller knows it (the sharded operators compute it
+    when they pack), else it is read from ``col_blocks``, which waits for the
+    device.  On CUDA tensors this launches ``csrc/bsr_spmv.cu`` in its
+    ``rsmk`` form (float32 or float64; other dtypes raise) and counts the
+    launch in ``bsr_matvec_rsmk.launches``; on CPU tensors it runs
+    :func:`bsr_matvec_reference`.
+    """
+    if blocks.ndim != 4:
+        raise ValueError(f"blocks of shape {tuple(blocks.shape)} are not (R, S, bm, bk) tiles")
+    r, s, bm, bk = blocks.shape
+    n_out = r * bm if n_out is None else int(n_out)
+    x = x.reshape(-1)
+    if x.shape[0] % bk or not 0 <= n_out <= r * bm:
+        raise ValueError(f"x of {x.shape[0]} values / n_out={n_out} do not fit rows of {bk} and {r * bm} outputs")
+    if col_blocks.shape != (r, s):
+        raise ValueError(f"col_blocks of shape {tuple(col_blocks.shape)} is not {(r, s)}")
+    c_rows = x.shape[0] // bk
+    if col_bound is None:
+        col_bound = int(col_blocks.max()) + 1 if col_blocks.numel() else 0
+    if col_bound > c_rows:
+        raise ValueError(f"col_blocks index up to row {col_bound - 1} of an x table of {c_rows} rows")
+    if x.device.type == "cpu":
+        return bsr_matvec_reference(blocks, col_blocks, x, layout="rsmk")[:n_out]
+    if x.device.type != "cuda":
+        raise ValueError(f"bsr_matvec_rsmk runs on CPU or CUDA tensors, got {x.device}")
+    if blocks.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"K2 takes float32/float64 tiles on CUDA, got {blocks.dtype}; see {_RSMK_DTYPE_ITEM}")
+    if x.dtype != blocks.dtype:
+        raise TypeError(f"x dtype {x.dtype} differs from the tile dtype {blocks.dtype}")
+    if col_blocks.dtype != torch.int32:
+        raise TypeError(f"col_blocks must be int32, got {col_blocks.dtype}")
+    if not (blocks.device == col_blocks.device == x.device):
+        raise ValueError("blocks, col_blocks and x must be on one device")
+    if not (blocks.is_contiguous() and col_blocks.is_contiguous() and x.is_contiguous()):
+        raise ValueError("bsr_matvec_rsmk needs contiguous tensors")
+    lib = _build.library()
+    fn = lib.lt_bsr_spmv_rsmk_f32 if blocks.dtype == torch.float32 else lib.lt_bsr_spmv_rsmk_f64
+    y = torch.empty(n_out, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(blocks.data_ptr(), col_blocks.data_ptr(), x.data_ptr(), y.data_ptr(),
+             r, bm, s, bk, x.shape[0], n_out, x.device.index, stream)
+    _build.check(err, "bsr_matvec_rsmk (K2)")
+    bsr_matvec_rsmk.launches += 1
+    return y
+
+
+bsr_matvec_rsmk.launches = 0

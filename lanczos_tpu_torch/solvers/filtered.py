@@ -35,6 +35,7 @@ from ..diagnostics import (
 )
 from ..ops.filters import ChebyshevFilterOperator
 from ..ops.operators import ShiftSquaredOperator, as_operator
+from ..parallel.sharded import refuse_sharded
 from ..utils import estimate
 from ..utils.random import random_initializer
 from . import lanczos as _lanczos
@@ -242,6 +243,7 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     """
     from ..api import LambdaLanczos  # late import: api imports the solvers
 
+    refuse_sharded(op, "filtered_lanczos")
     if precise or refine_vectors:
         raise NotImplementedError(f"precise=True and refine_vectors=True are not ported; see {_PRECISE_ITEM}")
     if checkpoint_path is not None:

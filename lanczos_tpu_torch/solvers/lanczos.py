@@ -165,23 +165,24 @@ class LanczosResult:
     unconverged_rounds: int = 0
 
 
-def _prepare_init_vector(v0, defl, defl_mask):
+def _prepare_init_vector(v0, defl, defl_mask, group=None):
     """Orthogonalize the start vector against accepted eigenpairs and
     normalize (lambda_lanczos.hpp:231-234)."""
-    return linalg.normalize(linalg.orthogonalize_cgs2(v0, defl, defl_mask))
+    return linalg.normalize(linalg.orthogonalize_cgs2(v0, defl, defl_mask, group=group), group)
 
 
-def _unit_rows(vecs):
-    """Each row divided by its Euclidean norm."""
-    return vecs / torch.sqrt(torch.sum(vecs.abs() ** 2, dim=1, keepdim=True))
+def _unit_rows(vecs, group=None):
+    """Each row divided by its Euclidean norm (summed over the ranks of
+    ``group`` for row slabs)."""
+    return vecs / torch.sqrt(linalg.reduce_sum(torch.sum(vecs.abs() ** 2, dim=1, keepdim=True), group))
 
 
-def _ritz_combine(q, u):
+def _ritz_combine(q, u, group=None):
     """Ritz recombination eigvecs = normalize(Q @ U) (lambda_lanczos.hpp:51-58).
 
     q: (nroot, m) tridiagonal eigenvectors; u: (m, n) live Krylov rows.
     """
-    return _unit_rows(q.to(u.dtype) @ u)
+    return _unit_rows(q.to(u.dtype) @ u, group)
 
 
 def _host_dtype(dtype):
@@ -204,19 +205,20 @@ def _lanczos_step(op, u_buf, defl, defl_mask, k: int, beta_prev, offset: float, 
     ``u_buf[k]`` and returns (alpha_k, beta_k, host_scalars) where
     host_scalars are the float64 alpha and ||w||^2 under ``precise``."""
     rdtype = real_dtype(u_buf.dtype)
+    group = getattr(op, "group", None)
     u_prev = u_buf[k - 1]
     au = op.matvec(u_prev)
     if offset != 0.0:
         au = au + offset * u_prev  # eigenvalue shift (:244-246)
-    alpha = linalg.inner_prod(u_prev, au).real.to(rdtype)
+    alpha = linalg.inner_prod(u_prev, au, group).real.to(rdtype)
     w = au - alpha * u_prev
     if k >= 2:
         w = w - beta_prev * u_buf[k - 2]  # three-term recurrence (:251-257)
-    w = linalg.orthogonalize_cgs2(w, defl, defl_mask, passes=reorth_passes)
-    w = linalg.orthogonalize_bcgs_dyn(w, u_buf, k, passes=reorth_passes)
-    beta = linalg.norm(w).to(rdtype)
+    w = linalg.orthogonalize_cgs2(w, defl, defl_mask, passes=reorth_passes, group=group)
+    w = linalg.orthogonalize_bcgs_dyn(w, u_buf, k, passes=reorth_passes, group=group)
+    beta = linalg.norm(w, group).to(rdtype)
     if precise:
-        wide = torch.stack([linalg.inner_prod_f64(u_prev, au).real, linalg.inner_prod_f64(w, w).real])
+        wide = torch.stack([linalg.inner_prod_f64(u_prev, au, group).real, linalg.inner_prod_f64(w, w, group).real])
     else:
         wide = torch.stack([alpha, beta]).to(torch.float64)
     u_buf[k] = w / beta.clamp_min(torch.finfo(rdtype).tiny)
@@ -228,17 +230,20 @@ def lanczos_iteration(op, v0, nroot: int, defl, defl_mask, cfg: LanczosConfig):
     eigenvectors (r, n), iteration count, converged).
 
     ``defl`` holds the accepted eigenvectors, one per row, with
-    ``defl_mask`` marking valid rows.
+    ``defl_mask`` marking valid rows.  For a sharded operator ``v0``,
+    ``defl`` and the returned eigenvectors are this rank's slabs.
     """
     dtype = v0.dtype
     rdtype = real_dtype(dtype)
     n = cfg.matrix_size
+    width = v0.shape[0]  # n, or this rank's slab of a sharded operator
+    group = getattr(op, "group", None)
     max_iter = min(cfg.max_iteration, max(n, 1))
     precise = bool(cfg.precise_reductions)
 
-    v0 = _prepare_init_vector(v0, defl, defl_mask)
+    v0 = _prepare_init_vector(v0, defl, defl_mask, group)
     cap = min(max(cfg.initial_buffer_size, 2), max_iter + 1)
-    u_buf = torch.zeros((cap, n), dtype=dtype, device=v0.device)
+    u_buf = torch.zeros((cap, width), dtype=dtype, device=v0.device)
     u_buf[0] = v0
 
     alphas: list[float] = []
@@ -254,7 +259,7 @@ def lanczos_iteration(op, v0, nroot: int, defl, defl_mask, cfg: LanczosConfig):
     beta_prev = None
     for k in range(1, max_iter + 1):
         if k >= u_buf.shape[0]:
-            grown = torch.zeros((min(2 * u_buf.shape[0], max_iter + 1), n), dtype=dtype, device=v0.device)
+            grown = torch.zeros((min(2 * u_buf.shape[0], max_iter + 1), width), dtype=dtype, device=v0.device)
             grown[: u_buf.shape[0]] = u_buf
             u_buf = grown
         _alpha, beta_prev, wide = _lanczos_step(
@@ -287,7 +292,7 @@ def lanczos_iteration(op, v0, nroot: int, defl, defl_mask, cfg: LanczosConfig):
     )
     sel = [m - 1 - i for i in range(num_out)] if cfg.find_maximum else list(range(num_out))
     q = torch.as_tensor(tri_vecs[sel], device=v0.device).to(rdtype)
-    eigvecs = _ritz_combine(q, u_buf[:m])
+    eigvecs = _ritz_combine(q, u_buf[:m], group)
     eigenvalues = [float(v) - cfg.eigenvalue_offset for v in (evs.tolist() if evs is not None else [])]
     # A basis spanning the whole space is exact by construction.
     return eigenvalues, eigvecs, itern, converged or m >= n
@@ -339,6 +344,7 @@ def deflation_driver(
     manager: EigenPairManager | None = None,
     iter_counts: list[int] | None = None,
     after_round=None,
+    sharded=None,
 ) -> LanczosResult:
     """THE deflation loop (reference run(), lambda_lanczos.hpp:330-366):
     repeated restarts orthogonal to accepted pairs until the eigenpair set
@@ -350,7 +356,11 @@ def deflation_driver(
     vectors into a block start (block engines).  ``use_warm_restarts=False``
     for engines that restart internally (thick).  ``manager``/``iter_counts``
     resume a run; ``after_round(manager, iter_counts, finished)`` runs after
-    each round.
+    each round.  ``sharded`` is the row-partitioned operator of the run, if
+    it is one: each start vector is drawn at full length and this rank
+    keeps its slab (the draws are the same on every rank), the engines and
+    the manager hold slabs, and the returned eigenvectors are gathered to
+    length n on every rank.
     """
     dtype = to_torch_dtype(dtype)
     cfg = cfg.resolved(dtype)
@@ -359,6 +369,11 @@ def deflation_driver(
     iter_counts = iter_counts if iter_counts is not None else []
     unconverged_rounds = 0
     rdtype = real_dtype(dtype)
+    width = n if sharded is None else sharded.n_local
+
+    def draw():
+        v = torch.as_tensor(init_vector(n), device=device).to(dtype)
+        return v if sharded is None else sharded.scatter(v)
 
     while True:
         nroot = min(max(cfg.num_eigs_per_iteration, v0_rows), n - len(manager))
@@ -370,12 +385,9 @@ def deflation_driver(
         if nd:
             defl = torch.stack(manager.eigenvectors())
         else:
-            defl = torch.zeros((0, n), dtype=dtype, device=device)
+            defl = torch.zeros((0, width), dtype=dtype, device=device)
         defl_mask = torch.ones(nd, dtype=rdtype, device=device)
-        if v0_rows == 1:
-            v0 = torch.as_tensor(init_vector(n), device=device).to(dtype)
-        else:
-            v0 = torch.stack([torch.as_tensor(init_vector(n), device=device).to(dtype) for _ in range(v0_rows)])
+        v0 = draw() if v0_rows == 1 else torch.stack([draw() for _ in range(v0_rows)])
 
         if use_warm_restarts:
             vals, vecs, itern, settled = run_restarted(
@@ -408,6 +420,8 @@ def deflation_driver(
     eigenvalues = np.asarray(manager.eigenvalues())
     if manager.pairs:
         eigenvectors = torch.stack(manager.eigenvectors())
+        if sharded is not None:
+            eigenvectors = torch.stack([sharded.gather(v) for v in eigenvectors])
     else:  # pragma: no cover
         eigenvectors = torch.zeros((0, n), dtype=dtype, device=device)
     return LanczosResult(eigenvalues, eigenvectors, iter_counts, unconverged_rounds)

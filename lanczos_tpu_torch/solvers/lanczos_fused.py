@@ -3,9 +3,10 @@
 The JAX engine runs the whole Krylov build as one ``lax.while_loop`` on the
 device.  PyTorch has no device while-loop, so here the loop is Python and
 every iteration's work is queued on the operator's device without waiting:
-matvec (kernel K1 for a :class:`BSROperator`), alpha, the three-term
-recurrence, the deflation projection, the basis reorthogonalization (kernel
-K3) and beta, with alpha/beta written into device buffers.  The host waits
+matvec (kernel K1 for a :class:`BSROperator`, K2 for a sharded one), alpha,
+the three-term recurrence, the deflation projection, the basis
+reorthogonalization (kernel K3) and beta, with alpha/beta written into
+device buffers.  The host waits
 for the device once per convergence check, every ``convergence_check_interval``
 iterations and at each stage's capacity, as the JAX loop's checks fall:
 
@@ -158,32 +159,33 @@ def _iterate(op, st: _Build, defl, defl_mask, offset: float, passes: int, select
     """Queue iteration k = st.k on the device (waits only under 'selective')."""
     k = st.k
     rdtype = st.rdtype
+    group = getattr(op, "group", None)  # row slabs: every reduction all-reduces
     u_prev = st.u[k - 1]
     au = op.matvec(u_prev)
     if offset != 0.0:
         au = au + offset * u_prev
     if st.wide is not None:
-        a64 = linalg.inner_prod_f64(u_prev, au).real
+        a64 = linalg.inner_prod_f64(u_prev, au, group).real
         alpha_k = a64.to(rdtype)
     else:
-        alpha_k = linalg.inner_prod(u_prev, au).real.to(rdtype)
+        alpha_k = linalg.inner_prod(u_prev, au, group).real.to(rdtype)
     w = au - alpha_k * u_prev
     if k >= 2:
         w = w - st.beta[k - 2] * st.u[k - 2]
-    w = linalg.orthogonalize_cgs2(w, defl, defl_mask, passes=passes)
+    w = linalg.orthogonalize_cgs2(w, defl, defl_mask, passes=passes, group=group)
 
     if not selective:
-        w = linalg.orthogonalize_bcgs_dyn(w, st.u, k, passes=passes)
+        w = linalg.orthogonalize_bcgs_dyn(w, st.u, k, passes=passes, group=group)
         st.triggers.append(True)
     else:
-        beta_t = linalg.norm(w).to(rdtype)
+        beta_t = linalg.norm(w, group).to(rdtype)
         prev = st.beta[k - 2] if k >= 2 else torch.zeros((), dtype=rdtype, device=w.device)
         a_h, bt_h, bprev_h = torch.stack([alpha_k, beta_t, prev]).cpu().numpy()
         if k >= 2:
             st.beta_h[k - 2] = bprev_h
         trigger, w_new = _omega_step(st, k, a_h, bt_h, bprev_h)
         if trigger:
-            w = linalg.orthogonalize_bcgs_dyn(w, st.u, k, passes=passes)
+            w = linalg.orthogonalize_bcgs_dyn(w, st.u, k, passes=passes, group=group)
         j = np.arange(st.cap + 1)
         eps_m = st.omega.dtype.type(machine_eps(rdtype))
         # After a reorthogonalization the stored-basis overlaps are at noise level.
@@ -195,12 +197,12 @@ def _iterate(op, st: _Build, defl, defl_mask, offset: float, passes: int, select
         st.triggers.append(trigger)
 
     if st.wide is not None:
-        bsq = linalg.inner_prod_f64(w, w).real
+        bsq = linalg.inner_prod_f64(w, w, group).real
         beta_k = torch.sqrt(bsq.to(rdtype).clamp_min(0))
         st.wide[0, k - 1] = a64
         st.wide[1, k - 1] = bsq
     else:
-        beta_k = linalg.norm(w).to(rdtype)
+        beta_k = linalg.norm(w, group).to(rdtype)
     st.u[k] = w / beta_k.clamp_min(torch.finfo(rdtype).tiny)
     st.alpha[k - 1] = alpha_k
     st.beta[k - 1] = beta_k
@@ -265,10 +267,11 @@ def lanczos_iteration_fused(op, v0, nroot: int, defl, defl_mask, cfg: LanczosCon
     if cfg.reorth_policy not in ("full", "selective"):
         raise ValueError(f"reorth_policy must be 'full' or 'selective', got {cfg.reorth_policy!r}")
     rdtype = real_dtype(v0.dtype)
+    group = getattr(op, "group", None)
     m_max = min(cfg.max_iteration, max(cfg.matrix_size, 1))
     precise = bool(cfg.precise_reductions)
 
-    v0 = _prepare_init_vector(v0, defl, defl_mask)
+    v0 = _prepare_init_vector(v0, defl, defl_mask, group)
     cap = min(max(cfg.initial_buffer_size, 2), m_max)
     st = _Build(v0, cap, int(nroot), precise)
     while True:
@@ -301,6 +304,6 @@ def lanczos_iteration_fused(op, v0, nroot: int, defl, defl_mask, cfg: LanczosCon
     q = torch.as_tensor(tri_vecs[sel], device=v0.device).to(rdtype)
     # Only the m live rows: rows queued after a breakdown may hold non-finite
     # values, which a zero coefficient would not cancel.
-    eigvecs = _ritz_combine(q, st.u[:m])
+    eigvecs = _ritz_combine(q, st.u[:m], group)
     eigenvalues = [float(tri_vals[s]) - cfg.eigenvalue_offset for s in sel]
     return eigenvalues, eigvecs, m, converged

@@ -7,12 +7,15 @@ is a new vector per restart; its tests use a fixed-seed generator that gives
 the same vector on each call (test/lambda_lanczos_test.cpp:25-45).  Both are
 reproduced here.  Draws come from a ``numpy.random.Generator`` and are numpy
 arrays: the solver moves them to the operator's device, and the same seed
-gives the same vector as the JAX package.
+gives the same vector as the JAX package.  Under ``torch.distributed`` the
+fresh draws are the same on every rank (:func:`_fresh_rng`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from ..core.types import is_complex_dtype, to_numpy_dtype
 
@@ -29,11 +32,20 @@ def _draw(rng: np.random.Generator, n: int, dtype) -> np.ndarray:
 
 
 def _fresh_rng() -> np.random.Generator:
-    # The JAX package broadcasts process 0's entropy so that every process
-    # of a multi-process run draws the same start vector
-    # (lanczos_tpu/utils/random.py:30-50).  The port is single-process until
-    # the distributed item of ROADMAP.md ("parallel/") lands; that item
-    # broadcasts the seed over torch.distributed here.
+    """A fresh-entropy generator that is the same on every rank.
+
+    Every rank of a process group runs the same solve and draws the same
+    full-length start vector, keeping its own slab of it; a per-rank draw
+    would give each rank a slab of a different vector.  So rank 0's entropy
+    is broadcast over the default group, as the JAX package broadcasts
+    process 0's (lanczos_tpu/utils/random.py:30-50): each call still gives a
+    new vector, the same one everywhere."""
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        nccl = "nccl" in str(dist.get_backend())
+        dev = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
+        seed = torch.tensor([np.random.SeedSequence().entropy & ((1 << 63) - 1)], dtype=torch.int64, device=dev)
+        dist.broadcast(seed, src=0)
+        return np.random.default_rng(int(seed.item()))
     return np.random.default_rng()
 
 

@@ -26,6 +26,8 @@ def test_import_pulls_in_no_jax():
         "import lanczos_tpu_torch.solvers.block_thick, lanczos_tpu_torch.solvers.filtered;"
         "import lanczos_tpu_torch.ops.cheby, lanczos_tpu_torch.ops.filters, lanczos_tpu_torch.utils.estimate;"
         "from lanczos_tpu_torch import filtered_lanczos;"
+        "import lanczos_tpu_torch.parallel, lanczos_tpu_torch.parallel.mesh, lanczos_tpu_torch.parallel.sharded;"
+        "import lanczos_tpu_torch.parallel.mp_demo;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lanczos_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -58,8 +60,11 @@ def test_cpu_paths_launch_no_kernel():
     op = tl.BSROperator.from_coo(rows, cols, -np.ones(2 * (n - 1)), n, bm=8, bk=8, dtype=torch.float64, device="cpu")
     k1, k3, k4 = spmv.bsr_matvec.launches, cgs.cgs_pass.launches, cgs.cgs_pass_block.launches
     k5 = cheby.cheby_chain_apply.launches
+    k2 = spmv.bsr_matvec_rsmk.launches
     y = op.matvec(torch.ones(n, dtype=torch.float64))
     assert y.shape == (n,)
+    rsmk = op.blocks.permute(0, 2, 1, 3).contiguous()
+    assert torch.equal(spmv.bsr_matvec_rsmk(rsmk, op.col_blocks, torch.ones(op.n_padded, dtype=torch.float64))[:n], y)
     eng = tl.LambdaLanczos(op, mode="fused")
     eng.run()
     eng = tl.LambdaLanczos(op, num_eigs=2)
@@ -73,6 +78,7 @@ def test_cpu_paths_launch_no_kernel():
     assert cgs.cgs_pass.launches == k3
     assert cgs.cgs_pass_block.launches == k4
     assert cheby.cheby_chain_apply.launches == k5
+    assert spmv.bsr_matvec_rsmk.launches == k2
 
 
 @pytest.mark.parametrize(
