@@ -11,7 +11,11 @@ thick-restart engine (kernel K4)
 on the JAX package's block flagship, a float32 DIA chain at n = 2**22; and
 through ``filtered_lanczos`` the JAX package's Chebyshev flagship on the same
 chain, once with the fused chain (kernel K5, and K3 in the thick engine) and
-once with the default unfused chain.  The launch counts are set to 0 just
+once with the default unfused chain.  The kernel studies of
+``lanczos_tpu_torch.experiments`` run at their own sizes: the CGS-pass
+variants (E2a block MGS, E2b single drain, E2c bf16 shadow) on a
+(257, 2**22) basis beside K3, and the in-place row write (E3) with the
+Krylov-buffer carry variants.  The launch counts are set to 0 just
 before each path and read just after it.
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero and prints no result.  The last two lines are the kernel table and
@@ -33,6 +37,10 @@ K2_REPLACES = "lanczos_tpu/ops/pallas_spmv.py:104"
 K3_REPLACES = "lanczos_tpu/ops/pallas_cgs.py:212"
 K4_REPLACES = "lanczos_tpu/ops/pallas_cgs.py:177"
 K5_REPLACES = "lanczos_tpu/ops/pallas_cheby.py:191"
+E2A_REPLACES = "experiments/pallas_bcgs_kernel.py:72"
+E2B_REPLACES = "experiments/pallas_bcgs_kernel2.py:64"
+E2C_REPLACES = "experiments/pallas_bcgs_kernel3.py:66"
+E3_REPLACES = "experiments/carry_copy_bench.py:62"
 SEED = 0
 MAIN_N = 2**20  # main-path problem size
 K3_N = 2**22  # width of the (257, n) basis in the K3 phase
@@ -40,6 +48,9 @@ K4_N = 2**22  # width of the (258, n) basis in the K4 phase (the flagship's buff
 FLAGSHIP_N = 2**22  # the block flagship's chain (experiments/tpu_flagship_block.py)
 CHEBY_N = 2**22  # the Chebyshev flagship's chain (experiments/tpu_flagship_cheby.py)
 CHEBY_DEGREE = 400
+E2_N = 2**22  # width of the studies' (257, n) basis (experiments/pallas_bcgs_kernel*.py)
+E2_TOL = 1e-5  # max-abs error over max |plain|, K3's bar
+E2_OVERLAP_BAR = 1.2e-4  # what E2c's shadow may add to K3's overlap: the selective trigger (pallas_bcgs_kernel3.py:7-8)
 K5_TOL = 1e-5  # max-abs error over max |plain| at degree <= 129 (tests/test_filtered.py:160-161)
 K5_FLAGSHIP_TOL = 1e-4  # the same at the flagship's degree 400
 BENCH_R = 512  # row blocks of the 64 Mi-nnz K1 and K2 cases (bm = bk = 128, S = 8)
@@ -287,6 +298,207 @@ def phase_k4(torch, dev):
     del basis, vblk
     torch.cuda.empty_cache()
     return timed
+
+
+def phase_e2(torch, dev):
+    """The CGS variant studies (E2a block MGS, E2b single drain, E2c bf16
+    shadow) at their own size, a (257, 2**22) float32 basis of unit rows and
+    its bf16 shadow: each kernel against its plain version over the live
+    counts, a float64 case, the studies' own check lines and float64 probe,
+    the live-row overlaps of E2c and K3, then their times beside K3's and
+    the two-``torch.mv`` pass."""
+    from lanczos_tpu_torch.experiments import bcgs_k2_tiny
+    from lanczos_tpu_torch.experiments import bcgs_kernel as v1
+    from lanczos_tpu_torch.experiments import bcgs_kernel2 as v2
+    from lanczos_tpu_torch.experiments import bcgs_kernel3 as v3
+    from lanczos_tpu_torch.ops import cgs
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    v1.bcgs_mgs_pass.launches = v2.cgs_single_pass.launches = v3.cgs_shadow_pass.launches = 0
+
+    def one_launch(wrapper, *args):
+        """One pass, which must be one launch whatever its chunk count."""
+        before = wrapper.launches
+        out = wrapper(*args)
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"{wrapper.__name__}: {wrapper.launches - before} launches for one pass")
+        return out
+
+    def checked(label, got, want, tol):
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        if not rel <= tol:
+            raise AssertionError(f"{label}: relative error {rel:.3e} above {tol:.0e}")
+        return err, rel
+
+    basis = _random_basis(torch, dev, 257, E2_N, torch.float32, gen)
+    shadow = v3.make_shadow(basis)
+    v = torch.randn(E2_N, generator=gen, device=dev, dtype=torch.float32)
+    worst = {"e2a": 0.0, "e2b": 0.0, "e2c": 0.0}
+    for k in (1, 63, 64, 65, 100, 256, 257):
+        rels = {}
+        for chunk in (32, 64, 128):
+            err, rels[f"e2a_chunk{chunk}"] = checked(f"e2a k={k} chunk={chunk}",
+                                                     one_launch(v1.bcgs_mgs_pass, v.clone(), basis, k, chunk),
+                                                     v1.bcgs_mgs_pass_reference(v, basis, k, chunk), E2_TOL)
+            worst["e2a"] = max(worst["e2a"], err)
+        err, rels["e2b"] = checked(f"e2b k={k}", one_launch(v2.cgs_single_pass, v.clone(), basis, k),
+                                   v2.cgs_single_pass_reference(v, basis, k), E2_TOL)
+        worst["e2b"] = max(worst["e2b"], err)
+        err, rels["e2c"] = checked(f"e2c k={k}", one_launch(v3.cgs_shadow_pass, v.clone(), shadow, basis, k),
+                                   v3.cgs_shadow_pass_reference(v, shadow, basis, k), E2_TOL)
+        worst["e2c"] = max(worst["e2c"], err)
+        emit({"phase": "e2", "dtype": "torch.float32", "basis": [257, E2_N], "k": k, "max_rel_err": rels, "tol": E2_TOL})
+
+    # E2c's point: the overlap with the live rows left after one pass, with
+    # v given strong live-row components (pallas_bcgs_kernel3.py:107).
+    vs = v + basis[:8].sum(dim=0) * 100.0
+    overlaps = {}
+    for k in (3, 100, 256):
+        after_v3 = v3.overlap(basis, v3.cgs_shadow_pass(vs.clone(), shadow, basis, k), k)
+        after_k3 = v3.overlap(basis, cgs.cgs_pass(vs.clone(), basis, k), k)
+        # The study's rows are random, not orthonormal, so both passes leave
+        # an overlap of their own; the shadow may add less than the bar.
+        if not abs(after_v3 - after_k3) <= E2_OVERLAP_BAR:
+            raise AssertionError(f"e2c k={k}: live-row overlap {after_v3:.3e} after one pass, {after_k3:.3e} after K3")
+        overlaps[str(k)] = {"after_v3_pass": after_v3, "after_k3_pass": after_k3}
+    emit({"phase": "e2_overlap", "basis": [257, E2_N], "overlaps": overlaps, "bar": E2_OVERLAP_BAR})
+
+    # The times at the studies' live counts.  GB/s on each kernel's own
+    # bytes; the bound reads each input once (the k live rows, plus the
+    # shadow's for E2c, and v) and writes v once.
+    stream_gbps = 257 * E2_N * 4 / cuda_ms(torch, lambda: torch.sum(basis)) / 1e6
+    timed = {}
+    work = v.clone()
+    for k in (64, 128, 256):
+        rows = basis[:k]
+        n = E2_N
+
+        def two_mv_per_chunk(k=k):
+            w = v
+            for c0 in range(0, k, 64):
+                r = basis[c0 : min(c0 + 64, k)]
+                w = w - torch.mv(r.T, torch.mv(r, w))
+            return w
+
+        row = {
+            "e2a": {"ms": cuda_ms(torch, lambda: v1.bcgs_mgs_pass(work, basis, k, 64)), "chunk": 64,
+                    "bytes": 2 * k * n * 4, "bound": bound((k + 2) * n * 4, 4 * k * n),
+                    "library_ms": cuda_ms(torch, two_mv_per_chunk),
+                    "plain_ms": cuda_ms(torch, lambda: v1.bcgs_mgs_pass_reference(v, basis, k, 64))},
+            "e2b": {"ms": cuda_ms(torch, lambda: v2.cgs_single_pass(work, basis, k)),
+                    "bytes": 2 * k * n * 4, "bound": bound((k + 2) * n * 4, 4 * k * n),
+                    "library_ms": cuda_ms(torch, lambda: v - torch.mv(rows.T, torch.mv(rows, v))),
+                    "plain_ms": cuda_ms(torch, lambda: v2.cgs_single_pass_reference(v, basis, k))},
+            # No PyTorch call takes a bf16 matrix against a float32 vector
+            # with float32 accumulation, so E2c has no library time.
+            "e2c": {"ms": cuda_ms(torch, lambda: v3.cgs_shadow_pass(work, shadow, basis, k)),
+                    "bytes": k * n * 6, "bound": bound(k * n * 6 + 2 * n * 4, 4 * k * n), "library_ms": None,
+                    "plain_ms": cuda_ms(torch, lambda: v3.cgs_shadow_pass_reference(v, shadow, basis, k))},
+            "k3": {"ms": cuda_ms(torch, lambda: cgs.cgs_pass(work, basis, k)), "bytes": 2 * k * n * 4},
+        }
+        for entry in row.values():
+            entry["gbps"] = entry["bytes"] / entry["ms"] / 1e6
+            entry["stream_bound_ms"] = entry["bytes"] / stream_gbps / 1e6
+            if "bound" in entry:
+                entry["bound_ms"], entry["bound_by"] = entry.pop("bound")
+        timed[k] = row
+        emit({"phase": "e2_timing", "basis": [257, n], "k": k, "stream_gbps": stream_gbps, **row})
+    del basis, shadow, v, vs, work, rows
+
+    # float64: a ragged width, every chunk.
+    basis = _random_basis(torch, dev, 129, 70001, torch.float64, gen)
+    v = torch.randn(70001, generator=gen, device=dev, dtype=torch.float64)
+    rels = {}
+    for k in (1, 64, 129):
+        for chunk in (32, 64, 128):
+            rels[f"e2a_k{k}_chunk{chunk}"] = checked(f"e2a f64 k={k} chunk={chunk}",
+                                                     one_launch(v1.bcgs_mgs_pass, v.clone(), basis, k, chunk),
+                                                     v1.bcgs_mgs_pass_reference(v, basis, k, chunk), 1e-12)[1]
+        rels[f"e2b_k{k}"] = checked(f"e2b f64 k={k}", one_launch(v2.cgs_single_pass, v.clone(), basis, k),
+                                    v2.cgs_single_pass_reference(v, basis, k), 1e-12)[1]
+    emit({"phase": "e2", "dtype": "torch.float64", "basis": [129, 70001], "max_rel_err": rels, "tol": 1e-12})
+    del basis, v
+    torch.cuda.empty_cache()
+
+    # The studies' own entry points on the card: their check lines at
+    # n = 2**16, and the float64 ground-truth probe of pallas_bcgs_k2_tiny.py.
+    lines = {name: study.check(n=2**16, device=dev) for name, study in (("bcgs_kernel", v1), ("bcgs_kernel2", v2),
+                                                                        ("bcgs_kernel3", v3))}
+    probe = bcgs_k2_tiny.probe(device=dev)
+    if not probe["rel_err_vs_f64_cgs"] <= E2_TOL:
+        raise AssertionError(f"bcgs_k2_tiny: E2b against float64 CGS {probe['rel_err_vs_f64_cgs']:.3e}")
+    launches = {"e2a": v1.bcgs_mgs_pass.launches, "e2b": v2.cgs_single_pass.launches,
+                "e2c": v3.cgs_shadow_pass.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"e2: a kernel was never launched: {launches}")
+    emit({"phase": "e2_studies", "check_lines": lines, "bcgs_k2_tiny": probe, "launches": launches})
+    for name, row in timed[256].items():  # the kernels line: k = 256, with the largest error of any check
+        if name in worst:
+            row["max_abs_err"] = worst[name]
+    return launches, timed[256]
+
+
+def phase_e3(torch, dev):
+    """The in-place row write (E3) against its plain version, bit for bit,
+    on a (256, 2**20) float32 buffer; out-of-range k; its time beside
+    ``index_copy_``; then the carry study's variants A, C, G, H, I at
+    cap1 = 256, n in (2**18, 2**20), with and without the reorthogonalization
+    read, in microseconds per iteration."""
+    from lanczos_tpu_torch.experiments import carry_copy_bench as cc
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    cap1, n = 256, 2**20
+    buf = torch.randn((cap1, n), generator=gen, device=dev)
+    w = torch.randn(n, generator=gen, device=dev)
+    for k in (0, 1, 127, 255, -1, 256, 1000):
+        kt = torch.tensor([k], dtype=torch.int32, device=dev)
+        before = cc.row_set.launches
+        got = cc.row_set(buf.clone(), kt, w)
+        if cc.row_set.launches != before + 1:
+            raise AssertionError(f"E3 k={k}: {cc.row_set.launches - before} launches for one call")
+        want = cc.row_set_reference(buf.clone(), kt, w)
+        torch.cuda.synchronize()
+        inside = 0 <= k < cap1
+        others = torch.ones(cap1, dtype=torch.bool, device=dev)
+        if inside:
+            others[k] = False
+        if not (torch.equal(got, want) and torch.equal(got[others], buf[others])
+                and (not inside or torch.equal(got[k], w))):
+            raise AssertionError(f"E3 k={k}: not the plain version's bits, or another row changed")
+    kt = torch.tensor([cap1 // 2], dtype=torch.int32, device=dev)
+    klong = kt.long()
+    work = buf.clone()
+    ms = cuda_ms(torch, lambda: cc.row_set(work, kt, w))
+    plain_ms = cuda_ms(torch, lambda: cc.row_set_reference(work, kt, w))
+    library_ms = cuda_ms(torch, lambda: work.index_copy_(0, klong, w[None]))
+    probe = torch.empty(n, device=dev)
+    copy_ms = cuda_ms(torch, lambda: probe.copy_(w))  # the same bytes as one plain device copy
+    bound_ms, bound_by = bound(2 * n * 4, 0)
+    timed = {"phase": "e3", "buffer": [cap1, n], "max_abs_err": 0.0, "bitwise": True, "ms": ms, "plain_ms": plain_ms,
+             "library_ms": library_ms, "copy_ms": copy_ms, "stream_bound_ms": copy_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by}
+    emit(timed)
+    del buf, work, w, probe
+    torch.cuda.empty_cache()
+
+    cc.row_set.launches = 0
+    g_iterations = 0
+    us = {}
+    for n in (2**18, 2**20):
+        for cgs in (False, True):
+            for name in "ACGHI":
+                out = cc.run_variant(name, cap1, n, K=8, cgs=cgs, device=dev)
+                us[f"{name}_n{n}_cgs{int(cgs)}"] = out["us"]
+                if name == "G":
+                    g_iterations += out["iterations"]
+    launches = cc.row_set.launches
+    if not launches == g_iterations > 0:
+        raise AssertionError(f"E3 launches {launches} against {g_iterations} G iterations")
+    emit({"phase": "e3_variants", "cap1": cap1, "us_per_iteration": us, "g_iterations": g_iterations,
+          "launches": launches})
+    torch.cuda.empty_cache()
+    return launches, timed
 
 
 def _chain_coo(np, n, potential):
@@ -818,6 +1030,8 @@ def main() -> int:
     phase_k1(torch, dev)
     phase_k3(torch, dev)
     k4 = phase_k4(torch, dev)
+    e2_launches, e2 = phase_e2(torch, dev)
+    e3_launches, e3 = phase_e3(torch, dev)
     phase_small_solves(torch, np, dev)
     launches, k1, k3, op, ref, main_iters = phase_main_path(torch, np, dev)
     phase_thick_scalar(torch, np, op, ref)
@@ -840,16 +1054,25 @@ def main() -> int:
                 "library_ms": timed["library_ms"], "lib_ms": timed["library_ms"]}  # lib_ms: the same, short name
 
     # launches: K1 and K3 from the main path's run, K2 from the sharded main
-    # path's, K4 from the block flagship's and K5 from the Chebyshev
-    # flagship's fused run (the paths that run them).  No single PyTorch
-    # call computes a Chebyshev chain, so K5's library time is null; its
-    # k5_timing line has the unfused chain's.
+    # path's, K4 from the block flagship's, K5 from the Chebyshev
+    # flagship's fused run and E2a-c and E3 from the study phases e2 and e3
+    # (the paths that run them).  No single PyTorch call computes a
+    # Chebyshev chain, so K5's library time is null; its k5_timing line has
+    # the unfused chain's.  E2a-c are timed at k = 256 on (257, 2**22), E2a
+    # at chunk 64 with a library time of two torch.mv per chunk (a sequence
+    # of calls, no single one); none takes a bf16 matrix against a float32
+    # vector with float32 accumulation, so E2c's is null.  E3's library
+    # call is index_copy_ with k on the device.
     emit({"kernels": [
         entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
         entry("bsr_matvec_rsmk", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K2_REPLACES, sharded_launches["k2"], k2),
         entry("cgs_pass", "lanczos_tpu_torch/csrc/cgs.cu", K3_REPLACES, launches["k3"], k3),
         entry("cgs_pass_block", "lanczos_tpu_torch/csrc/cgs_block.cu", K4_REPLACES, flagship["k4"], k4),
         entry("cheby_chain_apply", "lanczos_tpu_torch/csrc/cheby_chain.cu", K5_REPLACES, cheby_launches["k5"], k5),
+        entry("bcgs_mgs_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2A_REPLACES, e2_launches["e2a"], e2["e2a"]),
+        entry("cgs_single_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2B_REPLACES, e2_launches["e2b"], e2["e2b"]),
+        entry("cgs_shadow_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2C_REPLACES, e2_launches["e2c"], e2["e2c"]),
+        entry("row_set", "lanczos_tpu_torch/csrc/row_set.cu", E3_REPLACES, e3_launches, e3),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

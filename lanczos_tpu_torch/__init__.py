@@ -9,7 +9,9 @@ rsmk layout for the sharded operators (K2), the classical Gram-Schmidt pass
 — are hand-written CUDA in ``csrc/``, built with ``nvcc`` at first use on
 the card.  ``filtered_lanczos`` is the Chebyshev-filtered solve;
 ``lanczos_tpu_torch.parallel`` holds the row-partitioned operators over
-``torch.distributed``.  This package imports PyTorch and never JAX.
+``torch.distributed``, and ``lanczos_tpu_torch.experiments`` the kernel
+studies (three Gram-Schmidt pass variants, E2a-c, and an in-place row
+write, E3, in ``csrc/``).  This package imports PyTorch and never JAX.
 """
 
 from .api import LambdaLanczos

@@ -48,6 +48,14 @@ _SIGNATURES = {
     "lt_cgs_block_num_tiles_f32": (_I64, [_I64, _INT]),
     "lt_cgs_block_num_tiles_f64": (_I64, [_I64, _INT]),
     "lt_cheby_chain_f32": (_INT, [_P, ctypes.POINTER(_INT), _INT, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _INT, _P]),
+    "lt_cgsv_grid_f32": (_INT, [_I64, _INT, ctypes.POINTER(_INT)]),
+    "lt_cgsv_grid_f64": (_INT, [_I64, _INT, ctypes.POINTER(_INT)]),
+    "lt_cgsv_grid_shadow": (_INT, [_I64, _INT, ctypes.POINTER(_INT)]),
+    "lt_cgsv_pass_f32": (_INT, [_P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P]),
+    "lt_cgsv_pass_f64": (_INT, [_P, _P, _P, _I64, _INT, _INT, _INT, _INT, _P]),
+    "lt_cgsv_shadow_pass": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P]),
+    "lt_row_set_f32": (_INT, [_P, _P, _P, _INT, _I64, _INT, _P]),
+    "lt_row_set_f64": (_INT, [_P, _P, _P, _INT, _I64, _INT, _P]),
     "lt_error_string": (ctypes.c_char_p, [_INT]),
 }
 

@@ -28,6 +28,10 @@ def test_import_pulls_in_no_jax():
         "from lanczos_tpu_torch import filtered_lanczos;"
         "import lanczos_tpu_torch.parallel, lanczos_tpu_torch.parallel.mesh, lanczos_tpu_torch.parallel.sharded;"
         "import lanczos_tpu_torch.parallel.mp_demo;"
+        "import lanczos_tpu_torch.experiments, lanczos_tpu_torch.experiments._timing;"
+        "import lanczos_tpu_torch.experiments.bcgs_kernel, lanczos_tpu_torch.experiments.bcgs_kernel2;"
+        "import lanczos_tpu_torch.experiments.bcgs_kernel3, lanczos_tpu_torch.experiments.bcgs_k2_tiny;"
+        "import lanczos_tpu_torch.experiments.carry_copy_bench;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lanczos_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -38,7 +42,9 @@ def test_import_pulls_in_no_jax():
 def test_nvcc_command_targets_hopper_and_names_every_source():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {p.name for p in (REPO / "lanczos_tpu_torch" / "csrc").glob("*.cu")}
-    assert {"bsr_spmv.cu", "cgs.cu", "cgs_block.cu", "cheby_chain.cu"} <= {p.name for p in srcs}
+    assert {"bsr_spmv.cu", "cgs.cu", "cgs_block.cu", "cheby_chain.cu", "cgs_variants.cu", "row_set.cu"} <= {
+        p.name for p in srcs
+    }
     nvcc = "/usr/local/cuda/bin/nvcc"
     objs = [f"{s.stem}.o" for s in srcs]
     for src, obj in zip(srcs, objs):  # one compiler per source, run side by side
