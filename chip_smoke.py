@@ -15,8 +15,12 @@ once with the default unfused chain.  The kernel studies of
 ``lanczos_tpu_torch.experiments`` run at their own sizes: the CGS-pass
 variants (E2a block MGS, E2b single drain, E2c bf16 shadow) on a
 (257, 2**22) basis beside K3, and the in-place row write (E3) with the
-Krylov-buffer carry variants.  The launch counts are set to 0 just
-before each path and read just after it.
+Krylov-buffer carry variants, and the SpMV study's three variants (E1)
+beside K1 and K2 on its 64 Mi-nnz operator.  The ``Exponentiator`` runs
+the reference's exponentiator zoo in float64, the JAX package's n = 2**20
+chain evolution (``evolve`` through K3, and the Chebyshev propagator) and a
+time grid over the main path's operator (K1).  The launch counts are set
+to 0 just before each path and read just after it.
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero and prints no result.  The last two lines are the kernel table and
 the device line.  It needs a CUDA device and fails at once without one; it
@@ -41,6 +45,8 @@ E2A_REPLACES = "experiments/pallas_bcgs_kernel.py:72"
 E2B_REPLACES = "experiments/pallas_bcgs_kernel2.py:64"
 E2C_REPLACES = "experiments/pallas_bcgs_kernel3.py:66"
 E3_REPLACES = "experiments/carry_copy_bench.py:62"
+E1_V2_REPLACES = "experiments/pallas_spmv_bench.py:73"  # spmv_v2, vpu=False and vpu=True
+E1_V3_REPLACES = "experiments/pallas_spmv_bench.py:119"
 SEED = 0
 MAIN_N = 2**20  # main-path problem size
 K3_N = 2**22  # width of the (257, n) basis in the K3 phase
@@ -55,6 +61,13 @@ K5_TOL = 1e-5  # max-abs error over max |plain| at degree <= 129 (tests/test_fil
 K5_FLAGSHIP_TOL = 1e-4  # the same at the flagship's degree 400
 BENCH_R = 512  # row blocks of the 64 Mi-nnz K1 and K2 cases (bm = bk = 128, S = 8)
 K2_TOL = {"torch.float32": 1e-6, "torch.float64": 1e-12}  # relative to max |plain|
+E1_TOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}  # relative to max |plain|
+EXPM_OVERLAP_BAR = 2.220446049250313e-14  # the reference's exponentiator bar, machine_eps(f64) * 1e2
+EXPM_CHAIN_N = 2**20  # experiments/tpu_cheby_expm.py's chain
+EVOLVE_ANGLE_BAR = 1e-5  # state angle after 100 f32 steps (the TPU run: 8.3e-7, BASELINE.md:280-284)
+CHEBY_ANGLE_BAR = 1e-6  # state angle of the f32 Chebyshev chain (the TPU run: 3.0e-7)
+EXPM_BSR_BAR = 1e-5  # f32 run_grid against the f64 one, relative 2-norm error
+EXPM_BSR_MAX_ITER = 200  # the Krylov budget of the expm_bsr builds
 # NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
 # cores (the kernels use plain FMAs).
 HBM_BYTES_PER_S = 3.35e12
@@ -1015,6 +1028,285 @@ def phase_cheby_flagship(torch, np, dev, n):
     return runs["fused"]["launches"]
 
 
+def phase_e1(torch, dev):
+    """The SpMV study's variants (E1: v2, v2 VPU form, v3) at its size, 64
+    Mi stored nnz in float32 (R = 512, S = 8, 128 x 128 tiles, G = 8):
+    each kernel against its plain version, on a tail case (R = 516, whose
+    last CTA owns 4 row blocks) and in float64; the study's check lines and
+    its marginal-method run of the whole variant set; then each kernel's
+    time beside the plain version, the sparse library product, K1, K2 and a
+    read stream of the tiles."""
+    from lanczos_tpu_torch.experiments import spmv_bench as sb
+    from lanczos_tpu_torch.ops import spmv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    sb.spmv_v2.launches = sb.spmv_v2.vpu_launches = sb.spmv_v3.launches = 0
+
+    def operator(r, dtype):
+        blocks = torch.randn((r, 8, 128, 128), generator=gen, device=dev, dtype=dtype) * 0.01
+        cb = torch.randint(0, r, (r, 8), generator=gen, device=dev, dtype=torch.int32)
+        x = torch.randn(r * 128, generator=gen, device=dev, dtype=dtype)
+        return blocks, blocks.permute(0, 2, 1, 3).contiguous(), cb, x
+
+    def variants(blocks, blocks_t):
+        return {"spmv_v2": (sb.spmv_v2, sb.spmv_v2_reference, blocks, {}),
+                "spmv_v2_vpu": (sb.spmv_v2, sb.spmv_v2_reference, blocks, {"vpu": True}),
+                "spmv_v3": (sb.spmv_v3, sb.spmv_v3_reference, blocks_t, {})}
+
+    worst = {}
+    for label, r, dtype in (("tail_R516", 516, torch.float32), ("f64_R64", 64, torch.float64),
+                            ("f64_tail_R68", 68, torch.float64)):
+        blocks, blocks_t, cb, x = operator(r, dtype)
+        rels = {}
+        for name, (fn, ref, tiles, kw) in variants(blocks, blocks_t).items():
+            got, want = fn(tiles, cb, x, G=8, **kw), ref(tiles, cb, x, G=8, **kw)
+            torch.cuda.synchronize()
+            err, rels[name] = rel_err(got, want)
+            if not rels[name] <= E1_TOL[str(dtype)]:
+                raise AssertionError(f"E1 {name} {label}: relative error {rels[name]:.3e} above "
+                                     f"{E1_TOL[str(dtype)]:.0e}")
+            if dtype == torch.float32:  # the kernels line reports float32 errors
+                worst[name] = max(worst.get(name, 0.0), err)
+        emit({"phase": "e1", "case": label, "dtype": str(dtype), "shape": [r, 8, 128, 128], "G": 8,
+              "max_rel_err": rels, "tol": E1_TOL[str(dtype)]})
+        del blocks, blocks_t, cb, x
+
+    lines = sb.check(device=dev)  # the study's own check: R = 64 and 68
+    if not all(float(line.rsplit("=", 1)[1]) <= E1_TOL["torch.float32"] for line in lines):
+        raise AssertionError(f"E1 check lines: {lines}")
+
+    blocks, blocks_t, cb, x = operator(BENCH_R, torch.float32)
+    study = sb.run_study(blocks, blocks_t, cb, x, short=16, long=48, repeats=3)
+    emit({"phase": "e1_study", "shape": [BENCH_R, 8, 128, 128], "check_lines": lines, "variants": study})
+
+    item = blocks.element_size()
+    tile_bytes = blocks.numel() * item
+    # Each input read once (tiles, column indices, x), y written once.
+    bytes_moved = tile_bytes + cb.numel() * 4 + 2 * x.numel() * item
+    bound_ms, bound_by = bound(bytes_moved, 2 * blocks.numel())
+    stream_ms = cuda_ms(torch, lambda: torch.sum(blocks))
+    crow = torch.arange(0, BENCH_R * 8 + 1, 8, dtype=torch.int64, device=dev)
+    a = torch.sparse_bsr_tensor(crow, cb.reshape(-1).to(torch.int64), blocks.view(-1, 128, 128),
+                                size=(BENCH_R * 128, BENCH_R * 128))
+    timed = {}
+    for name, (fn, ref, tiles, kw) in variants(blocks, blocks_t).items():
+        got, want = fn(tiles, cb, x, G=8, **kw), ref(tiles, cb, x, G=8, **kw)
+        err, rel = rel_err(got, want)
+        if not rel <= E1_TOL["torch.float32"]:
+            raise AssertionError(f"E1 {name} at the study's size: relative error {rel:.3e}")
+        ms = cuda_ms(torch, lambda fn=fn, tiles=tiles, kw=kw: fn(tiles, cb, x, G=8, **kw))
+        timed[name] = {"max_abs_err": max(worst[name], err), "max_rel_err": rel, "ms": ms,
+                       "plain_ms": cuda_ms(torch, lambda ref=ref, tiles=tiles, kw=kw: ref(tiles, cb, x, G=8, **kw)),
+                       "library_ms": cuda_ms(torch, lambda: a @ x), "bound_ms": bound_ms, "bound_by": bound_by,
+                       "gbps": bytes_moved / ms / 1e6, "stream_bound_ms": stream_ms * bytes_moved / tile_bytes}
+    lib_rel = rel_err(a @ x, sb.spmv_v2_reference(blocks, cb, x))[1]
+    k1_ms = cuda_ms(torch, lambda: spmv.bsr_matvec(blocks_t, cb, x))
+    k2_ms = cuda_ms(torch, lambda: spmv.bsr_matvec_rsmk(blocks, cb, x, col_bound=BENCH_R))
+    launches = {"spmv_v2": sb.spmv_v2.launches, "spmv_v2_vpu": sb.spmv_v2.vpu_launches,
+                "spmv_v3": sb.spmv_v3.launches}
+    if not all(launches.values()):
+        raise AssertionError(f"e1: a kernel was never launched: {launches}")
+    emit({"phase": "e1_timing", "shape": [BENCH_R, 8, 128, 128], "G": 8, "ctas": BENCH_R // 8, "kernels": timed,
+          "k1_ms": k1_ms, "k2_ms": k2_ms, "k1_gbps": bytes_moved / k1_ms / 1e6, "k2_gbps": bytes_moved / k2_ms / 1e6,
+          "stream_gbps": tile_bytes / stream_ms / 1e6, "library_max_rel_err": lib_rel, "launches": launches})
+    del blocks, blocks_t, cb, x, a
+    torch.cuda.empty_cache()
+    return launches, timed
+
+
+def _overlap_err(np, truth, out) -> float:
+    t = np.asarray(truth, np.complex128).ravel()
+    o = np.asarray(out, np.complex128).ravel()
+    return float(abs(1.0 - abs(np.vdot(t, o)) / (np.linalg.norm(t) * np.linalg.norm(o))))
+
+
+def _to_np(np, *parts):
+    """A host complex128 array from a tensor, or from its real and
+    imaginary tensors."""
+    out = parts[0].double().cpu().numpy().astype(np.complex128)
+    if len(parts) == 2:
+        out = out + 1j * parts[1].double().cpu().numpy()
+    return out
+
+
+def phase_expm_zoo(torch, np, dev):
+    """The reference's exponentiator zoo (test/exponentiator_test.cpp) in
+    float64 on the card, as experiments/tpu_exponentiator_zoo.py runs it:
+    the 3 x 3 matrix at a = 3 against its eigendecomposition (Krylov and
+    Taylor), the n = 100 ring at a = 3i with complex input through
+    run_split, and the ring at a = 0; each below the reference's overlap
+    bar."""
+    import lanczos_tpu_torch as tl
+
+    m = np.array([[2.0, 1.0, 1.0], [1.0, 2.0, 1.0], [1.0, 1.0, 2.0]])
+    u1 = np.array([[1 / np.sqrt(3), -1 / np.sqrt(2), -1 / np.sqrt(6)], [1 / np.sqrt(3), 0.0, 2 / np.sqrt(6)],
+                   [1 / np.sqrt(3), 1 / np.sqrt(2), -1 / np.sqrt(6)]])
+    vin = np.array([1.0, 0.0, 0.0])
+    truth1 = u1 @ (np.diag(np.exp(3.0 * np.array([4.0, 1.0, 1.0]))) @ (u1.T @ vin))
+    n = 100
+    h = np.zeros((n, n))
+    i = np.arange(n - 1)
+    h[i, i + 1] = h[i + 1, i] = -1.0
+    h[0, n - 1] = h[n - 1, 0] = -1.0
+    k = 2 * np.pi / n * np.arange(n)
+    u2 = np.exp(1j * np.outer(np.arange(n), k)) / np.sqrt(n)
+    vin2 = np.zeros(n, np.complex128)
+    vin2[0] = vin2[-1] = 1 + 2j
+    vin2[50] = 8 + 2j
+    vin2 /= np.linalg.norm(vin2)
+    truth2 = u2 @ (np.diag(np.exp(3.0j * -2.0 * np.cos(k))) @ (u2.conj().T @ vin2))
+
+    ex = tl.Exponentiator(torch.tensor(m, device=dev))
+    ex2 = tl.Exponentiator(torch.tensor(h, device=dev))
+    ex2z = tl.Exponentiator(torch.tensor(h, device=dev))
+    ex2z.full_orthogonalize = True
+    results = {}
+    t0 = time.perf_counter()
+    out, it = ex.run(3.0, vin)
+    results["dense3_krylov"] = {"err": _overlap_err(np, truth1, _to_np(np, out)), "iters": it,
+                                "device": str(out.device)}
+    out, it = ex.taylor_run(3.0, vin)
+    results["dense3_taylor"] = {"err": _overlap_err(np, truth1, _to_np(np, out)), "iters": it}
+    (o_re, o_im), its = ex2.run_split(3.0j, vin2.real, vin2.imag)
+    results["ring100_krylov_split"] = {"err": _overlap_err(np, truth2, _to_np(np, o_re, o_im)), "iters": list(its)}
+    (z_re, z_im), its = ex2z.run_split(0.0, vin2.real, vin2.imag)
+    results["ring100_zero_a"] = {"err": _overlap_err(np, vin2, _to_np(np, z_re, z_im)), "iters": list(its)}
+    wall = time.perf_counter() - t0
+    worst = max(r["err"] for r in results.values())
+    if not worst < EXPM_OVERLAP_BAR:
+        raise AssertionError(f"expm zoo: worst overlap error {worst:.3e} against {EXPM_OVERLAP_BAR:.3e}: {results}")
+    emit({"phase": "expm_zoo", "dtype": "float64", "results": results, "worst": worst, "bar": EXPM_OVERLAP_BAR,
+          "wall_s": wall})
+
+
+def phase_expm_chain(torch, np, dev):
+    """experiments/tpu_cheby_expm.py's scenario at full size: the n = 2**20
+    float32 DIA chain, v0 its k = 3 analytic eigenvector, total time 50:
+    ``evolve`` for 100 steps of exp(-0.5i H) at krylov_dim 12 (K3 in every
+    build), counted host waits; one Chebyshev chain for t = 50 on [-2, 2];
+    a 10-snapshot Chebyshev grid.  Each against the exact phase of the
+    eigenvector, by state angle."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cgs
+
+    n, k_mode, a_step, steps = EXPM_CHAIN_N, 3, -0.5j, 100
+    lam = -2.0 * np.cos(k_mode * np.pi / (n + 1))
+    j = np.arange(1, n + 1, dtype=np.float64)
+    v0 = (np.sqrt(2.0 / (n + 1)) * np.sin(k_mode * np.pi * j / (n + 1))).astype(np.float32)
+    ref = v0.astype(np.float64) / np.linalg.norm(v0.astype(np.float64))
+    op = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, device=dev)
+    ex = tl.Exponentiator(op)
+    v_re = torch.from_numpy(v0).to(dev)
+    v_im = torch.zeros_like(v_re)
+
+    def angle(a_total, o_re, o_im):
+        out = _to_np(np, o_re, o_im)
+        out /= np.linalg.norm(out)
+        truth = np.exp(a_total * lam) * ref
+        ip = np.vdot(truth, out)
+        return float(np.linalg.norm(out - (ip / abs(ip)) * truth))
+
+    def counted_evolve(n_steps):
+        """evolve with PyTorch's sync debug mode on: the result, the wall
+        time, and where each host wait for the device was issued."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = ex.evolve(a_step, v_re, v_im, n_steps)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        waits = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+        return out, time.perf_counter() - t0, waits
+
+    counted_evolve(1)  # warm-up: the first complex128 batched products initialize the library
+    _, _, waits_1 = counted_evolve(1)
+    cgs.cgs_pass.launches = 0
+    (re, im), evolve_s, waits = counted_evolve(steps)
+    k3 = cgs.cgs_pass.launches
+    evolve_angle = angle(a_step * steps, re, im)
+    if not (k3 > 0 and evolve_angle <= EVOLVE_ANGLE_BAR):
+        raise AssertionError(f"evolve: K3 launches {k3}, angle {evolve_angle:.3e} against {EVOLVE_ANGLE_BAR:.0e}")
+    if len(waits) != len(waits_1):  # the host waits after the last step only, however many steps
+        raise AssertionError(f"evolve: host waits {waits} in {steps} steps, {waits_1} in one")
+
+    cheby_s = []
+    for _ in range(2):  # the first call (cold) and the second (warm), as the JAX study times them
+        t0 = time.perf_counter()
+        (c_re, c_im), terms = ex.run_chebyshev(a_step * steps, v_re, v_im, lo=-2.0, hi=2.0)
+        torch.cuda.synchronize()
+        cheby_s.append(time.perf_counter() - t0)
+    cheby_angle = angle(a_step * steps, c_re, c_im)
+    ts = [a_step * steps * (q + 1) / 10.0 for q in range(10)]
+    t0 = time.perf_counter()
+    (g_re, g_im), grid_terms = ex.run_chebyshev_grid(ts, v_re, v_im, lo=-2.0, hi=2.0)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    grid_angles = [angle(t, g_re[q], g_im[q]) for q, t in enumerate(ts)]
+    if not (cheby_angle <= CHEBY_ANGLE_BAR and max(grid_angles) <= CHEBY_ANGLE_BAR):
+        raise AssertionError(f"Chebyshev chain: angle {cheby_angle:.3e}, grid angles {grid_angles}")
+    if not (g_re.shape == (10, n) and bool(torch.isfinite(g_re).all() and torch.isfinite(g_im).all())):
+        raise AssertionError("Chebyshev grid: misshapen or non-finite output")
+    emit({"phase": "expm_chain", "n": n, "dtype": "float32", "k_mode": k_mode, "a_step": str(a_step), "steps": steps,
+          "krylov_dim": 12, "evolve_s": evolve_s, "evolve_ms_per_step": evolve_s / steps * 1e3,
+          "evolve_angle": evolve_angle, "evolve_k3_launches": k3, "evolve_host_waits": waits,
+          "evolve_host_waits_one_step": waits_1,
+          "cheby_cold_s": cheby_s[0], "cheby_warm_s": cheby_s[1], "cheby_terms": terms, "cheby_angle": cheby_angle,
+          "grid_s": grid_s,
+          "grid_terms": grid_terms, "grid_angles": grid_angles,
+          "bars": {"evolve": EVOLVE_ANGLE_BAR, "chebyshev": CHEBY_ANGLE_BAR}})
+    return {"k3": k3}
+
+
+def phase_expm_bsr(torch, np, dev, op):
+    """run_grid over the main path's BSROperator (n = 2**20, float32) with
+    a in (-0.1, -0.5, -1) from a seeded unit vector, against the same run
+    on a float64 copy of the tiles.  Both builds run K1 and stop at eps
+    1e-12 (float32) or the float64 default; a has a real part, where the
+    reference's stop test never fires (R7), so the budget
+    EXPM_BSR_MAX_ITER also bounds a regression."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import spmv
+
+    a_list = [-0.1, -0.5, -1.0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    v = torch.randn(op.n, generator=gen, device=dev, dtype=torch.float32)
+    v /= torch.linalg.vector_norm(v)
+    op64 = tl.BSROperator(op.blocks.double(), op.col_blocks, op.n)
+    runs = {}
+    for label, operator, vec in (("float32", op, v), ("float64", op64, v.double())):
+        ex = tl.Exponentiator(operator)
+        ex.max_iteration = EXPM_BSR_MAX_ITER
+        if label == "float32":
+            ex.eps = 1e-12
+        ex.run_grid(a_list, vec)  # warm-up
+        torch.cuda.synchronize()
+        spmv.bsr_matvec.launches = 0
+        t0 = time.perf_counter()
+        outs, iters = ex.run_grid(a_list, vec)
+        torch.cuda.synchronize()
+        runs[label] = {"outs": outs, "iters": iters, "ms": (time.perf_counter() - t0) * 1e3,
+                       "k1_launches": spmv.bsr_matvec.launches, "eps": ex.eps}
+    del op64
+    f32, f64 = runs["float32"], runs["float64"]
+    errs = [float(torch.linalg.vector_norm(got.double() - want) / torch.linalg.vector_norm(want))
+            for got, want in zip(f32["outs"], f64["outs"])]
+    if not (f32["k1_launches"] > 0 and f64["k1_launches"] > 0):
+        raise AssertionError(f"expm_bsr: K1 launches {f32['k1_launches']} / {f64['k1_launches']}")
+    if not max(f32["iters"], f64["iters"]) < EXPM_BSR_MAX_ITER:
+        raise AssertionError(f"expm_bsr: no convergence in {EXPM_BSR_MAX_ITER} iterations "
+                             f"({f32['iters']}, {f64['iters']})")
+    if not (f32["outs"].shape == (3, op.n) and bool(torch.isfinite(f32["outs"]).all()) and max(errs) <= EXPM_BSR_BAR):
+        raise AssertionError(f"expm_bsr: float32 against float64 relative errors {errs} (bar {EXPM_BSR_BAR:.0e})")
+    emit({"phase": "expm_bsr", "n": op.n, "tiles": list(op.blocks.shape), "a": a_list,
+          "rel_err_f32_vs_f64": errs, "bar": EXPM_BSR_BAR,
+          **{f"{label}_{key}": val for label, r in runs.items() for key, val in r.items() if key != "outs"}})
+    return {"k1": f32["k1_launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -1025,27 +1317,40 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    phase_environment(torch)
-    phase_build()
-    phase_k1(torch, dev)
-    phase_k3(torch, dev)
-    k4 = phase_k4(torch, dev)
-    e2_launches, e2 = phase_e2(torch, dev)
-    e3_launches, e3 = phase_e3(torch, dev)
-    phase_small_solves(torch, np, dev)
-    launches, k1, k3, op, ref, main_iters = phase_main_path(torch, np, dev)
-    phase_thick_scalar(torch, np, op, ref)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        """Run one phase and keep its wall time for the done line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("environment", phase_environment, torch)
+    timed("build", phase_build)
+    timed("k1", phase_k1, torch, dev)
+    timed("k3", phase_k3, torch, dev)
+    k4 = timed("k4", phase_k4, torch, dev)
+    e2_launches, e2 = timed("e2", phase_e2, torch, dev)
+    e3_launches, e3 = timed("e3", phase_e3, torch, dev)
+    e1_launches, e1 = timed("e1", phase_e1, torch, dev)
+    timed("expm_zoo", phase_expm_zoo, torch, np, dev)
+    timed("expm_chain", phase_expm_chain, torch, np, dev)
+    timed("small_solves", phase_small_solves, torch, np, dev)
+    launches, k1, k3, op, ref, main_iters = timed("main_path", phase_main_path, torch, np, dev)
+    timed("thick_scalar", phase_thick_scalar, torch, np, op, ref)
+    timed("expm_bsr", phase_expm_bsr, torch, np, dev, op)
     del op
     torch.cuda.empty_cache()
-    sharded_launches, sharded_op = phase_sharded_main_path(torch, np, dev, ref, main_iters)
-    k2 = phase_k2(torch, dev, sharded_op)
+    sharded_launches, sharded_op = timed("sharded_main_path", phase_sharded_main_path, torch, np, dev, ref, main_iters)
+    k2 = timed("k2", phase_k2, torch, dev, sharded_op)
     del sharded_op
     torch.cuda.empty_cache()
-    flagship = phase_block_thick_flagship(torch, np, dev, FLAGSHIP_N)
+    flagship = timed("block_thick_flagship", phase_block_thick_flagship, torch, np, dev, FLAGSHIP_N)
     torch.cuda.empty_cache()
-    k5 = phase_k5(torch, np, dev)
-    cheby_launches = phase_cheby_flagship(torch, np, dev, CHEBY_N)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    k5 = timed("k5", phase_k5, torch, np, dev)
+    cheby_launches = timed("cheby_flagship", phase_cheby_flagship, torch, np, dev, CHEBY_N)
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "phase_seconds": seconds})
 
     def entry(name, source, replaces, n_launches, timed):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": n_launches,
@@ -1062,7 +1367,9 @@ def main() -> int:
     # at chunk 64 with a library time of two torch.mv per chunk (a sequence
     # of calls, no single one); none takes a bf16 matrix against a float32
     # vector with float32 accumulation, so E2c's is null.  E3's library
-    # call is index_copy_ with k on the device.
+    # call is index_copy_ with k on the device.  E1's launches are phase
+    # e1's (its checks, the study's run and the timing) at the study's
+    # 64 Mi-nnz operator; its library call is the BSR tensor product.
     emit({"kernels": [
         entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
         entry("bsr_matvec_rsmk", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K2_REPLACES, sharded_launches["k2"], k2),
@@ -1073,6 +1380,12 @@ def main() -> int:
         entry("cgs_single_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2B_REPLACES, e2_launches["e2b"], e2["e2b"]),
         entry("cgs_shadow_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2C_REPLACES, e2_launches["e2c"], e2["e2c"]),
         entry("row_set", "lanczos_tpu_torch/csrc/row_set.cu", E3_REPLACES, e3_launches, e3),
+        entry("spmv_v2", "lanczos_tpu_torch/csrc/spmv_variants.cu", E1_V2_REPLACES, e1_launches["spmv_v2"],
+              e1["spmv_v2"]),
+        entry("spmv_v2_vpu", "lanczos_tpu_torch/csrc/spmv_variants.cu", E1_V2_REPLACES, e1_launches["spmv_v2_vpu"],
+              e1["spmv_v2_vpu"]),
+        entry("spmv_v3", "lanczos_tpu_torch/csrc/spmv_variants.cu", E1_V3_REPLACES, e1_launches["spmv_v3"],
+              e1["spmv_v3"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,20 +1,23 @@
 """lanczos_tpu_torch: the PyTorch and CUDA port of lanczos_tpu.
 
 Extremal eigenpairs of symmetric operators by Lanczos with full
-reorthogonalization and deflated restarts, on an NVIDIA Hopper GPU (or the
-CPU, when asked with ``device="cpu"``).  The module tree and names mirror
+reorthogonalization and deflated restarts, and exp(a*A) v by Krylov,
+Taylor and Chebyshev expansions, on an NVIDIA Hopper GPU (or the CPU, when
+asked with ``device="cpu"``).  The module tree and names mirror
 ``lanczos_tpu``; the kernels — the BSR sparse matvec (K1), its canonical
 rsmk layout for the sharded operators (K2), the classical Gram-Schmidt pass
 (K3), its block form (K4) and the Chebyshev filter's recurrence chain (K5)
 — are hand-written CUDA in ``csrc/``, built with ``nvcc`` at first use on
-the card.  ``filtered_lanczos`` is the Chebyshev-filtered solve;
+the card.  ``filtered_lanczos`` is the Chebyshev-filtered solve and
+``Exponentiator`` the exponentiation engine;
 ``lanczos_tpu_torch.parallel`` holds the row-partitioned operators over
 ``torch.distributed``, and ``lanczos_tpu_torch.experiments`` the kernel
-studies (three Gram-Schmidt pass variants, E2a-c, and an in-place row
-write, E3, in ``csrc/``).  This package imports PyTorch and never JAX.
+studies (three Gram-Schmidt pass variants, E2a-c, an in-place row write,
+E3, and three BSR SpMV variants, E1, in ``csrc/``).  This package imports
+PyTorch and never JAX.
 """
 
-from .api import LambdaLanczos
+from .api import Exponentiator, LambdaLanczos
 from .diagnostics import (
     AccuracyWarning,
     BandCoverageWarning,
@@ -40,6 +43,7 @@ from .utils.stats import RunStats
 
 __all__ = [
     "LambdaLanczos",
+    "Exponentiator",
     "LinearOperator",
     "FunctionOperator",
     "DenseOperator",

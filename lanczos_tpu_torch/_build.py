@@ -56,6 +56,10 @@ _SIGNATURES = {
     "lt_cgsv_shadow_pass": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P]),
     "lt_row_set_f32": (_INT, [_P, _P, _P, _INT, _I64, _INT, _P]),
     "lt_row_set_f64": (_INT, [_P, _P, _P, _INT, _I64, _INT, _P]),
+    "lt_spmv_v2_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _P]),
+    "lt_spmv_v2_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _P]),
+    "lt_spmv_v3_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
+    "lt_spmv_v3_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
     "lt_error_string": (ctypes.c_char_p, [_INT]),
 }
 

@@ -1,4 +1,5 @@
-"""User-facing API (port of ``lanczos_tpu.api``, ``LambdaLanczos``).
+"""User-facing API (port of ``lanczos_tpu.api``: ``LambdaLanczos`` and
+``Exponentiator``).
 
 ``LambdaLanczos`` <-> the reference class of the same name
 (include/lambda_lanczos/lambda_lanczos.hpp:109-415): constructor
@@ -20,6 +21,13 @@ solved by every rank of its process group together, in the hybrid or the
 fused engine: each rank runs the same solve on its slab, ``matrix_size``
 is the global n, and the eigenvectors come back gathered to length n on
 every rank.
+
+``Exponentiator`` <-> the reference class of the same name
+(include/lambda_lanczos/exponentiator.hpp): ``run(a, v)`` returns
+(exp(a*A) v, iteration_count), with the grid, split-complex, multi-step,
+Chebyshev and Taylor forms of the JAX package (its api.py:346-607).  ``a``
+and the outputs are native complex where the JAX package takes split
+words; a complex input to a real operator goes through ``run_split``.
 """
 
 from __future__ import annotations
@@ -32,17 +40,22 @@ import torch
 
 from .core import linalg
 from .core.tridiagonal import unconverged_total
-from .core.types import default_lanczos_eps, machine_eps, to_torch_dtype
+from .core.types import default_exponentiator_eps, default_lanczos_eps, machine_eps, to_torch_dtype
 from .diagnostics import BudgetExhaustedWarning
 from .ops.operators import LinearOperator, as_operator
 from .parallel.sharded import ShardedOperator, refuse_sharded
-from .solvers import block_lanczos, block_thick, lanczos_fused, thick_restart
+from .solvers import block_lanczos, block_thick, cheby_expm, lanczos_fused, thick_restart
+from .solvers import exponentiator as _expm
 from .solvers import lanczos as _lanczos
 from .solvers.lanczos_fused import _PV_ITEM
 from .utils.random import random_initializer
 from .utils.stats import RunStats, trace_span
 
-__all__ = ["LambdaLanczos"]
+__all__ = ["LambdaLanczos", "Exponentiator"]
+
+# ROADMAP.md names the work that would lift the Exponentiator's refusals
+# (with _PV_ITEM, item 10, for precise=True).
+_DEVICE_LOOP_ITEM = "ROADMAP.md, 'Modules to port', item 8 (device-loop part): the device-resident build"
 
 def _coerce_operator(mv_mul, matrix_size, dtype, device):
     """Operator/size/dtype resolution: a LinearOperator as it is (on its own
@@ -262,3 +275,122 @@ class LambdaLanczos:
             r = op.matvec(v) - float(np.asarray(eigenvalues[k])) * v
             out.append(float(linalg.norm(r, op.group if sharded else None)))
         return out
+
+
+class Exponentiator:
+    """Krylov exponentiation engine: output = exp(a*A) @ input.
+
+    ``mv_mul`` is taken as by :class:`LambdaLanczos`: an operator on its own
+    device, or an array or callable put on ``device`` (default: the CUDA
+    card).  Vectors may be tensors on any device or numpy arrays; they are
+    moved to the operator's device and dtype, and results are tensors
+    there.  A row-partitioned operator raises.
+    """
+
+    def __init__(self, mv_mul, matrix_size=None, *, dtype=None, mode: str = "hybrid", device=None):
+        self.operator, self.matrix_size, self.dtype = _coerce_operator(mv_mul, matrix_size, dtype, device)
+        refuse_sharded(self.operator, "Exponentiator")
+
+        # Public tunables (reference exponentiator.hpp:41-71), the names and
+        # defaults of lanczos_tpu.Exponentiator.
+        self.max_iteration: int | None = None
+        self.eps: float = default_exponentiator_eps(self.dtype)
+        self.full_orthogonalize: bool = False
+        self.tridiag_backend: str | None = None
+        self.initial_buffer_size: int = 16  # Krylov buffer start capacity
+        self.mode = mode  # 'hybrid' (a host solve every iteration); 'fused' is not ported
+
+    def _config(self) -> _expm.ExponentiatorConfig:
+        return _expm.ExponentiatorConfig(
+            matrix_size=self.matrix_size,
+            max_iteration=self.max_iteration,
+            eps=self.eps,
+            full_orthogonalize=self.full_orthogonalize,
+            tridiag_backend=self.tridiag_backend,
+            initial_buffer_size=self.initial_buffer_size,
+        )
+
+    def _vector(self, x, what: str):
+        """``x`` in the operator's dtype on its device; a complex ``x`` for a
+        real operator raises (its imaginary part would be dropped)."""
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        if t.is_complex() and not self.dtype.is_complex:
+            raise TypeError(
+                f"{what}: complex input to a real {self.dtype} operator; pass the real and imaginary "
+                "parts to run_split, evolve or run_chebyshev"
+            )
+        return t.to(device=self.operator.device, dtype=self.dtype)
+
+    def _real_parts(self, v_re, v_im, what: str):
+        """The real and imaginary words of a state for a real operator; a
+        missing ``v_im`` is zero."""
+        if self.dtype.is_complex:
+            raise TypeError(f"{what} takes the real and imaginary parts of a state for a real operator")
+        v_re = self._vector(v_re, what)
+        return v_re, torch.zeros_like(v_re) if v_im is None else self._vector(v_im, what)
+
+    def run(self, a, input_vector):
+        """``(output, iteration_count)`` = exp(a*A) @ input
+        (exponentiator.hpp:87-173).  ``mode='fused'`` raises: the
+        device-resident build is not ported."""
+        if self.mode == "fused":
+            raise NotImplementedError(f"mode='fused' is not ported; see {_DEVICE_LOOP_ITEM}")
+        if self.mode != "hybrid":
+            raise ValueError(f"mode must be 'hybrid' or 'fused', got {self.mode!r}")
+        return _expm.krylov_expm_apply(self.operator, a, self._vector(input_vector, "run"), self._config())
+
+    def run_grid(self, a_list, input_vector):
+        """exp(a_i*A) @ input for a grid of scalars from ONE Krylov build
+        (time enters only through the host coefficients); returns
+        ``(outputs (num, n), iteration_count)``."""
+        v = self._vector(input_vector, "run_grid")
+        return _expm.krylov_expm_apply_grid(self.operator, list(a_list), v, self._config())
+
+    def run_split(self, a, v_re, v_im):
+        """exp(a*A) (v_re + i v_im) for a REAL operator: one real Krylov
+        build per part, complex coefficients on the host.  Returns
+        ``((out_re, out_im), (iters_re, iters_im))``; each count is what
+        :meth:`run` takes on that part alone."""
+        v_re, v_im = self._real_parts(v_re, v_im, "run_split")
+        return _expm.krylov_expm_apply_split(self.operator, a, v_re, v_im, self._config())
+
+    def evolve(self, a, v_re, v_im, steps, krylov_dim: int = 12, renormalize: bool = False, precise: bool = False):
+        """``steps`` applications of exp(a*A) to (v_re + i v_im) with no host
+        wait between steps: a fixed ``krylov_dim`` build per part with full
+        reorthogonalization (K3 on CUDA) and the small exponential on the
+        device.  Real operator only; ``renormalize`` cancels norm drift in
+        unitary evolution.  Returns ``(re, im)``.  ``precise=True`` raises:
+        the double-float evolution is ROADMAP item 10."""
+        if precise:
+            raise NotImplementedError(f"evolve(precise=True) is not ported; see {_PV_ITEM}")
+        v_re, v_im = self._real_parts(v_re, v_im, "evolve")
+        return _expm.evolve_split(self.operator, v_re, v_im, a, int(steps), int(krylov_dim), full_orth=True,
+                                  renormalize=renormalize)
+
+    def run_chebyshev(self, a, v_re, v_im=None, *, lo=None, hi=None, tol: float = 1e-16, precise: bool = False):
+        """exp(a*A) (v_re + i v_im) by the Chebyshev propagator: ONE matvec
+        chain of ~|a|*e terms for the whole evolution, no Krylov basis.
+        Real operator; ``lo``/``hi`` default to +-Gershgorin and MUST
+        enclose the spectrum.  Returns ``((out_re, out_im), n_terms)``.
+        ``precise=True`` raises (ROADMAP item 10)."""
+        if precise:
+            return cheby_expm.chebyshev_expm_apply_split_precise(self.operator, a, v_re, v_im, lo=lo, hi=hi, tol=tol)
+        v_re, v_im = self._real_parts(v_re, v_im, "run_chebyshev")
+        return cheby_expm.chebyshev_expm_apply_split(self.operator, a, v_re, v_im, lo=lo, hi=hi, tol=tol)
+
+    def run_chebyshev_grid(self, a_list, v_re, v_im=None, *, lo=None, hi=None, tol: float = 1e-16):
+        """exp(a_j*A) (v_re + i v_im) for every a_j from ONE Chebyshev chain;
+        returns ``((out_re (num, n), out_im (num, n)), n_terms)``."""
+        v_re, v_im = self._real_parts(v_re, v_im, "run_chebyshev_grid")
+        return cheby_expm.chebyshev_expm_grid_split(self.operator, list(a_list), v_re, v_im, lo=lo, hi=hi, tol=tol)
+
+    def run_batch(self, a, input_batch):
+        """The batched device-resident build of the JAX package: not
+        ported."""
+        raise NotImplementedError(f"run_batch is not ported; see {_DEVICE_LOOP_ITEM}")
+
+    def taylor_run(self, a, input_vector):
+        """``(output, term_count)``: the Taylor-series fallback
+        (exponentiator.hpp:175-210)."""
+        v = self._vector(input_vector, "taylor_run")
+        return _expm.taylor_expm_apply(self.operator, a, v, self._config())

@@ -12,7 +12,10 @@ the ``pallas_`` prefix, with the study's Pallas kernel as a CUDA kernel of
 - :mod:`.bcgs_k2_tiny` (``pallas_bcgs_k2_tiny.py``): E2b against float64
   classical GS;
 - :mod:`.carry_copy_bench` (``carry_copy_bench.py``): E3, the in-place row
-  write, and the Krylov-buffer carry variants around it.
+  write, and the Krylov-buffer carry variants around it;
+- :mod:`.spmv_bench` (``pallas_spmv_bench.py``): E1, the three BSR SpMV
+  variants with G row blocks per CTA, beside K2 and the plain
+  gather+einsum.
 
 Each study runs on the card as ``python -m lanczos_tpu_torch.experiments.<name>``.
 """

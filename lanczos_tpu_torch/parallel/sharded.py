@@ -46,8 +46,8 @@ __all__ = [
 ]
 
 _DF_ITEM = "ROADMAP.md, 'Modules to port', item 10: precise paths on native float64"
-_ENGINE_ITEM = ("ROADMAP.md, 'Modules to port', item 13: the thick, block, filtered and precise "
-                "engines over sharded operators")
+_ENGINE_ITEM = ("ROADMAP.md, 'Modules to port', item 13: the thick, block, filtered, precise and "
+                "exponentiator engines over sharded operators")
 
 
 class ShardedOperator(LinearOperator):

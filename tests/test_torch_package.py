@@ -31,7 +31,9 @@ def test_import_pulls_in_no_jax():
         "import lanczos_tpu_torch.experiments, lanczos_tpu_torch.experiments._timing;"
         "import lanczos_tpu_torch.experiments.bcgs_kernel, lanczos_tpu_torch.experiments.bcgs_kernel2;"
         "import lanczos_tpu_torch.experiments.bcgs_kernel3, lanczos_tpu_torch.experiments.bcgs_k2_tiny;"
-        "import lanczos_tpu_torch.experiments.carry_copy_bench;"
+        "import lanczos_tpu_torch.experiments.carry_copy_bench, lanczos_tpu_torch.experiments.spmv_bench;"
+        "import lanczos_tpu_torch.solvers.exponentiator, lanczos_tpu_torch.solvers.cheby_expm;"
+        "from lanczos_tpu_torch import Exponentiator;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lanczos_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -42,7 +44,8 @@ def test_import_pulls_in_no_jax():
 def test_nvcc_command_targets_hopper_and_names_every_source():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {p.name for p in (REPO / "lanczos_tpu_torch" / "csrc").glob("*.cu")}
-    assert {"bsr_spmv.cu", "cgs.cu", "cgs_block.cu", "cheby_chain.cu", "cgs_variants.cu", "row_set.cu"} <= {
+    assert {"bsr_spmv.cu", "cgs.cu", "cgs_block.cu", "cheby_chain.cu", "cgs_variants.cu", "row_set.cu",
+            "spmv_variants.cu"} <= {
         p.name for p in srcs
     }
     nvcc = "/usr/local/cuda/bin/nvcc"
