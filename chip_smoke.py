@@ -269,48 +269,83 @@ def check_k4(torch, basis, vblk, k, tol):
     return out
 
 
+def _k4_info(torch, dev, b, dtype, plan):
+    """Registers, spills, shared memory and resident CTAs per SM of K4's
+    width-b kernels at ``plan`` (``lt_cgs_block_info``)."""
+    import ctypes
+
+    from lanczos_tpu_torch import _build
+
+    out = (ctypes.c_int * 8)()
+    err = _build.library().lt_cgs_block_info(int(dtype == torch.float64), b, plan.cols, plan.stages, dev.index, out)
+    _build.check(err, "lt_cgs_block_info")
+    keys = ("project_registers", "project_local_bytes", "update_registers", "update_local_bytes",
+            "project_smem_bytes", "update_smem_bytes", "project_ctas_per_sm", "update_ctas_per_sm")
+    return dict(zip(keys, out))
+
+
 def phase_k4(torch, dev):
     """K4 against its plain version on the flagship's (258, 2**22) f32
-    buffer and on a ragged f64 basis; then its time at b = 3, k = 255."""
+    buffer (every block width bucket, k around the ring's depth and the
+    8-row reduction rounds, two runs bit for bit) and on a ragged f64
+    basis; then its time at b = 3, k = 24, 96 and 255."""
     from lanczos_tpu_torch.ops import cgs
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     n = K4_N
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     basis = _random_basis(torch, dev, 258, n, torch.float32, gen)
-    for b in (1, 2, 3, 4, 8):
+    for b in (1, 2, 3, 4, 5, 8, 16):
+        stages = cgs.block_plan(n, b, 4, sms).stages
         vblk = torch.randn((b, n), generator=gen, device=dev, dtype=torch.float32)
-        for k in (1, 3, 129, 255, 258):
+        for k in sorted({1, 3, stages - 1, stages, stages + 1, 9, 129, 255, 258}):
             check_k4(torch, basis, vblk, k, 1e-5)
+    repeat = {}
+    for k in (24, 96, 255):
+        vblk = torch.randn((3, n), generator=gen, device=dev, dtype=torch.float32)
+        first = cgs.cgs_pass_block(vblk.clone(), basis, k)
+        second = cgs.cgs_pass_block(vblk.clone(), basis, k)
+        torch.cuda.synchronize()
+        repeat[str(k)] = bool(torch.equal(first, second))
+    if not all(repeat.values()):
+        raise AssertionError(f"K4: two runs on the same inputs differ: {repeat}")
 
-    b, k = 3, 255
-    vblk = torch.randn((b, n), generator=gen, device=dev, dtype=torch.float32)
-    timed = check_k4(torch, basis, vblk, k, 1e-5)
-    rows = basis[:k]
-    work = vblk.clone()
-    ms = cuda_ms(torch, lambda: cgs.cgs_pass_block(work, basis, k))
-    plain_ms = cuda_ms(torch, lambda: cgs.cgs_pass_block_reference(vblk, basis, k))
-    library_ms = cuda_ms(torch, lambda: vblk - torch.matmul(torch.matmul(rows, vblk.T).T, rows))  # two torch.matmul
-    stream_ms = cuda_ms(torch, lambda: torch.sum(rows))
-    v1 = vblk[0].clone()
-    k3_ms = cuda_ms(torch, lambda: cgs.cgs_pass(v1, basis, k))
-    bytes_moved = 2 * k * n * 4 + 2 * b * n * 4
-    stream_gbps = k * n * 4 / stream_ms / 1e6
-    # Each input read once (the k live rows, the block), the block written once.
-    bound_ms, bound_by = bound(k * n * 4 + 2 * b * n * 4, 4 * k * b * n)
-    timed.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, gbps=bytes_moved / ms / 1e6,
-                 plain_gbps=bytes_moved / plain_ms / 1e6, stream_gbps=stream_gbps,
-                 stream_bound_ms=bytes_moved / stream_gbps / 1e6, k3_ms=k3_ms, b_times_k3_ms=b * k3_ms,
-                 bound_ms=bound_ms, bound_by=bound_by)
-    emit({"phase": "k4_timing", **{key: val for key, val in timed.items() if key != "phase"}})
+    b = 3
+    plan = cgs.block_plan(n, b, 4, sms)
+    info = _k4_info(torch, dev, b, torch.float32, plan)
+    by_k = {}
+    for k in (24, 96, 255):
+        vblk = torch.randn((b, n), generator=gen, device=dev, dtype=torch.float32)
+        timed = check_k4(torch, basis, vblk, k, 1e-5)
+        rows = basis[:k]
+        work = vblk.clone()
+        ms = cuda_ms(torch, lambda: cgs.cgs_pass_block(work, basis, k))
+        plain_ms = cuda_ms(torch, lambda: cgs.cgs_pass_block_reference(vblk, basis, k))
+        library_ms = cuda_ms(torch, lambda: vblk - torch.matmul(torch.matmul(rows, vblk.T).T, rows))  # two torch.matmul
+        stream_ms = cuda_ms(torch, lambda: torch.sum(rows))
+        v1 = vblk[0].clone()
+        k3_ms = cuda_ms(torch, lambda: cgs.cgs_pass(v1, basis, k))
+        bytes_moved = 2 * k * n * 4 + 2 * b * n * 4
+        stream_gbps = k * n * 4 / stream_ms / 1e6
+        # Each input read once (the k live rows, the block), the block written once.
+        bound_ms, bound_by = bound(k * n * 4 + 2 * b * n * 4, 4 * k * b * n)
+        timed.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, gbps=bytes_moved / ms / 1e6,
+                     plain_gbps=bytes_moved / plain_ms / 1e6, stream_gbps=stream_gbps,
+                     stream_bound_ms=bytes_moved / stream_gbps / 1e6, k3_ms=k3_ms, b_times_k3_ms=b * k3_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, plan=plan._asdict(), ctas_per_sm=plan.grid / sms,
+                     sms=sms, bits_equal_on_repeat=repeat[str(k)], **info)
+        emit({"phase": "k4_timing", **{key: val for key, val in timed.items() if key != "phase"}})
+        by_k[k] = timed
     del basis, vblk, work, rows
 
     basis = _random_basis(torch, dev, 129, 70001, torch.float64, gen)
-    vblk = torch.randn((3, 70001), generator=gen, device=dev, dtype=torch.float64)
-    for k in (1, 64, 129):
-        check_k4(torch, basis, vblk, k, 1e-12)
+    for b in (3, 16):
+        vblk = torch.randn((b, 70001), generator=gen, device=dev, dtype=torch.float64)
+        for k in (1, 7, 9, 64, 129):
+            check_k4(torch, basis, vblk, k, 1e-12)
     del basis, vblk
     torch.cuda.empty_cache()
-    return timed
+    return by_k[255]
 
 
 def phase_e2(torch, dev):
@@ -910,10 +945,42 @@ def check_k5(torch, data, offsets, x, c, e, degree, tol):
     return err, rel
 
 
+def _k5_info(torch, dev, plan, offs, w):
+    """Registers, spills, threads, shared memory and resident CTAs per SM
+    of the K5 kernel ``plan`` takes for the prescaled offsets ``offs``
+    (``lt_cheby_chain_info``)."""
+    import ctypes
+
+    from lanczos_tpu_torch import _build
+    from lanczos_tpu_torch.ops import cheby
+
+    out = (ctypes.c_int * 5)()
+    offs_c = (ctypes.c_int * len(offs))(*offs)
+    err = _build.library().lt_cheby_chain_info(cheby.ROUTES.index(plan.route), offs_c, len(offs), w, plan.core,
+                                                plan.halo, dev.index, out)
+    _build.check(err, "lt_cheby_chain_info")
+    return dict(zip(("registers", "local_bytes", "threads_per_cta", "smem_bytes", "ctas_per_sm"), out))
+
+
+def _symmetric_rows(torch, offsets, n, gen):
+    """Rows (in ``offsets`` order) of a random symmetric DIA operator with
+    entries in [-1.8/k, 1.8/k] for k offsets: row +o holds u, row -o holds
+    u shifted by o (A[i, i - o] = A[i - o, i])."""
+    scale = 1.8 / len(offsets)
+    rows = {}
+    for o in sorted({abs(o) for o in offsets}):
+        u = (torch.rand(n, generator=gen, device=gen.device) * 2 - 1) * scale
+        rows[o] = u
+        if o:
+            rows[-o] = torch.cat([torch.zeros(o, device=u.device), u[:-o]])
+    return torch.stack([rows[o] for o in offsets])
+
+
 def phase_k5(torch, np, dev):
-    """K5 against its plain version on a ragged n for three offset sets and
-    the degrees around one launch's steps; then the Chebyshev flagship's
-    filter apply (n = 2**22 chain, degree 400, window of
+    """K5 against its plain version on a ragged n for narrow bands (the
+    register route) and wide ones (the shared-memory route), at the degrees
+    around one launch's steps and 400; then the Chebyshev flagship's filter
+    apply (n = 2**22 chain, degree 400, window of
     from_interval(op, 400, -2, 2, 1e-5)), timed beside the plain version and
     the default unfused chain."""
     import lanczos_tpu_torch as tl
@@ -922,15 +989,27 @@ def phase_k5(torch, np, dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     n = 70001
-    for offsets in ((-1, 1), (-1, 0, 1), (-8, -3, 0, 5, 8)):
+    for offsets in ((-1, 1), (-1, 0, 1), (1, 1, 0), (-2, -1, 0, 1, 2), (-8, -3, 0, 3, 8), (-8, -3, 0, 5, 8)):
         # Rows in [-1.8/k, 1.8/k] keep the spectrum inside the [-1.95, 2.15]
         # window, so the chain does not grow and the relative bar is tight.
-        data = (torch.rand((len(offsets), n), generator=gen, device=dev) * 2 - 1) * (1.8 / len(offsets))
+        # Degree 400 needs a real spectrum (complex eigenvalues grow like
+        # rho**400 and overflow float32): symmetric rows, where the offsets
+        # pair up.
+        symmetric = sorted(offsets) == sorted(-o for o in offsets)
+        data = _symmetric_rows(torch, offsets, n, gen) if symmetric else (
+            (torch.rand((len(offsets), n), generator=gen, device=dev) * 2 - 1) * (1.8 / len(offsets)))
         x = torch.randn(n, generator=gen, device=dev)
-        s = cheby.steps_per_launch(max(abs(o) for o in offsets))
-        errs = {d: check_k5(torch, data, offsets, x, 0.1, 2.05, d, K5_TOL)[1] for d in (1, 2, s - 1, s, s + 1, 37)}
-        emit({"phase": "k5", "n": n, "offsets": list(offsets), "steps_per_launch": s,
-              "max_rel_err_by_degree": {str(d): r for d, r in errs.items()}, "tol": K5_TOL})
+        p = cheby.plan(n, cheby.prescale(data, offsets, 0.1, 2.05)[1])
+        before = dict(cheby.cheby_chain_apply.launches_by_route)
+        degrees = (1, 2, p.steps - 1, p.steps, p.steps + 1, 37) + ((CHEBY_DEGREE,) if symmetric else ())
+        errs = {d: check_k5(torch, data, offsets, x, 0.1, 2.05, d, K5_FLAGSHIP_TOL if d == CHEBY_DEGREE else K5_TOL)[1]
+                for d in degrees}
+        routed = {r: cheby.cheby_chain_apply.launches_by_route[r] - before[r] for r in before}
+        if routed[p.route] == 0 or sum(routed.values()) != routed[p.route]:
+            raise AssertionError(f"K5 offsets={offsets}: launches {routed} off the planned {p.route} route")
+        emit({"phase": "k5", "n": n, "offsets": list(offsets), "route": p.route, "steps_per_launch": p.steps,
+              "max_rel_err_by_degree": {str(d): r for d, r in errs.items()}, "tol": K5_TOL,
+              "tol_at_degree_400": K5_FLAGSHIP_TOL, "launches_by_route": routed})
         del data, x
 
     n, degree = CHEBY_N, CHEBY_DEGREE
@@ -938,6 +1017,7 @@ def phase_k5(torch, np, dev):
     fused = ChebyshevFilterOperator.from_interval(op, degree, -2.0, 2.0, 1e-5)
     fused.use_fused = True
     unfused = ChebyshevFilterOperator.from_interval(op, degree, -2.0, 2.0, 1e-5)
+    unfused.use_fused = False
     x = torch.randn(n, generator=gen, device=dev)
     err, rel = check_k5(torch, op.data, op.offsets, x, fused.c, fused.e, degree, K5_FLAGSHIP_TOL)
     plain = cheby.cheby_chain_apply_reference(op.data, op.offsets, x, fused.c, fused.e, degree)
@@ -947,10 +1027,12 @@ def phase_k5(torch, np, dev):
                        reps=5, warmup=1)
     unfused_ms = cuda_ms(torch, lambda: unfused.matvec(x), reps=5, warmup=1)
     rows, offs = fused._prescaled
-    ndiag = len(offs)
-    s, h, l = cheby.plan(n, ndiag, max(abs(o) for o in offs))
-    n_launch = -(-degree // s)
-    window_cells = -(-n // l) * (l + 2 * h)
+    ndiag, w = len(offs), max(abs(o) for o in offs)
+    p = cheby.plan(n, offs)
+    if p.route != "registers":
+        raise AssertionError(f"the flagship's filter plans the {p.route} route, not the register route")
+    n_launch = -(-degree // p.steps)
+    window_cells = -(-n // p.core) * (p.core + 2 * p.halo)
     # What the kernel moves: each launch reads t, t_prev (not in the first)
     # and the rows over every window, and writes t and t_prev over the cores.
     kernel_bytes = 4 * (n_launch * (2 + ndiag) * window_cells - window_cells + n_launch * 2 * n)
@@ -962,11 +1044,14 @@ def phase_k5(torch, np, dev):
     # (ndiag products, ndiag - 1 sums, one difference or halving).
     bound_ms, bound_by = bound((len(op.offsets) + 2) * n * 4, 2 * ndiag * n * degree)
     out = {"phase": "k5_timing", "n": n, "degree": degree, "offsets": list(op.offsets), "c": fused.c, "e": fused.e,
-           "steps_per_launch": s, "halo": h, "core": l, "launches_per_apply": n_launch, "max_abs_err": err,
-           "max_rel_err": rel, "tol": K5_FLAGSHIP_TOL, "unfused_max_rel_err_vs_plain": unfused_rel, "ms": ms,
+           "route": p.route, "cells_per_thread": p.cells, "steps_per_launch": p.steps, "halo": p.halo,
+           "core": p.core, "launches_per_apply": n_launch, **_k5_info(torch, dev, p, offs, w),
+           "max_abs_err": err, "max_rel_err": rel, "tol": K5_FLAGSHIP_TOL,
+           "unfused_max_rel_err_vs_plain": unfused_rel, "ms": ms, "ms_per_launch": ms / n_launch,
            "plain_ms": plain_ms, "unfused_ms": unfused_ms, "library_ms": None, "kernel_gb": kernel_bytes / 1e9,
            "stream_gbps": stream_gbps, "stream_bound_ms": kernel_bytes / stream_gbps / 1e6,
-           "bound_ms": bound_ms, "bound_by": bound_by, "gflop": 2 * ndiag * n * degree / 1e9}
+           "bound_ms": bound_ms, "bound_by": bound_by, "gflop": 2 * ndiag * n * degree / 1e9,
+           "window_cells_per_step": window_cells}
     emit(out)
     del op, fused, unfused, x, plain, rows
     torch.cuda.empty_cache()
@@ -997,6 +1082,7 @@ def phase_cheby_flagship(torch, np, dev, n):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cheby.cheby_chain_apply.launches = 0
+        cheby.cheby_chain_apply.launches_by_route = dict.fromkeys(cheby.ROUTES, 0)
         cgs.cgs_pass.launches = 0
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as caught:
@@ -1005,12 +1091,15 @@ def phase_cheby_flagship(torch, np, dev, n):
                                                    configure=cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"k5": cheby.cheby_chain_apply.launches, "k3": cgs.cgs_pass.launches}
+        launches = {"k5": cheby.cheby_chain_apply.launches, "k3": cgs.cgs_pass.launches,
+                    "k5_by_route": dict(cheby.cheby_chain_apply.launches_by_route)}
         errs = np.abs(np.sort(np.asarray(vals)) - exact)
         residuals = info["residuals"]
         label = "fused" if use_fused else "unfused"
-        if use_fused and not (launches["k5"] > 0 and launches["k3"] > 0):
-            raise AssertionError(f"Chebyshev flagship did not launch K5 and K3: {launches}")
+        if use_fused and not (launches["k5_by_route"]["registers"] == launches["k5"] > 0 and launches["k3"] > 0):
+            raise AssertionError(f"Chebyshev flagship did not launch K5 (register route) and K3: {launches}")
+        if not use_fused and launches["k5"]:
+            raise AssertionError(f"Chebyshev flagship's unfused run launched K5: {launches}")
         if not (vecs.shape == (3, n) and bool(torch.isfinite(vecs).all()) and np.all(np.isfinite(residuals))):
             raise AssertionError(f"Chebyshev flagship ({label}): misshapen or non-finite output, residuals {residuals}")
         if not np.all(errs <= 2e-6):

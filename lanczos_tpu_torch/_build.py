@@ -43,11 +43,11 @@ _SIGNATURES = {
     "lt_cgs_pass_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _P]),
     "lt_cgs_num_tiles_f32": (_I64, [_I64]),
     "lt_cgs_num_tiles_f64": (_I64, [_I64]),
-    "lt_cgs_block_pass_f32": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P]),
-    "lt_cgs_block_pass_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P]),
-    "lt_cgs_block_num_tiles_f32": (_I64, [_I64, _INT]),
-    "lt_cgs_block_num_tiles_f64": (_I64, [_I64, _INT]),
-    "lt_cheby_chain_f32": (_INT, [_P, ctypes.POINTER(_INT), _INT, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _INT, _P]),
+    "lt_cgs_block_pass_f32": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _P]),
+    "lt_cgs_block_pass_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _P]),
+    "lt_cgs_block_info": (_INT, [_INT, _INT, _INT, _INT, _INT, ctypes.POINTER(_INT)]),
+    "lt_cheby_chain_f32": (_INT, [_INT, _P, ctypes.POINTER(_INT), _INT, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _INT, _P]),
+    "lt_cheby_chain_info": (_INT, [_INT, ctypes.POINTER(_INT), _INT, _INT, _INT, _INT, _INT, ctypes.POINTER(_INT)]),
     "lt_cgsv_grid_f32": (_INT, [_I64, _INT, ctypes.POINTER(_INT)]),
     "lt_cgsv_grid_f64": (_INT, [_I64, _INT, ctypes.POINTER(_INT)]),
     "lt_cgsv_grid_shadow": (_INT, [_I64, _INT, ctypes.POINTER(_INT)]),

@@ -9,243 +9,577 @@
 // and C lives in a VMEM scratch; on the H100 CTAs run in no order, so, as
 // for K3 (cgs.cu), the dependency across the grid becomes three launches on
 // one stream:
-//   1. block_project_kernel: part[j*b + q, t] = B[j, tile t] . V[q, tile t];
-//   2. lt::reduce_rows_kernel: C[j, q] = sum_t part[j*b + q, t], in a fixed
-//      order (no atomics: the same result on every run);
-//   3. block_update_kernel: V[q, tile] -= sum_j C[j, q] B[j, tile], in place.
+//   1. project_kernel: part[j*b + q, cta] = B[j, range] . V[q, range];
+//   2. lt::reduce_rows_kernel: C[j, q] = sum_cta part[j*b + q, cta], in a
+//      fixed order (no atomics: the same bits on every run);
+//   3. update_kernel: V[q, range] -= sum_j C[j, q] B[j, range], in place.
 //
 // What bounds it on the H100: bytes.  A pass reads the k live basis rows
-// twice (2 k n values) and the block twice (2 b n); it does 2 b FMAs per
-// basis value, about b/2 flop per byte, far below the card's f32/f64 FMA
-// rate for b <= 16.  The design serves the basis stream:
-//   * every launch reads each basis tile ONCE for all b vectors — the
-//     reason the kernel exists (b K3 passes read the basis b times);
-//   * each CTA owns one n-tile and keeps its slice of the whole block in
-//     registers for the whole sweep, so V is read once per launch;
-//   * rows are streamed with 16-byte loads; only the live rows [0, k) are
-//     read, so the traffic follows k and not the buffer's capacity;
-//   * the block width is a template bucket (1, 2, 4, 8, 16) so the
-//     per-vector registers are fixed at compile time; a width inside a
-//     bucket masks the spare vectors (no loads, zero coefficients).
+// twice (2 k n values: once to project, once to update; at the flagship's
+// k = 255 the rows are 4.3 GB, far beyond L2 and shared memory, so no
+// one-pass form exists) and the block twice.  It does b FMAs per basis
+// value and phase, far below the card's FMA rate for b <= 16.  The design
+// keeps the basis stream busy and spends few instructions around it:
+//   * each CTA owns one column range of `cols` values (at most
+//     256 * NV 16-byte vectors, NV = 4 for b <= 4), sized by the caller
+//     from n and the SM count (ops/cgs.py block_plan) so the grid fills
+//     whole waves of two resident CTAs per SM, and 128-byte aligned where
+//     that keeps two CTAs per SM;
+//   * one producer warp streams the live rows' segments of that range
+//     through a ring of `stages` shared-memory buffers with 1-D bulk copies
+//     (cp.async.bulk, no tensor map, so no libcuda) tracked by mbarriers;
+//     rows that are not 16-byte aligned (n % VN != 0) go by 4- or 8-byte
+//     cp.async into the same ring.  Loads in flight cost no registers.  The
+//     ring holds ~32 KB (two 16 KB stages at the flagship's plan), and a
+//     proxy fence on both sides of a stage's release orders the consumers'
+//     reads before its refill;
+//   * eight consumer warps keep their slice of V in registers for the
+//     whole range (V is read once per launch), accumulate each row's
+//     partial dot products over the whole range and warp-reduce each
+//     (row, vector) once per CTA; eight rows share one barrier of the
+//     consumer warps and one write of the CTA's partials;
+//   * the update runs on the same ring, with C staged in shared memory;
+//   * b <= 4 are exact template widths (no padded FMAs); 5..8 and 9..16
+//     run in the buckets 8 and 16 with the spare vectors masked.
 // Plain FMAs in the storage precision (f32 or f64), no tensor cores, no
-// TF32.
+// TF32, no atomics.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = 32 * kConsumerWarps;  // threads that compute
+constexpr int kThreads = kConsumers + 32;         // and one producer warp
 constexpr int kMaxB = 16;
+constexpr int kMinStages = 2;
+constexpr int kMaxStages = 8;
+constexpr int kRowGroup = 8;          // projection: rows per reduction round
+constexpr int kConsumerBarrier = 1;   // named barrier of the consumer warps (0 is __syncthreads)
+constexpr int kCoefBytes = 8192;      // update: coefficients staged in shared memory at a time
+constexpr size_t kMaxSmem = 227 * 1024;
 
-// Launch shape of a block-width bucket of at most BMAX vectors.
-template <typename T, int BMAX>
-struct Shape {
-  using A = typename lt::Acc<T>::type;
-  // 16-byte vectors per thread per row: narrow blocks take two to keep
-  // loads in flight, wide ones one to bound the registers holding the block.
-  static constexpr int U = BMAX <= 4 ? 2 : 1;
-  static constexpr int E = U * lt::Vec<T>::n;          // elements per thread per row
-  static constexpr int64_t W = int64_t(kThreads) * E;  // tile width
-  static constexpr int RG = BMAX >= 16 ? 1 : (BMAX >= 8 ? 2 : 4);  // rows projected together
-  static constexpr int CCHUNK = 16384 / int(BMAX * sizeof(A));      // coefficient rows per smem stage
-};
+// 16-byte vectors per consumer thread per row: the range holds at most
+// kConsumers * NV vectors, and the slice of V (B * NV vectors) stays in
+// 64 registers or fewer.
+template <int B>
+__host__ __device__ constexpr int vectors_per_thread() {
+  return B <= 4 ? 4 : (B <= 8 ? 2 : 1);
+}
 
-template <typename T, int BMAX>
-__global__ void __launch_bounds__(kThreads)
-    block_project_kernel(const T* __restrict__ basis, const T* __restrict__ v,
-                         typename lt::Acc<T>::type* __restrict__ part, int64_t n, int k, int b,
-                         int64_t n_tiles, bool vec_ok) {
-  using S = Shape<T, BMAX>;
-  using A = typename S::A;
-  constexpr int E = S::E;
-  constexpr int RG = S::RG;
-  __shared__ A red[2][kWarps][RG * BMAX];
+// ---- PTX: mbarriers, bulk and element copies, the consumers' barrier ------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 1-D bulk copy global -> shared; its bytes complete a transaction on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One element copy global -> shared; src_bytes = 0 writes zeros.
+template <int BYTES>
+__device__ __forceinline__ void elem_copy(void* dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(smem_u32(dst)), "l"(src), "n"(BYTES),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier element copies have landed.
+__device__ __forceinline__ void elem_copies_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Orders this thread's shared-memory accesses (generic proxy) with the
+// bulk and element copies (async proxy).  A stage is refilled right after
+// its release; without the fence a 2-stage ring handed stale rows to the
+// projection on the H100.
+__device__ __forceinline__ void proxy_fence() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync %0, %1;" ::"n"(kConsumerBarrier), "n"(kConsumers) : "memory");
+}
+
+// ---- shared memory ---------------------------------------------------------
+
+// [ring: stages x cols T][full: stages mbarriers][empty: stages][scratch]
+template <typename T>
+__host__ __device__ constexpr size_t ring_bytes(int cols, int stages) {
+  return size_t(stages) * size_t(cols) * sizeof(T);
+}
+
+template <typename T, int B>
+__host__ __device__ constexpr size_t project_scratch() {
+  return size_t(2) * kConsumerWarps * kRowGroup * B * sizeof(typename lt::Acc<T>::type);
+}
+
+template <typename T, int B>
+__host__ __device__ constexpr int coef_rows() {
+  return kCoefBytes / int(B * sizeof(typename lt::Acc<T>::type));
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes(int cols, int stages, size_t scratch) {
+  return ring_bytes<T>(cols, stages) + size_t(2) * stages * sizeof(uint64_t) + scratch;
+}
+
+// The ring's mbarriers: full[s] completes when row segment s has landed
+// (one arrival with its byte count, or 32 element-copy arrivals), empty[s]
+// when every consumer warp has read it.
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int stages, bool bulk) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], bulk ? 1u : 32u);
+      mbar_init(&empty[s], uint32_t(kConsumerWarps));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    proxy_fence();
+  }
+  __syncthreads();
+}
+
+// The producer warp: rows [0, k) of the range [c0, c0 + cols_here) into
+// the ring, row j into stage j % stages.
+template <typename T>
+__device__ __forceinline__ void produce(const T* __restrict__ basis, int64_t n, int k, int64_t c0,
+                                        int cols_here, int cols, int stages, T* ring, uint64_t* full,
+                                        uint64_t* empty, bool bulk) {
+  constexpr int VN = lt::Vec<T>::n;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int64_t t = blockIdx.x;
-  const int64_t base = t * S::W;
+  const int padded = (cols_here + VN - 1) / VN * VN;  // the consumers read whole vectors
+  const uint32_t bytes = uint32_t(cols_here) * uint32_t(sizeof(T));
+  int s = 0;
+  uint32_t phase = 0;
+  for (int j = 0; j < k; ++j) {
+    mbar_wait(&empty[s], phase ^ 1u);
+    proxy_fence();  // the consumers' reads of this stage before the async copy's writes
+    T* dst = ring + size_t(s) * cols;
+    const T* src = basis + int64_t(j) * n + c0;
+    if (bulk) {
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], bytes);
+        bulk_copy(dst, src, bytes, &full[s]);
+      }
+    } else {
+      for (int i = lane; i < padded; i += 32) {
+        const bool in = i < cols_here;
+        elem_copy<sizeof(T)>(dst + i, in ? src + i : src, in ? uint32_t(sizeof(T)) : 0u);
+      }
+      elem_copies_arrive(&full[s]);
+    }
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1u;
+    }
+  }
+}
 
-  T vr[BMAX][E];
+// One 16-byte vector of a row of V at column `col` (zeros past n).
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* __restrict__ row, int64_t col, int64_t n, bool vec_ok,
+                                         T (&out)[lt::Vec<T>::n]) {
+  using V = typename lt::Vec<T>::type;
+  constexpr int VN = lt::Vec<T>::n;
+  if (vec_ok) {
+    if (col < n) {
+      const V t = *reinterpret_cast<const V*>(row + col);
+      const T* tt = reinterpret_cast<const T*>(&t);
 #pragma unroll
-  for (int q = 0; q < BMAX; ++q) {
-    if (q < b) {
-      lt::load_seg<T, kThreads, S::U>(v + int64_t(q) * n, base, n, vec_ok, vr[q]);
+      for (int c = 0; c < VN; ++c) out[c] = tt[c];
     } else {
 #pragma unroll
-      for (int e = 0; e < E; ++e) vr[q][e] = T(0);
+      for (int c = 0; c < VN; ++c) out[c] = T(0);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < VN; ++c) out[c] = col + c < n ? row[col + c] : T(0);
+  }
+}
+
+template <typename T, typename A>
+__device__ __forceinline__ void store_vec(T* __restrict__ row, int64_t col, int64_t n, bool vec_ok,
+                                          const A (&vals)[lt::Vec<T>::n]) {
+  using V = typename lt::Vec<T>::type;
+  constexpr int VN = lt::Vec<T>::n;
+  if (vec_ok) {
+    if (col < n) {
+      V out;
+      T* oo = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int c = 0; c < VN; ++c) oo[c] = T(vals[c]);
+      *reinterpret_cast<V*>(row + col) = out;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < VN; ++c)
+      if (col + c < n) row[col + c] = T(vals[c]);
+  }
+}
+
+// ---- the two phases ----------------------------------------------------------
+
+// Consumer thread x owns the vectors x + i*kConsumers (i < NV) of its CTA's
+// range, in the ring as in V.
+template <typename T, int B>
+__global__ void __launch_bounds__(kThreads, 2)
+    project_kernel(const T* __restrict__ basis, const T* __restrict__ v,
+                   typename lt::Acc<T>::type* __restrict__ part, int64_t n, int k, int b, int cols,
+                   int stages, bool vec_ok) {
+  using A = typename lt::Acc<T>::type;
+  using V = typename lt::Vec<T>::type;
+  constexpr int VN = lt::Vec<T>::n;
+  constexpr int NV = vectors_per_thread<B>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ring_bytes<T>(cols, stages));
+  uint64_t* empty = full + stages;
+  A* red = reinterpret_cast<A*>(empty + stages);  // [2][kConsumerWarps][kRowGroup * B]
+  const int64_t c0 = int64_t(blockIdx.x) * cols;
+  const int cols_here = n - c0 < cols ? int(n - c0) : cols;
+  const int nvec = (cols_here + VN - 1) / VN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  init_ring(full, empty, stages, vec_ok);
+  if (warp == kConsumerWarps) {
+    produce<T>(basis, n, k, c0, cols_here, cols, stages, ring, full, empty, vec_ok);
+    return;
+  }
+
+  T vr[B][NV][VN];
+#pragma unroll
+  for (int q = 0; q < B; ++q) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int iv = threadIdx.x + i * kConsumers;
+      if (q < b && iv < nvec) {
+        load_vec<T>(v + int64_t(q) * n, c0 + int64_t(iv) * VN, n, vec_ok, vr[q][i]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < VN; ++c) vr[q][i][c] = T(0);
+      }
     }
   }
 
-  for (int j0 = 0, g = 0; j0 < k; j0 += RG, g ^= 1) {
-    A s[RG][BMAX];
+  int s = 0;
+  uint32_t phase = 0;
+  for (int j0 = 0, g = 0; j0 < k; j0 += kRowGroup, g ^= 1) {
+    const int rows = min(kRowGroup, k - j0);
+    A* red_g = red + g * (kConsumerWarps * kRowGroup * B);
+    for (int r = 0; r < rows; ++r) {
+      mbar_wait(&full[s], phase);
+      const T* row = ring + size_t(s) * cols;
+      A acc[B];
 #pragma unroll
-    for (int r = 0; r < RG; ++r) {
+      for (int q = 0; q < B; ++q) acc[q] = A(0);
 #pragma unroll
-      for (int q = 0; q < BMAX; ++q) s[r][q] = A(0);
-      if (j0 + r < k) {
-        T br[E];
-        lt::load_seg<T, kThreads, S::U>(basis + int64_t(j0 + r) * n, base, n, vec_ok, br);
+      for (int i = 0; i < NV; ++i) {
+        const int iv = threadIdx.x + i * kConsumers;
+        if (iv < nvec) {
+          const V x = *reinterpret_cast<const V*>(row + iv * VN);
+          const T* xx = reinterpret_cast<const T*>(&x);
 #pragma unroll
-        for (int q = 0; q < BMAX; ++q) {
+          for (int q = 0; q < B; ++q) {
 #pragma unroll
-          for (int e = 0; e < E; ++e) s[r][q] = fma(A(br[e]), A(vr[q][e]), s[r][q]);
+            for (int c = 0; c < VN; ++c) acc[q] = fma(A(xx[c]), A(vr[q][i][c]), acc[q]);
+          }
         }
       }
-    }
+      proxy_fence();  // this stage's reads before the refill's writes (async proxy)
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1u;
+      }
 #pragma unroll
-    for (int r = 0; r < RG; ++r) {
-#pragma unroll
-      for (int q = 0; q < BMAX; ++q) {
-        if (q < b) {  // uniform across the CTA: every lane takes the shuffle
-          const A w = lt::warp_sum(s[r][q]);
-          if (lane == 0) red[g][warp][r * BMAX + q] = w;
+      for (int q = 0; q < B; ++q) {
+        if (B <= 4 || q < b) {  // uniform: every lane takes the shuffles
+          const A w = lt::warp_sum(acc[q]);
+          if (lane == 0) red_g[warp * (kRowGroup * B) + r * B + q] = w;
         }
       }
     }
     // red is double-buffered by group parity: the next group writes the
-    // other buffer, and the one after it passes this barrier first.
-    __syncthreads();
-    if (threadIdx.x < RG * BMAX) {
-      const int r = threadIdx.x / BMAX;
-      const int q = threadIdx.x % BMAX;
-      if (q < b && j0 + r < k) {
+    // other half, and the one after it passes this barrier first.
+    consumer_sync();
+    if (threadIdx.x < rows * B) {
+      const int r = threadIdx.x / B;
+      const int q = threadIdx.x % B;
+      if (B <= 4 || q < b) {
         A tot = A(0);
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) tot += red[g][w][threadIdx.x];
-        part[(int64_t(j0 + r) * b + q) * n_tiles + t] = tot;
+        for (int w = 0; w < kConsumerWarps; ++w) tot += red_g[w * (kRowGroup * B) + threadIdx.x];
+        part[(int64_t(j0 + r) * b + q) * gridDim.x + blockIdx.x] = tot;
       }
     }
   }
 }
 
-template <typename T, int BMAX>
-__global__ void __launch_bounds__(kThreads)
-    block_update_kernel(const T* __restrict__ basis, T* __restrict__ v,
-                        const typename lt::Acc<T>::type* __restrict__ c, int64_t n, int k, int b,
-                        bool vec_ok) {
-  using S = Shape<T, BMAX>;
-  using A = typename S::A;
-  constexpr int E = S::E;
-  constexpr int CCH = S::CCHUNK;
-  __shared__ A cs[CCH * BMAX];
-  const int64_t base = int64_t(blockIdx.x) * S::W;
+template <typename T, int B>
+__global__ void __launch_bounds__(kThreads, 2)
+    update_kernel(const T* __restrict__ basis, T* __restrict__ v,
+                  const typename lt::Acc<T>::type* __restrict__ coef, int64_t n, int k, int b, int cols,
+                  int stages, bool vec_ok) {
+  using A = typename lt::Acc<T>::type;
+  using V = typename lt::Vec<T>::type;
+  constexpr int VN = lt::Vec<T>::n;
+  constexpr int NV = vectors_per_thread<B>();
+  constexpr int CR = coef_rows<T, B>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + ring_bytes<T>(cols, stages));
+  uint64_t* empty = full + stages;
+  A* cs = reinterpret_cast<A*>(empty + stages);  // [CR][B]
+  const int64_t c0 = int64_t(blockIdx.x) * cols;
+  const int cols_here = n - c0 < cols ? int(n - c0) : cols;
+  const int nvec = (cols_here + VN - 1) / VN;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
 
-  A acc[BMAX][E];
-#pragma unroll
-  for (int q = 0; q < BMAX; ++q) {
-    T vt[E];
-    if (q < b) {
-      lt::load_seg<T, kThreads, S::U>(v + int64_t(q) * n, base, n, vec_ok, vt);
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) vt[e] = T(0);
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[q][e] = A(vt[e]);
+  init_ring(full, empty, stages, vec_ok);
+  if (warp == kConsumerWarps) {
+    produce<T>(basis, n, k, c0, cols_here, cols, stages, ring, full, empty, vec_ok);
+    return;
   }
 
-  for (int j0 = 0; j0 < k; j0 += CCH) {
-    const int nj = min(CCH, k - j0);
-    __syncthreads();  // the previous stage's readers are done with cs
-    for (int i = threadIdx.x; i < nj * BMAX; i += kThreads) {
-      const int jj = i / BMAX;
-      const int q = i % BMAX;
-      cs[i] = q < b ? c[int64_t(j0 + jj) * b + q] : A(0);
+  A acc[B][NV][VN];
+#pragma unroll
+  for (int q = 0; q < B; ++q) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int iv = threadIdx.x + i * kConsumers;
+      T t[VN];
+      if (q < b && iv < nvec) {
+        load_vec<T>(v + int64_t(q) * n, c0 + int64_t(iv) * VN, n, vec_ok, t);
+      } else {
+#pragma unroll
+        for (int c = 0; c < VN; ++c) t[c] = T(0);
+      }
+#pragma unroll
+      for (int c = 0; c < VN; ++c) acc[q][i][c] = A(t[c]);
     }
-    __syncthreads();
-#pragma unroll 2
-    for (int jj = 0; jj < nj; ++jj) {
-      T br[E];
-      lt::load_seg<T, kThreads, S::U>(basis + int64_t(j0 + jj) * n, base, n, vec_ok, br);
+  }
+
+  int s = 0;
+  uint32_t phase = 0;
+  for (int j0 = 0; j0 < k; j0 += CR) {
+    const int rows = min(CR, k - j0);
+    consumer_sync();  // the previous chunk's readers are done with cs
+    for (int i = threadIdx.x; i < rows * B; i += kConsumers) {
+      const int jj = i / B;
+      const int q = i % B;
+      cs[i] = q < b ? coef[int64_t(j0 + jj) * b + q] : A(0);
+    }
+    consumer_sync();
+    for (int jj = 0; jj < rows; ++jj) {
+      mbar_wait(&full[s], phase);
+      const T* row = ring + size_t(s) * cols;
+      A cq[B];
 #pragma unroll
-      for (int q = 0; q < BMAX; ++q) {
-        const A cq = cs[jj * BMAX + q];
+      for (int q = 0; q < B; ++q) cq[q] = cs[jj * B + q];
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[q][e] = fma(-cq, A(br[e]), acc[q][e]);
+      for (int i = 0; i < NV; ++i) {
+        const int iv = threadIdx.x + i * kConsumers;
+        if (iv < nvec) {
+          const V x = *reinterpret_cast<const V*>(row + iv * VN);
+          const T* xx = reinterpret_cast<const T*>(&x);
+#pragma unroll
+          for (int q = 0; q < B; ++q) {
+#pragma unroll
+            for (int c = 0; c < VN; ++c) acc[q][i][c] = fma(-cq[q], A(xx[c]), acc[q][i][c]);
+          }
+        }
+      }
+      proxy_fence();  // this stage's reads before the refill's writes (async proxy)
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1u;
       }
     }
   }
 
 #pragma unroll
-  for (int q = 0; q < BMAX; ++q) {
-    if (q < b) lt::store_seg<T, kThreads, S::U>(v + int64_t(q) * n, base, n, vec_ok, acc[q]);
+  for (int q = 0; q < B; ++q) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int iv = threadIdx.x + i * kConsumers;
+      if (q < b && iv < nvec) store_vec<T>(v + int64_t(q) * n, c0 + int64_t(iv) * VN, n, vec_ok, acc[q][i]);
+    }
   }
 }
 
-template <typename T, int BMAX>
-cudaError_t launch(const T* basis, T* v, typename lt::Acc<T>::type* part,
-                   typename lt::Acc<T>::type* c, int64_t n, int k, int b, cudaStream_t stream) {
-  using S = Shape<T, BMAX>;
-  const int64_t n_tiles = (n + S::W - 1) / S::W;
-  // Row q of the block starts at q*n: 16-byte aligned for every q only
-  // when n is a multiple of the vector width.
+// ---- host side -----------------------------------------------------------------
+
+template <typename T, int B>
+cudaError_t check_plan(int cols, int stages) {
+  constexpr int VN = lt::Vec<T>::n;
+  if (cols < VN || cols % VN != 0 || cols > kConsumers * vectors_per_thread<B>() * VN)
+    return cudaErrorInvalidValue;
+  if (stages < kMinStages || stages > kMaxStages) return cudaErrorInvalidValue;
+  const size_t scratch = project_scratch<T, B>() > size_t(kCoefBytes) ? project_scratch<T, B>() : size_t(kCoefBytes);
+  if (smem_bytes<T>(cols, stages, scratch) > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// Dynamic shared memory past 48 KB is opt-in per kernel; the carveout asks
+// for the whole of the SM's 228 KB so two CTAs fit.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              int(cudaSharedmemCarveoutMaxShared));
+}
+
+template <typename T, int B>
+cudaError_t launch(const T* basis, T* v, typename lt::Acc<T>::type* part, typename lt::Acc<T>::type* c,
+                   int64_t n, int k, int b, int cols, int stages, cudaStream_t stream) {
+  cudaError_t e = check_plan<T, B>(cols, stages);
+  if (e != cudaSuccess) return e;
+  const int64_t grid = (n + cols - 1) / cols;
+  if (grid > INT32_MAX) return cudaErrorInvalidValue;
+  // Row q of the block (and row j of the basis) starts at q*n: 16-byte
+  // aligned for every q only when n is a multiple of the vector width.
   const bool vec_ok = n % lt::Vec<T>::n == 0 && lt::aligned16(basis) && lt::aligned16(v);
-  block_project_kernel<T, BMAX><<<unsigned(n_tiles), kThreads, 0, stream>>>(basis, v, part, n, k,
-                                                                           b, n_tiles, vec_ok);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  lt::reduce_rows_kernel<typename S::A, kThreads><<<unsigned(k * b), kThreads, 0, stream>>>(
-      part, c, n_tiles);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  block_update_kernel<T, BMAX><<<unsigned(n_tiles), kThreads, 0, stream>>>(basis, v, c, n, k, b,
-                                                                          vec_ok);
+  const size_t smem_p = smem_bytes<T>(cols, stages, project_scratch<T, B>());
+  const size_t smem_u = smem_bytes<T>(cols, stages, size_t(kCoefBytes));
+  if ((e = allow_smem(project_kernel<T, B>, smem_p)) != cudaSuccess) return e;
+  if ((e = allow_smem(update_kernel<T, B>, smem_u)) != cudaSuccess) return e;
+  project_kernel<T, B><<<unsigned(grid), kThreads, smem_p, stream>>>(basis, v, part, n, k, b, cols, stages,
+                                                                     vec_ok);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  lt::reduce_rows_kernel<typename lt::Acc<T>::type, 256><<<unsigned(k * b), 256, 0, stream>>>(part, c, grid);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  update_kernel<T, B><<<unsigned(grid), kThreads, smem_u, stream>>>(basis, v, c, n, k, b, cols, stages, vec_ok);
   return cudaGetLastError();
-}
-
-// Tile width of the bucket that serves block width b (0 for b out of range).
-template <typename T>
-int64_t tile_width(int b) {
-  if (b < 1 || b > kMaxB) return 0;
-  if (b <= 1) return Shape<T, 1>::W;
-  if (b <= 2) return Shape<T, 2>::W;
-  if (b <= 4) return Shape<T, 4>::W;
-  if (b <= 8) return Shape<T, 8>::W;
-  return Shape<T, 16>::W;
 }
 
 template <typename T>
 cudaError_t cgs_pass_block(const T* basis, T* v, typename lt::Acc<T>::type* part,
-                           typename lt::Acc<T>::type* c, int64_t n, int k, int b,
+                           typename lt::Acc<T>::type* c, int64_t n, int k, int b, int cols, int stages,
                            cudaStream_t stream) {
   if (n <= 0 || k < 0 || b < 1 || b > kMaxB) return cudaErrorInvalidValue;
   if (k == 0) return cudaSuccess;
-  if (b <= 1) return launch<T, 1>(basis, v, part, c, n, k, b, stream);
-  if (b <= 2) return launch<T, 2>(basis, v, part, c, n, k, b, stream);
-  if (b <= 4) return launch<T, 4>(basis, v, part, c, n, k, b, stream);
-  if (b <= 8) return launch<T, 8>(basis, v, part, c, n, k, b, stream);
-  return launch<T, 16>(basis, v, part, c, n, k, b, stream);
+  switch (b) {
+    case 1: return launch<T, 1>(basis, v, part, c, n, k, b, cols, stages, stream);
+    case 2: return launch<T, 2>(basis, v, part, c, n, k, b, cols, stages, stream);
+    case 3: return launch<T, 3>(basis, v, part, c, n, k, b, cols, stages, stream);
+    case 4: return launch<T, 4>(basis, v, part, c, n, k, b, cols, stages, stream);
+    default: break;
+  }
+  if (b <= 8) return launch<T, 8>(basis, v, part, c, n, k, b, cols, stages, stream);
+  return launch<T, 16>(basis, v, part, c, n, k, b, cols, stages, stream);
+}
+
+// What the compiler and the occupancy calculator make of one width:
+// out = {project registers, project local bytes, update registers, update
+// local bytes, project smem bytes, update smem bytes, project CTAs per SM,
+// update CTAs per SM}.
+template <typename T, int B>
+cudaError_t info(int cols, int stages, int* out) {
+  cudaError_t e = check_plan<T, B>(cols, stages);
+  if (e != cudaSuccess) return e;
+  const size_t smem_p = smem_bytes<T>(cols, stages, project_scratch<T, B>());
+  const size_t smem_u = smem_bytes<T>(cols, stages, size_t(kCoefBytes));
+  if ((e = allow_smem(project_kernel<T, B>, smem_p)) != cudaSuccess) return e;
+  if ((e = allow_smem(update_kernel<T, B>, smem_u)) != cudaSuccess) return e;
+  cudaFuncAttributes ap{}, au{};
+  if ((e = cudaFuncGetAttributes(&ap, project_kernel<T, B>)) != cudaSuccess) return e;
+  if ((e = cudaFuncGetAttributes(&au, update_kernel<T, B>)) != cudaSuccess) return e;
+  int occ_p = 0, occ_u = 0;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_p, project_kernel<T, B>, kThreads, smem_p)) !=
+      cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ_u, update_kernel<T, B>, kThreads, smem_u)) !=
+      cudaSuccess)
+    return e;
+  const int vals[8] = {ap.numRegs, int(ap.localSizeBytes), au.numRegs, int(au.localSizeBytes),
+                       int(smem_p), int(smem_u), occ_p, occ_u};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t info_any(int b, int cols, int stages, int* out) {
+  switch (b) {
+    case 1: return info<T, 1>(cols, stages, out);
+    case 2: return info<T, 2>(cols, stages, out);
+    case 3: return info<T, 3>(cols, stages, out);
+    case 4: return info<T, 4>(cols, stages, out);
+    default: break;
+  }
+  if (b < 1 || b > kMaxB) return cudaErrorInvalidValue;
+  if (b <= 8) return info<T, 8>(cols, stages, out);
+  return info<T, 16>(cols, stages, out);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of n-tiles one pass of a width-b block uses (0 for b outside
-// [1, 16]): the wrapper sizes the (k*b, n_tiles) partial-sum scratch with it.
-long long lt_cgs_block_num_tiles_f32(long long n, int b) {
-  const int64_t w = tile_width<float>(b);
-  return w ? (n + w - 1) / w : 0;
-}
-long long lt_cgs_block_num_tiles_f64(long long n, int b) {
-  const int64_t w = tile_width<double>(b);
-  return w ? (n + w - 1) / w : 0;
-}
-
-// `device` is the CUDA ordinal the tensors and `stream` belong to (made
-// current here: this library has its own runtime).
-int lt_cgs_block_pass_f32(const float* basis, float* v, float* part, float* c, long long n, int k,
-                          int b, int device, void* stream) {
+// One pass.  `cols` (the column range per CTA) and `stages` (ring depth)
+// come from the wrapper's plan (ops/cgs.py block_plan); `part` holds
+// (k*b, ceil(n / cols)) partial sums.  `device` is the CUDA ordinal the
+// tensors and `stream` belong to (made current here: this library has its
+// own runtime).
+int lt_cgs_block_pass_f32(const float* basis, float* v, float* part, float* c, long long n, int k, int b,
+                          int cols, int stages, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(cgs_pass_block<float>(basis, v, part, c, n, k, b, static_cast<cudaStream_t>(stream)));
+  return int(cgs_pass_block<float>(basis, v, part, c, n, k, b, cols, stages, static_cast<cudaStream_t>(stream)));
 }
 
-int lt_cgs_block_pass_f64(const double* basis, double* v, double* part, double* c, long long n,
-                          int k, int b, int device, void* stream) {
+int lt_cgs_block_pass_f64(const double* basis, double* v, double* part, double* c, long long n, int k, int b,
+                          int cols, int stages, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(cgs_pass_block<double>(basis, v, part, c, n, k, b, static_cast<cudaStream_t>(stream)));
+  return int(cgs_pass_block<double>(basis, v, part, c, n, k, b, cols, stages, static_cast<cudaStream_t>(stream)));
+}
+
+// Registers, spills, shared memory and resident CTAs per SM of the width-b
+// kernels at a plan (see info above); f64 selects the double kernels.
+int lt_cgs_block_info(int f64, int b, int cols, int stages, int device, int* out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(f64 ? info_any<double>(b, cols, stages, out) : info_any<float>(b, cols, stages, out));
 }
 
 }  // extern "C"

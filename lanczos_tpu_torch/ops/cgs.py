@@ -11,15 +11,30 @@ basis once for all b rows.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import _build
 
-__all__ = ["cgs_pass", "cgs_pass_reference", "cgs_pass_block", "cgs_pass_block_reference"]
+__all__ = [
+    "BlockPlan",
+    "block_plan",
+    "cgs_pass",
+    "cgs_pass_reference",
+    "cgs_pass_block",
+    "cgs_pass_block_reference",
+]
 
 _DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K3 for complex and bfloat16 bases"
 _BLOCK_DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K4 for complex and bfloat16 bases"
 MAX_BLOCK = 16  # widest block K4 takes
+# K4's launch shape (csrc/cgs_block.cu): 256 consumer threads and one
+# producer warp per CTA, two CTAs resident per SM.
+BLOCK_CONSUMERS = 256
+BLOCK_CTAS_PER_SM = 2
+BLOCK_MIN_STAGES, BLOCK_MAX_STAGES = 2, 8
+BLOCK_RING_BYTES = 32 * 1024  # basis bytes a CTA's ring holds (stages * cols * itemsize), at most
 
 
 def cgs_pass_reference(v, basis, k: int):
@@ -76,6 +91,53 @@ def cgs_pass(v, basis, k: int):
 cgs_pass.launches = 0
 
 
+class BlockPlan(NamedTuple):
+    """How K4 cuts one pass: ``cols`` columns per CTA, ``grid`` CTAs and a
+    ring of ``stages`` row segments."""
+
+    cols: int
+    grid: int
+    stages: int
+
+
+def block_vectors_per_thread(b: int) -> int:
+    """16-byte vectors of each row a consumer thread handles for block width
+    ``b``: the thread keeps ``b`` of them per vector in registers (64
+    registers or fewer)."""
+    return 4 if b <= 4 else (2 if b <= 8 else 1)
+
+
+def block_plan(n: int, b: int, itemsize: int, num_sms: int) -> BlockPlan:
+    """K4's column range per CTA for an (n,)-wide basis of ``itemsize``-byte
+    values, a width-``b`` block and a card of ``num_sms`` SMs.
+
+    The range is at most 256 consumer threads times
+    :func:`block_vectors_per_thread` vectors.  The grid is a whole number of
+    waves of :data:`BLOCK_CTAS_PER_SM` resident CTAs per SM, with the fewest
+    waves that keep the range under that limit, so every SM streams the
+    same share of the basis.  The range is rounded up to the coarsest of
+    128, 64, 32 or 16 bytes that still leaves two CTAs per SM: the ring's
+    bulk copies reached the read stream on the H100 only from 128-byte
+    aligned segments (PERF.md).  The ring holds
+    :data:`BLOCK_RING_BYTES` of segments, 2 to 8 of them."""
+    vn = 16 // itemsize
+    cols_max = BLOCK_CONSUMERS * block_vectors_per_thread(b) * vn
+    slots = BLOCK_CTAS_PER_SM * num_sms
+    waves = -(-n // (slots * cols_max))
+    base = -(-n // (slots * waves))
+    for granule in (128, 64, 32, 16):
+        g = granule // itemsize
+        cols = -(-base // g) * g
+        if -(-n // cols) >= min(slots, -(-n // vn)):
+            break
+    stages = max(BLOCK_MIN_STAGES, min(BLOCK_MAX_STAGES, BLOCK_RING_BYTES // (cols * itemsize)))
+    return BlockPlan(cols, -(-n // cols), stages)
+
+
+def _num_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def cgs_pass_block_reference(vblk, basis, k: int):
     """Plain PyTorch block pass: ``V - (B[:k] V^H)^T B[:k]`` for a (b, n)
     block ``V`` (conjugated coefficients for complex bases); returns a new
@@ -92,7 +154,8 @@ def cgs_pass_block(vblk, basis, k: int):
     against rows [0, k) of ``basis``.
 
     On CUDA tensors this launches ``csrc/cgs_block.cu`` (float32 or float64,
-    1 <= b <= 16; other dtypes raise), overwrites ``vblk`` with the result
+    1 <= b <= 16; other dtypes raise) cut by :func:`block_plan`, overwrites
+    ``vblk`` with the result
     and returns it — the JAX kernel aliases the block to its output the same
     way (pallas_cgs.py:190) — and counts the launch in
     ``cgs_pass_block.launches``.  ``k == 0`` launches nothing.  On CPU
@@ -121,13 +184,13 @@ def cgs_pass_block(vblk, basis, k: int):
     if k == 0:
         return vblk
     lib = _build.library()
-    f32 = basis.dtype == torch.float32
-    n_tiles = (lib.lt_cgs_block_num_tiles_f32 if f32 else lib.lt_cgs_block_num_tiles_f64)(n, b)
-    part = torch.empty((k * b, n_tiles), dtype=basis.dtype, device=vblk.device)
+    plan = block_plan(n, b, basis.element_size(), _num_sms(vblk.device))
+    part = torch.empty((k * b, plan.grid), dtype=basis.dtype, device=vblk.device)
     c = torch.empty(k * b, dtype=basis.dtype, device=vblk.device)
-    fn = lib.lt_cgs_block_pass_f32 if f32 else lib.lt_cgs_block_pass_f64
+    fn = lib.lt_cgs_block_pass_f32 if basis.dtype == torch.float32 else lib.lt_cgs_block_pass_f64
     stream = torch.cuda.current_stream(vblk.device).cuda_stream
-    err = fn(basis.data_ptr(), vblk.data_ptr(), part.data_ptr(), c.data_ptr(), n, k, b, vblk.device.index, stream)
+    err = fn(basis.data_ptr(), vblk.data_ptr(), part.data_ptr(), c.data_ptr(), n, k, b, plan.cols, plan.stages,
+             vblk.device.index, stream)
     _build.check(err, "cgs_pass_block (K4)")
     cgs_pass_block.launches += 1
     return vblk

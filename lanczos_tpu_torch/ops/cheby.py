@@ -13,16 +13,18 @@ appended as a new 0-offset row.  Then
 with entries past the matrix edge read as zero, the diagonals summed in
 ``offsets`` order.
 
-:func:`cheby_chain_apply` launches the hand-written CUDA kernel
-(``csrc/cheby_chain.cu``) on CUDA tensors, up to ``steps_per_launch(w)``
-steps per launch, and runs :func:`cheby_chain_apply_reference` on CPU
-tensors.  The Pallas kernel's VMEM budget (``cheby_chain_fits`` there) has
-no counterpart; :func:`cheby_chain_fits` states the CUDA plan's own limit.
+:func:`cheby_chain_apply` launches the hand-written CUDA kernels
+(``csrc/cheby_chain.cu``) on CUDA tensors, ``plan(n, offsets).steps``
+steps per launch on the route :func:`plan` picks, and runs
+:func:`cheby_chain_apply_reference` on CPU tensors.  The Pallas kernel's
+VMEM budget (``cheby_chain_fits`` there) has no counterpart;
+:func:`cheby_chain_fits` states the CUDA plan's own limit.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from .. import _build
 
 __all__ = [
+    "ChainPlan",
     "cheby_chain_apply",
     "cheby_chain_apply_reference",
     "cheby_chain_fits",
@@ -43,34 +46,74 @@ __all__ = [
 _DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K5 for float64 and complex vectors"
 SMEM_BYTES = 227 * 1024  # opt-in dynamic shared memory of one block on sm_90
 MAX_DIAGS = 32  # prescaled rows the kernel takes
-_S_MAX = 128  # most steps per launch (at w = 1)
+_S_MAX = 128  # most steps per launch of the shared-memory route (at w = 1)
+SMEM_THREADS = 1024  # threads per CTA of the shared-memory route
+REG_THREADS = 256  # threads per CTA of the register route
+REG_CELLS = 16  # cells per thread on the register route
+REG_STEPS = 256  # steps per launch on the register route: its window loads cost more than a wider halo
+REG_MAX_W = 1  # widest band the register route takes (its offsets are compile-time patterns in [-1, 1])
+REG_BUDGET = 128  # registers per thread with two register-route CTAs resident per SM
+ROUTES = ("registers", "shared")  # route ids 0 and 1 of the kernel entry
 
 
 def steps_per_launch(w: int) -> int:
-    """Recurrence steps one launch advances for bandwidth ``w``: 128 // w,
-    so the halo H = steps * w stays near 128 cells at every bandwidth."""
+    """Recurrence steps one launch of the shared-memory route advances for
+    bandwidth ``w``: 128 // w, so the halo H = steps * w stays near 128
+    cells at every bandwidth."""
     return max(_S_MAX // max(int(w), 1), 1)
 
 
-def plan(n: int, ndiag: int, w: int) -> tuple[int, int, int]:
-    """``(s, h, l)``: steps per launch, halo and core cells per CTA for
-    ``ndiag`` prescaled rows of bandwidth ``w``.  The window of l + 2h cells
-    holds t, t_prev (each with w zero cells on both sides) and the rows in
-    :data:`SMEM_BYTES`; the core is a multiple of 32 cells, or n when one
-    window covers the vector."""
-    s = steps_per_launch(w)
-    h = s * w
+class ChainPlan(NamedTuple):
+    """How K5 cuts a chain: ``route`` ("registers" or "shared"),
+    ``threads`` per CTA, ``cells`` per thread (the register route's run; 1
+    on the shared-memory route, whose threads stride the window), ``steps``
+    per launch, ``halo`` H and ``core`` L cells per CTA (the window is
+    L + 2H cells)."""
+
+    route: str
+    threads: int
+    cells: int
+    steps: int
+    halo: int
+    core: int
+
+
+def _shared_core(ndiag: int, w: int, h: int) -> int:
+    """Largest core (a multiple of 32) whose window fits t, t_prev (each
+    with w zero cells on both sides) and ``ndiag`` rows in
+    :data:`SMEM_BYTES`."""
     cells = (SMEM_BYTES // 4 - 4 * w) // (ndiag + 2)
-    l_max = (cells - 2 * h) // 32 * 32
-    return s, h, min(l_max, int(n))
+    return (cells - 2 * h) // 32 * 32
+
+
+def plan(n: int, offsets) -> ChainPlan:
+    """K5's launch plan for prescaled rows at ``offsets``.
+
+    The rule: distinct offsets in [-REG_MAX_W, REG_MAX_W] (so at most three
+    rows) take the register route, 256 threads of :data:`REG_CELLS` cells
+    each, whose rows, t, t_prev and new values (``(ndiag + 3) * cells``)
+    fit :data:`REG_BUDGET`, :data:`REG_STEPS` steps per launch; the core is
+    the window less the two halos.  Every other band takes the
+    shared-memory route, ``steps_per_launch(w)`` steps per launch, whose
+    core is the largest multiple of 32 cells that fits :data:`SMEM_BYTES`,
+    or n when one window covers the vector.  The halo is steps * w on both
+    routes, w = max |offset|."""
+    offs = tuple(int(o) for o in offsets)
+    ndiag, w = len(offs), max(abs(o) for o in offs)
+    if w <= REG_MAX_W and len(set(offs)) == ndiag:
+        h = REG_STEPS * w
+        return ChainPlan("registers", REG_THREADS, REG_CELLS, REG_STEPS, h, REG_THREADS * REG_CELLS - 2 * h)
+    s = steps_per_launch(w)
+    return ChainPlan("shared", SMEM_THREADS, 1, s, s * w, min(_shared_core(ndiag, w, s * w), int(n)))
 
 
 def cheby_chain_fits(ndiag: int, w: int) -> bool:
-    """True when the kernel takes ``ndiag`` prescaled rows of bandwidth
-    ``w``: at most :data:`MAX_DIAGS` rows, and a window with a halo of
-    ``steps_per_launch(w) * w`` cells on each side and a core of at least one
-    warp's 32 cells fits the block's shared memory."""
-    return 1 <= ndiag <= MAX_DIAGS and w >= 0 and plan(1 << 30, ndiag, w)[2] >= 32
+    """True when the kernels take ``ndiag`` prescaled rows of bandwidth
+    ``w``: at most :data:`MAX_DIAGS` rows, and a shared-memory window with a
+    halo of ``steps_per_launch(w) * w`` cells on each side and a core of at
+    least one warp's 32 cells fits the block's shared memory (every band
+    the register route takes fits it too)."""
+    return 1 <= ndiag <= MAX_DIAGS and w >= 0 and _shared_core(ndiag, w, steps_per_launch(w) * w) >= 32
 
 
 def prescale(data, offsets, c, e):
@@ -131,9 +174,10 @@ def chain_apply_prescaled(data_p, offs, x, degree: int):
     operator keeps them for its lifetime).
 
     On CUDA tensors this launches K5 (float32 only; other dtypes raise)
-    ``ceil(degree / steps_per_launch(w))`` times, each launch counted in
-    ``cheby_chain_apply.launches``; on CPU tensors it runs the plain
-    recurrence.
+    ``ceil(degree / plan(n, offs).steps)`` times on the route :func:`plan`
+    picks, each launch counted in ``cheby_chain_apply.launches`` and in
+    ``cheby_chain_apply.launches_by_route``; on CPU tensors it runs the
+    plain recurrence.
     """
     degree = _check_degree(degree)
     offs = tuple(int(o) for o in offs)
@@ -155,21 +199,24 @@ def chain_apply_prescaled(data_p, offs, x, degree: int):
     w = max(abs(o) for o in offs)
     if not cheby_chain_fits(len(offs), w):
         raise ValueError(f"K5 does not take {len(offs)} rows of bandwidth {w} (see cheby_chain_fits)")
-    s, h, l = plan(n, len(offs), w)
+    p = plan(n, offs)
+    route = ROUTES.index(p.route)
     lib = _build.library()
     offs_c = (ctypes.c_int * len(offs))(*offs)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     t, t_prev, done = x, None, 0
     while done < degree:
-        steps = min(s, degree - done)
+        steps = min(p.steps, degree - done)
         t_out = torch.empty_like(x)
         tp_out = torch.empty_like(x)
         err = lib.lt_cheby_chain_f32(
-            data_p.data_ptr(), offs_c, len(offs), t.data_ptr(), None if t_prev is None else t_prev.data_ptr(),
-            t_out.data_ptr(), tp_out.data_ptr(), n, w, l, h, steps, int(t_prev is None), x.device.index, stream,
+            route, data_p.data_ptr(), offs_c, len(offs), t.data_ptr(), None if t_prev is None else t_prev.data_ptr(),
+            t_out.data_ptr(), tp_out.data_ptr(), n, w, p.core, p.halo, steps, int(t_prev is None), x.device.index,
+            stream,
         )
-        _build.check(err, "cheby_chain_apply (K5)")
+        _build.check(err, f"cheby_chain_apply (K5, {p.route} route)")
         cheby_chain_apply.launches += 1
+        cheby_chain_apply.launches_by_route[p.route] += 1
         t, t_prev, done = t_out, tp_out, done + steps
     return t
 
@@ -183,3 +230,4 @@ def cheby_chain_apply(data, offsets, x, c, e, degree: int):
 
 
 cheby_chain_apply.launches = 0
+cheby_chain_apply.launches_by_route = dict.fromkeys(ROUTES, 0)

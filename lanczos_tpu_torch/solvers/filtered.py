@@ -225,8 +225,8 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     exponent ~1.3 for the band, quantized up to 32, coerced even).
     ``lo``/``hi`` default to a plain-Lanczos estimate on the target side and
     a safe bound on the far side.  ``configure(engine)`` adjusts the B-space
-    engine before it runs (``eng.operator.use_fused = True`` selects the
-    fused chain, kernel K5 on the card).  ``guard`` oversamples the B-space
+    engine before it runs (``eng.operator.use_fused`` selects the fused
+    chain, kernel K5 on the card, where it is the default).  ``guard`` oversamples the B-space
     solve by that many pairs and returns the best ``num_eigs`` after the
     final Rayleigh-Ritz.  Rounds are adaptive: after each deflation round
     the A-space residuals are checked against ``residual_bound`` (default

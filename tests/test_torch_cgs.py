@@ -146,7 +146,7 @@ def test_block_pass_matches_jax_cpu_path_float64(passes):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("b", [1, 2, 3, 5, 16])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8, 16])
 @pytest.mark.parametrize("k", BLOCK_KS + [129])
 @pytest.mark.parametrize("n", [256, 4099, 70001])
 def test_block_kernel_matches_plain_on_cuda(cuda, dtype, b, k, n):
@@ -161,6 +161,28 @@ def test_block_kernel_matches_plain_on_cuda(cuda, dtype, b, k, n):
     assert got.data_ptr() == vd.data_ptr()  # in place, like the aliased Pallas output
     tol = 2e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8, 16])
+@pytest.mark.parametrize("n", [65536, 70001])
+def test_block_kernel_ring_boundaries_on_cuda(cuda, dtype, b, n):
+    # Rows around the ring's depth and the projection's 8-row reduction
+    # rounds, the whole (258, n) buffer, an aligned and a ragged n; two runs
+    # give the same bits (fixed-order sums, no atomics).
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    plan = cgs.block_plan(n, b, np.dtype(np_dtype).itemsize, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    basis, v = _block_problem(258, b, 258, n, np_dtype, seed=n + b)
+    bd = torch.from_numpy(basis).to(cuda)
+    tol = 2e-5 if dtype == torch.float32 else 1e-12
+    for k in sorted({1, plan.stages - 1, plan.stages, plan.stages + 1, 7, 8, 9, 2 * plan.stages + 1, 258}):
+        want = cgs.cgs_pass_block_reference(torch.from_numpy(v), torch.from_numpy(basis), k)
+        got = cgs.cgs_pass_block(torch.from_numpy(v).to(cuda), bd, k)
+        again = cgs.cgs_pass_block(torch.from_numpy(v).to(cuda), bd, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), k
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
 
 
 @pytest.mark.gpu

@@ -125,12 +125,16 @@ def test_chain_refuses_degree_zero_and_states_its_plan():
     rows, offs = cheby.prescale(data, (-1, 1), 0.5, 2.0)
     assert offs == (-1, 1, 0) and rows.shape == (3, 16) and rows.dtype == torch.float32
     assert torch.all(rows[:2] == 1.0) and torch.all(rows[2] == -0.5)
-    # The CUDA plan: H = s*w halo cells stay near 128, the window fits the
-    # block's shared memory with 5 floats per cell for the flagship's chain.
-    s, h, l = cheby.plan(1 << 22, 3, 1)
-    assert (s, h) == (128, 128) and l % 32 == 0 and 2 * h / (l + 2 * h) < 0.03
-    assert ((3 + 2) * (l + 2 * h) + 4) * 4 <= cheby.SMEM_BYTES
-    assert cheby.steps_per_launch(8) == 16 and cheby.plan(100, 3, 1)[2] == 100
+    # The CUDA plan: H = s*w halo cells stay near 128; the flagship's chain
+    # takes the register route, 256 threads of 16 cells; a wide band takes
+    # the shared-memory route, whose window fits the block's shared memory.
+    p = cheby.plan(1 << 22, (-1, 1, 0))
+    assert p.route == "registers" and (p.steps, p.halo, p.core) == (256, 256, 3584)
+    assert p.core % 32 == 0 and p.threads * p.cells == p.core + 2 * p.halo == 4096
+    q = cheby.plan(1 << 22, (-8, -3, 0, 5, 8))
+    assert q.route == "shared" and (q.steps, q.halo) == (16, 128) and q.core % 32 == 0
+    assert (2 * (q.core + 2 * q.halo + 16) + 5 * (q.core + 2 * q.halo)) * 4 <= cheby.SMEM_BYTES
+    assert cheby.steps_per_launch(8) == 16 and cheby.plan(100, (-8, -3, 0, 5, 8)).core == 100
     assert all(cheby.cheby_chain_fits(k + 1, w) for w in range(1, 9) for k in range(1, 2 * w + 1))
     assert not cheby.cheby_chain_fits(cheby.MAX_DIAGS + 1, 1)
 
@@ -233,6 +237,7 @@ def test_fused_route_on_cpu_matches_default_route():
     op = tl.DIAOperator.from_diagonals([-3, 0, 3], diags, n, device="cpu")
     x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
     f = ChebyshevFilterOperator.from_interval(op, 140, -2.0, 2.0, 1e-2)
+    assert not f.use_fused  # off by default on the CPU, as in the JAX package
     default = f.matvec(x)
     f.use_fused = True
     launches = cheby.cheby_chain_apply.launches
@@ -434,19 +439,52 @@ def test_filtered_lanczos_warnings_and_refusals():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("offsets", [(-1, 1), (-1, 0, 1), (-8, -3, 0, 5, 8)])
-def test_k5_matches_plain_on_card(cuda, offsets):
-    n = 70001
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    data = (torch.rand((len(offsets), n), generator=gen, device=cuda) * 2 - 1) * (1.8 / len(offsets))
-    x = torch.randn(n, generator=gen, device=cuda)
-    s = cheby.steps_per_launch(max(abs(o) for o in offsets))
-    for degree in (1, 2, s - 1, s, s + 1, 37):
+@pytest.mark.parametrize("n", [70001, 1 << 20])
+@pytest.mark.parametrize(
+    "offsets, route",
+    [((-1, 1), "registers"), ((-1, 0, 1), "registers"), ((1, -1), "registers"), ((0,), "registers"),
+     ((1, 1, 0), "shared"),
+     ((-2, -1, 0, 1, 2), "shared"), ((2, -1), "shared"), ((-8, -3, 0, 5, 8), "shared"), ((-8, -3, 0, 3, 8), "shared"),
+     ((-3, 0, 3), "shared")],
+)
+def test_k5_matches_plain_on_card(cuda, offsets, route, n):
+    # Entries in [-1.8/k, 1.8/k] keep the spectrum inside the filter's
+    # [-1.95, 2.15] window.  Degree 400 needs it real (complex eigenvalues
+    # grow like rho**400 and overflow float32): symmetric rows, where the
+    # offsets pair up (row -o is row +o shifted by o).
+    rng = np.random.default_rng(n + len(offsets))
+    rows = {o: rng.uniform(-1.8, 1.8, n).astype(np.float32) / len(offsets) for o in offsets}
+    symmetric = sorted(offsets) == sorted(-o for o in offsets)
+    if symmetric:
+        rows.update({-o: np.r_[np.zeros(o, np.float32), rows[o][:-o]] for o in offsets if o > 0})
+    data = torch.from_numpy(np.stack([rows[o] for o in offsets])).to(cuda)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(cuda)
+    plan = cheby.plan(n, offsets + (() if 0 in offsets else (0,)))
+    s = plan.steps
+    assert plan.route == route
+    for degree in (1, 2, s - 1, s, s + 1, 37) + ((400,) if symmetric else ()):
         launches = cheby.cheby_chain_apply.launches
+        on_route = cheby.cheby_chain_apply.launches_by_route[route]
         got = cheby.cheby_chain_apply(data, offsets, x, 0.1, 2.05, degree)
         want = cheby.cheby_chain_apply_reference(data, offsets, x, 0.1, 2.05, degree)
         torch.cuda.synchronize()
         assert cheby.cheby_chain_apply.launches - launches == -(-degree // s)
-        assert _rel(got.cpu(), want.cpu()) < 1e-5, degree
+        assert cheby.cheby_chain_apply.launches_by_route[route] - on_route == -(-degree // s)
+        # The bars of chip_smoke.py: K5_TOL, and K5_FLAGSHIP_TOL at degree 400.
+        assert _rel(got.cpu(), want.cpu()) < (1e-4 if degree == 400 else 1e-5), degree
     with pytest.raises(NotImplementedError, match="K5"):
         cheby.cheby_chain_apply(data.double(), offsets, x.double(), 0.1, 2.05, 3)
+
+
+@pytest.mark.gpu
+def test_fused_chain_is_the_default_on_card(cuda):
+    n = 4096
+    op = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, device=cuda)
+    f = ChebyshevFilterOperator.from_interval(op, 64, -2.0, 2.0, 1e-2)
+    assert f.use_fused
+    x = torch.ones(n, device=cuda)
+    launches = cheby.cheby_chain_apply.launches
+    fused = f.matvec(x)
+    assert cheby.cheby_chain_apply.launches == launches + 1
+    f.use_fused = False
+    assert _rel(fused.cpu(), f.matvec(x).cpu()) < 1e-5
