@@ -14,8 +14,9 @@ chain, once with the fused chain (kernel K5, and K3 in the thick engine) and
 once with the default unfused chain.  The kernel studies of
 ``lanczos_tpu_torch.experiments`` run at their own sizes: the CGS-pass
 variants (E2a block MGS, E2b single drain, E2c bf16 shadow) on a
-(257, 2**22) basis beside K3, and the in-place row write (E3) with the
-Krylov-buffer carry variants, and the SpMV study's three variants (E1)
+(257, 2**22) basis beside K3, and the in-place row write (E3), eagerly
+and inside a captured CUDA graph, with the Krylov-buffer carry variants,
+and the SpMV study's three variants (E1)
 beside K1 and K2 on its 64 Mi-nnz operator.  The ``Exponentiator`` runs
 the reference's exponentiator zoo in float64, the JAX package's n = 2**20
 chain evolution (``evolve`` through K3, and the Chebyshev propagator) and a
@@ -352,9 +353,13 @@ def phase_e2(torch, dev):
     """The CGS variant studies (E2a block MGS, E2b single drain, E2c bf16
     shadow) at their own size, a (257, 2**22) float32 basis of unit rows and
     its bf16 shadow: each kernel against its plain version over the live
-    counts, a float64 case, the studies' own check lines and float64 probe,
+    counts, E2a twice bit for bit, E2a's L2 route for v on a float64
+    (65, 2**22) basis (v's range does not fit in shared memory there), a
+    ragged float64 case, the studies' own check lines and float64 probe,
     the live-row overlaps of E2c and K3, then their times beside K3's and
     the two-``torch.mv`` pass."""
+    from lanczos_tpu_torch import _build
+    from lanczos_tpu_torch.experiments import _cgs_variants
     from lanczos_tpu_torch.experiments import bcgs_k2_tiny
     from lanczos_tpu_torch.experiments import bcgs_kernel as v1
     from lanczos_tpu_torch.experiments import bcgs_kernel2 as v2
@@ -397,6 +402,13 @@ def phase_e2(torch, dev):
                                    v3.cgs_shadow_pass_reference(v, shadow, basis, k), E2_TOL)
         worst["e2c"] = max(worst["e2c"], err)
         emit({"phase": "e2", "dtype": "torch.float32", "basis": [257, E2_N], "k": k, "max_rel_err": rels, "tol": E2_TOL})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = _cgs_variants.mgs_plan(E2_N, 4, sms)
+    if plan.route != "smem":
+        raise AssertionError(f"e2a: v's range at n = {E2_N} float32 should stay in shared memory, plan {plan}")
+    repeat = e2a_repeat(torch, v1, v, basis, ((256, 64), (100, 32), (257, 257)))
+    emit({"phase": "e2a_plan", "basis": [257, E2_N], "plan": plan._asdict(), "bits_equal_on_repeat": repeat,
+          **e2a_info(torch, _build, _cgs_variants, dev, plan, torch.float32)})
 
     # E2c's point: the overlap with the live rows left after one pass, with
     # v given strong live-row components (pallas_bcgs_kernel3.py:107).
@@ -454,6 +466,27 @@ def phase_e2(torch, dev):
         emit({"phase": "e2_timing", "basis": [257, n], "k": k, "stream_gbps": stream_gbps, **row})
     del basis, shadow, v, vs, work, rows
 
+    # E2a's L2 route: float64 at the study's width, where v's range does not
+    # fit in shared memory beside the ring.
+    plan = _cgs_variants.mgs_plan(E2_N, 8, sms)
+    if plan.route != "l2":
+        raise AssertionError(f"e2a: v's range at n = {E2_N} float64 should go through L2, plan {plan}")
+    basis = _random_basis(torch, dev, 65, E2_N, torch.float64, gen)
+    v = torch.randn(E2_N, generator=gen, device=dev, dtype=torch.float64)
+    rels = {}
+    for k in (1, 63, 64, 65):
+        for chunk in (32, 64):
+            err, rels[f"e2a_k{k}_chunk{chunk}"] = checked(f"e2a f64 L2 route k={k} chunk={chunk}",
+                                                          one_launch(v1.bcgs_mgs_pass, v.clone(), basis, k, chunk),
+                                                          v1.bcgs_mgs_pass_reference(v, basis, k, chunk), 1e-12)
+            worst["e2a"] = max(worst["e2a"], err)
+    repeat = e2a_repeat(torch, v1, v, basis, ((65, 32),))
+    emit({"phase": "e2a_l2_route", "dtype": "torch.float64", "basis": [65, E2_N], "plan": plan._asdict(),
+          "max_rel_err": rels, "tol": 1e-12, "bits_equal_on_repeat": repeat,
+          **e2a_info(torch, _build, _cgs_variants, dev, plan, torch.float64)})
+    del basis, v
+    torch.cuda.empty_cache()
+
     # float64: a ragged width, every chunk.
     basis = _random_basis(torch, dev, 129, 70001, torch.float64, gen)
     v = torch.randn(70001, generator=gen, device=dev, dtype=torch.float64)
@@ -487,12 +520,40 @@ def phase_e2(torch, dev):
     return launches, timed[256]
 
 
+def e2a_repeat(torch, v1, v, basis, cases) -> dict:
+    """E2a twice on the same inputs for each (k, chunk): the same bits, or
+    the run fails."""
+    repeat = {}
+    for k, chunk in cases:
+        first = v1.bcgs_mgs_pass(v.clone(), basis, k, chunk)
+        second = v1.bcgs_mgs_pass(v.clone(), basis, k, chunk)
+        torch.cuda.synchronize()
+        repeat[f"k{k}_chunk{chunk}"] = bool(torch.equal(first, second))
+    if not all(repeat.values()):
+        raise AssertionError(f"E2a: two runs on the same inputs differ: {repeat}")
+    return repeat
+
+
+def e2a_info(torch, _build, _cgs_variants, dev, plan, dtype) -> dict:
+    """Registers, spills, shared memory and resident CTAs per SM of E2a's
+    kernel at ``plan``, as the runtime reports them."""
+    import ctypes
+
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().lt_bcgs_ring_info(int(dtype == torch.float64), int(plan.route == "smem"), plan.cols,
+                                                    plan.piece, plan.stages, dev.index, out), "e2a info")
+    if out[3] < _cgs_variants.MGS_CTAS_PER_SM:
+        raise AssertionError(f"e2a: {out[3]} CTAs per SM resident at plan {plan}")
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2], "ctas_per_sm": out[3]}
+
+
 def phase_e3(torch, dev):
     """The in-place row write (E3) against its plain version, bit for bit,
     on a (256, 2**20) float32 buffer; out-of-range k; its time beside
-    ``index_copy_``; then the carry study's variants A, C, G, H, I at
-    cap1 = 256, n in (2**18, 2**20), with and without the reorthogonalization
-    read, in microseconds per iteration."""
+    ``index_copy_`` and ``copy_``, eagerly and inside a captured CUDA graph
+    (phase ``e3_graph``); then the carry study's variants A, C, G, G_graph,
+    H, I at cap1 = 256, n in (2**18, 2**20), with and without the
+    reorthogonalization read, in microseconds per iteration."""
     from lanczos_tpu_torch.experiments import carry_copy_bench as cc
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
@@ -517,36 +578,135 @@ def phase_e3(torch, dev):
     kt = torch.tensor([cap1 // 2], dtype=torch.int32, device=dev)
     klong = kt.long()
     work = buf.clone()
-    ms = cuda_ms(torch, lambda: cc.row_set(work, kt, w))
-    plain_ms = cuda_ms(torch, lambda: cc.row_set_reference(work, kt, w))
-    library_ms = cuda_ms(torch, lambda: work.index_copy_(0, klong, w[None]))
     probe = torch.empty(n, device=dev)
-    copy_ms = cuda_ms(torch, lambda: probe.copy_(w))  # the same bytes as one plain device copy
-    bound_ms, bound_by = bound(2 * n * 4, 0)
-    timed = {"phase": "e3", "buffer": [cap1, n], "max_abs_err": 0.0, "bitwise": True, "ms": ms, "plain_ms": plain_ms,
-             "library_ms": library_ms, "copy_ms": copy_ms, "stream_bound_ms": copy_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by}
-    emit(timed)
-    del buf, work, w, probe
+    calls = {"row_set": lambda: cc.row_set(work, kt, w), "plain": lambda: cc.row_set_reference(work, kt, w),
+             "index_copy_": lambda: work.index_copy_(0, klong, w[None]),
+             "copy_": lambda: probe.copy_(w)}  # the same bytes as one plain device copy
+    # One eager call's time is its host's launch path: CUDA events around
+    # one call (the method of the other kernels) catch the host waking from
+    # the previous sync and scatter by several µs, so E3's times are events
+    # around runs of 100 back-to-back calls, per call; the single-call
+    # figures and the host clock over 10**4 calls stand beside them.
+    per_call = {name: cuda_ms_per_call(torch, fn) for name, fn in calls.items()}
+    single = {name: cuda_ms(torch, fn) for name, fn in calls.items()}
+    host_us = {name: host_us_per_call(torch, calls[name]) for name in ("row_set", "index_copy_", "copy_")}
+    del buf, work, w, probe, calls
     torch.cuda.empty_cache()
+    graph = e3_graph(torch, dev, cc, gen, cap1, n)
+    bound_ms, bound_by = bound(2 * n * 4, 0)
+    emit({"phase": "e3_graph", "buffer": [cap1, n], **graph, "bound_us": bound_ms * 1e3})
+    graph = graph["us_per_call"]
+    net_us = graph["row_set"] - graph["advance_only"]
+    timed = {"phase": "e3", "buffer": [cap1, n], "max_abs_err": 0.0, "bitwise": True, "ms": per_call["row_set"],
+             "plain_ms": per_call["plain"], "library_ms": per_call["index_copy_"], "copy_ms": per_call["copy_"],
+             "stream_bound_ms": per_call["copy_"], "bound_ms": bound_ms, "bound_by": bound_by,
+             "single_call_ms": single, "host_us_per_call": host_us,
+             "graph_us_per_call": graph,
+             "graph_net_us": net_us, "graph_net_bound_share": bound_ms * 1e3 / net_us,
+             "graph_vs_copy": graph["row_set"] / graph["copy_"]}
+    emit(timed)
 
     cc.row_set.launches = 0
     g_iterations = 0
+    expected = 0
     us = {}
     for n in (2**18, 2**20):
         for cgs in (False, True):
-            for name in "ACGHI":
+            for name in cc.VARIANTS:
                 out = cc.run_variant(name, cap1, n, K=8, cgs=cgs, device=dev)
                 us[f"{name}_n{n}_cgs{int(cgs)}"] = out["us"]
                 if name == "G":
                     g_iterations += out["iterations"]
+                    if out["launches"] != out["iterations"]:
+                        raise AssertionError(f"E3: {out['launches']} launches for {out['iterations']} G iterations")
+                elif name == "G_graph" and out["launches"] != 3 + 40 + 200:  # the warm-up and both captures
+                    raise AssertionError(f"E3: G_graph made {out['launches']} row_set calls, not 243")
+                expected += out["launches"]
     launches = cc.row_set.launches
-    if not launches == g_iterations > 0:
-        raise AssertionError(f"E3 launches {launches} against {g_iterations} G iterations")
+    if not launches == expected > g_iterations > 0:
+        raise AssertionError(f"E3 launches {launches} against {expected} calls, {g_iterations} G iterations")
     emit({"phase": "e3_variants", "cap1": cap1, "us_per_iteration": us, "g_iterations": g_iterations,
           "launches": launches})
     torch.cuda.empty_cache()
     return launches, timed
+
+
+def cuda_ms_per_call(torch, fn, calls: int = 100, reps: int = 20) -> float:
+    """Median milliseconds per call of ``fn`` over runs of ``calls``
+    back-to-back calls between two CUDA events."""
+    return cuda_ms(torch, lambda: [fn() for _ in range(calls)], reps=reps) / calls
+
+
+def host_us_per_call(torch, fn, reps: int = 10_000) -> float:
+    """Host microseconds per call of ``fn`` by ``perf_counter`` over
+    ``reps`` calls after a warm-up (the enqueue rate of an eager loop)."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
+
+
+def e3_graph(torch, dev, cc, gen, cap1, n, calls: int = 64) -> dict:
+    """E3 inside a captured CUDA graph: ``calls`` row writes, k a device
+    word that the graph sets from ``k0`` and advances after every call,
+    captured on the capturing stream.  Replayed from k0 = -8 and from
+    k0 = cap1 - 32 (calls with k outside [0, cap1) among them), the buffer
+    must hold the plain version's bits replayed eagerly; replayed from
+    k0 = 0 it is timed beside the same calls of ``index_copy_`` and of
+    ``copy_`` (a fixed row), and the advance alone, each captured the same
+    way.  A capture that fails fails the run."""
+    buf = torch.randn((cap1, n), generator=gen, device=dev)
+    ws = torch.randn((calls, n), generator=gen, device=dev)
+    k0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    kd = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def body(write):
+        kd.copy_(k0)
+        for i in range(calls):
+            write(i)
+            kd.add_(1)
+
+    writes = {
+        "row_set": lambda i: cc.row_set(buf, kd, ws[i]),
+        "index_copy_": lambda i: buf.index_copy_(0, kd.long(), ws[i][None]),
+        "copy_": lambda i: buf[i].copy_(ws[i]),
+        "advance_only": lambda i: None,
+    }
+    graphs = {}
+    for name, write in writes.items():
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):  # warm-up off the default stream, as capture wants
+            body(write)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize()
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            body(write)
+
+    checks = {}
+    for start in (-8, cap1 - 32):
+        before = buf.clone()
+        k0.fill_(start)
+        graphs["row_set"].replay()
+        want, kr = before.clone(), torch.tensor([start], dtype=torch.int32, device=dev)
+        for i in range(calls):
+            cc.row_set_reference(want, kr, ws[i])
+            kr.add_(1)
+        torch.cuda.synchronize()
+        checks[str(start)] = bool(torch.equal(buf, want) and torch.equal(kd, kr))
+        if not checks[str(start)]:
+            raise AssertionError(f"E3 in a graph from k0 = {start}: not the plain version's bits")
+    k0.fill_(0)
+    out = {name: cuda_ms(torch, graph.replay) * 1e3 / calls for name, graph in graphs.items()}
+    del graphs, buf, ws
+    torch.cuda.empty_cache()
+    return {"calls": calls, "bitwise_by_k0": checks, "us_per_call": out}
 
 
 def _chain_coo(np, n, potential):
@@ -1456,7 +1616,9 @@ def main() -> int:
     # at chunk 64 with a library time of two torch.mv per chunk (a sequence
     # of calls, no single one); none takes a bf16 matrix against a float32
     # vector with float32 accumulation, so E2c's is null.  E3's library
-    # call is index_copy_ with k on the device.  E1's launches are phase
+    # call is index_copy_ with k on the device; its entry adds the time per
+    # call inside a captured CUDA graph (phase e3_graph), and its launches
+    # count each captured call once (a replay launches without a call).  E1's launches are phase
     # e1's (its checks, the study's run and the timing) at the study's
     # 64 Mi-nnz operator; its library call is the BSR tensor product.
     emit({"kernels": [
@@ -1465,10 +1627,11 @@ def main() -> int:
         entry("cgs_pass", "lanczos_tpu_torch/csrc/cgs.cu", K3_REPLACES, launches["k3"], k3),
         entry("cgs_pass_block", "lanczos_tpu_torch/csrc/cgs_block.cu", K4_REPLACES, flagship["k4"], k4),
         entry("cheby_chain_apply", "lanczos_tpu_torch/csrc/cheby_chain.cu", K5_REPLACES, cheby_launches["k5"], k5),
-        entry("bcgs_mgs_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2A_REPLACES, e2_launches["e2a"], e2["e2a"]),
+        entry("bcgs_mgs_pass", "lanczos_tpu_torch/csrc/bcgs_ring.cu", E2A_REPLACES, e2_launches["e2a"], e2["e2a"]),
         entry("cgs_single_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2B_REPLACES, e2_launches["e2b"], e2["e2b"]),
         entry("cgs_shadow_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2C_REPLACES, e2_launches["e2c"], e2["e2c"]),
-        entry("row_set", "lanczos_tpu_torch/csrc/row_set.cu", E3_REPLACES, e3_launches, e3),
+        {**entry("row_set", "lanczos_tpu_torch/csrc/row_set.cu", E3_REPLACES, e3_launches, e3),
+         "graph_us_per_call": e3["graph_us_per_call"]["row_set"]},
         entry("spmv_v2", "lanczos_tpu_torch/csrc/spmv_variants.cu", E1_V2_REPLACES, e1_launches["spmv_v2"],
               e1["spmv_v2"]),
         entry("spmv_v2_vpu", "lanczos_tpu_torch/csrc/spmv_variants.cu", E1_V2_REPLACES, e1_launches["spmv_v2_vpu"],

@@ -32,7 +32,8 @@
 //     cp.async into the same ring.  Loads in flight cost no registers.  The
 //     ring holds ~32 KB (two 16 KB stages at the flagship's plan), and a
 //     proxy fence on both sides of a stage's release orders the consumers'
-//     reads before its refill;
+//     reads before its refill.  The ring's PTX helpers are ring.cuh's,
+//     shared with E2a (bcgs_ring.cu);
 //   * eight consumer warps keep their slice of V in registers for the
 //     whole range (V is read once per launch), accumulate each row's
 //     partial dot products over the whole range and warp-reduce each
@@ -44,6 +45,7 @@
 // Plain FMAs in the storage precision (f32 or f64), no tensor cores, no
 // TF32, no atomics.
 #include "common.cuh"
+#include "ring.cuh"
 
 namespace {
 
@@ -66,74 +68,9 @@ __host__ __device__ constexpr int vectors_per_thread() {
   return B <= 4 ? 4 : (B <= 8 ? 2 : 1);
 }
 
-// ---- PTX: mbarriers, bulk and element copies, the consumers' barrier ------
+// ---- the consumers' barrier (the ring's PTX helpers are in ring.cuh) ---
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile(
-      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n\t.reg .b64 st;\n\tmbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n\t}" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// One 1-D bulk copy global -> shared; its bytes complete a transaction on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
-          smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// One element copy global -> shared; src_bytes = 0 writes zeros.
-template <int BYTES>
-__device__ __forceinline__ void elem_copy(void* dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(smem_u32(dst)), "l"(src), "n"(BYTES),
-               "r"(src_bytes)
-               : "memory");
-}
-
-// Arrive on `bar` once this thread's earlier element copies have landed.
-__device__ __forceinline__ void elem_copies_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Orders this thread's shared-memory accesses (generic proxy) with the
-// bulk and element copies (async proxy).  A stage is refilled right after
-// its release; without the fence a 2-stage ring handed stale rows to the
-// projection on the H100.
-__device__ __forceinline__ void proxy_fence() { asm volatile("fence.proxy.async.shared::cta;" ::: "memory"); }
-
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync %0, %1;" ::"n"(kConsumerBarrier), "n"(kConsumers) : "memory");
-}
+__device__ __forceinline__ void consumer_sync() { lt::bar_sync<kConsumerBarrier, kConsumers>(); }
 
 // ---- shared memory ---------------------------------------------------------
 
@@ -158,19 +95,10 @@ __host__ __device__ constexpr size_t smem_bytes(int cols, int stages, size_t scr
   return ring_bytes<T>(cols, stages) + size_t(2) * stages * sizeof(uint64_t) + scratch;
 }
 
-// The ring's mbarriers: full[s] completes when row segment s has landed
-// (one arrival with its byte count, or 32 element-copy arrivals), empty[s]
-// when every consumer warp has read it.
+// The ring's mbarriers (lt::init_ring): full[s] completes when row
+// segment s has landed, empty[s] when every consumer warp has read it.
 __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int stages, bool bulk) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], bulk ? 1u : 32u);
-      mbar_init(&empty[s], uint32_t(kConsumerWarps));
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    proxy_fence();
-  }
-  __syncthreads();
+  lt::init_ring(full, empty, stages, bulk, kConsumerWarps);
 }
 
 // The producer warp: rows [0, k) of the range [c0, c0 + cols_here) into
@@ -180,28 +108,13 @@ __device__ __forceinline__ void produce(const T* __restrict__ basis, int64_t n, 
                                         int cols_here, int cols, int stages, T* ring, uint64_t* full,
                                         uint64_t* empty, bool bulk) {
   constexpr int VN = lt::Vec<T>::n;
-  const int lane = threadIdx.x & 31;
   const int padded = (cols_here + VN - 1) / VN * VN;  // the consumers read whole vectors
-  const uint32_t bytes = uint32_t(cols_here) * uint32_t(sizeof(T));
   int s = 0;
   uint32_t phase = 0;
   for (int j = 0; j < k; ++j) {
-    mbar_wait(&empty[s], phase ^ 1u);
-    proxy_fence();  // the consumers' reads of this stage before the async copy's writes
-    T* dst = ring + size_t(s) * cols;
-    const T* src = basis + int64_t(j) * n + c0;
-    if (bulk) {
-      if (lane == 0) {
-        mbar_arrive_expect_tx(&full[s], bytes);
-        bulk_copy(dst, src, bytes, &full[s]);
-      }
-    } else {
-      for (int i = lane; i < padded; i += 32) {
-        const bool in = i < cols_here;
-        elem_copy<sizeof(T)>(dst + i, in ? src + i : src, in ? uint32_t(sizeof(T)) : 0u);
-      }
-      elem_copies_arrive(&full[s]);
-    }
+    lt::mbar_wait(&empty[s], phase ^ 1u);
+    lt::proxy_fence();  // the consumers' reads of this stage before the async copy's writes
+    lt::issue_segment<T>(ring + size_t(s) * cols, basis + int64_t(j) * n + c0, cols_here, padded, bulk, &full[s]);
     if (++s == stages) {
       s = 0;
       phase ^= 1u;
@@ -302,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int rows = min(kRowGroup, k - j0);
     A* red_g = red + g * (kConsumerWarps * kRowGroup * B);
     for (int r = 0; r < rows; ++r) {
-      mbar_wait(&full[s], phase);
+      lt::mbar_wait(&full[s], phase);
       const T* row = ring + size_t(s) * cols;
       A acc[B];
 #pragma unroll
@@ -320,9 +233,9 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
         }
       }
-      proxy_fence();  // this stage's reads before the refill's writes (async proxy)
+      lt::proxy_fence();  // this stage's reads before the refill's writes (async proxy)
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
+      if (lane == 0) lt::mbar_arrive(&empty[s]);
       if (++s == stages) {
         s = 0;
         phase ^= 1u;
@@ -408,7 +321,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     consumer_sync();
     for (int jj = 0; jj < rows; ++jj) {
-      mbar_wait(&full[s], phase);
+      lt::mbar_wait(&full[s], phase);
       const T* row = ring + size_t(s) * cols;
       A cq[B];
 #pragma unroll
@@ -426,9 +339,9 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
         }
       }
-      proxy_fence();  // this stage's reads before the refill's writes (async proxy)
+      lt::proxy_fence();  // this stage's reads before the refill's writes (async proxy)
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
+      if (lane == 0) lt::mbar_arrive(&empty[s]);
       if (++s == stages) {
         s = 0;
         phase ^= 1u;

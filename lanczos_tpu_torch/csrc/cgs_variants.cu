@@ -1,31 +1,25 @@
-// E2a-c: the three CGS-pass variants of the experiment studies, as one
-// persistent cooperative kernel.
+// E2b-c: the single-drain CGS-pass variants of the experiment studies, as
+// one persistent cooperative kernel.
 //
 // Replaces the Pallas TPU kernels of the CGS variant study:
-//   E2a experiments/pallas_bcgs_kernel.py  make_pass (v1): block MGS, chunks
-//       of `chunk` rows in order, each projected out of the current v;
 //   E2b experiments/pallas_bcgs_kernel2.py make_pass (v2): one classical pass,
 //       every coefficient against the original v, then one update;
 //   E2c experiments/pallas_bcgs_kernel3.py make_pass (v3): E2b whose
 //       projection reads a bf16 shadow of the basis, the update the f32 rows.
+// (E2a, the block-MGS pass of pallas_bcgs_kernel.py, is bcgs_ring.cu.)
 // On the TPU each is one pallas_call whose phases are a sequential grid
 // dimension.  On the H100 CTAs run in no order, so K3 (csrc/cgs.cu) spends
 // three launches on the dependency across the grid.  Here the pass is ONE
-// cooperative launch: the grid is persistent (as many CTAs as can be
-// resident at once, never more than the column tiles), each CTA owns the
+// cooperative launch: the grid is persistent (ctas_per_sm() CTAs per SM,
+// never more than the column tiles), each CTA owns the
 // column tiles t = blockIdx.x + i * gridDim.x of v for the whole pass, and
-// for each chunk of rows [c0, c1):
-//   1. each CTA writes its partial coefficients of the chunk's rows over its
+//   1. each CTA writes its partial coefficients of rows [0, k) over its
 //      own tiles (one slot per row and CTA, in a fixed order);
 //   2. one grid barrier (cooperative_groups::this_grid().sync());
-//   3. every CTA sums the chunk's partials of each row in the same fixed
-//      order (the same bits in every CTA, no atomics) and updates its own
-//      tiles of v in place.
-// E2b and E2c are one chunk of k rows, so one barrier per pass.  E2a has one
-// barrier per chunk: only the partials cross CTAs (each CTA owns its tiles
-// of v), and they are double-buffered by chunk parity, so chunk c+2 writes
-// chunk c's buffer only after the barrier of chunk c+1, which every CTA
-// reaches after it has read chunk c's partials.  Rows >= k are never read.
+//   3. every CTA sums each row's partials in the same fixed order (the
+//      same bits in every CTA, no atomics) and updates its own tiles of v
+//      in place.
+// Rows >= k are never read.
 //
 // What bounds it on the H100: bytes.  A pass reads the k live rows twice
 // (2 k n values; E2c reads the projection's copy in bf16, k n (2 + 4)
@@ -35,7 +29,7 @@
 // the partials, which the kernel rewrites, are read and written at L2
 // (__ldcg/__stcg), so no CTA sees a stale line.  The price of one launch is
 // the redundant reduction: every CTA reads the k * gridDim.x partials (at
-// (257, 2^22) and two CTAs per SM about 0.27 MB per CTA, from L2).
+// (257, 2^22) and three CTAs per SM about 0.41 MB per CTA, from L2).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
@@ -163,15 +157,23 @@ __device__ __forceinline__ void load_proj_row(const P* __restrict__ row, int64_t
   }
 }
 
+// CTAs per SM of the persistent grid.  The grid fixes which tiles each CTA
+// sums, and so the order of every coefficient sum: these are the
+// occupancies the kernels had as first built (float32 and the bf16 shadow
+// at 79 registers, float64 at 86), pinned so that a change of register
+// allocation changes no bit of E2b or E2c.
+template <typename T, typename P>
+constexpr int ctas_per_sm() {
+  return std::is_same<T, double>::value ? 2 : 3;
+}
+
 // `proj` holds the rows the coefficients are measured with (the basis
 // itself, or its bf16 shadow), `basis` the rows of the update.  `part` is
-// 2 * chunk * gridDim.x accumulators when the pass has more than one chunk,
-// chunk * gridDim.x otherwise.
+// k * gridDim.x accumulators.
 template <typename T, typename P>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, ctas_per_sm<T, P>())
     cgs_variant_kernel(const P* __restrict__ proj, const T* __restrict__ basis, T* v,
-                       typename lt::Acc<T>::type* part, int64_t n, int k, int chunk, int64_t n_tiles,
-                       bool vec_ok) {
+                       typename lt::Acc<T>::type* part, int64_t n, int k, int64_t n_tiles, bool vec_ok) {
   using A = typename lt::Acc<T>::type;
   constexpr bool kShadow = !std::is_same<P, T>::value;
   constexpr int E = kUnroll * lt::Vec<T>::n;
@@ -182,82 +184,77 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int64_t b = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // red is double-buffered by the parity of a row group counted over the
-  // whole kernel, so a group never overwrites the buffer that the previous
-  // group's reducing threads may still be reading.
+  // red is double-buffered by the parity of a row group, so a group never
+  // overwrites the buffer that the previous group's reducing threads may
+  // still be reading.
   int g = 0;
 
-  for (int c0 = 0, ci = 0; c0 < k; c0 += chunk, ++ci) {
-    const int c1 = c0 + min(chunk, k - c0);
-    A* pc = part + int64_t(ci & 1) * chunk * G;
-
-    // 1. this CTA's partial coefficients of rows [c0, c1) over its tiles.
-    for (int64_t t = b; t < n_tiles; t += G) {
-      const int64_t base = t * tile_width<T>();
-      T vr[E];
-      load_v<T, kShadow>(v, base, n, vec_ok, vr);
-      for (int j0 = c0; j0 < c1; j0 += kRowGroup, g ^= 1) {
-        A s[kRowGroup];
+  // 1. this CTA's partial coefficients of rows [0, k) over its tiles.
+  for (int64_t t = b; t < n_tiles; t += G) {
+    const int64_t base = t * tile_width<T>();
+    T vr[E];
+    load_v<T, kShadow>(v, base, n, vec_ok, vr);
+    for (int j0 = 0; j0 < k; j0 += kRowGroup, g ^= 1) {
+      A s[kRowGroup];
 #pragma unroll
-        for (int q = 0; q < kRowGroup; ++q) {
-          s[q] = A(0);
-          if (j0 + q < c1) {
-            A br[E];
-            load_proj_row<T, P, A>(proj + int64_t(j0 + q) * n, base, n, vec_ok, br);
+      for (int q = 0; q < kRowGroup; ++q) {
+        s[q] = A(0);
+        if (j0 + q < k) {
+          A br[E];
+          load_proj_row<T, P, A>(proj + int64_t(j0 + q) * n, base, n, vec_ok, br);
 #pragma unroll
-            for (int e = 0; e < E; ++e) s[q] = fma(br[e], A(vr[e]), s[q]);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kRowGroup; ++q) {
-          const A w = lt::warp_sum(s[q]);
-          if (lane == 0) red[g][warp][q] = w;
-        }
-        __syncthreads();
-        if (threadIdx.x < kRowGroup && j0 + threadIdx.x < c1) {
-          A tot = A(0);
-#pragma unroll
-          for (int w = 0; w < kWarps; ++w) tot += red[g][w][threadIdx.x];
-          // The same thread owns this row's slot over all of the CTA's tiles.
-          A* slot = pc + int64_t(j0 + threadIdx.x - c0) * G + b;
-          __stcg(slot, t == b ? tot : __ldcg(slot) + tot);
+          for (int e = 0; e < E; ++e) s[q] = fma(br[e], A(vr[e]), s[q]);
         }
       }
-    }
-
-    grid.sync();
-
-    // 3. the chunk's coefficients, kCChunk at a time, and the update of
-    //    this CTA's tiles.
-    for (int s0 = c0; s0 < c1; s0 += kCChunk) {
-      const int ns = min(kCChunk, c1 - s0);
-      __syncthreads();  // the previous stage's readers are done with cs
-      for (int r = warp; r < ns; r += kWarps) {
-        const A* p = pc + int64_t(s0 - c0 + r) * G;
-        A acc = A(0);
-#pragma unroll 4
-        for (int64_t q = lane; q < G; q += 32) acc += __ldcg(p + q);
-        acc = lt::warp_sum(acc);
-        if (lane == 0) cs[r] = acc;
+#pragma unroll
+      for (int q = 0; q < kRowGroup; ++q) {
+        const A w = lt::warp_sum(s[q]);
+        if (lane == 0) red[g][warp][q] = w;
       }
       __syncthreads();
-      for (int64_t t = b; t < n_tiles; t += G) {
-        const int64_t base = t * tile_width<T>();
-        T vt[E];
-        load_v<T, false>(v, base, n, vec_ok, vt);
-        A acc[E];
+      if (threadIdx.x < kRowGroup && j0 + threadIdx.x < k) {
+        A tot = A(0);
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[e] = A(vt[e]);
-#pragma unroll 4
-        for (int j = 0; j < ns; ++j) {
-          T br[E];
-          lt::load_seg<T, kThreads, kUnroll>(basis + int64_t(s0 + j) * n, base, n, vec_ok, br);
-          const A cj = cs[j];
-#pragma unroll
-          for (int e = 0; e < E; ++e) acc[e] = fma(-cj, A(br[e]), acc[e]);
-        }
-        store_v<T, A>(v, base, n, vec_ok, acc);
+        for (int w = 0; w < kWarps; ++w) tot += red[g][w][threadIdx.x];
+        // The same thread owns this row's slot over all of the CTA's tiles.
+        A* slot = part + int64_t(j0 + threadIdx.x) * G + b;
+        __stcg(slot, t == b ? tot : __ldcg(slot) + tot);
       }
+    }
+  }
+
+  grid.sync();
+
+  // 3. the coefficients, kCChunk at a time, and the update of this CTA's
+  //    tiles.
+  for (int s0 = 0; s0 < k; s0 += kCChunk) {
+    const int ns = min(kCChunk, k - s0);
+    __syncthreads();  // the previous stage's readers are done with cs
+    for (int r = warp; r < ns; r += kWarps) {
+      const A* p = part + int64_t(s0 + r) * G;
+      A acc = A(0);
+#pragma unroll 4
+      for (int64_t q = lane; q < G; q += 32) acc += __ldcg(p + q);
+      acc = lt::warp_sum(acc);
+      if (lane == 0) cs[r] = acc;
+    }
+    __syncthreads();
+    for (int64_t t = b; t < n_tiles; t += G) {
+      const int64_t base = t * tile_width<T>();
+      T vt[E];
+      load_v<T, false>(v, base, n, vec_ok, vt);
+      A acc[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] = A(vt[e]);
+#pragma unroll 4
+      for (int j = 0; j < ns; ++j) {
+        T br[E];
+        lt::load_seg<T, kThreads, kUnroll>(basis + int64_t(s0 + j) * n, base, n, vec_ok, br);
+        const A cj = cs[j];
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[e] = fma(-cj, A(br[e]), acc[e]);
+      }
+      store_v<T, A>(v, base, n, vec_ok, acc);
     }
   }
 }
@@ -269,8 +266,8 @@ constexpr int vec_elems() {
   return std::is_same<P, T>::value ? lt::Vec<T>::n : 8;
 }
 
-// The persistent grid of a pass over n columns: the CTAs that fit on the
-// device at once, at most one per column tile.
+// The persistent grid of a pass over n columns: ctas_per_sm() CTAs per SM,
+// which must be resident at once, at most one per column tile.
 template <typename T, typename P>
 cudaError_t variant_grid(int64_t n, int device, int* grid) {
   int coop = 0, sms = 0, per_sm = 0;
@@ -283,21 +280,22 @@ cudaError_t variant_grid(int64_t n, int device, int* grid) {
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cgs_variant_kernel<T, P>, kThreads, 0);
   if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  if (per_sm < ctas_per_sm<T, P>()) return cudaErrorCooperativeLaunchTooLarge;
+  per_sm = ctas_per_sm<T, P>();
   const int64_t tiles = num_tiles<T>(n);
   *grid = int(tiles < int64_t(per_sm) * sms ? tiles : int64_t(per_sm) * sms);
   return cudaSuccess;
 }
 
 template <typename T, typename P>
-cudaError_t variant_pass(const P* proj, const T* basis, T* v, typename lt::Acc<T>::type* part, int64_t n,
-                         int k, int chunk, int grid, cudaStream_t stream) {
+cudaError_t variant_pass(const P* proj, const T* basis, T* v, typename lt::Acc<T>::type* part, int64_t n, int k,
+                         int grid, cudaStream_t stream) {
   constexpr int VN = vec_elems<T, P>();
   int64_t n_tiles = num_tiles<T>(n);
-  if (n <= 0 || k < 0 || chunk < 1 || grid < 1 || grid > n_tiles) return cudaErrorInvalidValue;
+  if (n <= 0 || k < 0 || grid < 1 || grid > n_tiles) return cudaErrorInvalidValue;
   if (k == 0) return cudaSuccess;
   bool vec_ok = n % VN == 0 && lt::aligned16(proj) && lt::aligned16(basis) && lt::aligned16(v);
-  void* args[] = {&proj, &basis, &v, &part, &n, &k, &chunk, &n_tiles, &vec_ok};
+  void* args[] = {&proj, &basis, &v, &part, &n, &k, &n_tiles, &vec_ok};
   cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(cgs_variant_kernel<T, P>),
                                               dim3(unsigned(grid)), dim3(kThreads), args, 0, stream);
   if (e != cudaSuccess) return e;
@@ -321,22 +319,20 @@ int lt_cgsv_grid_shadow(long long n, int device, int* grid) {
   return int(variant_grid<float, __nv_bfloat16>(n, device, grid));
 }
 
-// E2a (chunk < k) and E2b (chunk >= k): v <- the pass of v against rows
-// [0, k) of basis, in place.  `device` is the CUDA ordinal the tensors and
-// `stream` belong to (made current here: this library has its own runtime).
-int lt_cgsv_pass_f32(const float* basis, float* v, float* part, long long n, int k, int chunk, int grid,
-                     int device, void* stream) {
+// E2b: v <- the classical pass of v against rows [0, k) of basis, in
+// place.  `device` is the CUDA ordinal the tensors and `stream` belong to
+// (made current here: this library has its own runtime).
+int lt_cgsv_pass_f32(const float* basis, float* v, float* part, long long n, int k, int grid, int device,
+                     void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(variant_pass<float, float>(basis, basis, v, part, n, k, chunk, grid,
-                                        static_cast<cudaStream_t>(stream)));
+  return int(variant_pass<float, float>(basis, basis, v, part, n, k, grid, static_cast<cudaStream_t>(stream)));
 }
-int lt_cgsv_pass_f64(const double* basis, double* v, double* part, long long n, int k, int chunk, int grid,
-                     int device, void* stream) {
+int lt_cgsv_pass_f64(const double* basis, double* v, double* part, long long n, int k, int grid, int device,
+                     void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(variant_pass<double, double>(basis, basis, v, part, n, k, chunk, grid,
-                                          static_cast<cudaStream_t>(stream)));
+  return int(variant_pass<double, double>(basis, basis, v, part, n, k, grid, static_cast<cudaStream_t>(stream)));
 }
 
 // E2c: the coefficients from the bf16 shadow, the update from the float32
@@ -346,7 +342,7 @@ int lt_cgsv_shadow_pass(const void* shadow, const float* basis, float* v, float*
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
   return int(variant_pass<float, __nv_bfloat16>(static_cast<const __nv_bfloat16*>(shadow), basis, v, part, n, k,
-                                                k > 0 ? k : 1, grid, static_cast<cudaStream_t>(stream)));
+                                                grid, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

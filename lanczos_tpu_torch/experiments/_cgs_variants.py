@@ -1,19 +1,133 @@
-"""What the three CGS-pass studies (E2a-c) share: the argument checks and
-the launch of ``csrc/cgs_variants.cu``, the studies' inputs, and their
-error measure."""
+"""What the three CGS-pass studies (E2a-c) share: the argument checks, the
+launch of ``csrc/cgs_variants.cu`` (E2b, E2c), the launch plan and launch
+of ``csrc/bcgs_ring.cu`` (E2a), the studies' inputs, and their error
+measure."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import _build
 
-__all__ = ["validate", "grid", "launch", "make_data", "rel_err"]
+__all__ = [
+    "MgsPlan",
+    "mgs_plan",
+    "mgs_smem_bytes",
+    "mgs_launch",
+    "validate",
+    "grid",
+    "launch",
+    "make_data",
+    "rel_err",
+]
+
+# E2a's launch shape (csrc/bcgs_ring.cu): 256 consumer threads and one
+# producer warp per CTA, two CTAs resident per SM.
+MGS_CTAS_PER_SM = 2
+MGS_PIECE_BYTES = 16 * 1024  # one ring stage: 1024 16-byte vectors, four per consumer thread
+MGS_MIN_STAGES, MGS_MAX_STAGES = 2, 4  # the kernel takes up to 8
+MGS_ROW_GROUP = 8  # projection rows per reduction round
+MGS_COEF_ROWS = 512  # coefficients staged in shared memory at a time
+SM_SMEM_BYTES = 228 * 1024  # shared memory of one H100 SM
+CTA_SMEM_RESERVED = 1024  # what the SM keeps for each resident CTA
+ROUTES = ("smem", "l2")
 
 _DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K3 for complex and bfloat16 bases"
+
+
+class MgsPlan(NamedTuple):
+    """How E2a cuts one pass: ``grid`` CTAs of ``cols`` columns each, a
+    ring of ``stages`` segments of ``piece`` columns, and ``route``, where
+    v's range lives ("smem": shared memory for the whole pass; "l2":
+    global memory, read and written at L2)."""
+
+    cols: int
+    grid: int
+    piece: int
+    stages: int
+    route: str
+
+
+def mgs_smem_bytes(cols: int, piece: int, stages: int, itemsize: int, resident: bool) -> int:
+    """Dynamic shared memory of one E2a CTA, as ``csrc/bcgs_ring.cu``
+    ``smem_bytes`` lays it out: the ring, v's range when resident, two
+    mbarriers per stage, the projection's reduction buffer and the staged
+    coefficients."""
+    return (stages * piece * itemsize + (cols * itemsize if resident else 0) + 2 * stages * 8
+            + (2 * 8 * MGS_ROW_GROUP + MGS_COEF_ROWS) * itemsize)
+
+
+@functools.lru_cache(maxsize=256)
+def mgs_plan(n: int, itemsize: int, num_sms: int, route: str | None = None) -> MgsPlan:
+    """E2a's launch plan for an (n,)-wide basis of ``itemsize``-byte values
+    on a card of ``num_sms`` SMs.
+
+    The grid is persistent, :data:`MGS_CTAS_PER_SM` CTAs per SM, each owning
+    one contiguous range of ``ceil(n / slots)`` columns rounded up to 128
+    bytes (``ops/cgs.py`` ``block_plan``'s granule), so the last CTA may
+    hold fewer and the grid is ``ceil(n / cols)``.  A ring stage holds
+    :data:`MGS_PIECE_BYTES` of one row's range, or the whole range where it
+    is shorter.  v's range stays in shared memory (route "smem") where it
+    fits beside a ring of :data:`MGS_MIN_STAGES` stages at two CTAs per SM;
+    otherwise it goes through L2 (route "l2").  The ring then takes what is
+    left of a CTA's share, 2 to 4 stages.  ``route`` forces one route
+    (tests of the L2 route at small n); forcing "smem" where v does not fit
+    raises."""
+    if n < 1 or itemsize not in (4, 8) or num_sms < 1:
+        raise ValueError(f"mgs_plan: n={n}, itemsize={itemsize}, num_sms={num_sms}")
+    granule = 128 // itemsize
+    slots = MGS_CTAS_PER_SM * num_sms
+    cols = -(-(-(-n // slots)) // granule) * granule
+    piece = min(cols, MGS_PIECE_BYTES // itemsize)
+    share = SM_SMEM_BYTES // MGS_CTAS_PER_SM - CTA_SMEM_RESERVED
+    stage_bytes = piece * itemsize + 2 * 8
+
+    def stages_left(resident: bool) -> int:
+        return (share - mgs_smem_bytes(cols, piece, 0, itemsize, resident)) // stage_bytes
+
+    fits = stages_left(True) >= MGS_MIN_STAGES
+    if route is None:
+        route = "smem" if fits else "l2"
+    elif route not in ROUTES:
+        raise ValueError(f"mgs_plan: route {route!r} is not one of {ROUTES}")
+    elif route == "smem" and not fits:
+        raise ValueError(f"mgs_plan: v's range of {cols} values does not fit in shared memory at n={n}")
+    stages = max(MGS_MIN_STAGES, min(MGS_MAX_STAGES, stages_left(route == "smem")))
+    return MgsPlan(cols, -(-n // cols), piece, stages, route)
+
+
+_SMS: dict = {}  # SMs by CUDA device index
+
+
+def mgs_launch(what: str, v, basis, k: int, chunk: int, plan: MgsPlan | None = None):
+    """One cooperative launch of ``csrc/bcgs_ring.cu`` over validated CUDA
+    operands, overwriting ``v``: block MGS over rows [0, k) in chunks of
+    ``chunk`` rows, cut by ``plan`` (default :func:`mgs_plan`).  The host's
+    part is kept short (a single pass at small k is a few hundred µs): the
+    plan is cached, the stream is the raw handle of
+    ``torch._C._cuda_getCurrentRawStream``, and one allocation holds the
+    partial sums and the grid barrier's counter, which the kernel's entry
+    point zeroes on the stream."""
+    lib = _build.library()
+    n = basis.shape[1]
+    idx = v.device.index
+    if plan is None:
+        sms = _SMS.get(idx)
+        if sms is None:
+            sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        plan = mgs_plan(n, basis.element_size(), sms)
+    part = torch.empty(k * plan.grid + 1, dtype=basis.dtype, device=v.device)
+    fn = lib.lt_bcgs_ring_f32 if basis.dtype == torch.float32 else lib.lt_bcgs_ring_f64
+    ptr = part.data_ptr()
+    err = fn(basis.data_ptr(), v.data_ptr(), ptr, ptr + k * plan.grid * part.element_size(), n, k, chunk, plan.cols,
+             plan.piece, plan.stages, int(plan.route == "smem"), idx, torch._C._cuda_getCurrentRawStream(idx))
+    _build.check(err, what)
+    return v
 
 
 def validate(name: str, v, basis, k) -> int:
@@ -41,8 +155,8 @@ def validate(name: str, v, basis, k) -> int:
 
 def grid(basis, shadow=None) -> int:
     """The CTAs of the persistent cooperative grid a pass over this CUDA
-    basis launches: as many as fit on the card at once, at most one per
-    column tile."""
+    basis launches: a fixed number per SM (``csrc/cgs_variants.cu``
+    ``ctas_per_sm``), at most one per column tile."""
     lib = _build.library()
     if shadow is not None:
         grid_fn = lib.lt_cgsv_grid_shadow
@@ -55,25 +169,23 @@ def grid(basis, shadow=None) -> int:
     return ctas.value
 
 
-def launch(what: str, v, basis, k: int, chunk: int, shadow=None):
+def launch(what: str, v, basis, k: int, shadow=None):
     """One cooperative launch of ``csrc/cgs_variants.cu`` over validated
-    CUDA operands, overwriting ``v``: block MGS in chunks of ``chunk`` rows
-    (one chunk when ``chunk >= k``), with the coefficients measured against
-    the bf16 ``shadow`` when one is given."""
+    CUDA operands, overwriting ``v``: one classical pass over rows [0, k),
+    with the coefficients measured against the bf16 ``shadow`` when one is
+    given."""
     lib = _build.library()
     n = basis.shape[1]
     dev = v.device
     ctas = grid(basis, shadow)
-    chunk = min(chunk, k)
-    halves = 1 if chunk == k else 2  # the partials are double-buffered by chunk parity
-    part = torch.empty(halves * chunk * ctas, dtype=basis.dtype, device=dev)
+    part = torch.empty(k * ctas, dtype=basis.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if shadow is not None:
         err = lib.lt_cgsv_shadow_pass(shadow.data_ptr(), basis.data_ptr(), v.data_ptr(), part.data_ptr(), n, k,
                                       ctas, dev.index, stream)
     else:
         fn = lib.lt_cgsv_pass_f32 if basis.dtype == torch.float32 else lib.lt_cgsv_pass_f64
-        err = fn(basis.data_ptr(), v.data_ptr(), part.data_ptr(), n, k, chunk, ctas, dev.index, stream)
+        err = fn(basis.data_ptr(), v.data_ptr(), part.data_ptr(), n, k, ctas, dev.index, stream)
     _build.check(err, what)
     return v
 

@@ -10,8 +10,10 @@ kernel itself, run through the Pallas interpreter, returns v minus the
 last chunk's projection alone once ``k > chunk`` (ROADMAP queue 3); the
 port is held to block MGS.
 
-On CUDA tensors :func:`bcgs_mgs_pass` runs ``csrc/cgs_variants.cu``: one
-cooperative launch per pass, one grid barrier per chunk.
+On CUDA tensors :func:`bcgs_mgs_pass` runs ``csrc/bcgs_ring.cu``: one
+cooperative launch per pass, one grid barrier per chunk, each CTA's range
+of v on chip for the whole pass where it fits (``_cgs_variants.mgs_plan``)
+and the rows streamed through a bulk-copy ring.
 
 Run on the card: ``python -m lanczos_tpu_torch.experiments.bcgs_kernel``.
 """
@@ -39,8 +41,9 @@ def bcgs_mgs_pass_reference(v, basis, k: int, chunk: int):
 def bcgs_mgs_pass(v, basis, k: int, chunk: int):
     """E2a: one block-MGS pass of ``v`` against rows [0, k) of ``basis``.
 
-    On CUDA tensors this launches ``csrc/cgs_variants.cu`` once (float32 or
-    float64; other dtypes raise), overwrites ``v`` with the result, returns
+    On CUDA tensors this launches ``csrc/bcgs_ring.cu`` once (float32 or
+    float64; other dtypes raise), cut by ``_cgs_variants.mgs_plan``,
+    overwrites ``v`` with the result, returns
     it and counts the launch in ``bcgs_mgs_pass.launches``; ``k == 0``
     launches nothing.  On CPU tensors it returns
     :func:`bcgs_mgs_pass_reference`.  Callers use the return value.
@@ -53,7 +56,7 @@ def bcgs_mgs_pass(v, basis, k: int, chunk: int):
         return bcgs_mgs_pass_reference(v, basis, k, chunk)
     if k == 0:
         return v
-    _cgs_variants.launch("bcgs_mgs_pass (E2a)", v, basis, k, chunk)
+    _cgs_variants.mgs_launch("bcgs_mgs_pass (E2a)", v, basis, k, chunk)
     bcgs_mgs_pass.launches += 1
     return v
 

@@ -41,7 +41,7 @@ def cgs_single_pass(v, basis, k: int):
         return cgs_single_pass_reference(v, basis, k)
     if k == 0:
         return v
-    _cgs_variants.launch("cgs_single_pass (E2b)", v, basis, k, k)
+    _cgs_variants.launch("cgs_single_pass (E2b)", v, basis, k)
     cgs_single_pass.launches += 1
     return v
 

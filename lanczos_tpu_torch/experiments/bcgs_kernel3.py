@@ -68,7 +68,7 @@ def cgs_shadow_pass(v, basis_bf, basis, k: int):
         raise ValueError("cgs_shadow_pass: the shadow must be contiguous and on v's device")
     if k == 0:
         return v
-    _cgs_variants.launch("cgs_shadow_pass (E2c)", v, basis, k, k, shadow=basis_bf)
+    _cgs_variants.launch("cgs_shadow_pass (E2c)", v, basis, k, shadow=basis_bf)
     cgs_shadow_pass.launches += 1
     return v
 

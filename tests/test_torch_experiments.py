@@ -169,11 +169,31 @@ def test_e3_out_of_range_k_writes_nothing_and_bad_k_raises():
     for k in (-1, 16, 1000):
         out = carry_copy_bench.row_set(buf.clone(), torch.tensor([k], dtype=torch.int32), w)
         assert torch.equal(out, buf), k
+    # The CPU route is the plain version's bits, in float32 and float64.
+    for b, ww in ((buf, w), (buf.float(), w.float())):
+        for k in (0, 15, -1, 16):
+            kt = torch.tensor([k], dtype=torch.int32)
+            out = b.clone()
+            assert carry_copy_bench.row_set(out, kt, ww) is out
+            assert torch.equal(out, carry_copy_bench.row_set_reference(b.clone(), kt, ww)), (b.dtype, k)
     assert carry_copy_bench.row_set.launches == launches  # the CPU takes the plain version
     with pytest.raises(ValueError):
         carry_copy_bench.row_set(buf.clone(), torch.tensor([1]), w)  # int64
     with pytest.raises(ValueError):
         carry_copy_bench.row_set(buf.clone(), torch.tensor(1, dtype=torch.int32), w)  # not one element
+    # The wrapper's other refusals: w's shape, mixed devices, a device that
+    # is neither CPU nor CUDA, and (before the library is built or loaded)
+    # a dtype the kernel does not take.
+    k = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="w"):
+        carry_copy_bench.row_set(buf.clone(), k, w[:-1])
+    with pytest.raises(ValueError, match="one device"):
+        carry_copy_bench.row_set(buf.clone(), k.to("meta"), w)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        carry_copy_bench.row_set(buf.to("meta"), k.to("meta"), w.to("meta"))
+    for dtypes in ((torch.float16, torch.float16), (torch.float32, torch.float64)):
+        with pytest.raises(NotImplementedError, match="float32/float64"):
+            carry_copy_bench._row_set_fn(*dtypes)
 
 
 def _lines(lines, pattern):
@@ -318,6 +338,7 @@ def test_kernel_matches_plain_on_cuda(cuda, kernel):
             got = carry_copy_bench.row_set(buf.clone(), kt, w)
             assert carry_copy_bench.row_set.launches == before + 1
             assert torch.equal(got, carry_copy_bench.row_set_reference(buf.clone(), kt, w))
+        _e3_in_graph_matches_plain(cuda, gen)
         return
     for dtype, n, tol in ((torch.float32, 70001, 1e-5), (torch.float32, 65536, 1e-5), (torch.float64, 9000, 1e-12)):
         if kernel == "e2c" and dtype == torch.float64:
@@ -328,8 +349,9 @@ def test_kernel_matches_plain_on_cuda(cuda, kernel):
         shadow = bcgs_kernel3.make_shadow(basis)
         for k in (1, 31, 32, 33, 70):
             if kernel == "e2a":
-                cases = [(bcgs_kernel.bcgs_mgs_pass, bcgs_kernel.bcgs_mgs_pass_reference, (basis, k, c)) for c in (8, 32)]
-            elif kernel == "e2b":
+                _e2a_matches_plain_on_both_routes(v, basis, k, tol)
+                continue
+            if kernel == "e2b":
                 cases = [(bcgs_kernel2.cgs_single_pass, bcgs_kernel2.cgs_single_pass_reference, (basis, k))]
             else:
                 cases = [(bcgs_kernel3.cgs_shadow_pass, bcgs_kernel3.cgs_shadow_pass_reference, (shadow, basis, k))]
@@ -339,3 +361,54 @@ def test_kernel_matches_plain_on_cuda(cuda, kernel):
                 torch.cuda.synchronize()
                 rel = float((got - want).abs().max() / want.abs().max())
                 assert rel <= tol, (dtype, n, k, args[-1], rel)
+
+
+def _e2a_matches_plain_on_both_routes(v, basis, k, tol):
+    """E2a on both routes for v at chunks 1, 8, 32 and k: within ``tol`` of
+    the plain version, the same bits on repeat."""
+    n = basis.shape[1]
+    sms = torch.cuda.get_device_properties(v.device).multi_processor_count
+    for route in _cgs_variants.ROUTES:
+        plan = _cgs_variants.mgs_plan(n, basis.element_size(), sms, route=route)
+        for chunk in (1, 8, 32, k):
+            got = _cgs_variants.mgs_launch("e2a", v.clone(), basis, k, chunk, plan)
+            again = _cgs_variants.mgs_launch("e2a", v.clone(), basis, k, chunk, plan)
+            want = bcgs_kernel.bcgs_mgs_pass_reference(v, basis, k, chunk)
+            torch.cuda.synchronize()
+            rel = float((got - want).abs().max() / want.abs().max())
+            assert rel <= tol, (basis.dtype, n, k, chunk, route, rel)
+            assert torch.equal(got, again), (basis.dtype, n, k, chunk, route)
+
+
+def _e3_in_graph_matches_plain(cuda, gen, calls=16):
+    """E3 captured in a CUDA graph with k a device word the graph advances,
+    replayed from a start that takes k out of [0, cap1): the plain
+    version's bits replayed eagerly."""
+    cap1, n = 24, 70001
+    buf = torch.randn((cap1, n), generator=gen, device=cuda)
+    ws = torch.randn((calls, n), generator=gen, device=cuda)
+    kd = torch.zeros(1, dtype=torch.int32, device=cuda)
+
+    def body():
+        for i in range(calls):
+            carry_copy_bench.row_set(buf, kd, ws[i])
+            kd.add_(1)
+
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for start in (-4, cap1 - 8):
+        kd.fill_(start)
+        before = buf.clone()
+        graph.replay()
+        want, kr = before, torch.tensor([start], dtype=torch.int32, device=cuda)
+        for i in range(calls):
+            carry_copy_bench.row_set_reference(want, kr, ws[i])
+            kr.add_(1)
+        torch.cuda.synchronize()
+        assert torch.equal(buf, want) and torch.equal(kd, kr), start

@@ -1,7 +1,8 @@
-"""Launch plans of kernels K4 (block CGS pass) and K5 (Chebyshev chain) of
-the PyTorch port, held on the CPU: the plans live in Python
-(``ops/cgs.py`` ``block_plan``, ``ops/cheby.py`` ``plan``) and the CUDA
-entry points take and check what they say.  The K5 tests model the
+"""Launch plans of kernels K4 (block CGS pass), K5 (Chebyshev chain) and E2a
+(block-MGS pass) of the PyTorch port, held on the CPU: the plans live in
+Python (``ops/cgs.py`` ``block_plan``, ``ops/cheby.py`` ``plan``,
+``experiments/_cgs_variants.py`` ``mgs_plan``) and the CUDA entry points
+take and check what they say.  The K5 tests model the
 launches' overlapped windows with the plain recurrence step and hold them
 to the plain chain bit for bit."""
 
@@ -13,6 +14,7 @@ torch.set_num_threads(1)
 
 import torch.nn.functional as F  # noqa: E402
 
+from lanczos_tpu_torch.experiments import _cgs_variants as cv  # noqa: E402
 from lanczos_tpu_torch.ops import cgs, cheby  # noqa: E402
 
 H100_SMS = 132
@@ -128,3 +130,51 @@ def test_k4_plan_keeps_two_ctas_per_sm(n, itemsize):
     # ranges, two ring stages of 16 KB.
     if (n, itemsize) == (1 << 22, 4):
         assert cgs.block_plan(n, 3, 4, H100_SMS) == cgs.BlockPlan(4000, 1049, 2)
+
+
+def _e2a_fits(cols, piece, itemsize):
+    """v's range of ``cols`` values beside the smallest ring (two stages of
+    ``piece`` values and their mbarriers) and the fixed scratch (the
+    reduction buffer, 2 x 8 warps x 8 rows, and 512 staged coefficients),
+    at two CTAs per SM in one SM's 228 KB less 1 KB kept per CTA."""
+    per_cta = cols * itemsize + 2 * (piece * itemsize + 16) + (128 + 512) * itemsize
+    return 2 * (per_cta + 1024) <= 228 * 1024
+
+
+def test_e2a_plan_covers_the_columns_once_and_fits_the_sm():
+    for itemsize in (4, 8):
+        _check_e2a_plans(itemsize)
+
+
+def _check_e2a_plans(itemsize):
+    vn, granule = 16 // itemsize, 128 // itemsize
+    widths = [1, 31, 4096, 9000, 65536, 70001, 1 << 20, 1 << 22, 5_000_000, 1 << 23]
+    for sms in (H100_SMS, 114, 8):
+        # and a sweep across the width where the route switches on this card
+        switch = next(n for n in range(1 << 16, 1 << 24, 1 << 16) if cv.mgs_plan(n, itemsize, sms).route == "l2")
+        for n in widths + list(range(switch - (1 << 16), switch + (1 << 16), 977)):
+            p = cv.mgs_plan(n, itemsize, sms)
+            # one contiguous range per CTA, 128-byte aligned, covering [0, n) once
+            assert p.cols % granule == 0 and (p.grid - 1) * p.cols < n <= p.grid * p.cols, (n, sms, p)
+            assert p.grid <= cv.MGS_CTAS_PER_SM * sms
+            assert p.piece % vn == 0 and p.piece <= p.cols and p.piece * itemsize <= cv.MGS_PIECE_BYTES
+            assert p.piece == min(p.cols, cv.MGS_PIECE_BYTES // itemsize)
+            assert cv.MGS_MIN_STAGES <= p.stages <= cv.MGS_MAX_STAGES
+            resident = p.route == "smem"
+            smem = cv.mgs_smem_bytes(p.cols, p.piece, p.stages, itemsize, resident)
+            # two CTAs' shared memory stay within the SM's 227 KB a CTA can ask for
+            assert cv.MGS_CTAS_PER_SM * smem <= 227 * 1024 and cv.MGS_CTAS_PER_SM * (smem + 1024) <= 228 * 1024
+            # the route switches to L2 exactly where v's range stops fitting
+            assert resident == _e2a_fits(p.cols, p.piece, itemsize), (n, sms, p)
+    # The study's basis: f32 keeps v in shared memory, f64 goes through L2.
+    want = {4: cv.MgsPlan(15904, 264, 4096, 3, "smem"), 8: cv.MgsPlan(15888, 264, 2048, 4, "l2")}
+    assert cv.mgs_plan(1 << 22, itemsize, H100_SMS) == want[itemsize]
+
+
+def test_e2a_plan_forced_routes():
+    assert cv.mgs_plan(9000, 8, H100_SMS, route="l2").route == "l2"
+    assert cv.mgs_plan(9000, 8, H100_SMS, route="smem") == cv.mgs_plan(9000, 8, H100_SMS)
+    with pytest.raises(ValueError, match="does not fit"):
+        cv.mgs_plan(1 << 22, 8, H100_SMS, route="smem")
+    with pytest.raises(ValueError, match="route"):
+        cv.mgs_plan(4096, 4, H100_SMS, route="registers")
