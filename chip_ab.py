@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times kernels K4, K5, E2a and E3 of one checkout of lanczos_tpu_torch on
-one NVIDIA GPU, so that two commits can be compared on the same card:
-``python3 chip_ab.py --root DIR [--flagships]``.
+"""Times kernels K4, K5, E2a, E2b, E3 and E1's VPU form of one checkout of
+lanczos_tpu_torch on one NVIDIA GPU, so that two commits can be compared on
+the same card: ``python3 chip_ab.py --root DIR [--flagships]``.
 
 DIR holds the checkout (``.`` for this one, or a parent commit unpacked by
 ``git archive`` into a git-ignored directory); its ``lanczos_tpu_torch``
@@ -15,7 +15,13 @@ share are used:
 - ``bcgs_kernel.bcgs_mgs_pass(v, basis, k, chunk)`` (E2a) on the study's
   (257, 2**22) float32 basis for k in (64, 128, 256) and chunk in (32,
   64), beside two ``torch.mv`` per chunk and the two-read stream (2 k n 4
-  bytes over a same-process ``torch.sum`` read rate);
+  bytes over a same-process ``torch.sum`` read rate), and
+  ``bcgs_kernel2.cgs_single_pass(v, basis, k)`` (E2b) on the same basis
+  for the same k, beside two ``torch.mv`` and the same stream;
+- ``spmv_bench.spmv_v2(blocks, col_blocks, x, vpu=True)`` (E1's VPU form)
+  at the study's 64 Mi stored nnz in float32 (R = 512, S = 8, 128 x 128
+  tiles), beside the dot form, K2 (``spmv.bsr_matvec_rsmk``) and a
+  ``torch.sum`` read of the tiles;
 - ``carry_copy_bench.row_set(buf, k, w)`` (E3) on a (256, 2**20) float32
   buffer: one call, and runs of 100 calls per call, by CUDA events beside
   ``index_copy_`` and ``copy_``;
@@ -25,8 +31,10 @@ share are used:
   beside the same 64 calls of ``index_copy_`` and of ``copy_``
   (``chip_smoke.e3_graph`` of this tree, with its bit-for-bit checks).
 
-``digests`` holds the SHA-256 of K4's, E2b's and E2c's outputs on fixed
-inputs, which must not differ between the two sides.  Times are medians of
+``digests`` holds the SHA-256 of K4's, E2b's, E2c's and E1's three
+variants' outputs on fixed inputs; those of the kernels a change leaves
+alone must not differ between the two sides, and every one must repeat
+from run to run of one side.  Times are medians of
 CUDA-event timings after a warm-up.  ``--flagships``
 adds the checkout's own ``chip_smoke.py`` phases ``block_thick_flagship``
 and ``cheby_flagship`` (their walls and checks).  Run the two sides in
@@ -62,8 +70,9 @@ def digest(torch, t) -> str:
 
 def digests(torch, cgs, dev) -> dict:
     """SHA-256 of K4 (b = 3, k = 255), E2b and E2c (k = 256) outputs on
-    inputs drawn from a fixed seed at the study's (257, 2**22) size."""
-    from lanczos_tpu_torch.experiments import bcgs_kernel2, bcgs_kernel3
+    inputs drawn from a fixed seed at the study's (257, 2**22) size, and of
+    E1's dot form, VPU form and v3 at its 64 Mi stored nnz."""
+    from lanczos_tpu_torch.experiments import bcgs_kernel2, bcgs_kernel3, spmv_bench
 
     gen = torch.Generator(device=dev).manual_seed(1)
     n = 2**22
@@ -74,6 +83,51 @@ def digests(torch, cgs, dev) -> dict:
            "e2b_k256": digest(torch, bcgs_kernel2.cgs_single_pass(vblk[0].clone(), basis[:257], 256))}
     shadow = bcgs_kernel3.make_shadow(basis[:257])
     out["e2c_k256"] = digest(torch, bcgs_kernel3.cgs_shadow_pass(vblk[1].clone(), shadow, basis[:257], 256))
+    del basis, vblk, shadow
+    blocks, blocks_t, cb, x = e1_operator(torch, dev, gen)
+    out["e1_v2"] = digest(torch, spmv_bench.spmv_v2(blocks, cb, x, G=8))
+    out["e1_v2_vpu"] = digest(torch, spmv_bench.spmv_v2(blocks, cb, x, G=8, vpu=True))
+    out["e1_v3"] = digest(torch, spmv_bench.spmv_v3(blocks_t, cb, x, G=8))
+    return out
+
+
+def e1_operator(torch, dev, gen, r: int = 512):
+    """E1's study operator on the card: (R, 8, 128, 128) float32 tiles of
+    0.01 times standard normals, the same tiles as (R, 128, 8, 128), column
+    blocks over the R row blocks, and x."""
+    blocks = torch.randn((r, 8, 128, 128), generator=gen, device=dev) * 0.01
+    cb = torch.randint(0, r, (r, 8), generator=gen, device=dev, dtype=torch.int32)
+    x = torch.randn(r * 128, generator=gen, device=dev)
+    return blocks, blocks.permute(0, 2, 1, 3).contiguous(), cb, x
+
+
+def time_e1(torch, dev, gen) -> dict:
+    """E1's VPU form at the study's size beside the dot form, K2 and the
+    read stream of the tiles: ms of one call, and ms per call over runs of
+    50 back-to-back calls (the single call also holds the host's enqueue);
+    then the host's microseconds per call of each at a tiny operator."""
+    from lanczos_tpu_torch.experiments import spmv_bench
+    from lanczos_tpu_torch.ops import spmv
+
+    blocks, _blocks_t, cb, x = e1_operator(torch, dev, gen)
+    calls = {"vpu": lambda: spmv_bench.spmv_v2(blocks, cb, x, G=8, vpu=True),
+             "dot": lambda: spmv_bench.spmv_v2(blocks, cb, x, G=8),
+             "k2": lambda: spmv.bsr_matvec_rsmk(blocks, cb, x, col_bound=512),
+             "stream": lambda: torch.sum(blocks)}
+    out = {f"{name}_ms": smoke.cuda_ms(torch, fn) for name, fn in calls.items()}
+    out.update({f"{name}_ms_per_call": smoke.cuda_ms_per_call(torch, fn, calls=50, reps=10)
+                for name, fn in calls.items()})
+    # The host's part of each call: host microseconds per call on (2, 1,
+    # 16, 16) tiles, whose launches take a few µs of the card, so that the
+    # loop measures the enqueue.
+    blocks = torch.randn((2, 1, 16, 16), generator=gen, device=dev)
+    cb = torch.tensor([[1], [0]], dtype=torch.int32, device=dev)
+    x = torch.randn(32, generator=gen, device=dev)
+    tiny = {"vpu": lambda: spmv_bench.spmv_v2(blocks, cb, x, G=8, vpu=True),
+            "dot": lambda: spmv_bench.spmv_v2(blocks, cb, x, G=8),
+            "k2": lambda: spmv.bsr_matvec_rsmk(blocks, cb, x, col_bound=2),
+            "stream": lambda: torch.sum(blocks)}
+    out["host_us_per_call_tiny"] = {name: smoke.host_us_per_call(torch, fn) for name, fn in tiny.items()}
     return out
 
 
@@ -100,10 +154,10 @@ def time_k5(torch, np, tl, dev, gen) -> float:
     return smoke.cuda_ms(torch, lambda: fused.matvec(x))
 
 
-def time_e2a(torch, dev, gen) -> dict:
-    """E2a at the study's size: ms per pass by (chunk, k), the library
-    sequence and the two-read stream bound of each."""
-    from lanczos_tpu_torch.experiments import bcgs_kernel
+def time_e2(torch, dev, gen) -> tuple[dict, dict]:
+    """E2a and E2b at the study's size: ms per pass by (chunk, k) and by k,
+    the library sequence and the two-read stream bound of each."""
+    from lanczos_tpu_torch.experiments import bcgs_kernel, bcgs_kernel2
 
     n = 2**22
     basis = torch.randn((257, n), generator=gen, device=dev)
@@ -127,7 +181,25 @@ def time_e2a(torch, dev, gen) -> dict:
                 "library_ms": smoke.cuda_ms(torch, two_mv_per_chunk),
                 "two_read_stream_ms": 2 * k * n * 4 / stream_gbps / 1e6,
             }
-    return out
+    e2b = {"stream_gbps": stream_gbps}
+    for k in (64, 128, 256):
+        rows = basis[:k]
+        e2b[f"k{k}"] = {
+            "ms": smoke.cuda_ms(torch, lambda k=k: bcgs_kernel2.cgs_single_pass(work, basis, k)),
+            "library_ms": smoke.cuda_ms(torch, lambda rows=rows: v - torch.mv(rows.T, torch.mv(rows, v))),
+            "two_read_stream_ms": 2 * k * n * 4 / stream_gbps / 1e6,
+        }
+    # At k = 256, each also per call over runs of 5 back-to-back calls, with
+    # E2a at chunk 64 and the stream beside them: a single call also holds
+    # the host's part of the launch.
+    rows = basis[:256]
+    per_call = {"e2b": lambda: bcgs_kernel2.cgs_single_pass(work, basis, 256),
+                "e2a_chunk64": lambda: bcgs_kernel.bcgs_mgs_pass(work, basis, 256, 64),
+                "two_mv": lambda: v - torch.mv(rows.T, torch.mv(rows, v)),
+                "two_read_stream": lambda: (torch.sum(rows), torch.sum(rows))}
+    e2b["k256_ms_per_call_of_5"] = {name: smoke.cuda_ms_per_call(torch, fn, calls=5, reps=10)
+                                    for name, fn in per_call.items()}
+    return out, e2b
 
 
 def time_e3(torch, dev, gen) -> dict:
@@ -219,7 +291,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     out["k5_ms_per_apply"] = time_k5(torch, np, tl, dev, gen)
     torch.cuda.empty_cache()
-    out["e2a"] = time_e2a(torch, dev, gen)
+    out["e2a"], out["e2b"] = time_e2(torch, dev, gen)
+    torch.cuda.empty_cache()
+    out["e1"] = time_e1(torch, dev, gen)
     torch.cuda.empty_cache()
     out["e3"] = time_e3(torch, dev, gen)
     torch.cuda.empty_cache()

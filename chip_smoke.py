@@ -30,6 +30,7 @@ imports no JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -353,9 +354,11 @@ def phase_e2(torch, dev):
     """The CGS variant studies (E2a block MGS, E2b single drain, E2c bf16
     shadow) at their own size, a (257, 2**22) float32 basis of unit rows and
     its bf16 shadow: each kernel against its plain version over the live
-    counts, E2a twice bit for bit, E2a's L2 route for v on a float64
-    (65, 2**22) basis (v's range does not fit in shared memory there), a
-    ragged float64 case, the studies' own check lines and float64 probe,
+    counts, E2a twice bit for bit, E2b (E2a's kernel at chunk = k) at
+    k = cap on both routes for v twice bit for bit, E2a's L2 route for v on
+    a float64 (65, 2**22) basis (v's range does not fit in shared memory
+    there), a ragged float64 case, E2b past 512 rows at a small width in
+    float32 and float64, the studies' own check lines and float64 probe,
     the live-row overlaps of E2c and K3, then their times beside K3's and
     the two-``torch.mv`` pass."""
     from lanczos_tpu_torch import _build
@@ -409,6 +412,9 @@ def phase_e2(torch, dev):
     repeat = e2a_repeat(torch, v1, v, basis, ((256, 64), (100, 32), (257, 257)))
     emit({"phase": "e2a_plan", "basis": [257, E2_N], "plan": plan._asdict(), "bits_equal_on_repeat": repeat,
           **e2a_info(torch, _build, _cgs_variants, dev, plan, torch.float32)})
+    emit({"phase": "e2", "case": "e2b_routes", "dtype": "torch.float32", "basis": [257, E2_N], "tol": E2_TOL,
+          "max_rel_err": e2b_routes(torch, v2, _cgs_variants, v, basis, (257,), E2_TOL),
+          "bits_equal_on_repeat": True})
 
     # E2c's point: the overlap with the live rows left after one pass, with
     # v given strong live-row components (pallas_bcgs_kernel3.py:107).
@@ -498,8 +504,20 @@ def phase_e2(torch, dev):
                                                      v1.bcgs_mgs_pass_reference(v, basis, k, chunk), 1e-12)[1]
         rels[f"e2b_k{k}"] = checked(f"e2b f64 k={k}", one_launch(v2.cgs_single_pass, v.clone(), basis, k),
                                     v2.cgs_single_pass_reference(v, basis, k), 1e-12)[1]
+    rels.update({f"e2b_{key}": rel for key, rel in e2b_routes(torch, v2, _cgs_variants, v, basis, (129,),
+                                                               1e-12).items()})
     emit({"phase": "e2", "dtype": "torch.float64", "basis": [129, 70001], "max_rel_err": rels, "tol": 1e-12})
     del basis, v
+
+    # E2b past the 512 coefficients its kernel stages at a time, at a small
+    # width, in float32 and float64 on both routes.
+    for dtype, tol in ((torch.float32, E2_TOL), (torch.float64, 1e-12)):
+        basis = _random_basis(torch, dev, 600, 70001, dtype, gen)
+        v = torch.randn(70001, generator=gen, device=dev, dtype=dtype)
+        emit({"phase": "e2", "case": "e2b_routes", "dtype": str(dtype), "basis": [600, 70001], "tol": tol,
+              "max_rel_err": e2b_routes(torch, v2, _cgs_variants, v, basis, (513, 600), tol),
+              "bits_equal_on_repeat": True})
+        del basis, v
     torch.cuda.empty_cache()
 
     # The studies' own entry points on the card: their check lines at
@@ -518,6 +536,54 @@ def phase_e2(torch, dev):
         if name in worst:
             row["max_abs_err"] = worst[name]
     return launches, timed[256]
+
+
+def e1_vpu_info(dev, plan) -> dict:
+    """Registers, local (spill) bytes, shared memory and resident CTAs per
+    SM of E1's VPU-form kernel (float32, 16-byte loads) at ``plan``, as the
+    runtime reports them; fewer resident CTAs than the kernel's floor of
+    four fail the run."""
+    import ctypes
+
+    from lanczos_tpu_torch import _build
+
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().lt_spmv_v2_vpu_info(0, 1, plan.smem_bytes, dev.index, out), "e1 VPU info")
+    if out[3] < 4:
+        raise AssertionError(f"e1: {out[3]} VPU-form CTAs per SM resident at plan {plan}")
+    return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2], "ctas_per_sm": out[3]}
+
+
+def e2b_routes(torch, v2, cv, v, basis, ks, tol) -> dict:
+    """E2b (E2a's kernel at chunk = k) on both routes for v, for each k:
+    within ``tol`` of its plain version and twice bit for bit, the
+    wrapper's result without a route the default route's bits, and each
+    pass one counted launch, or the run fails.  Returns the relative errors
+    by k and route."""
+    n = basis.shape[1]
+    sms = torch.cuda.get_device_properties(v.device).multi_processor_count
+    default = cv.mgs_plan(n, basis.element_size(), sms).route
+    rels = {}
+    before = v2.cgs_single_pass.launches
+    for k in ks:
+        want = v2.cgs_single_pass_reference(v, basis, k)
+        wrapped = v2.cgs_single_pass(v.clone(), basis, k)
+        for route in cv.ROUTES:
+            got = v2.cgs_single_pass(v.clone(), basis, k, route=route)
+            again = v2.cgs_single_pass(v.clone(), basis, k, route=route)
+            torch.cuda.synchronize()
+            label = f"k{k}_{route}"
+            rels[label] = rel_err(got, want)[1]
+            if not rels[label] <= tol:
+                raise AssertionError(f"e2b {basis.dtype} {label}: relative error {rels[label]:.3e} above {tol:.0e}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"e2b {basis.dtype} {label}: two runs on the same inputs differ")
+            if route == default and not torch.equal(got, wrapped):
+                raise AssertionError(f"e2b {basis.dtype} {label}: the wrapper's bits differ from its route's")
+    made = len(ks) * (1 + 2 * len(cv.ROUTES))
+    if v2.cgs_single_pass.launches - before != made:
+        raise AssertionError(f"e2b: {v2.cgs_single_pass.launches - before} launches counted for {made} passes")
+    return rels
 
 
 def e2a_repeat(torch, v1, v, basis, cases) -> dict:
@@ -1280,11 +1346,18 @@ def phase_cheby_flagship(torch, np, dev, n):
 def phase_e1(torch, dev):
     """The SpMV study's variants (E1: v2, v2 VPU form, v3) at its size, 64
     Mi stored nnz in float32 (R = 512, S = 8, 128 x 128 tiles, G = 8):
-    each kernel against its plain version, on a tail case (R = 516, whose
-    last CTA owns 4 row blocks) and in float64; the study's check lines and
-    its marginal-method run of the whole variant set; then each kernel's
-    time beside the plain version, the sparse library product, K1, K2 and a
-    read stream of the tiles."""
+    each kernel against its plain version and twice bit for bit, on a tail
+    case (R = 516, whose last CTA of the dot form and v3 owns 4 row blocks)
+    and in float64; the rounding trap (tile rows that cancel, where the VPU
+    form's separately rounded products and an FMA chain differ); the VPU
+    form's plan with its registers and spills (as the runtime reports
+    them); the study's check lines and its
+    marginal-method run of the whole variant set; then each kernel's time
+    beside the plain version, the sparse library product, K1, K2 and a
+    read stream of the tiles, by one call (the kernels line's figures) and
+    per call over runs of 50 back-to-back calls."""
+    import numpy as np
+
     from lanczos_tpu_torch.experiments import spmv_bench as sb
     from lanczos_tpu_torch.ops import spmv
 
@@ -1309,16 +1382,42 @@ def phase_e1(torch, dev):
         rels = {}
         for name, (fn, ref, tiles, kw) in variants(blocks, blocks_t).items():
             got, want = fn(tiles, cb, x, G=8, **kw), ref(tiles, cb, x, G=8, **kw)
+            again = fn(tiles, cb, x, G=8, **kw)
             torch.cuda.synchronize()
             err, rels[name] = rel_err(got, want)
             if not rels[name] <= E1_TOL[str(dtype)]:
                 raise AssertionError(f"E1 {name} {label}: relative error {rels[name]:.3e} above "
                                      f"{E1_TOL[str(dtype)]:.0e}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"E1 {name} {label}: two runs on the same inputs differ")
             if dtype == torch.float32:  # the kernels line reports float32 errors
                 worst[name] = max(worst.get(name, 0.0), err)
         emit({"phase": "e1", "case": label, "dtype": str(dtype), "shape": [r, 8, 128, 128], "G": 8,
-              "max_rel_err": rels, "tol": E1_TOL[str(dtype)]})
+              "max_rel_err": rels, "tol": E1_TOL[str(dtype)], "bits_equal_on_repeat": True})
         del blocks, blocks_t, cb, x
+    # The rounding trap: on tiles whose rows cancel, the VPU form keeps the
+    # plain version's separately rounded products; the dot form's FMA
+    # chain, which a VPU form with contracted products would become, misses
+    # them by far more than the tolerance.
+    trap = {}
+    for dtype in (np.float32, np.float64):
+        blocks, _, cb, x = (torch.from_numpy(a).to(dev) for a in sb.make_cancelling_data(r=64, dtype=dtype))
+        label, tol = str(blocks.dtype), E1_TOL[str(blocks.dtype)]
+        want = sb.spmv_v2_reference(blocks, cb, x, vpu=True)
+        got, again, dot = (sb.spmv_v2(blocks, cb, x, vpu=vpu) for vpu in (True, True, False))
+        torch.cuda.synchronize()
+        trap[label] = {"vpu": rel_err(got, want)[1], "dot": rel_err(dot, want)[1], "tol": tol}
+        if not (trap[label]["vpu"] <= tol and torch.equal(got, again)):
+            raise AssertionError(f"E1 VPU form on cancelling tile rows, {label}: {trap}")
+        if not trap[label]["dot"] > 100 * tol:
+            raise AssertionError(f"E1 rounding trap: the dot form meets the VPU form's products, {trap}")
+        del blocks, cb, x
+    emit({"phase": "e1", "case": "rounding_trap", "shape": [64, 8, 128, 128], "max_rel_err": trap,
+          "bits_equal_on_repeat": True})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = sb.vpu_plan(BENCH_R, 8, 128, 128, 4)
+    emit({"phase": "e1_plan", "kernel": "spmv_v2_vpu", "shape": [BENCH_R, 8, 128, 128], "dtype": "torch.float32",
+          "plan": plan._asdict(), "ctas_per_sm_of_grid": plan.ctas / sms, **e1_vpu_info(dev, plan)})
 
     lines = sb.check(device=dev)  # the study's own check: R = 64 and 68
     if not all(float(line.rsplit("=", 1)[1]) <= E1_TOL["torch.float32"] for line in lines):
@@ -1333,6 +1432,12 @@ def phase_e1(torch, dev):
     # Each input read once (tiles, column indices, x), y written once.
     bytes_moved = tile_bytes + cb.numel() * 4 + 2 * x.numel() * item
     bound_ms, bound_by = bound(bytes_moved, 2 * blocks.numel())
+
+    def per_call(fn):
+        # Beside each one-call time (which also holds the host's enqueue of
+        # a ~0.1 ms call): runs of back-to-back calls, the card kept busy.
+        return cuda_ms_per_call(torch, fn, calls=50, reps=10)
+
     stream_ms = cuda_ms(torch, lambda: torch.sum(blocks))
     crow = torch.arange(0, BENCH_R * 8 + 1, 8, dtype=torch.int64, device=dev)
     a = torch.sparse_bsr_tensor(crow, cb.reshape(-1).to(torch.int64), blocks.view(-1, 128, 128),
@@ -1343,21 +1448,30 @@ def phase_e1(torch, dev):
         err, rel = rel_err(got, want)
         if not rel <= E1_TOL["torch.float32"]:
             raise AssertionError(f"E1 {name} at the study's size: relative error {rel:.3e}")
-        ms = cuda_ms(torch, lambda fn=fn, tiles=tiles, kw=kw: fn(tiles, cb, x, G=8, **kw))
+        call = functools.partial(fn, tiles, cb, x, G=8, **kw)
+        plain = functools.partial(ref, tiles, cb, x, G=8, **kw)
+        ms = cuda_ms(torch, call)
         timed[name] = {"max_abs_err": max(worst[name], err), "max_rel_err": rel, "ms": ms,
-                       "plain_ms": cuda_ms(torch, lambda ref=ref, tiles=tiles, kw=kw: ref(tiles, cb, x, G=8, **kw)),
-                       "library_ms": cuda_ms(torch, lambda: a @ x), "bound_ms": bound_ms, "bound_by": bound_by,
-                       "gbps": bytes_moved / ms / 1e6, "stream_bound_ms": stream_ms * bytes_moved / tile_bytes}
+                       "plain_ms": cuda_ms(torch, plain), "library_ms": cuda_ms(torch, lambda: a @ x),
+                       "bound_ms": bound_ms, "bound_by": bound_by, "gbps": bytes_moved / ms / 1e6,
+                       "stream_bound_ms": stream_ms * bytes_moved / tile_bytes,
+                       "ms_per_call": per_call(call), "plain_ms_per_call": per_call(plain),
+                       "library_ms_per_call": per_call(lambda: a @ x)}
     lib_rel = rel_err(a @ x, sb.spmv_v2_reference(blocks, cb, x))[1]
     k1_ms = cuda_ms(torch, lambda: spmv.bsr_matvec(blocks_t, cb, x))
     k2_ms = cuda_ms(torch, lambda: spmv.bsr_matvec_rsmk(blocks, cb, x, col_bound=BENCH_R))
+    per_call_ms = {"k1": per_call(lambda: spmv.bsr_matvec(blocks_t, cb, x)),
+                   "k2": per_call(lambda: spmv.bsr_matvec_rsmk(blocks, cb, x, col_bound=BENCH_R)),
+                   "stream": per_call(lambda: torch.sum(blocks))}
     launches = {"spmv_v2": sb.spmv_v2.launches, "spmv_v2_vpu": sb.spmv_v2.vpu_launches,
                 "spmv_v3": sb.spmv_v3.launches}
     if not all(launches.values()):
         raise AssertionError(f"e1: a kernel was never launched: {launches}")
-    emit({"phase": "e1_timing", "shape": [BENCH_R, 8, 128, 128], "G": 8, "ctas": BENCH_R // 8, "kernels": timed,
+    ctas = {"spmv_v2": BENCH_R // 8, "spmv_v2_vpu": plan.ctas, "spmv_v3": BENCH_R // 8}
+    emit({"phase": "e1_timing", "shape": [BENCH_R, 8, 128, 128], "G": 8, "ctas": ctas, "kernels": timed,
           "k1_ms": k1_ms, "k2_ms": k2_ms, "k1_gbps": bytes_moved / k1_ms / 1e6, "k2_gbps": bytes_moved / k2_ms / 1e6,
-          "stream_gbps": tile_bytes / stream_ms / 1e6, "library_max_rel_err": lib_rel, "launches": launches})
+          "stream_gbps": tile_bytes / stream_ms / 1e6, "library_max_rel_err": lib_rel, "launches": launches,
+          "ms_per_call_of_50": per_call_ms})
     del blocks, blocks_t, cb, x, a
     torch.cuda.empty_cache()
     return launches, timed
@@ -1620,7 +1734,9 @@ def main() -> int:
     # call inside a captured CUDA graph (phase e3_graph), and its launches
     # count each captured call once (a replay launches without a call).  E1's launches are phase
     # e1's (its checks, the study's run and the timing) at the study's
-    # 64 Mi-nnz operator; its library call is the BSR tensor product.
+    # 64 Mi-nnz operator; its library call is the BSR tensor product; its
+    # entries add the time per call over runs of 50 back-to-back calls
+    # (ms_per_call) beside the one-call ms.
     emit({"kernels": [
         entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
         entry("bsr_matvec_rsmk", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K2_REPLACES, sharded_launches["k2"], k2),
@@ -1628,16 +1744,14 @@ def main() -> int:
         entry("cgs_pass_block", "lanczos_tpu_torch/csrc/cgs_block.cu", K4_REPLACES, flagship["k4"], k4),
         entry("cheby_chain_apply", "lanczos_tpu_torch/csrc/cheby_chain.cu", K5_REPLACES, cheby_launches["k5"], k5),
         entry("bcgs_mgs_pass", "lanczos_tpu_torch/csrc/bcgs_ring.cu", E2A_REPLACES, e2_launches["e2a"], e2["e2a"]),
-        entry("cgs_single_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2B_REPLACES, e2_launches["e2b"], e2["e2b"]),
+        entry("cgs_single_pass", "lanczos_tpu_torch/csrc/bcgs_ring.cu", E2B_REPLACES, e2_launches["e2b"], e2["e2b"]),
         entry("cgs_shadow_pass", "lanczos_tpu_torch/csrc/cgs_variants.cu", E2C_REPLACES, e2_launches["e2c"], e2["e2c"]),
         {**entry("row_set", "lanczos_tpu_torch/csrc/row_set.cu", E3_REPLACES, e3_launches, e3),
          "graph_us_per_call": e3["graph_us_per_call"]["row_set"]},
-        entry("spmv_v2", "lanczos_tpu_torch/csrc/spmv_variants.cu", E1_V2_REPLACES, e1_launches["spmv_v2"],
-              e1["spmv_v2"]),
-        entry("spmv_v2_vpu", "lanczos_tpu_torch/csrc/spmv_variants.cu", E1_V2_REPLACES, e1_launches["spmv_v2_vpu"],
-              e1["spmv_v2_vpu"]),
-        entry("spmv_v3", "lanczos_tpu_torch/csrc/spmv_variants.cu", E1_V3_REPLACES, e1_launches["spmv_v3"],
-              e1["spmv_v3"]),
+        *({**entry(name, "lanczos_tpu_torch/csrc/spmv_variants.cu", replaces, e1_launches[name], e1[name]),
+           "ms_per_call": e1[name]["ms_per_call"]}
+          for name, replaces in (("spmv_v2", E1_V2_REPLACES), ("spmv_v2_vpu", E1_V2_REPLACES),
+                                 ("spmv_v3", E1_V3_REPLACES))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -48,19 +48,18 @@ _SIGNATURES = {
     "lt_cgs_block_info": (_INT, [_INT, _INT, _INT, _INT, _INT, ctypes.POINTER(_INT)]),
     "lt_cheby_chain_f32": (_INT, [_INT, _P, ctypes.POINTER(_INT), _INT, _P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _INT, _P]),
     "lt_cheby_chain_info": (_INT, [_INT, ctypes.POINTER(_INT), _INT, _INT, _INT, _INT, _INT, ctypes.POINTER(_INT)]),
-    "lt_cgsv_grid_f32": (_INT, [_I64, _INT, ctypes.POINTER(_INT)]),
-    "lt_cgsv_grid_f64": (_INT, [_I64, _INT, ctypes.POINTER(_INT)]),
     "lt_cgsv_grid_shadow": (_INT, [_I64, _INT, ctypes.POINTER(_INT)]),
-    "lt_cgsv_pass_f32": (_INT, [_P, _P, _P, _I64, _INT, _INT, _INT, _P]),
-    "lt_cgsv_pass_f64": (_INT, [_P, _P, _P, _I64, _INT, _INT, _INT, _P]),
     "lt_bcgs_ring_f32": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P]),
     "lt_bcgs_ring_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _INT, _INT, _P]),
     "lt_bcgs_ring_info": (_INT, [_INT, _INT, _INT, _INT, _INT, _INT, ctypes.POINTER(_INT)]),
     "lt_cgsv_shadow_pass": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P]),
     "lt_row_set_f32": (_INT, [_P, _P, _P, _INT, _I64, _INT, _P]),
     "lt_row_set_f64": (_INT, [_P, _P, _P, _INT, _I64, _INT, _P]),
-    "lt_spmv_v2_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _P]),
-    "lt_spmv_v2_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _P]),
+    "lt_spmv_v2_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
+    "lt_spmv_v2_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
+    "lt_spmv_v2_vpu_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
+    "lt_spmv_v2_vpu_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
+    "lt_spmv_v2_vpu_info": (_INT, [_INT, _INT, _I64, _INT, ctypes.POINTER(_INT)]),
     "lt_spmv_v3_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
     "lt_spmv_v3_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
     "lt_error_string": (ctypes.c_char_p, [_INT]),

@@ -1,15 +1,18 @@
 // E2a: one block-MGS pass of v against rows [0, k) of a (cap, n) basis B,
 // in chunks of `chunk` rows taken in order: for each chunk [c0, c1),
 //   c = B[c0:c1] v   (against the current v),   v <- v - c^T B[c0:c1].
+// E2b, the classical pass in a single drain, is its one-chunk case
+// (chunk = k): every coefficient against the original v, then one update.
 //
-// Replaces the Pallas TPU kernel experiments/pallas_bcgs_kernel.py
+// Replaces two Pallas TPU kernels: experiments/pallas_bcgs_kernel.py
 // make_pass (v1, kernel _kernel), whose chunks are a sequential grid
-// dimension.  On the H100 the pass is ONE cooperative launch with one grid
-// barrier per chunk: a persistent grid of `grid` CTAs (two per SM), each
-// owning one contiguous range of `cols` columns of v for the whole pass
-// (the plan in experiments/_cgs_variants.py mgs_plan: ceil(n / grid)
-// rounded to 128 bytes), so every CTA streams the same bytes in every
-// phase.
+// dimension, and experiments/pallas_bcgs_kernel2.py make_pass (v2), whose
+// projection and update phases are.  On the H100 the pass is ONE
+// cooperative launch with one grid barrier per chunk: a persistent grid of
+// `grid` CTAs (two per SM), each owning one contiguous range of `cols`
+// columns of v for the whole pass (the plan in
+// experiments/_cgs_variants.py mgs_plan: ceil(n / grid) rounded to 128
+// bytes), so every CTA streams the same bytes in every phase.
 //
 // What bounds it on the H100: bytes.  A pass reads the k live rows twice
 // (2 k n values: the projection and the update of each chunk; a 64-row
@@ -43,7 +46,9 @@
 //   * after the barrier every CTA sums each row's partials in the same
 //     fixed order (the same bits in every CTA, no atomics), stages up to
 //     kCoefRows coefficients in shared memory, and updates its range piece
-//     by piece, each piece of v held in registers over the staged rows.
+//     by piece, each piece of v held in registers over the staged rows.  A
+//     chunk of more than kCoefRows rows (E2b at k > 512) is staged and
+//     applied in rounds after its one barrier, in the producer's order.
 // Plain FMAs in the storage precision, no tensor cores, no atomics in any
 // sum: a pass gives the same bits on every run.
 #include "common.cuh"
@@ -441,13 +446,6 @@ cudaError_t info(int cols, int piece, int stages, int* out) {
   return cudaSuccess;
 }
 
-cudaError_t make_current(int device) {
-  int cur = -1;
-  cudaError_t e = cudaGetDevice(&cur);
-  if (e != cudaSuccess) return e;
-  return cur == device ? cudaSuccess : cudaSetDevice(device);
-}
-
 }  // namespace
 
 extern "C" {
@@ -461,7 +459,7 @@ extern "C" {
 // runtime).
 int lt_bcgs_ring_f32(const float* basis, float* v, float* part, unsigned int* arrived, long long n, int k, int chunk,
                      int cols, int piece, int stages, int resident, int device, void* stream) {
-  cudaError_t e = make_current(device);
+  cudaError_t e = lt::make_current(device);
   if (e != cudaSuccess) return int(e);
   return int(bcgs_pass<float>(basis, v, part, arrived, n, k, chunk, cols, piece, stages, resident != 0,
                               static_cast<cudaStream_t>(stream)));
@@ -469,7 +467,7 @@ int lt_bcgs_ring_f32(const float* basis, float* v, float* part, unsigned int* ar
 
 int lt_bcgs_ring_f64(const double* basis, double* v, double* part, unsigned int* arrived, long long n, int k,
                      int chunk, int cols, int piece, int stages, int resident, int device, void* stream) {
-  cudaError_t e = make_current(device);
+  cudaError_t e = lt::make_current(device);
   if (e != cudaSuccess) return int(e);
   return int(bcgs_pass<double>(basis, v, part, arrived, n, k, chunk, cols, piece, stages, resident != 0,
                                static_cast<cudaStream_t>(stream)));
@@ -478,7 +476,7 @@ int lt_bcgs_ring_f64(const double* basis, double* v, double* part, unsigned int*
 // Registers, spills, shared memory and resident CTAs per SM of the kernel
 // at a plan (see info above); f64 selects the double kernel.
 int lt_bcgs_ring_info(int f64, int resident, int cols, int piece, int stages, int device, int* out) {
-  cudaError_t e = make_current(device);
+  cudaError_t e = lt::make_current(device);
   if (e != cudaSuccess) return int(e);
   if (f64) {
     e = check_plan<double>(1, cols, piece, stages, resident != 0);

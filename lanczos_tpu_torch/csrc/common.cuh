@@ -45,7 +45,16 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
-inline size_t round_up16(size_t b) { return (b + 15u) & ~size_t(15u); }
+__host__ __device__ constexpr size_t round_up16(size_t b) { return (b + 15u) & ~size_t(15u); }
+
+// Make `device` current for this library's own runtime, with no
+// cudaSetDevice when it already is (a launch path's host time).
+inline cudaError_t make_current(int device) {
+  int cur = -1;
+  cudaError_t e = cudaGetDevice(&cur);
+  if (e != cudaSuccess) return e;
+  return cur == device ? cudaSuccess : cudaSetDevice(device);
+}
 
 // Internal linkage: every translation unit that includes this header gets
 // its own copy of the kernels and device functions below.

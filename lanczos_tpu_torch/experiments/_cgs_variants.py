@@ -1,7 +1,7 @@
 """What the three CGS-pass studies (E2a-c) share: the argument checks, the
-launch of ``csrc/cgs_variants.cu`` (E2b, E2c), the launch plan and launch
-of ``csrc/bcgs_ring.cu`` (E2a), the studies' inputs, and their error
-measure."""
+launch plan and launch of ``csrc/bcgs_ring.cu`` (E2a, and E2b as its
+one-chunk case), the launch of ``csrc/cgs_variants.cu`` (E2c), the
+studies' inputs, and their error measure."""
 
 from __future__ import annotations
 
@@ -20,14 +20,13 @@ __all__ = [
     "mgs_smem_bytes",
     "mgs_launch",
     "validate",
-    "grid",
     "launch",
     "make_data",
     "rel_err",
 ]
 
-# E2a's launch shape (csrc/bcgs_ring.cu): 256 consumer threads and one
-# producer warp per CTA, two CTAs resident per SM.
+# E2a's and E2b's launch shape (csrc/bcgs_ring.cu): 256 consumer threads
+# and one producer warp per CTA, two CTAs resident per SM.
 MGS_CTAS_PER_SM = 2
 MGS_PIECE_BYTES = 16 * 1024  # one ring stage: 1024 16-byte vectors, four per consumer thread
 MGS_MIN_STAGES, MGS_MAX_STAGES = 2, 4  # the kernel takes up to 8
@@ -41,10 +40,10 @@ _DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K3 for complex and bfloat16 ba
 
 
 class MgsPlan(NamedTuple):
-    """How E2a cuts one pass: ``grid`` CTAs of ``cols`` columns each, a
-    ring of ``stages`` segments of ``piece`` columns, and ``route``, where
-    v's range lives ("smem": shared memory for the whole pass; "l2":
-    global memory, read and written at L2)."""
+    """How E2a and E2b cut one pass: ``grid`` CTAs of ``cols`` columns
+    each, a ring of ``stages`` segments of ``piece`` columns, and
+    ``route``, where v's range lives ("smem": shared memory for the whole
+    pass; "l2": global memory, read and written at L2)."""
 
     cols: int
     grid: int
@@ -64,8 +63,8 @@ def mgs_smem_bytes(cols: int, piece: int, stages: int, itemsize: int, resident: 
 
 @functools.lru_cache(maxsize=256)
 def mgs_plan(n: int, itemsize: int, num_sms: int, route: str | None = None) -> MgsPlan:
-    """E2a's launch plan for an (n,)-wide basis of ``itemsize``-byte values
-    on a card of ``num_sms`` SMs.
+    """E2a's and E2b's launch plan for an (n,)-wide basis of
+    ``itemsize``-byte values on a card of ``num_sms`` SMs.
 
     The grid is persistent, :data:`MGS_CTAS_PER_SM` CTAs per SM, each owning
     one contiguous range of ``ceil(n / slots)`` columns rounded up to 128
@@ -104,23 +103,24 @@ def mgs_plan(n: int, itemsize: int, num_sms: int, route: str | None = None) -> M
 _SMS: dict = {}  # SMs by CUDA device index
 
 
-def mgs_launch(what: str, v, basis, k: int, chunk: int, plan: MgsPlan | None = None):
+def mgs_launch(what: str, v, basis, k: int, chunk: int, route: str | None = None):
     """One cooperative launch of ``csrc/bcgs_ring.cu`` over validated CUDA
     operands, overwriting ``v``: block MGS over rows [0, k) in chunks of
-    ``chunk`` rows, cut by ``plan`` (default :func:`mgs_plan`).  The host's
-    part is kept short (a single pass at small k is a few hundred µs): the
-    plan is cached, the stream is the raw handle of
-    ``torch._C._cuda_getCurrentRawStream``, and one allocation holds the
-    partial sums and the grid barrier's counter, which the kernel's entry
-    point zeroes on the stream."""
+    ``chunk`` rows (E2a; ``chunk = k`` is E2b's classical pass), cut by
+    :func:`mgs_plan` with v on ``route`` (default: the plan's choice).
+    Only the wrappers that count the launch, ``bcgs_mgs_pass`` and
+    ``cgs_single_pass``, call this.  The host's part is kept short (a
+    single pass at small k is a few hundred µs): the plan is cached, the
+    stream is the raw handle of ``torch._C._cuda_getCurrentRawStream``,
+    and one allocation holds the partial sums and the grid barrier's
+    counter, which the kernel's entry point zeroes on the stream."""
     lib = _build.library()
     n = basis.shape[1]
     idx = v.device.index
-    if plan is None:
-        sms = _SMS.get(idx)
-        if sms is None:
-            sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-        plan = mgs_plan(n, basis.element_size(), sms)
+    sms = _SMS.get(idx)
+    if sms is None:
+        sms = _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    plan = mgs_plan(n, basis.element_size(), sms, route)
     part = torch.empty(k * plan.grid + 1, dtype=basis.dtype, device=v.device)
     fn = lib.lt_bcgs_ring_f32 if basis.dtype == torch.float32 else lib.lt_bcgs_ring_f64
     ptr = part.data_ptr()
@@ -153,39 +153,20 @@ def validate(name: str, v, basis, k) -> int:
     return k
 
 
-def grid(basis, shadow=None) -> int:
-    """The CTAs of the persistent cooperative grid a pass over this CUDA
-    basis launches: a fixed number per SM (``csrc/cgs_variants.cu``
-    ``ctas_per_sm``), at most one per column tile."""
-    lib = _build.library()
-    if shadow is not None:
-        grid_fn = lib.lt_cgsv_grid_shadow
-    elif basis.dtype == torch.float32:
-        grid_fn = lib.lt_cgsv_grid_f32
-    else:
-        grid_fn = lib.lt_cgsv_grid_f64
-    ctas = ctypes.c_int(0)
-    _build.check(grid_fn(basis.shape[1], basis.device.index, ctypes.byref(ctas)), "cgs_variants: cooperative grid")
-    return ctas.value
-
-
-def launch(what: str, v, basis, k: int, shadow=None):
-    """One cooperative launch of ``csrc/cgs_variants.cu`` over validated
-    CUDA operands, overwriting ``v``: one classical pass over rows [0, k),
-    with the coefficients measured against the bf16 ``shadow`` when one is
-    given."""
+def launch(what: str, v, basis, k: int, shadow):
+    """One cooperative launch of ``csrc/cgs_variants.cu`` (E2c) over
+    validated CUDA operands, overwriting ``v``: one classical pass over rows
+    [0, k), the coefficients measured against the bf16 ``shadow``.  The
+    grid is the kernel's own (a fixed number of CTAs per SM, at most one
+    per column tile), read before the launch to size the partial sums."""
     lib = _build.library()
     n = basis.shape[1]
-    dev = v.device
-    ctas = grid(basis, shadow)
-    part = torch.empty(k * ctas, dtype=basis.dtype, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if shadow is not None:
-        err = lib.lt_cgsv_shadow_pass(shadow.data_ptr(), basis.data_ptr(), v.data_ptr(), part.data_ptr(), n, k,
-                                      ctas, dev.index, stream)
-    else:
-        fn = lib.lt_cgsv_pass_f32 if basis.dtype == torch.float32 else lib.lt_cgsv_pass_f64
-        err = fn(basis.data_ptr(), v.data_ptr(), part.data_ptr(), n, k, ctas, dev.index, stream)
+    idx = v.device.index
+    ctas = ctypes.c_int(0)
+    _build.check(lib.lt_cgsv_grid_shadow(n, idx, ctypes.byref(ctas)), "cgs_variants: cooperative grid")
+    part = torch.empty(k * ctas.value, dtype=basis.dtype, device=v.device)
+    err = lib.lt_cgsv_shadow_pass(shadow.data_ptr(), basis.data_ptr(), v.data_ptr(), part.data_ptr(), n, k,
+                                  ctas.value, idx, torch._C._cuda_getCurrentRawStream(idx))
     _build.check(err, what)
     return v
 

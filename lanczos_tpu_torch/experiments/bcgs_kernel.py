@@ -38,14 +38,15 @@ def bcgs_mgs_pass_reference(v, basis, k: int, chunk: int):
     return v
 
 
-def bcgs_mgs_pass(v, basis, k: int, chunk: int):
+def bcgs_mgs_pass(v, basis, k: int, chunk: int, *, route: str | None = None):
     """E2a: one block-MGS pass of ``v`` against rows [0, k) of ``basis``.
 
     On CUDA tensors this launches ``csrc/bcgs_ring.cu`` once (float32 or
     float64; other dtypes raise), cut by ``_cgs_variants.mgs_plan``,
     overwrites ``v`` with the result, returns
     it and counts the launch in ``bcgs_mgs_pass.launches``; ``k == 0``
-    launches nothing.  On CPU tensors it returns
+    launches nothing.  ``route`` forces where v's range lives (the tests of
+    both routes).  On CPU tensors it returns
     :func:`bcgs_mgs_pass_reference`.  Callers use the return value.
     """
     k = _cgs_variants.validate("bcgs_mgs_pass", v, basis, k)
@@ -56,7 +57,7 @@ def bcgs_mgs_pass(v, basis, k: int, chunk: int):
         return bcgs_mgs_pass_reference(v, basis, k, chunk)
     if k == 0:
         return v
-    _cgs_variants.mgs_launch("bcgs_mgs_pass (E2a)", v, basis, k, chunk)
+    _cgs_variants.mgs_launch("bcgs_mgs_pass (E2a)", v, basis, k, chunk, route)
     bcgs_mgs_pass.launches += 1
     return v
 

@@ -5,9 +5,13 @@ The pass is classical GS over the live rows, what K3 computes: every
 coefficient against the original v, then one update,
 ``v - (B[:k] v) B[:k]``.  On the TPU "single drain" meant one data
 dependency for the whole pass; on the H100 it is one cooperative launch
-with one grid barrier (``csrc/cgs_variants.cu``).  The study's
-``precision`` choice has no counterpart: the kernel multiplies in full
-float32 (the TPU's DEFAULT precision is its bf16 MXU passes).
+with one grid barrier.  That is E2a's block-MGS pass with one chunk of all
+k rows, so E2b runs E2a's kernel (``csrc/bcgs_ring.cu``, cut by
+``_cgs_variants.mgs_plan``) at ``chunk = k``: one 128-byte aligned column
+range per CTA, v's range on chip, the rows streamed through a bulk-copy
+ring.  The study's ``precision`` choice has no counterpart: the kernel
+multiplies in full float32 (the TPU's DEFAULT precision is its bf16 MXU
+passes).
 
 Run on the card: ``python -m lanczos_tpu_torch.experiments.bcgs_kernel2``.
 """
@@ -27,13 +31,15 @@ __all__ = ["cgs_single_pass", "cgs_single_pass_reference", "make_pass", "check",
 cgs_single_pass_reference = cgs.cgs_pass_reference
 
 
-def cgs_single_pass(v, basis, k: int):
+def cgs_single_pass(v, basis, k: int, *, route: str | None = None):
     """E2b: one classical GS pass of ``v`` against rows [0, k) of ``basis``.
 
-    On CUDA tensors this launches ``csrc/cgs_variants.cu`` once (float32 or
-    float64; other dtypes raise), overwrites ``v`` with the result, returns
-    it and counts the launch in ``cgs_single_pass.launches``; ``k == 0``
-    launches nothing.  On CPU tensors it returns
+    On CUDA tensors this launches ``csrc/bcgs_ring.cu`` once at ``chunk =
+    k`` (float32 or float64; other dtypes raise), overwrites ``v`` with the
+    result, returns it and counts the launch in
+    ``cgs_single_pass.launches``; ``k == 0`` launches nothing.  ``route``
+    forces where v's range lives (``_cgs_variants.mgs_plan``; the tests of
+    both routes).  On CPU tensors it returns
     :func:`cgs_single_pass_reference`.  Callers use the return value.
     """
     k = _cgs_variants.validate("cgs_single_pass", v, basis, k)
@@ -41,7 +47,7 @@ def cgs_single_pass(v, basis, k: int):
         return cgs_single_pass_reference(v, basis, k)
     if k == 0:
         return v
-    _cgs_variants.launch("cgs_single_pass (E2b)", v, basis, k)
+    _cgs_variants.mgs_launch("cgs_single_pass (E2b)", v, basis, k, k, route)
     cgs_single_pass.launches += 1
     return v
 
@@ -82,8 +88,8 @@ def main(device="cuda") -> None:
     lines, then ms per pass by the marginal method (4 and 12 chained
     passes) of K3 and of E2b for k in (64, 128, 256).  GB/s are on
     2 k n 4 bytes.  Then both at k = 256 over widths around 2**22: E2b's
-    persistent CTAs each own whole column tiles, so its rate follows how
-    evenly the tiles divide among them, K3's (a CTA per tile) should not."""
+    CTAs each own one 128-byte aligned column range (``mgs_plan``), K3
+    launches a CTA per column tile."""
     device = _timing.cuda_device(device)
     print(torch.cuda.get_device_name(device), flush=True)
     n, cap = 1 << 22, 257
@@ -103,7 +109,8 @@ def main(device="cuda") -> None:
             t = _timing.marginal(chain, 4, 12, device=device)
             print(f"{name} k={k:3d}: {t * 1e3:6.3f} ms ({2 * k * n * 4 / t / 1e9:5.0f} GB/s)", flush=True)
     del basis, v, work
-    print(f"grid: {_cgs_variants.grid(torch.empty((1, n), device=device))} CTAs at n = {n}", flush=True)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"plan at n = {n}: {_cgs_variants.mgs_plan(n, 4, sms)}", flush=True)
     k = 256
     gen = torch.Generator(device=device).manual_seed(1)
     for width in range(15 * n // 16, 19 * n // 16 + 1, n // 32):

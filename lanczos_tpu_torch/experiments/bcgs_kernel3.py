@@ -11,9 +11,9 @@ would keep the shadow current with one bf16 row write per iteration (the
 row write of :mod:`.carry_copy_bench`) and hold half as much again of the
 basis in device memory.
 
-On CUDA tensors :func:`cgs_shadow_pass` runs ``csrc/cgs_variants.cu``: E2b's
-kernel with the projection reading bf16 rows, 8 values per 16-byte load,
-accumulated in float32.
+On CUDA tensors :func:`cgs_shadow_pass` runs ``csrc/cgs_variants.cu``: one
+persistent cooperative launch whose projection reads the bf16 rows, 8
+values per 16-byte load, accumulated in float32.
 
 Run on the card: ``python -m lanczos_tpu_torch.experiments.bcgs_kernel3``.
 """
@@ -68,7 +68,7 @@ def cgs_shadow_pass(v, basis_bf, basis, k: int):
         raise ValueError("cgs_shadow_pass: the shadow must be contiguous and on v's device")
     if k == 0:
         return v
-    _cgs_variants.launch("cgs_shadow_pass (E2c)", v, basis, k, shadow=basis_bf)
+    _cgs_variants.launch("cgs_shadow_pass (E2c)", v, basis, k, basis_bf)
     cgs_shadow_pass.launches += 1
     return v
 

@@ -8,8 +8,9 @@ tiles each, 128 x 128 float32 tiles).  Its variants keep their names:
   einsum  the plain gather+einsum (``ops.spmv.bsr_matvec_reference``);
   v1      K2, ``ops.spmv.bsr_matvec_rsmk`` (the study's round-1 kernel);
   v2      :func:`spmv_v2`, G row blocks per CTA, one dot per tile row;
-  v2vpu   :func:`spmv_v2` with ``vpu=True``: an elementwise product tile,
-          then row sums;
+  v2vpu   :func:`spmv_v2` with ``vpu=True``: elementwise products of each
+          tile row, then row sums, on a grid that fills the card
+          (:func:`vpu_plan`);
   v3      :func:`spmv_v3`, pre-transposed (R, bm, S, bk) tiles, the x
           segments of a row block gathered once, one long dot per row.
 
@@ -22,7 +23,9 @@ Run on the card: ``python -m lanczos_tpu_torch.experiments.spmv_bench``.
 
 from __future__ import annotations
 
+import functools
 import json
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,15 +35,78 @@ from ..ops import spmv
 from . import _timing
 
 __all__ = [
+    "VpuPlan",
+    "vpu_plan",
+    "vpu_smem_bytes",
     "spmv_v2",
     "spmv_v2_reference",
     "spmv_v3",
     "spmv_v3_reference",
     "make_data",
+    "make_cancelling_data",
     "check",
     "run_study",
     "main",
 ]
+
+
+# The VPU form's launch shape (csrc/spmv_variants.cu): 256 threads per CTA,
+# at most 8 tile rows per warp, x segments gathered 32 KB at a time.
+VPU_THREADS = 256
+VPU_WARPS = VPU_THREADS // 32
+VPU_MAX_ROWS_PER_WARP = 8
+VPU_X_PIECE_BYTES = 32 * 1024
+MAX_SMEM_BYTES = 227 * 1024  # what one CTA can ask for on the H100
+
+
+class VpuPlan(NamedTuple):
+    """How the VPU form cuts one SpMV: ``ctas`` CTAs of ``threads``
+    threads, each warp on ``rows_per_warp`` tile rows of one row block, the
+    x segments of ``s_piece`` tiles gathered into shared memory at a time,
+    ``smem_bytes`` of dynamic shared memory per CTA."""
+
+    ctas: int
+    threads: int
+    rows_per_warp: int
+    s_piece: int
+    smem_bytes: int
+
+
+def _up16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def vpu_smem_bytes(rows_per_warp: int, s_piece: int, bk: int, itemsize: int) -> int:
+    """Dynamic shared memory of one VPU-form CTA, as
+    ``csrc/spmv_variants.cu`` ``vpu_smem_bytes`` lays it out: the x
+    segments, a flag per tile, and the warps' row totals between x
+    pieces."""
+    return _up16(s_piece * bk * itemsize) + _up16(s_piece * 4) + VPU_WARPS * rows_per_warp * itemsize
+
+
+@functools.lru_cache(maxsize=64)
+def vpu_plan(r: int, s: int, bm: int, bk: int, itemsize: int) -> VpuPlan:
+    """The VPU form's launch plan for (R, S, bm, bk) tiles of
+    ``itemsize``-byte values.
+
+    A CTA covers ``VPU_WARPS * rows_per_warp`` tile rows of one row block,
+    ``rows_per_warp = min(8, ceil(bm / 8))``, so a row block takes
+    ``ceil(bm / (8 * rows_per_warp))`` CTAs and the grid is R times that:
+    1024 CTAs at the study's size, the card filled without G.  CTA c takes
+    row block ``c // per_block``; its warp w the rows from ``(c % per_block)
+    * 8 * rows_per_warp + w * rows_per_warp`` on, up to bm.  The x
+    segments of :data:`VPU_X_PIECE_BYTES` worth of tiles (at least one, at
+    most S) are gathered at a time.  Raises where one tile's segment does
+    not fit a CTA's shared memory."""
+    if min(r, s, bm, bk) < 1 or itemsize not in (4, 8):
+        raise ValueError(f"vpu_plan: R={r}, S={s}, bm={bm}, bk={bk}, itemsize={itemsize}")
+    rows_per_warp = min(VPU_MAX_ROWS_PER_WARP, -(-bm // VPU_WARPS))
+    per_block = -(-bm // (VPU_WARPS * rows_per_warp))
+    s_piece = max(1, min(s, VPU_X_PIECE_BYTES // (bk * itemsize)))
+    smem = vpu_smem_bytes(rows_per_warp, s_piece, bk, itemsize)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"vpu_plan: a tile row of {bk} values needs {smem} bytes of shared memory")
+    return VpuPlan(r * per_block, VPU_THREADS, rows_per_warp, s_piece, smem)
 
 
 def _validate(name: str, blocks, col_blocks, x, G, s_axis: int):
@@ -93,9 +159,19 @@ def spmv_v3_reference(blocks_t, col_blocks, x, G: int = 8):
     return y.reshape(-1).to(x.dtype)
 
 
-def _launch(name: str, fn_f32, fn_f64, blocks, col_blocks, x, dims, G: int, *extra):
-    """One launch of a ``csrc/spmv_variants.cu`` entry point on checked
-    CUDA operands; returns y."""
+# The kernels' foreign functions by (variant, dtype), resolved at the first
+# CUDA call (the library is built then, never at import).
+_FNS: dict = {}
+
+
+def _launch(name: str, variant: str, blocks, col_blocks, x, dims, *extra):
+    """One launch of the ``csrc/spmv_variants.cu`` entry point
+    ``lt_spmv_<variant>_f32/_f64`` on checked CUDA operands, ``fn(blocks,
+    col_blocks, x, y, R, S, bm, bk, *extra, device, stream)`` with ``dims
+    = (R, S, bm, bk)``; returns y.  The host's part is kept short, since a
+    ~0.1 ms SpMV's single call also holds it: the foreign function is
+    resolved once, and the stream is the raw handle of
+    ``torch._C._cuda_getCurrentRawStream``."""
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
     if blocks.dtype not in (torch.float32, torch.float64):
@@ -108,20 +184,24 @@ def _launch(name: str, fn_f32, fn_f64, blocks, col_blocks, x, dims, G: int, *ext
         raise ValueError(f"{name}: blocks, col_blocks and x must be on one device")
     if not (blocks.is_contiguous() and col_blocks.is_contiguous() and x.is_contiguous()):
         raise ValueError(f"{name} needs contiguous tensors")
-    r, s, bm, bk = dims
-    fn = fn_f32 if blocks.dtype == torch.float32 else fn_f64
-    y = torch.empty(r * bm, dtype=x.dtype, device=x.device)
-    dev = x.device
-    err = fn(blocks.data_ptr(), col_blocks.data_ptr(), x.data_ptr(), y.data_ptr(), r, s, bm, bk, int(G),
-             x.shape[0], *extra, dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, name)
+    if not _FNS:
+        lib = _build.library()
+        _FNS.update({(v, dt): getattr(lib, f"lt_spmv_{v}_{suffix}") for v in ("v2", "v2_vpu", "v3")
+                     for dt, suffix in ((torch.float32, "f32"), (torch.float64, "f64"))})
+    y = torch.empty(dims[0] * dims[2], dtype=x.dtype, device=x.device)
+    idx = x.device.index
+    err = _FNS[variant, blocks.dtype](blocks.data_ptr(), col_blocks.data_ptr(), x.data_ptr(), y.data_ptr(), *dims,
+                                      *extra, idx, torch._C._cuda_getCurrentRawStream(idx))
+    if err:
+        _build.check(err, name)
     return y
 
 
 def spmv_v2(blocks, col_blocks, x, G: int = 8, vpu: bool = False):
-    """E1, v2: y = A x for (R, S, bm, bk) tiles with G row blocks per CTA,
-    each tile multiplied as one dot per row (``vpu=False``) or as an
-    elementwise product tile summed over each row (``vpu=True``).
+    """E1, v2: y = A x for (R, S, bm, bk) tiles, each tile multiplied as
+    one dot per row with G row blocks per CTA (``vpu=False``), or as
+    elementwise products summed over each tile row (``vpu=True``), on the
+    grid of :func:`vpu_plan`, which G does not change.
 
     On CUDA tensors this launches ``csrc/spmv_variants.cu`` (float32 or
     float64; other dtypes raise) and counts the launch in
@@ -131,12 +211,13 @@ def spmv_v2(blocks, col_blocks, x, G: int = 8, vpu: bool = False):
     r, s, bm, bk, x = _validate("spmv_v2", blocks, col_blocks, x, G, 1)
     if x.device.type == "cpu":
         return spmv_v2_reference(blocks, col_blocks, x, G, vpu)
-    lib = _build.library()
-    name = "spmv_v2_vpu (E1)" if vpu else "spmv_v2 (E1)"
-    y = _launch(name, lib.lt_spmv_v2_f32, lib.lt_spmv_v2_f64, blocks, col_blocks, x, (r, s, bm, bk), G, int(vpu))
+    dims = (r, s, bm, bk)
     if vpu:
+        y = _launch("spmv_v2_vpu (E1)", "v2_vpu", blocks, col_blocks, x, dims, x.shape[0],
+                    *vpu_plan(*dims, blocks.element_size()))
         spmv_v2.vpu_launches += 1
     else:
+        y = _launch("spmv_v2 (E1)", "v2", blocks, col_blocks, x, dims, int(G), x.shape[0])
         spmv_v2.launches += 1
     return y
 
@@ -158,8 +239,7 @@ def spmv_v3(blocks_t, col_blocks, x, G: int = 8):
     r, s, bm, bk, x = _validate("spmv_v3", blocks_t, col_blocks, x, G, 2)
     if x.device.type == "cpu":
         return spmv_v3_reference(blocks_t, col_blocks, x, G)
-    lib = _build.library()
-    y = _launch("spmv_v3 (E1)", lib.lt_spmv_v3_f32, lib.lt_spmv_v3_f64, blocks_t, col_blocks, x, (r, s, bm, bk), G)
+    y = _launch("spmv_v3 (E1)", "v3", blocks_t, col_blocks, x, (r, s, bm, bk), int(G), x.shape[0])
     spmv_v3.launches += 1
     return y
 
@@ -180,6 +260,37 @@ def make_data(r: int = 512, s: int = 8, bm: int = 128, bk: int = 128, seed: int 
     col_blocks = rng.integers(0, n_pad // bk, size=(r, s)).astype(np.int32)
     x = rng.standard_normal(n_pad).astype(dtype)
     return blocks, blocks_t, col_blocks, x
+
+
+def make_cancelling_data(r: int = 16, s: int = 8, bm: int = 128, bk: int = 128, seed: int = 0, dtype=np.float32):
+    """:func:`make_data`'s operator with tile 0 of every row block moved to
+    a column block of its own, the last row of x, whose rows cancel: tile
+    row i holds -1 and a_j at columns 2j and 2j + 1 (j = i mod bk/2) and
+    zeros elsewhere, and that row of x holds p_j = fl(a_j b_j) and b_j
+    there (a_j, b_j random integers, so that |a_j b_j| is about 2**25 in
+    float32 and 2**61 in float64).  Products rounded on their own, the VPU
+    form's, sum each such tile row to exactly 0.  An FMA chain over the
+    pair in column order leaves a_j b_j - p_j, the product's rounding
+    error, which is as large as the row sums of the other tiles.  No other
+    tile reads that row of x.  Returns numpy arrays ``(blocks, blocks_t,
+    col_blocks, x)``."""
+    if bk % 2 or r * bm // bk < 2:
+        raise ValueError(f"make_cancelling_data: bk={bk} must be even and the x table at least 2 rows")
+    blocks, _, _, x = make_data(r, s, bm, bk, seed, dtype)
+    rng = np.random.default_rng(seed + 1)
+    c_last = r * bm // bk - 1
+    col_blocks = rng.integers(0, c_last, size=(r, s)).astype(np.int32)
+    col_blocks[:, 0] = c_last
+    lo = 2**12 if np.dtype(dtype) == np.float32 else 2**30
+    a = rng.integers(lo, 2 * lo, size=bk // 2).astype(dtype)
+    b = rng.integers(lo, 2 * lo, size=bk // 2).astype(dtype)
+    j = np.arange(bm) % (bk // 2)
+    tile = np.zeros((bm, bk), dtype)
+    tile[np.arange(bm), 2 * j] = -1
+    tile[np.arange(bm), 2 * j + 1] = a[j]
+    blocks[:, 0] = tile
+    x[c_last * bk : (c_last + 1) * bk] = np.stack([a * b, b], axis=1).reshape(-1)  # a * b: one rounding
+    return blocks, np.ascontiguousarray(np.moveaxis(blocks, 2, 1)), col_blocks, x
 
 
 def _variants(blocks, blocks_t, col_blocks, G: int):

@@ -347,6 +347,8 @@ def test_kernel_matches_plain_on_cuda(cuda, kernel):
         basis /= torch.linalg.vector_norm(basis, dim=1, keepdim=True)
         v = torch.randn(n, generator=gen, device=cuda, dtype=dtype)
         shadow = bcgs_kernel3.make_shadow(basis)
+        if kernel == "e2b":
+            _e2b_matches_plain_on_both_routes(gen, dtype, n, tol)
         for k in (1, 31, 32, 33, 70):
             if kernel == "e2a":
                 _e2a_matches_plain_on_both_routes(v, basis, k, tol)
@@ -365,19 +367,46 @@ def test_kernel_matches_plain_on_cuda(cuda, kernel):
 
 def _e2a_matches_plain_on_both_routes(v, basis, k, tol):
     """E2a on both routes for v at chunks 1, 8, 32 and k: within ``tol`` of
-    the plain version, the same bits on repeat."""
+    the plain version, the same bits on repeat, each pass one counted
+    launch."""
     n = basis.shape[1]
-    sms = torch.cuda.get_device_properties(v.device).multi_processor_count
     for route in _cgs_variants.ROUTES:
-        plan = _cgs_variants.mgs_plan(n, basis.element_size(), sms, route=route)
         for chunk in (1, 8, 32, k):
-            got = _cgs_variants.mgs_launch("e2a", v.clone(), basis, k, chunk, plan)
-            again = _cgs_variants.mgs_launch("e2a", v.clone(), basis, k, chunk, plan)
+            before = bcgs_kernel.bcgs_mgs_pass.launches
+            got = bcgs_kernel.bcgs_mgs_pass(v.clone(), basis, k, chunk, route=route)
+            again = bcgs_kernel.bcgs_mgs_pass(v.clone(), basis, k, chunk, route=route)
+            assert bcgs_kernel.bcgs_mgs_pass.launches == before + 2
             want = bcgs_kernel.bcgs_mgs_pass_reference(v, basis, k, chunk)
             torch.cuda.synchronize()
             rel = float((got - want).abs().max() / want.abs().max())
             assert rel <= tol, (basis.dtype, n, k, chunk, route, rel)
             assert torch.equal(got, again), (basis.dtype, n, k, chunk, route)
+
+
+def _e2b_matches_plain_on_both_routes(gen, dtype, n, tol, cap=600):
+    """E2b, E2a's kernel at chunk = k, on both routes for v, for k up to a
+    cap past the 512 coefficients the kernel stages at a time: within
+    ``tol`` of the plain version and the same bits on repeat, each pass
+    one counted launch; the default route's bits without ``route``."""
+    basis = torch.randn((cap, n), generator=gen, device=gen.device, dtype=dtype)
+    basis /= torch.linalg.vector_norm(basis, dim=1, keepdim=True)
+    v = torch.randn(n, generator=gen, device=gen.device, dtype=dtype)
+    sms = torch.cuda.get_device_properties(v.device).multi_processor_count
+    default = _cgs_variants.mgs_plan(n, basis.element_size(), sms).route
+    for k in (1, 3, 100, 512, 513, cap):
+        want = bcgs_kernel2.cgs_single_pass_reference(v, basis, k)
+        before = bcgs_kernel2.cgs_single_pass.launches
+        wrapped = bcgs_kernel2.cgs_single_pass(v.clone(), basis, k)
+        for route in _cgs_variants.ROUTES:
+            got = bcgs_kernel2.cgs_single_pass(v.clone(), basis, k, route=route)
+            again = bcgs_kernel2.cgs_single_pass(v.clone(), basis, k, route=route)
+            torch.cuda.synchronize()
+            rel = float((got - want).abs().max() / want.abs().max())
+            assert rel <= tol, (dtype, n, k, route, rel)
+            assert torch.equal(got, again), (dtype, n, k, route)
+            if route == default:
+                assert torch.equal(wrapped, got), (dtype, n, k)
+        assert bcgs_kernel2.cgs_single_pass.launches == before + 1 + 2 * len(_cgs_variants.ROUTES)
 
 
 def _e3_in_graph_matches_plain(cuda, gen, calls=16):

@@ -1,8 +1,9 @@
-"""Launch plans of kernels K4 (block CGS pass), K5 (Chebyshev chain) and E2a
-(block-MGS pass) of the PyTorch port, held on the CPU: the plans live in
-Python (``ops/cgs.py`` ``block_plan``, ``ops/cheby.py`` ``plan``,
-``experiments/_cgs_variants.py`` ``mgs_plan``) and the CUDA entry points
-take and check what they say.  The K5 tests model the
+"""Launch plans of kernels K4 (block CGS pass), K5 (Chebyshev chain), E2a
+and E2b (block-MGS pass and its one-chunk case) and E1's VPU form of the
+PyTorch port, held on the CPU: the plans live in Python (``ops/cgs.py``
+``block_plan``, ``ops/cheby.py`` ``plan``, ``experiments/_cgs_variants.py``
+``mgs_plan``, ``experiments/spmv_bench.py`` ``vpu_plan``) and the CUDA
+entry points take and check what they say.  The K5 tests model the
 launches' overlapped windows with the plain recurrence step and hold them
 to the plain chain bit for bit."""
 
@@ -15,6 +16,7 @@ torch.set_num_threads(1)
 import torch.nn.functional as F  # noqa: E402
 
 from lanczos_tpu_torch.experiments import _cgs_variants as cv  # noqa: E402
+from lanczos_tpu_torch.experiments import spmv_bench  # noqa: E402
 from lanczos_tpu_torch.ops import cgs, cheby  # noqa: E402
 
 H100_SMS = 132
@@ -142,8 +144,43 @@ def _e2a_fits(cols, piece, itemsize):
 
 
 def test_e2a_plan_covers_the_columns_once_and_fits_the_sm():
+    """Holds two study kernels' plans: E2a's (which E2b shares) and E1's
+    VPU form's (``_check_vpu_plans``), so a failure here may be either's.
+    They are one item because the file's item count fixes its place in
+    pytest-xdist's loadfile queue."""
     for itemsize in (4, 8):
         _check_e2a_plans(itemsize)
+    _check_vpu_plans()
+
+
+def _check_vpu_plans():
+    """E1's VPU plan: every row of every row block taken by exactly one
+    warp of one CTA, as ``csrc/spmv_variants.cu`` maps them; shared memory
+    within what a CTA can ask for; the card filled at the study's size."""
+    warps = spmv_bench.VPU_WARPS
+    for r in (12, 512, 516):
+        for bk in (6, 128, 4100):
+            for s, bm in ((8, 128), (3, 16), (5, 7), (2, 200)):
+                for itemsize in (4, 8):
+                    p = spmv_bench.vpu_plan(r, s, bm, bk, itemsize)
+                    assert p.threads == spmv_bench.VPU_THREADS and 1 <= p.rows_per_warp <= 8, p
+                    per_block, rem = divmod(p.ctas, r)
+                    assert rem == 0 and per_block == -(-bm // (warps * p.rows_per_warp)), p
+                    cta, warp, i = np.meshgrid(np.arange(p.ctas), np.arange(warps), np.arange(p.rows_per_warp),
+                                               indexing="ij")
+                    row = (cta % per_block) * warps * p.rows_per_warp + warp * p.rows_per_warp + i
+                    live = row < bm
+                    seen = np.zeros((r, bm), np.int64)
+                    np.add.at(seen, ((cta // per_block)[live], row[live]), 1)
+                    assert (seen == 1).all(), (r, s, bm, bk, itemsize, p)
+                    assert 1 <= p.s_piece <= s
+                    assert p.s_piece == 1 or p.s_piece * bk * itemsize <= spmv_bench.VPU_X_PIECE_BYTES
+                    assert p.smem_bytes == spmv_bench.vpu_smem_bytes(p.rows_per_warp, p.s_piece, bk, itemsize)
+                    assert p.smem_bytes <= 227 * 1024
+    study = spmv_bench.vpu_plan(512, 8, 128, 128, 4)
+    assert study == spmv_bench.VpuPlan(1024, 256, 8, 8, 4384) and study.ctas >= H100_SMS
+    with pytest.raises(ValueError, match="shared memory"):
+        spmv_bench.vpu_plan(4, 2, 8, 30_000, 8)
 
 
 def _check_e2a_plans(itemsize):

@@ -154,24 +154,58 @@ def cuda():
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_kernel_matches_plain_on_cuda(cuda, variant):
     gen = torch.Generator(device=cuda).manual_seed(0)
+    # The last two cases gather x in pieces in the VPU form (one tile row's
+    # segment is over its 32 KB piece budget), the last with bk not a
+    # multiple of the vector width.
     cases = [(torch.float32, 516, 8, 128, 128, 8, 1e-5), (torch.float32, 37, 5, 16, 6, 4, 1e-5),
              (torch.float32, 3, 2, 8, 8, 8, 1e-5), (torch.float64, 61, 5, 16, 6, 8, 1e-12),
-             (torch.float64, 64, 8, 128, 128, 8, 1e-12)]
+             (torch.float64, 64, 8, 128, 128, 8, 1e-12), (torch.float64, 5, 3, 8, 4100, 8, 1e-12),
+             (torch.float32, 4, 3, 8, 8201, 8, 1e-5)]
     for dtype, r, s, bm, bk, G, tol in cases:
         blocks = torch.randn((r, s, bm, bk), generator=gen, device=cuda, dtype=dtype)
         blocks_t = blocks.permute(0, 2, 1, 3).contiguous()
-        cb = torch.randint(0, r * bm // bk, (r, s), generator=gen, device=cuda, dtype=torch.int32)
-        x = torch.randn(r * bm // bk * bk, generator=gen, device=cuda, dtype=dtype)
+        c_rows = max(r * bm // bk, 1)
+        cb = torch.randint(0, c_rows, (r, s), generator=gen, device=cuda, dtype=torch.int32)
+        x = torch.randn(c_rows * bk, generator=gen, device=cuda, dtype=dtype)
         if variant == "v3":
             fn, ref, tiles, kw, counter = spmv_bench.spmv_v3, spmv_bench.spmv_v3_reference, blocks_t, {}, "launches"
         else:
             vpu = variant == "v2vpu"
             fn, ref, tiles, kw = spmv_bench.spmv_v2, spmv_bench.spmv_v2_reference, blocks, {"vpu": vpu}
             counter = "vpu_launches" if vpu else "launches"
-        before = getattr(fn, counter)
-        got = fn(tiles, cb, x, G=G, **kw)
-        want = ref(tiles, cb, x, G=G, **kw)
+        # col_blocks outside the x table read zeros: the plain version
+        # reads them from a table padded with zero rows.
+        cb_out = cb.clone()
+        cb_out[::3, -1] = c_rows + 2
+        x_pad = torch.cat([x, x.new_zeros(3 * bk)])
+        for c, x_ref in ((cb, x), (cb_out, x_pad)):
+            before = getattr(fn, counter)
+            got = fn(tiles, c, x, G=G, **kw)
+            again = fn(tiles, c, x, G=G, **kw)
+            want = ref(tiles, c, x_ref, G=G, **kw)
+            torch.cuda.synchronize()
+            assert getattr(fn, counter) == before + 2
+            rel = float((got.double() - want.double()).abs().max() / want.double().abs().max())
+            assert rel <= tol, (dtype, r, s, bm, bk, G, rel)
+            assert torch.equal(got, again), (dtype, r, s, bm, bk, G)
+    if variant == "v2vpu":
+        _vpu_form_rounds_each_product(cuda)
+
+
+def _vpu_form_rounds_each_product(cuda):
+    """The rounding trap: on tiles whose rows cancel
+    (``make_cancelling_data``), the VPU form keeps the plain version's
+    separately rounded products, the same bits on repeat, while the dot
+    form's FMA chain, which a VPU form with contracted products would
+    become, misses them by far more than the tolerance."""
+    for dtype, tol in ((np.float32, 1e-5), (np.float64, 1e-12)):
+        blocks, _, cb, x = (torch.from_numpy(a).to(cuda) for a in spmv_bench.make_cancelling_data(dtype=dtype))
+        want = spmv_bench.spmv_v2_reference(blocks, cb, x, vpu=True).double()
+        got = spmv_bench.spmv_v2(blocks, cb, x, vpu=True)
+        again = spmv_bench.spmv_v2(blocks, cb, x, vpu=True)
+        dot = spmv_bench.spmv_v2(blocks, cb, x)
         torch.cuda.synchronize()
-        assert getattr(fn, counter) == before + 1
-        rel = float((got.double() - want.double()).abs().max() / want.double().abs().max())
-        assert rel <= tol, (dtype, r, s, bm, bk, G, rel)
+        scale = want.abs().max()
+        assert float((got.double() - want).abs().max() / scale) <= tol, dtype
+        assert torch.equal(got, again), dtype
+        assert float((dot.double() - want).abs().max() / scale) > 100 * tol, dtype
