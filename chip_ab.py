@@ -1,13 +1,22 @@
 #!/usr/bin/env python3
-"""Times kernels K4, K5, E2a, E2b, E3 and E1's VPU form of one checkout of
-lanczos_tpu_torch on one NVIDIA GPU, so that two commits can be compared on
-the same card: ``python3 chip_ab.py --root DIR [--flagships]``.
+"""Times kernels K3, K4, K5, E2a, E2b, E3 and E1's v2 forms of one checkout
+of lanczos_tpu_torch on one NVIDIA GPU, so that two commits can be compared
+on the same card: ``python3 chip_ab.py --root DIR [--flagships]``.
 
 DIR holds the checkout (``.`` for this one, or a parent commit unpacked by
 ``git archive`` into a git-ignored directory); its ``lanczos_tpu_torch``
 and ``chip_smoke.py`` are imported from there.  Only calls both sides
 share are used:
 
+- ``cgs.cgs_pass`` (K3) one call at a time over ``chip_smoke.K3_SWEEP``
+  (k from 1 to 256 on a (257, 2**20) float32 basis, k in (1, 16, 64, 256)
+  on (257, 2**22)), each beside two ``torch.mv`` and the two-read stream;
+  the main path's k sequence (:data:`K3_MAIN_PATH_KS`) replayed as one
+  sum beside the sum of its two-read streams; and the host's microseconds
+  per call at k = 1 on a (2, 4096) basis beside two ``torch.mv``;
+- the main path's solve (n = 2**20, 176 iterations) under
+  ``torch.profiler``: K3's and K1's device time in it, its busy time and
+  idle share;
 - ``cgs.cgs_pass_block`` at b = 3 on the block flagship's (258, 2**22)
   float32 buffer for k = 24, 96 and 255;
 - the Chebyshev flagship's filter apply (n = 2**22 chain, degree 400)
@@ -18,10 +27,10 @@ share are used:
   bytes over a same-process ``torch.sum`` read rate), and
   ``bcgs_kernel2.cgs_single_pass(v, basis, k)`` (E2b) on the same basis
   for the same k, beside two ``torch.mv`` and the same stream;
-- ``spmv_bench.spmv_v2(blocks, col_blocks, x, vpu=True)`` (E1's VPU form)
-  at the study's 64 Mi stored nnz in float32 (R = 512, S = 8, 128 x 128
-  tiles), beside the dot form, K2 (``spmv.bsr_matvec_rsmk``) and a
-  ``torch.sum`` read of the tiles;
+- ``spmv_bench.spmv_v2(blocks, col_blocks, x, vpu=...)`` (E1's VPU form
+  and dot form) at the study's 64 Mi stored nnz in float32 (R = 512, S =
+  8, 128 x 128 tiles), beside K2 (``spmv.bsr_matvec_rsmk``) and a
+  ``torch.sum`` read of the tiles: one call, and per call over runs of 50;
 - ``carry_copy_bench.row_set(buf, k, w)`` (E3) on a (256, 2**20) float32
   buffer: one call, and runs of 100 calls per call, by CUDA events beside
   ``index_copy_`` and ``copy_``;
@@ -31,10 +40,11 @@ share are used:
   beside the same 64 calls of ``index_copy_`` and of ``copy_``
   (``chip_smoke.e3_graph`` of this tree, with its bit-for-bit checks).
 
-``digests`` holds the SHA-256 of K4's, E2b's, E2c's and E1's three
-variants' outputs on fixed inputs; those of the kernels a change leaves
-alone must not differ between the two sides, and every one must repeat
-from run to run of one side.  Times are medians of
+``digests`` holds the SHA-256 of K3's (at (258, 2**22) k = 256, (257,
+2**20) k = 128 and float64 (129, 70001) k = 129), K4's, E2b's, E2c's and
+E1's three variants' outputs on fixed inputs; those of the kernels a change
+leaves alone must not differ between the two sides, and every one must
+repeat from run to run of one side.  Times are medians of
 CUDA-event timings after a warm-up.  ``--flagships``
 adds the checkout's own ``chip_smoke.py`` phases ``block_thick_flagship``
 and ``cheby_flagship`` (their walls and checks).  Run the two sides in
@@ -52,6 +62,12 @@ import sys
 from pathlib import Path
 
 E3_CAP1, E3_N = 256, 2**20
+# The k of every K3 launch of the main path's solve (chip_smoke.py phase
+# main_path, n = 2**20 float32, 176 iterations): k = 1, 2, ..., 176, once
+# each, as recorded on the parent of the K3 redesign, c29b668 (phase
+# k3_path prints the histogram of every run).  A fixed sequence, so that
+# both sides replay the same calls whatever their bits do to the solve.
+K3_MAIN_PATH_KS = tuple(range(1, 177))
 
 # The measurement helpers of this tree's chip_smoke.py (the side under test
 # may be a parent without them), loaded by path so that ``import
@@ -80,7 +96,8 @@ def digests(torch, cgs, dev) -> dict:
     basis /= torch.linalg.vector_norm(basis, dim=1, keepdim=True)
     vblk = torch.randn((3, n), generator=gen, device=dev)
     out = {"k4_b3_k255": digest(torch, cgs.cgs_pass_block(vblk.clone(), basis, 255)),
-           "e2b_k256": digest(torch, bcgs_kernel2.cgs_single_pass(vblk[0].clone(), basis[:257], 256))}
+           "e2b_k256": digest(torch, bcgs_kernel2.cgs_single_pass(vblk[0].clone(), basis[:257], 256)),
+           "k3_k256": digest(torch, cgs.cgs_pass(vblk[2].clone(), basis, 256))}
     shadow = bcgs_kernel3.make_shadow(basis[:257])
     out["e2c_k256"] = digest(torch, bcgs_kernel3.cgs_shadow_pass(vblk[1].clone(), shadow, basis[:257], 256))
     del basis, vblk, shadow
@@ -88,6 +105,17 @@ def digests(torch, cgs, dev) -> dict:
     out["e1_v2"] = digest(torch, spmv_bench.spmv_v2(blocks, cb, x, G=8))
     out["e1_v2_vpu"] = digest(torch, spmv_bench.spmv_v2(blocks, cb, x, G=8, vpu=True))
     out["e1_v3"] = digest(torch, spmv_bench.spmv_v3(blocks_t, cb, x, G=8))
+    del blocks, blocks_t, cb, x
+    # K3 at the main path's width and in float64, from a generator of its
+    # own (the inputs above stay those of the earlier digests).
+    gen = torch.Generator(device=dev).manual_seed(2)
+    basis = torch.randn((257, 2**20), generator=gen, device=dev)
+    basis /= torch.linalg.vector_norm(basis, dim=1, keepdim=True)
+    v = torch.randn(2**20, generator=gen, device=dev)
+    out["k3_k128_n2p20"] = digest(torch, cgs.cgs_pass(v, basis, 128))
+    basis = torch.randn((129, 70001), generator=gen, device=dev, dtype=torch.float64)
+    v = torch.randn(70001, generator=gen, device=dev, dtype=torch.float64)
+    out["k3_f64_k129_n70001"] = digest(torch, cgs.cgs_pass(v, basis, 129))
     return out
 
 
@@ -128,6 +156,106 @@ def time_e1(torch, dev, gen) -> dict:
             "k2": lambda: spmv.bsr_matvec_rsmk(blocks, cb, x, col_bound=2),
             "stream": lambda: torch.sum(blocks)}
     out["host_us_per_call_tiny"] = {name: smoke.host_us_per_call(torch, fn) for name, fn in tiny.items()}
+    return out
+
+
+def profile_solve(torch, eng, iters) -> dict:
+    """The same solve again under ``torch.profiler`` (the same start
+    vector, so the same iterations and K3 calls): its device span, busy
+    time (the union of the device intervals) and idle share, and the device
+    milliseconds of K3's three kernels and of K1.  A solve that takes
+    another number of iterations fails the run."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.run()
+        torch.cuda.synchronize()
+    if sum(eng.iteration_counts) != iters:
+        raise AssertionError(f"the profiled solve took {eng.iteration_counts} iterations, not {iters}")
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity in the main path's solve")
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+
+    def device_ms(*names):
+        return sum(e.time_range.end - e.time_range.start for e in device if any(m in e.name for m in names)) / 1e3
+
+    by_name = {}
+    for e in device:
+        rec = by_name.setdefault(e.name[:60], [0.0, 0])
+        rec[0] += (e.time_range.end - e.time_range.start) / 1e3
+        rec[1] += 1
+    return {"device_span_ms": span / 1e3, "device_busy_ms": busy / 1e3, "device_idle_share": 1 - busy / span,
+            "k3_device_ms": device_ms("cgs_project_kernel", "reduce_rows_kernel", "cgs_update_kernel"),
+            "k1_device_ms": device_ms("bsr_spmv"), "device_events": len(device),
+            "top_device_ms": sorted(([name, ms, count] for name, (ms, count) in by_name.items()),
+                                    key=lambda r: -r[1])[:6]}
+
+
+def main_path_profile(torch, np, dev) -> dict:
+    """The main path's solve (``chip_smoke.py`` phase main_path's problem
+    and engine) run once, then again under ``torch.profiler``
+    (:func:`profile_solve`): K3's and K1's device milliseconds in the
+    solve, its device busy time and idle share."""
+    import lanczos_tpu_torch as tl
+
+    rows, cols, vals = smoke._main_path_coo(np)
+    op = tl.BSROperator.from_coo(rows, cols, vals, smoke.MAIN_N, bm=128, bk=128, dtype=torch.float32, device=dev)
+    eng = smoke._main_path_engine(tl, torch, op)
+    eng.run()
+    torch.cuda.synchronize()
+    out = profile_solve(torch, eng, sum(eng.iteration_counts))
+    out["iterations"] = sum(eng.iteration_counts)
+    return out
+
+
+def time_k3(torch, cgs, dev, gen) -> dict:
+    """K3 one call at a time over ``chip_smoke.K3_SWEEP``, back to back and
+    with L2 flushed before each call, beside two ``torch.mv`` and the
+    two-read stream (2 k n 4 bytes over a same-process ``torch.sum`` read
+    rate of the basis); the main path's k sequence
+    (:data:`K3_MAIN_PATH_KS`) replayed on the (257, 2**20) basis as one
+    sum, back to back and cold (``chip_smoke.k3_replay``), beside the sum
+    of its two-read streams; and the host's microseconds per call on a
+    (2, 4096) basis at k = 1, beside two ``torch.mv``."""
+    ks = K3_MAIN_PATH_KS
+    out = {"main_path_launches": len(ks), "main_path_k_sum": sum(ks)}
+    flush = smoke.l2_flusher(torch, dev)
+    for n, sweep in smoke.K3_SWEEP.items():
+        basis = torch.randn((257, n), generator=gen, device=dev)
+        basis /= torch.linalg.vector_norm(basis, dim=1, keepdim=True)
+        v = torch.randn(n, generator=gen, device=dev)
+        stream_gbps = 257 * n * 4 / smoke.cuda_ms(torch, lambda: torch.sum(basis)) / 1e6
+        work = v.clone()
+        if n == smoke.MAIN_N:
+            times = smoke.k3_replay(torch, cgs, ks, basis, work, flush)
+            out["replay_ms"], out["replay_cold_ms"] = times["ms"], times["cold_ms"]
+            out["replay_two_read_stream_ms"] = 2 * sum(ks) * n * 4 / stream_gbps / 1e6
+        for k in sweep:
+            rows = basis[:k]
+            out[f"{n}_k{k}"] = {
+                "ms": smoke.cuda_ms(torch, lambda k=k: cgs.cgs_pass(work, basis, k)),
+                "cold_ms": smoke.cuda_ms_cold(torch, lambda k=k: cgs.cgs_pass(work, basis, k), flush),
+                "library_ms": smoke.cuda_ms(torch, lambda rows=rows: v - torch.mv(rows.T, torch.mv(rows, v))),
+                "two_read_stream_ms": 2 * k * n * 4 / stream_gbps / 1e6,
+            }
+        del basis, v, work
+        torch.cuda.empty_cache()
+    del flush
+    basis = torch.randn((2, 4096), generator=gen, device=dev)
+    v = torch.randn(4096, generator=gen, device=dev)
+    row = basis[:1]
+    out["host_us_per_call_k1_n4096"] = {
+        "k3": smoke.host_us_per_call(torch, lambda: cgs.cgs_pass(v, basis, 1)),
+        "two_mv": smoke.host_us_per_call(torch, lambda: v - torch.mv(row.T, torch.mv(row, v))),
+    }
     return out
 
 
@@ -286,6 +414,10 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"root": str(root), "nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
     out["digests"] = digests(torch, cgs, dev)
+    torch.cuda.empty_cache()
+    out["k3"] = time_k3(torch, cgs, dev, gen)
+    torch.cuda.empty_cache()
+    out["main_path_profiled"] = main_path_profile(torch, np, dev)
     torch.cuda.empty_cache()
     out["k4_b3_ms_by_k"] = time_k4(torch, cgs, dev, gen)
     torch.cuda.empty_cache()

@@ -20,8 +20,10 @@ and the SpMV study's three variants (E1)
 beside K1 and K2 on its 64 Mi-nnz operator.  The ``Exponentiator`` runs
 the reference's exponentiator zoo in float64, the JAX package's n = 2**20
 chain evolution (``evolve`` through K3, and the Chebyshev propagator) and a
-time grid over the main path's operator (K1).  The launch counts are set
-to 0 just before each path and read just after it.
+time grid over the main path's operator (K1).  The main path's K3 calls
+are recorded, and phase ``k3_path`` replays the recorded k sequence and
+sweeps K3 beside its bounds.  The launch counts are set to 0 just before each path and read
+just after it.
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero and prints no result.  The last two lines are the kernel table and
 the device line.  It needs a CUDA device and fails at once without one; it
@@ -30,6 +32,8 @@ imports no JAX.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import json
 import statistics
@@ -52,6 +56,8 @@ E1_V3_REPLACES = "experiments/pallas_spmv_bench.py:119"
 SEED = 0
 MAIN_N = 2**20  # main-path problem size
 K3_N = 2**22  # width of the (257, n) basis in the K3 phase
+# K3's one-call sweep in phase k3_path: k at each basis width.
+K3_SWEEP = {2**20: (1, 2, 4, 8, 16, 32, 64, 128, 176, 256), 2**22: (1, 16, 64, 256)}
 K4_N = 2**22  # width of the (258, n) basis in the K4 phase (the flagship's buffer)
 FLAGSHIP_N = 2**22  # the block flagship's chain (experiments/tpu_flagship_block.py)
 CHEBY_N = 2**22  # the Chebyshev flagship's chain (experiments/tpu_flagship_cheby.py)
@@ -254,6 +260,141 @@ def phase_k3(torch, dev):
         check_k3(torch, basis, v, k, 1e-12)
     del basis, v
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def recording_k3(cgs):
+    """Record the (cap, n, k, dtype) of every K3 call that launches (k > 0
+    on a CUDA tensor) while the context is open, into the list it yields.
+    The callers reach K3 through the module attribute ``cgs.cgs_pass``, so
+    the recorder stands in for it there and hands every call on.  The
+    wrapper counts its launches on that same attribute, so the recorder
+    carries the count meanwhile and hands it back at the end."""
+    real = cgs.cgs_pass
+    seq = []
+
+    def recorder(v, basis, k):
+        if int(k) > 0 and v.device.type == "cuda":
+            seq.append((basis.shape[0], basis.shape[1], int(k), str(basis.dtype)))
+        return real(v, basis, k)
+
+    recorder.launches = real.launches
+    cgs.cgs_pass = recorder
+    try:
+        yield seq
+    finally:
+        cgs.cgs_pass = real
+        real.launches = recorder.launches
+
+
+def l2_flusher(torch, dev):
+    """A function that pushes every line of the card's L2 out by reading a
+    buffer of twice its size, leaving clean lines (what a K3 call on the
+    main path finds: K1 streamed 1.6 GB of tiles between two calls)."""
+    buf = torch.zeros(2 * torch.cuda.get_device_properties(dev).L2_cache_size // 4, device=dev)
+    return lambda: torch.sum(buf)
+
+
+def cuda_ms_cold(torch, fn, flush, reps: int = 20, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn`` with L2 flushed before each call (the
+    flush runs before the start event)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def k3_replay(torch, cgs, ks, basis, v, flush) -> dict:
+    """Milliseconds of the K3 calls at ``ks`` (in order) on ``basis`` and
+    ``v``: ``ms``, one CUDA event pair around the whole replay (the median
+    of five replays after one warm-up; back to back, a call may find rows
+    of the one before in L2), and ``cold_ms``, the sum of the calls each
+    timed with L2 flushed before it (the median of three replays)."""
+
+    def replay():
+        for k in ks:
+            cgs.cgs_pass(v, basis, k)
+
+    sums = []
+    for _ in range(3):
+        events = []
+        for k in ks:
+            flush()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            cgs.cgs_pass(v, basis, k)
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        sums.append(sum(a.elapsed_time(b) for a, b in events))
+    return {"ms": cuda_ms(torch, replay, reps=5, warmup=1), "cold_ms": statistics.median(sums)}
+
+
+def phase_k3_path(torch, dev, seq):
+    """K3 as the main path ran it: the histogram of k over its launches
+    (``seq``, recorded in phase main_path), the whole sequence replayed on
+    a fresh (257, 2**20) float32 basis (or of the largest capacity in
+    ``seq``) and timed as one sum, back to back and with L2 flushed before
+    each call (:func:`k3_replay`); then K3 one call at a time over
+    :data:`K3_SWEEP`, each held to its plain version (1e-5 relative), then
+    timed back to back and cold beside its one-read bound (``bound()``),
+    the two-read stream (2 k n values over a same-process ``torch.sum``
+    read rate of the basis) and two ``torch.mv``."""
+    from lanczos_tpu_torch.ops import cgs
+
+    # The engine grows its buffer's capacity as k grows; K3 reads rows
+    # [0, k) only, so one basis of the largest capacity stands for all.
+    widths = {(n, dt) for _cap, n, _k, dt in seq}
+    if widths != {(MAIN_N, "torch.float32")}:
+        raise AssertionError(f"k3_path: the main path's K3 calls are on bases of (n, dtype) {widths}")
+    n, dtype = MAIN_N, "torch.float32"
+    caps = sorted({c for c, _n, _k, _dt in seq})
+    cap = caps[-1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    hist = collections.Counter(k for _cap, _n, k, _dt in seq)
+    sweep = {}
+    replay = {}
+    flush = l2_flusher(torch, dev)
+    for width, ks in K3_SWEEP.items():
+        basis = _random_basis(torch, dev, max(cap, 257), width, torch.float32, gen)
+        v = torch.randn(width, generator=gen, device=dev)
+        stream_gbps = basis.numel() * 4 / cuda_ms(torch, lambda: torch.sum(basis)) / 1e6
+        if width == MAIN_N:  # K3 reads rows [0, k) only, so the basis's extra rows change nothing
+            times = k3_replay(torch, cgs, [k for _c, _n, k, _d in seq], basis, v.clone(), flush)
+            replay = {"replay_ms": times["ms"], "replay_cold_ms": times["cold_ms"],
+                      "replay_one_read_bound_ms": sum(bound((k + 2) * n * 4, 4 * k * n)[0] for _c, _n, k, _d in seq),
+                      "replay_two_read_stream_ms": sum(2 * k * n * 4 for _c, _n, k, _d in seq) / stream_gbps / 1e6}
+        work = v.clone()
+        for k in ks:
+            rows = basis[:k]
+            rel = rel_err(cgs.cgs_pass(v.clone(), basis, k), cgs.cgs_pass_reference(v, basis, k))[1]
+            if not rel <= 1e-5:
+                raise AssertionError(f"k3_path: K3 at n = {width}, k = {k}: relative error {rel:.3e} above 1e-05")
+            bound_ms, bound_by = bound((k + 2) * width * 4, 4 * k * width)
+            sweep[f"{width}_k{k}"] = {
+                "n": width, "k": k, "max_rel_err": rel,
+                "ms": cuda_ms(torch, lambda k=k: cgs.cgs_pass(work, basis, k)),
+                "cold_ms": cuda_ms_cold(torch, lambda k=k: cgs.cgs_pass(work, basis, k), flush),
+                "bound_ms": bound_ms, "bound_by": bound_by, "two_read_stream_ms": 2 * k * width * 4 / stream_gbps / 1e6,
+                "library_ms": cuda_ms(torch, lambda rows=rows: v - torch.mv(rows.T, torch.mv(rows, v))),
+            }
+        del basis, v, work
+        torch.cuda.empty_cache()
+    del flush
+    emit({"phase": "k3_path", "basis": [cap, n], "caps": caps, "dtype": dtype, "launches": len(seq),
+          "k_histogram": dict(sorted(hist.items())), "k_sum": sum(k for _c, _n, k, _d in seq), **replay,
+          "sweep": sweep})
+    return replay
 
 
 def check_k4(torch, basis, vblk, k, tol):
@@ -538,19 +679,19 @@ def phase_e2(torch, dev):
     return launches, timed[256]
 
 
-def e1_vpu_info(dev, plan) -> dict:
+def e1_v2_info(dev, plan, vpu: bool) -> dict:
     """Registers, local (spill) bytes, shared memory and resident CTAs per
-    SM of E1's VPU-form kernel (float32, 16-byte loads) at ``plan``, as the
-    runtime reports them; fewer resident CTAs than the kernel's floor of
-    four fail the run."""
+    SM of E1's v2 kernel (float32, 16-byte loads; the VPU form where
+    ``vpu``, else the dot form) at ``plan``, as the runtime reports them;
+    fewer resident CTAs than the kernel's floor of four fail the run."""
     import ctypes
 
     from lanczos_tpu_torch import _build
 
     out = (ctypes.c_int * 4)()
-    _build.check(_build.library().lt_spmv_v2_vpu_info(0, 1, plan.smem_bytes, dev.index, out), "e1 VPU info")
+    _build.check(_build.library().lt_spmv_v2_info(0, 1, int(vpu), plan.smem_bytes, dev.index, out), "e1 v2 info")
     if out[3] < 4:
-        raise AssertionError(f"e1: {out[3]} VPU-form CTAs per SM resident at plan {plan}")
+        raise AssertionError(f"e1: {out[3]} v2 CTAs per SM resident at plan {plan} (vpu={vpu})")
     return {"registers": out[0], "local_bytes": out[1], "smem_bytes": out[2], "ctas_per_sm": out[3]}
 
 
@@ -858,13 +999,14 @@ def phase_main_path(torch, np, dev):
     torch.cuda.reset_peak_memory_stats()
     spmv.bsr_matvec.launches = 0
     cgs.cgs_pass.launches = 0
-    t0 = time.perf_counter()
-    evals, evecs = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with recording_k3(cgs) as k3_seq:
+        t0 = time.perf_counter()
+        evals, evecs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {"k1": spmv.bsr_matvec.launches, "k3": cgs.cgs_pass.launches}
-    if not (launches["k1"] > 0 and launches["k3"] > 0):
-        raise AssertionError(f"main path did not launch both kernels: {launches}")
+    if not (launches["k1"] > 0 and launches["k3"] > 0 and launches["k3"] == len(k3_seq)):
+        raise AssertionError(f"main path did not launch both kernels: {launches}, {len(k3_seq)} K3 calls recorded")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     a = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
@@ -921,7 +1063,7 @@ def phase_main_path(torch, np, dev):
         tridiagonal.extremal_eigenvalues_device(alpha, beta, 128, 5, False)
     check_ms = (time.perf_counter() - t0) / 5 * 1e3
     emit({"phase": "iteration_rates", "n": n, "rows": 128, "iterations_per_s": rates, "host_check_ms_k128_f32": check_ms})
-    return launches, k1, k3, op, ref, eng.iteration_counts
+    return launches, k1, k3, op, ref, eng.iteration_counts, k3_seq
 
 
 def check_k2(torch, blocks, col_blocks, x, label):
@@ -1347,7 +1489,7 @@ def phase_e1(torch, dev):
     """The SpMV study's variants (E1: v2, v2 VPU form, v3) at its size, 64
     Mi stored nnz in float32 (R = 512, S = 8, 128 x 128 tiles, G = 8):
     each kernel against its plain version and twice bit for bit, on a tail
-    case (R = 516, whose last CTA of the dot form and v3 owns 4 row blocks)
+    case (R = 516, whose last CTA of v3 owns 4 row blocks)
     and in float64; the rounding trap (tile rows that cancel, where the VPU
     form's separately rounded products and an FMA chain differ); the VPU
     form's plan with its registers and spills (as the runtime reports
@@ -1416,8 +1558,9 @@ def phase_e1(torch, dev):
           "bits_equal_on_repeat": True})
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = sb.vpu_plan(BENCH_R, 8, 128, 128, 4)
-    emit({"phase": "e1_plan", "kernel": "spmv_v2_vpu", "shape": [BENCH_R, 8, 128, 128], "dtype": "torch.float32",
-          "plan": plan._asdict(), "ctas_per_sm_of_grid": plan.ctas / sms, **e1_vpu_info(dev, plan)})
+    for name, vpu in (("spmv_v2_vpu", True), ("spmv_v2", False)):
+        emit({"phase": "e1_plan", "kernel": name, "shape": [BENCH_R, 8, 128, 128], "dtype": "torch.float32",
+              "plan": plan._asdict(), "ctas_per_sm_of_grid": plan.ctas / sms, **e1_v2_info(dev, plan, vpu)})
 
     lines = sb.check(device=dev)  # the study's own check: R = 64 and 68
     if not all(float(line.rsplit("=", 1)[1]) <= E1_TOL["torch.float32"] for line in lines):
@@ -1467,7 +1610,7 @@ def phase_e1(torch, dev):
                 "spmv_v3": sb.spmv_v3.launches}
     if not all(launches.values()):
         raise AssertionError(f"e1: a kernel was never launched: {launches}")
-    ctas = {"spmv_v2": BENCH_R // 8, "spmv_v2_vpu": plan.ctas, "spmv_v3": BENCH_R // 8}
+    ctas = {"spmv_v2": plan.ctas, "spmv_v2_vpu": plan.ctas, "spmv_v3": BENCH_R // 8}
     emit({"phase": "e1_timing", "shape": [BENCH_R, 8, 128, 128], "G": 8, "ctas": ctas, "kernels": timed,
           "k1_ms": k1_ms, "k2_ms": k2_ms, "k1_gbps": bytes_moved / k1_ms / 1e6, "k2_gbps": bytes_moved / k2_ms / 1e6,
           "stream_gbps": tile_bytes / stream_ms / 1e6, "library_max_rel_err": lib_rel, "launches": launches,
@@ -1700,11 +1843,12 @@ def main() -> int:
     timed("expm_zoo", phase_expm_zoo, torch, np, dev)
     timed("expm_chain", phase_expm_chain, torch, np, dev)
     timed("small_solves", phase_small_solves, torch, np, dev)
-    launches, k1, k3, op, ref, main_iters = timed("main_path", phase_main_path, torch, np, dev)
+    launches, k1, k3, op, ref, main_iters, k3_seq = timed("main_path", phase_main_path, torch, np, dev)
     timed("thick_scalar", phase_thick_scalar, torch, np, op, ref)
     timed("expm_bsr", phase_expm_bsr, torch, np, dev, op)
     del op
     torch.cuda.empty_cache()
+    timed("k3_path", phase_k3_path, torch, dev, k3_seq)
     sharded_launches, sharded_op = timed("sharded_main_path", phase_sharded_main_path, torch, np, dev, ref, main_iters)
     k2 = timed("k2", phase_k2, torch, dev, sharded_op)
     del sharded_op

@@ -39,10 +39,9 @@ _SIGNATURES = {
     "lt_bsr_spmv_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
     "lt_bsr_spmv_rsmk_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
     "lt_bsr_spmv_rsmk_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
-    "lt_cgs_pass_f32": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _P]),
-    "lt_cgs_pass_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _P]),
-    "lt_cgs_num_tiles_f32": (_I64, [_I64]),
-    "lt_cgs_num_tiles_f64": (_I64, [_I64]),
+    "lt_cgs_pass_f32": (_INT, [_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P]),
+    "lt_cgs_pass_f64": (_INT, [_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _P]),
+    "lt_cgs_project_occupancy": (_INT, [_INT, _INT, ctypes.POINTER(_INT)]),
     "lt_cgs_block_pass_f32": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _P]),
     "lt_cgs_block_pass_f64": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _INT, _INT, _P]),
     "lt_cgs_block_info": (_INT, [_INT, _INT, _INT, _INT, _INT, ctypes.POINTER(_INT)]),
@@ -55,11 +54,9 @@ _SIGNATURES = {
     "lt_cgsv_shadow_pass": (_INT, [_P, _P, _P, _P, _I64, _INT, _INT, _INT, _P]),
     "lt_row_set_f32": (_INT, [_P, _P, _P, _INT, _I64, _INT, _P]),
     "lt_row_set_f64": (_INT, [_P, _P, _P, _INT, _I64, _INT, _P]),
-    "lt_spmv_v2_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
-    "lt_spmv_v2_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
-    "lt_spmv_v2_vpu_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
-    "lt_spmv_v2_vpu_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
-    "lt_spmv_v2_vpu_info": (_INT, [_INT, _INT, _I64, _INT, ctypes.POINTER(_INT)]),
+    "lt_spmv_v2_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
+    "lt_spmv_v2_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
+    "lt_spmv_v2_info": (_INT, [_INT, _INT, _INT, _I64, _INT, ctypes.POINTER(_INT)]),
     "lt_spmv_v3_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
     "lt_spmv_v3_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
     "lt_error_string": (ctypes.c_char_p, [_INT]),

@@ -64,9 +64,11 @@ namespace {
 // starting at `base`; thread x owns the U 16-byte vectors at
 // base + (u*THREADS + x)*VN.  `vec_ok` (n a multiple of VN and 16-byte
 // aligned rows) selects vector loads; elements past n read as zero.
+// `stream` marks the loads evict-first (ld.global.cs: read once, the first
+// lines L1 and L2 give up).
 template <typename T, int THREADS, int U>
 __device__ __forceinline__ void load_seg(const T* __restrict__ row, int64_t base, int64_t n,
-                                         bool vec_ok, T (&out)[U * Vec<T>::n]) {
+                                         bool vec_ok, T (&out)[U * Vec<T>::n], bool stream = false) {
   using V = typename Vec<T>::type;
   constexpr int VN = Vec<T>::n;
 #pragma unroll
@@ -74,7 +76,8 @@ __device__ __forceinline__ void load_seg(const T* __restrict__ row, int64_t base
     const int64_t e0 = base + (int64_t(u) * THREADS + threadIdx.x) * VN;
     if (vec_ok) {
       if (e0 < n) {
-        const V t = *reinterpret_cast<const V*>(row + e0);
+        const V* p = reinterpret_cast<const V*>(row + e0);
+        const V t = stream ? __ldcs(p) : *p;
         const T* tt = reinterpret_cast<const T*>(&t);
 #pragma unroll
         for (int c = 0; c < VN; ++c) out[u * VN + c] = tt[c];
@@ -84,7 +87,7 @@ __device__ __forceinline__ void load_seg(const T* __restrict__ row, int64_t base
       }
     } else {
 #pragma unroll
-      for (int c = 0; c < VN; ++c) out[u * VN + c] = e0 + c < n ? row[e0 + c] : T(0);
+      for (int c = 0; c < VN; ++c) out[u * VN + c] = e0 + c < n ? (stream ? __ldcs(row + e0 + c) : row[e0 + c]) : T(0);
     }
   }
 }

@@ -7,16 +7,17 @@ tiles each, 128 x 128 float32 tiles).  Its variants keep their names:
 
   einsum  the plain gather+einsum (``ops.spmv.bsr_matvec_reference``);
   v1      K2, ``ops.spmv.bsr_matvec_rsmk`` (the study's round-1 kernel);
-  v2      :func:`spmv_v2`, G row blocks per CTA, one dot per tile row;
+  v2      :func:`spmv_v2`, one dot per tile row;
   v2vpu   :func:`spmv_v2` with ``vpu=True``: elementwise products of each
-          tile row, then row sums, on a grid that fills the card
-          (:func:`vpu_plan`);
+          tile row, then row sums;
   v3      :func:`spmv_v3`, pre-transposed (R, bm, S, bk) tiles, the x
           segments of a row block gathered once, one long dot per row.
 
-v2, v2vpu and v3 are the CUDA kernels of ``csrc/spmv_variants.cu``.  Unlike
-the Pallas kernels, whose grid of R // G steps leaves the last R mod G row
-blocks unwritten, they write every row block.
+v2, v2vpu and v3 are the CUDA kernels of ``csrc/spmv_variants.cu``; v2's
+two forms are one kernel on a grid that fills the card (:func:`vpu_plan`),
+and G sizes only v3's grid.  Unlike the Pallas kernels, whose grid of
+R // G steps leaves the last R mod G row blocks unwritten, they write every
+row block.
 
 Run on the card: ``python -m lanczos_tpu_torch.experiments.spmv_bench``.
 """
@@ -50,8 +51,8 @@ __all__ = [
 ]
 
 
-# The VPU form's launch shape (csrc/spmv_variants.cu): 256 threads per CTA,
-# at most 8 tile rows per warp, x segments gathered 32 KB at a time.
+# v2's launch shape, both forms (csrc/spmv_variants.cu): 256 threads per
+# CTA, at most 8 tile rows per warp, x segments gathered 32 KB at a time.
 VPU_THREADS = 256
 VPU_WARPS = VPU_THREADS // 32
 VPU_MAX_ROWS_PER_WARP = 8
@@ -60,7 +61,7 @@ MAX_SMEM_BYTES = 227 * 1024  # what one CTA can ask for on the H100
 
 
 class VpuPlan(NamedTuple):
-    """How the VPU form cuts one SpMV: ``ctas`` CTAs of ``threads``
+    """How v2 (either form) cuts one SpMV: ``ctas`` CTAs of ``threads``
     threads, each warp on ``rows_per_warp`` tile rows of one row block, the
     x segments of ``s_piece`` tiles gathered into shared memory at a time,
     ``smem_bytes`` of dynamic shared memory per CTA."""
@@ -77,7 +78,7 @@ def _up16(b: int) -> int:
 
 
 def vpu_smem_bytes(rows_per_warp: int, s_piece: int, bk: int, itemsize: int) -> int:
-    """Dynamic shared memory of one VPU-form CTA, as
+    """Dynamic shared memory of one v2 CTA, as
     ``csrc/spmv_variants.cu`` ``vpu_smem_bytes`` lays it out: the x
     segments, a flag per tile, and the warps' row totals between x
     pieces."""
@@ -86,8 +87,8 @@ def vpu_smem_bytes(rows_per_warp: int, s_piece: int, bk: int, itemsize: int) -> 
 
 @functools.lru_cache(maxsize=64)
 def vpu_plan(r: int, s: int, bm: int, bk: int, itemsize: int) -> VpuPlan:
-    """The VPU form's launch plan for (R, S, bm, bk) tiles of
-    ``itemsize``-byte values.
+    """v2's launch plan, the dot form's and the VPU form's, for (R, S, bm,
+    bk) tiles of ``itemsize``-byte values.
 
     A CTA covers ``VPU_WARPS * rows_per_warp`` tile rows of one row block,
     ``rows_per_warp = min(8, ceil(bm / 8))``, so a row block takes
@@ -186,7 +187,7 @@ def _launch(name: str, variant: str, blocks, col_blocks, x, dims, *extra):
         raise ValueError(f"{name} needs contiguous tensors")
     if not _FNS:
         lib = _build.library()
-        _FNS.update({(v, dt): getattr(lib, f"lt_spmv_{v}_{suffix}") for v in ("v2", "v2_vpu", "v3")
+        _FNS.update({(v, dt): getattr(lib, f"lt_spmv_{v}_{suffix}") for v in ("v2", "v3")
                      for dt, suffix in ((torch.float32, "f32"), (torch.float64, "f64"))})
     y = torch.empty(dims[0] * dims[2], dtype=x.dtype, device=x.device)
     idx = x.device.index
@@ -199,9 +200,9 @@ def _launch(name: str, variant: str, blocks, col_blocks, x, dims, *extra):
 
 def spmv_v2(blocks, col_blocks, x, G: int = 8, vpu: bool = False):
     """E1, v2: y = A x for (R, S, bm, bk) tiles, each tile multiplied as
-    one dot per row with G row blocks per CTA (``vpu=False``), or as
-    elementwise products summed over each tile row (``vpu=True``), on the
-    grid of :func:`vpu_plan`, which G does not change.
+    one dot per row (``vpu=False``), or as elementwise products summed over
+    each tile row (``vpu=True``), both on the grid of :func:`vpu_plan`,
+    which G does not change.
 
     On CUDA tensors this launches ``csrc/spmv_variants.cu`` (float32 or
     float64; other dtypes raise) and counts the launch in
@@ -212,12 +213,11 @@ def spmv_v2(blocks, col_blocks, x, G: int = 8, vpu: bool = False):
     if x.device.type == "cpu":
         return spmv_v2_reference(blocks, col_blocks, x, G, vpu)
     dims = (r, s, bm, bk)
+    y = _launch("spmv_v2_vpu (E1)" if vpu else "spmv_v2 (E1)", "v2", blocks, col_blocks, x, dims, x.shape[0],
+                int(vpu), *vpu_plan(*dims, blocks.element_size()))
     if vpu:
-        y = _launch("spmv_v2_vpu (E1)", "v2_vpu", blocks, col_blocks, x, dims, x.shape[0],
-                    *vpu_plan(*dims, blocks.element_size()))
         spmv_v2.vpu_launches += 1
     else:
-        y = _launch("spmv_v2 (E1)", "v2", blocks, col_blocks, x, dims, int(G), x.shape[0])
         spmv_v2.launches += 1
     return y
 

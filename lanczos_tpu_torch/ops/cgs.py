@@ -11,6 +11,8 @@ basis once for all b rows.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -20,6 +22,8 @@ from .. import _build
 __all__ = [
     "BlockPlan",
     "block_plan",
+    "l2_keep_rows",
+    "kept_rows",
     "cgs_pass",
     "cgs_pass_reference",
     "cgs_pass_block",
@@ -28,6 +32,11 @@ __all__ = [
 
 _DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K3 for complex and bfloat16 bases"
 _BLOCK_DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K4 for complex and bfloat16 bases"
+# K3's n-tile (csrc/cgs.cu): 256 threads of two 16-byte vectors each.
+TILE_BYTES = 256 * 2 * 16
+# The share of the card's L2 that the rows the projection reads last may
+# hold for the update (l2_keep_rows).
+L2_KEEP_FRACTION = 0.6
 MAX_BLOCK = 16  # widest block K4 takes
 # K4's launch shape (csrc/cgs_block.cu): 256 consumer threads and one
 # producer warp per CTA, two CTAs resident per SM.
@@ -47,6 +56,48 @@ def cgs_pass_reference(v, basis, k: int):
     return v - c @ rows
 
 
+def l2_keep_rows(n: int, itemsize: int, l2_bytes: int, resident_ctas: int) -> int:
+    """How many live rows K3's projection leaves in L2 for the update (rows
+    0, 1, ..., which it reads last and the update first), for an
+    (n,)-wide basis of ``itemsize``-byte values, an L2 of ``l2_bytes`` and
+    ``resident_ctas`` projection CTAs on the card at once.
+
+    The projection's CTAs, one n-tile of :data:`TILE_BYTES` each, walk the
+    rows a wave of resident CTAs at a time, so what L2 can hold at its end
+    is those rows of one wave's tiles: as many rows of ``min(tiles,
+    resident_ctas)`` tiles as fit :data:`L2_KEEP_FRACTION` of L2."""
+    tiles = -(-n // (TILE_BYTES // itemsize))
+    return int(L2_KEEP_FRACTION * l2_bytes) // (min(tiles, resident_ctas) * TILE_BYTES)
+
+
+# Per CUDA device index: K3's foreign function and the rows it keeps in L2
+# (a function of n) by dtype, resolved at the first call on the device (the
+# library is built then, never at import).
+_K3_LAUNCH: dict = {}
+
+
+def _k3_entry(index: int) -> dict:
+    entry = _K3_LAUNCH.get(index)
+    if entry is None:
+        lib = _build.library()
+        props = torch.cuda.get_device_properties(index)
+        per_sm = ctypes.c_int(0)
+        entry = {}
+        for dtype, f64, fn in ((torch.float32, 0, lib.lt_cgs_pass_f32), (torch.float64, 1, lib.lt_cgs_pass_f64)):
+            _build.check(lib.lt_cgs_project_occupancy(f64, index, ctypes.byref(per_sm)), "cgs_pass (K3) occupancy")
+            entry[dtype] = (fn, functools.partial(l2_keep_rows, itemsize=8 if f64 else 4, l2_bytes=props.L2_cache_size,
+                                                  resident_ctas=per_sm.value * props.multi_processor_count))
+        _K3_LAUNCH[index] = entry
+    return entry
+
+
+def kept_rows(n: int, dtype, device) -> int:
+    """The :func:`l2_keep_rows` K3 uses for an (n,)-wide basis of ``dtype``
+    on the CUDA ``device``."""
+    device = torch.device(device)
+    return _k3_entry(torch.cuda.current_device() if device.index is None else device.index)[dtype][1](n)
+
+
 def cgs_pass(v, basis, k: int):
     """K3: one classical GS pass of ``v`` against rows [0, k) of ``basis``.
 
@@ -56,6 +107,11 @@ def cgs_pass(v, basis, k: int):
     and counts the launch in ``cgs_pass.launches``.  ``k == 0`` launches
     nothing.  On CPU tensors it returns :func:`cgs_pass_reference`.
     Callers use the return value.
+
+    The launch path is short, since at small k the host's part is most of
+    a call: the foreign functions are resolved once per device, the stream
+    is the raw handle, and one scratch tensor holds the partial sums and
+    the coefficients.
     """
     k = int(k)
     cap, n = basis.shape
@@ -75,15 +131,14 @@ def cgs_pass(v, basis, k: int):
         raise ValueError("cgs_pass needs contiguous tensors")
     if k == 0:
         return v
-    lib = _build.library()
-    f32 = basis.dtype == torch.float32
-    n_tiles = (lib.lt_cgs_num_tiles_f32 if f32 else lib.lt_cgs_num_tiles_f64)(n)
-    part = torch.empty((k, n_tiles), dtype=basis.dtype, device=v.device)
-    c = torch.empty(k, dtype=basis.dtype, device=v.device)
-    fn = lib.lt_cgs_pass_f32 if f32 else lib.lt_cgs_pass_f64
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    err = fn(basis.data_ptr(), v.data_ptr(), part.data_ptr(), c.data_ptr(), n, k, v.device.index, stream)
-    _build.check(err, "cgs_pass (K3)")
+    idx = v.device.index
+    fn, keep = _k3_entry(idx)[basis.dtype]
+    n_tiles = -(-n // (TILE_BYTES // basis.element_size()))
+    scratch = torch.empty(k * (n_tiles + 1), dtype=basis.dtype, device=v.device)
+    err = fn(basis.data_ptr(), v.data_ptr(), scratch.data_ptr(), scratch.numel(), n, k, keep(n), idx,
+             torch._C._cuda_getCurrentRawStream(idx))
+    if err:
+        _build.check(err, "cgs_pass (K3)")
     cgs_pass.launches += 1
     return v
 

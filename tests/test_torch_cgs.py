@@ -92,12 +92,39 @@ def test_kernel_matches_plain_on_cuda(cuda, dtype, k, n):
     want = cgs.cgs_pass_reference(torch.from_numpy(v), torch.from_numpy(basis), k)
     before = cgs.cgs_pass.launches
     vd = torch.from_numpy(v).to(cuda)
-    got = cgs.cgs_pass(vd, torch.from_numpy(basis).to(cuda), k)
+    bd = torch.from_numpy(basis).to(cuda)
+    got = cgs.cgs_pass(vd, bd, k)
+    again = cgs.cgs_pass(torch.from_numpy(v).to(cuda), bd, k)
     torch.cuda.synchronize()
-    assert cgs.cgs_pass.launches == before + (1 if k else 0)
+    assert cgs.cgs_pass.launches == before + (2 if k else 0)
     assert got.data_ptr() == vd.data_ptr()  # in place, like the aliased Pallas output
+    assert torch.equal(got, again)  # fixed-order sums, no atomics: the same bits on every call
     tol = 2e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
+    if k == KS[-1]:
+        _kernel_around_kept_rows(cuda, dtype, n, tol)
+
+
+def _kernel_around_kept_rows(cuda, dtype, n, tol):
+    """K3 at k just below, at and just above the number of rows its
+    projection leaves in L2 (rows 0, 1, ... read normally, the rows above
+    them evict-first), at this n and at n = 2**20 + 3 (ragged, 7 rows kept
+    on an H100), against its plain version and twice bit for bit."""
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    for width in (n, 2**20 + 3):
+        keep = cgs.kept_rows(width, dtype, cuda)
+        ks = [kk for kk in (keep - 1, keep, keep + 1, 2 * keep + 1) if 0 < kk <= 129]
+        if not ks:
+            continue
+        basis, v = _problem(max(ks), max(ks), width, np_dtype, seed=width + keep)
+        bd = torch.from_numpy(basis).to(cuda)
+        for kk in ks:
+            want = cgs.cgs_pass_reference(torch.from_numpy(v), torch.from_numpy(basis), kk)
+            got = cgs.cgs_pass(torch.from_numpy(v).to(cuda), bd, kk)
+            again = cgs.cgs_pass(torch.from_numpy(v).to(cuda), bd, kk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (width, keep, kk)
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
 
 
 BLOCK_KS = [0, 1, 64, 100]

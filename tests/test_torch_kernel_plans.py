@@ -116,6 +116,9 @@ def test_k5_window_model_matches_plain_chain(offsets, n, route, rel_degree):
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("n", [1 << 20, 1 << 22])
 def test_k4_plan_keeps_two_ctas_per_sm(n, itemsize):
+    """K4's plan at the flagship widths; and K3's rows left in L2
+    (``_check_k3_kept_rows``)."""
+    _check_k3_kept_rows(n, itemsize)
     vn = 16 // itemsize
     for b in range(1, cgs.MAX_BLOCK + 1):
         for sms in (H100_SMS, 114):  # the SXM and PCIe parts
@@ -132,6 +135,21 @@ def test_k4_plan_keeps_two_ctas_per_sm(n, itemsize):
     # ranges, two ring stages of 16 KB.
     if (n, itemsize) == (1 << 22, 4):
         assert cgs.block_plan(n, 3, 4, H100_SMS) == cgs.BlockPlan(4000, 1049, 2)
+
+
+def _check_k3_kept_rows(n, itemsize):
+    """K3's projection leaves as many of the rows it reads last in L2 as
+    fit 60% of it over one wave of resident tiles, and no more, at every
+    width from 1 to 2**22 + 3: 7 rows on the H100 (50 MiB of L2, 4
+    projection CTAs of 8 KB tiles per SM) at n = 2**20 and 2**22."""
+    l2 = 50 * 2**20
+    for sms in (H100_SMS, 114):
+        resident = 4 * sms
+        for width in [1, 3, 4096, 70001, 2**20, 2**20 + 3, 2**22, 2**22 + 3] + list(range(1, n + 4, n // 61 + 1)):
+            keep = cgs.l2_keep_rows(width, itemsize, l2, resident)
+            wave = min(-(-width // (cgs.TILE_BYTES // itemsize)), resident) * cgs.TILE_BYTES
+            assert keep * wave <= cgs.L2_KEEP_FRACTION * l2 < (keep + 1) * wave, (width, sms, keep)
+    assert cgs.l2_keep_rows(n, itemsize, l2, 4 * H100_SMS) == 7
 
 
 def _e2a_fits(cols, piece, itemsize):
@@ -154,9 +172,10 @@ def test_e2a_plan_covers_the_columns_once_and_fits_the_sm():
 
 
 def _check_vpu_plans():
-    """E1's VPU plan: every row of every row block taken by exactly one
-    warp of one CTA, as ``csrc/spmv_variants.cu`` maps them; shared memory
-    within what a CTA can ask for; the card filled at the study's size."""
+    """E1 v2's plan, which both of its forms run on: every row of every
+    row block taken by exactly one warp of one CTA, as
+    ``csrc/spmv_variants.cu`` maps them; shared memory within what a CTA
+    can ask for; the card filled at the study's size."""
     warps = spmv_bench.VPU_WARPS
     for r in (12, 512, 516):
         for bk in (6, 128, 4100):
