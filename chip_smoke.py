@@ -20,7 +20,10 @@ and the SpMV study's three variants (E1)
 beside K1 and K2 on its 64 Mi-nnz operator.  The ``Exponentiator`` runs
 the reference's exponentiator zoo in float64, the JAX package's n = 2**20
 chain evolution (``evolve`` through K3, and the Chebyshev propagator) and a
-time grid over the main path's operator (K1).  The main path's K3 calls
+time grid over the main path's operator (K1), where ``run`` also runs in
+both build modes (hybrid and fused) and ``run_batch`` runs beside single
+runs; phase ``expm_small`` sets the two modes side by side on the main
+path's chain cut to smaller widths.  The main path's K3 calls
 are recorded, and phase ``k3_path`` replays the recorded k sequence and
 sweeps K3 beside its bounds.  The launch counts are set to 0 just before each path and read
 just after it.
@@ -33,6 +36,7 @@ imports no JAX.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -76,6 +80,15 @@ EVOLVE_ANGLE_BAR = 1e-5  # state angle after 100 f32 steps (the TPU run: 8.3e-7,
 CHEBY_ANGLE_BAR = 1e-6  # state angle of the f32 Chebyshev chain (the TPU run: 3.0e-7)
 EXPM_BSR_BAR = 1e-5  # f32 run_grid against the f64 one, relative 2-norm error
 EXPM_BSR_MAX_ITER = 200  # the Krylov budget of the expm_bsr builds
+EXPM_MODE_TOL = {"float32": 1e-6, "float64": 1e-12}  # fused against hybrid run, relative 2-norm
+EXPM_BATCH_ROWS = 4  # seeded unit rows of the run_batch check, beside one zero row
+# Widths of the expm_small cells (the main path's chain cut to them; 100 is
+# the reference zoo's ring) and their scalar, one unit time step: 12-13
+# iterations, inside the fused build's first stage of 16.
+EXPM_SMALL_NS = (100, 2**12, 2**16, 2**18)
+EXPM_SMALL_A = -1j
+EXPM_SMALL_REPS = 15  # timed runs a mode in each expm_small cell (a few ms each; the host clock spreads)
+HOST_TRIDIAG_M = 128  # the size of the host tridiagonal solves timed by backend
 # NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
 # cores (the kernels use plain FMAs).
 HBM_BYTES_PER_S = 3.35e12
@@ -136,12 +149,61 @@ def phase_environment(torch) -> None:
 
 
 def phase_build():
+    """The CUDA library (one nvcc per source, in parallel) and, beside it on
+    a thread, the g++ host library of the native tridiagonal backends."""
     from lanczos_tpu_torch import _build
+    from lanczos_tpu_torch.native import build as native_build
 
     t0 = time.perf_counter()
-    lib = _build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib._name,
-          "sources": [str(p.relative_to(_build.CSRC_DIR.parent.parent)) for p in _build.sources()]})
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native_build.shared_object_path)
+        lib = _build.library()
+        host_lib = host.result()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": lib._name, "host_library": str(host_lib),
+          "sources": [str(p.relative_to(_build.CSRC_DIR.parent.parent))
+                      for p in (*_build.sources(), native_build.SOURCE)]})
+
+
+def phase_host_tridiagonal(np):
+    """The host tridiagonal backends on the card's host: ``auto`` must
+    resolve to the port's native library, as in the JAX package; the
+    eigensolve and the extremal eigenvalues of a seeded, strongly coupled
+    m = 128 tridiagonal (extended eigenvectors, as a Lanczos build gives;
+    the bisection backend's recurrence misses the vectors of near-equal
+    eigenvalues) by each backend, against numpy, by host clock."""
+    from lanczos_tpu_torch.core import tridiagonal
+
+    resolved = tridiagonal._resolve_backend("auto")
+    if resolved != "native":
+        raise AssertionError(f"tridiag_backend 'auto' resolved to {resolved!r}, not 'native'")
+    m, reps = HOST_TRIDIAG_M, 20
+    rng = np.random.default_rng(SEED + 11)
+    alpha, beta = 0.3 * rng.standard_normal(m), rng.uniform(0.5, 1.0, m - 1)
+    exact = np.linalg.eigvalsh(np.diag(alpha) + np.diag(beta, 1) + np.diag(beta, -1))
+    tol = 1e-12 * np.abs(exact).max()
+
+    def host_ms(fn):
+        out = fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    results = {}
+    for backend in ("native", "bisect", "lapack"):
+        (w, z), eigh_ms = host_ms(lambda: tridiagonal.eigh_tridiagonal_host(alpha, beta, backend=backend))
+        ext, ext_ms = host_ms(lambda: tridiagonal.extremal_eigvals_host(alpha, beta, 3, False, backend=backend))
+        t = np.diag(alpha) + np.diag(beta, 1) + np.diag(beta, -1)
+        residual = float(np.abs(t @ z.T - z.T * w).max())
+        if not (np.abs(w - exact).max() <= tol and np.abs(ext - exact[:3]).max() <= tol and residual <= 1e-10):
+            raise AssertionError(f"host tridiagonal {backend}: eigenvalue error {np.abs(w - exact).max():.3e}, "
+                                 f"extremal {np.abs(ext - exact[:3]).max():.3e}, residual {residual:.3e}")
+        results[backend] = {"eigh_ms": eigh_ms, "extremal3_ms": ext_ms, "max_eig_err": float(np.abs(w - exact).max()),
+                            "max_residual": residual}
+    emit({"phase": "host_tridiagonal", "auto": resolved, "m": m, "reps": reps, "host_ms": results,
+          "unconverged_total": tridiagonal.unconverged_total()})
 
 
 def _random_bsr(torch, dev, r, bm, s, bk, dtype, gen):
@@ -1717,15 +1779,8 @@ def phase_expm_chain(torch, np, dev):
         time, and where each host wait for the device was issued."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = ex.evolve(a_step, v_re, v_im, n_steps)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
+        out, waits = host_waits(torch, lambda: ex.evolve(a_step, v_re, v_im, n_steps))
         torch.cuda.synchronize()
-        waits = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
         return out, time.perf_counter() - t0, waits
 
     counted_evolve(1)  # warm-up: the first complex128 batched products initialize the library
@@ -1767,27 +1822,80 @@ def phase_expm_chain(torch, np, dev):
     return {"k3": k3}
 
 
-def phase_expm_bsr(torch, np, dev, op):
-    """run_grid over the main path's BSROperator (n = 2**20, float32) with
-    a in (-0.1, -0.5, -1) from a seeded unit vector, against the same run
-    on a float64 copy of the tiles.  Both builds run K1 and stop at eps
-    1e-12 (float32) or the float64 default; a has a real part, where the
-    reference's stop test never fires (R7), so the budget
-    EXPM_BSR_MAX_ITER also bounds a regression."""
-    import lanczos_tpu_torch as tl
-    from lanczos_tpu_torch.ops import spmv
+def host_waits(torch, fn):
+    """``fn()`` under PyTorch's sync debug mode: its result and where
+    (file:line) each host wait for the device was issued."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
 
-    a_list = [-0.1, -0.5, -1.0]
+
+def expm_timed(torch, spmv, cgs, fn, reps: int = 3):
+    """``fn()`` (an Exponentiator call) after a warm-up: its result, and
+    wall ms of ``reps`` runs by host clock (each ending in a synchronize),
+    K1 and K3 launches per run, and the host waits of one more run."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        spmv.bsr_matvec.launches = 0
+        cgs.cgs_pass.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"k1": spmv.bsr_matvec.launches, "k3": cgs.cgs_pass.launches}
+    _, waits = host_waits(torch, fn)
+    return out, {"ms": ms, "ms_median": statistics.median(ms), "k1_launches": launches["k1"],
+                 "k3_launches": launches["k3"], "host_waits": len(waits), "host_wait_sites": dict(collections.Counter(waits))}
+
+
+def phase_expm_bsr(torch, np, dev, op):
+    """The Exponentiator over the main path's BSROperator (n = 2**20,
+    float32) from a seeded unit vector, and over a float64 copy of its
+    tiles.  Both builds run K1 and stop at eps 1e-12 (float32) or the
+    float64 default; every a has a real part, where the reference's stop
+    test never fires (R7), so the budget EXPM_BSR_MAX_ITER also bounds a
+    regression.
+
+    - ``run_grid`` with a in (-0.1, -0.5, -1), float32 against float64.
+    - ``run(-0.5, v)`` in mode 'hybrid' (a host wait and a host eigensolve
+      per iteration) and 'fused' (a host read per stage of 16, then 64, ...
+      queued iterations), with and without full reorthogonalization (K3):
+      the same iteration count, outputs within EXPM_MODE_TOL; iterations
+      built (K1 launches) against used, host waits, wall ms.
+    - ``run_batch(-0.5, V)``, V EXPM_BATCH_ROWS seeded unit rows and one
+      zero row, float32: each row's count and output those of ``run`` on
+      it, the zero row zeros with 1 iteration; wall ms against the single
+      runs."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cgs, spmv
+
+    a_list, a_run = [-0.1, -0.5, -1.0], -0.5
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     v = torch.randn(op.n, generator=gen, device=dev, dtype=torch.float32)
     v /= torch.linalg.vector_norm(v)
     op64 = tl.BSROperator(op.blocks.double(), op.col_blocks, op.n)
-    runs = {}
-    for label, operator, vec in (("float32", op, v), ("float64", op64, v.double())):
-        ex = tl.Exponentiator(operator)
+
+    def engine(operator, label, mode="hybrid", full_orth=False):
+        ex = tl.Exponentiator(operator, mode=mode)
         ex.max_iteration = EXPM_BSR_MAX_ITER
+        ex.full_orthogonalize = full_orth
         if label == "float32":
             ex.eps = 1e-12
+        return ex
+
+    def rel(got, want):
+        return float(torch.linalg.vector_norm(got.double() - want.double()) / torch.linalg.vector_norm(want.double()))
+
+    runs, modes = {}, {}
+    for label, operator, vec in (("float32", op, v), ("float64", op64, v.double())):
+        ex = engine(operator, label)
         ex.run_grid(a_list, vec)  # warm-up
         torch.cuda.synchronize()
         spmv.bsr_matvec.launches = 0
@@ -1796,10 +1904,31 @@ def phase_expm_bsr(torch, np, dev, op):
         torch.cuda.synchronize()
         runs[label] = {"outs": outs, "iters": iters, "ms": (time.perf_counter() - t0) * 1e3,
                        "k1_launches": spmv.bsr_matvec.launches, "eps": ex.eps}
+        for full_orth in (False, True):
+            pair = {}
+            for mode in ("hybrid", "fused"):
+                ex = engine(operator, label, mode, full_orth)
+                (out, itern), rec = expm_timed(torch, spmv, cgs, lambda: ex.run(a_run, vec))
+                pair[mode] = out
+                modes[f"{label}_{'full_orth' if full_orth else 'no_orth'}_{mode}"] = {
+                    "iterations": itern, "iterations_built": rec["k1_launches"], **rec}
+            key = f"{label}_{'full_orth' if full_orth else 'no_orth'}"
+            hyb, fus = modes[f"{key}_hybrid"], modes[f"{key}_fused"]
+            err = rel(pair["fused"], pair["hybrid"])
+            fus["rel_err_vs_hybrid"] = err
+            if not (fus["iterations"] == hyb["iterations"] < EXPM_BSR_MAX_ITER and err <= EXPM_MODE_TOL[label]):
+                raise AssertionError(f"expm_bsr {key}: fused {fus['iterations']} iterations against hybrid "
+                                     f"{hyb['iterations']}, relative difference {err:.3e} (bar {EXPM_MODE_TOL[label]:.0e})")
+            if not (hyb["k1_launches"] == hyb["iterations"] and fus["k1_launches"] >= fus["iterations"]):
+                raise AssertionError(f"expm_bsr {key}: K1 launches {hyb['k1_launches']} / {fus['k1_launches']}")
+            if full_orth and not (hyb["k3_launches"] > 0 and fus["k3_launches"] > 0):
+                raise AssertionError(f"expm_bsr {key}: full reorthogonalization launched K3 {hyb['k3_launches']} / "
+                                     f"{fus['k3_launches']} times")
+            if not bool(torch.isfinite(pair["fused"]).all()):
+                raise AssertionError(f"expm_bsr {key}: non-finite fused output")
     del op64
     f32, f64 = runs["float32"], runs["float64"]
-    errs = [float(torch.linalg.vector_norm(got.double() - want) / torch.linalg.vector_norm(want))
-            for got, want in zip(f32["outs"], f64["outs"])]
+    errs = [rel(got, want) for got, want in zip(f32["outs"], f64["outs"])]
     if not (f32["k1_launches"] > 0 and f64["k1_launches"] > 0):
         raise AssertionError(f"expm_bsr: K1 launches {f32['k1_launches']} / {f64['k1_launches']}")
     if not max(f32["iters"], f64["iters"]) < EXPM_BSR_MAX_ITER:
@@ -1807,10 +1936,86 @@ def phase_expm_bsr(torch, np, dev, op):
                              f"({f32['iters']}, {f64['iters']})")
     if not (f32["outs"].shape == (3, op.n) and bool(torch.isfinite(f32["outs"]).all()) and max(errs) <= EXPM_BSR_BAR):
         raise AssertionError(f"expm_bsr: float32 against float64 relative errors {errs} (bar {EXPM_BSR_BAR:.0e})")
+
+    # run_batch against the single runs of its rows.
+    rows = torch.randn(EXPM_BATCH_ROWS, op.n, generator=gen, device=dev, dtype=torch.float32)
+    rows /= torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+    batch = torch.cat([rows, torch.zeros_like(rows[:1])])
+    ex_batch = engine(op, "float32")
+    (b_out, b_iters), batch_rec = expm_timed(torch, spmv, cgs, lambda: ex_batch.run_batch(a_run, batch))
+    singles = []
+    for i in range(EXPM_BATCH_ROWS):
+        one = {}
+        for mode in ("hybrid", "fused"):
+            ex = engine(op, "float32", mode)
+            (out, itern), rec = expm_timed(torch, spmv, cgs, lambda: ex.run(a_run, rows[i]), reps=1)
+            one[mode] = {"iterations": itern, "ms": rec["ms_median"], "rel_err": rel(b_out[i], out)}
+        singles.append(one)
+        if not all(r["iterations"] == int(b_iters[i]) and r["rel_err"] <= EXPM_MODE_TOL["float32"]
+                   for r in one.values()):
+            raise AssertionError(f"expm_bsr run_batch row {i}: {int(b_iters[i])} iterations against {one}")
+    if not (int(b_iters[-1]) == 1 and not bool(b_out[-1].any()) and bool(torch.isfinite(b_out).all())):
+        raise AssertionError(f"expm_bsr run_batch: zero row gave {int(b_iters[-1])} iterations, "
+                             f"max |out| {float(b_out[-1].abs().max())}")
     emit({"phase": "expm_bsr", "n": op.n, "tiles": list(op.blocks.shape), "a": a_list,
           "rel_err_f32_vs_f64": errs, "bar": EXPM_BSR_BAR,
-          **{f"{label}_{key}": val for label, r in runs.items() for key, val in r.items() if key != "outs"}})
-    return {"k1": f32["k1_launches"]}
+          **{f"{label}_{key}": val for label, r in runs.items() for key, val in r.items() if key != "outs"},
+          "run_a": a_run, "modes": modes, "mode_bars": EXPM_MODE_TOL,
+          "batch": {"rows": EXPM_BATCH_ROWS, "zero_rows": 1, "iterations": [int(x) for x in b_iters],
+                    "iterations_built": batch_rec["k1_launches"], **batch_rec, "singles": singles,
+                    "singles_ms": {mode: sum(o[mode]["ms"] for o in singles) for mode in ("hybrid", "fused")}}})
+    return {"k1": f32["k1_launches"], "modes": modes}
+
+
+def phase_expm_small(torch, np, dev):
+    """Where each Exponentiator mode wins: ``run(EXPM_SMALL_A, v)`` over the
+    main path's chain (random potential, three deep sites) cut to the
+    widths EXPM_SMALL_NS, float32 BSR tiles (K1), from a seeded unit vector
+    at eps 1e-12, where the hybrid build's host round trip per iteration
+    is a growing share of an iteration as n falls.  Three runs a cell:
+    hybrid; fused with the default first stage of 16; fused with a first
+    stage of the hybrid's count (``initial_buffer_size``, which a caller
+    that steps an evolution can set from its first step).  Each fused run
+    must take the hybrid's count, with an output within
+    EXPM_MODE_TOL['float32'] of it; wall ms by host clock (EXPM_SMALL_REPS
+    runs after a warm-up), host waits and iterations built (K1 launches)
+    each."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cgs, spmv
+
+    cells = {}
+    for n in EXPM_SMALL_NS:
+        rng = np.random.default_rng(SEED)
+        pot = rng.uniform(0.0, 1.0, n)
+        pot[[n // 4, n // 2, 3 * n // 4]] = [-4.0, -3.5, -3.0]
+        op = tl.BSROperator.from_coo(*_chain_coo(np, n, pot), n, bm=128, bk=128, dtype=torch.float32, device=dev)
+        v = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(SEED + 9), device=dev)
+        v /= torch.linalg.vector_norm(v)
+
+        def engine(mode, first_stage=None):
+            ex = tl.Exponentiator(op, mode=mode)
+            ex.eps, ex.max_iteration = 1e-12, EXPM_BSR_MAX_ITER
+            if first_stage is not None:
+                ex.initial_buffer_size = first_stage
+            return ex
+
+        ex = engine("hybrid")
+        (want, itern), hyb = expm_timed(torch, spmv, cgs, lambda: ex.run(EXPM_SMALL_A, v), reps=EXPM_SMALL_REPS)
+        cell = {"iterations": itern, "hybrid": hyb}
+        for label, first_stage in (("fused", None), ("fused_stage_fit", itern)):
+            ex = engine("fused", first_stage)
+            (out, it_fused), rec = expm_timed(torch, spmv, cgs, lambda: ex.run(EXPM_SMALL_A, v), reps=EXPM_SMALL_REPS)
+            err = float(torch.linalg.vector_norm(out - want) / torch.linalg.vector_norm(want))
+            if not (it_fused == itern < EXPM_BSR_MAX_ITER and err <= EXPM_MODE_TOL["float32"]
+                    and bool(torch.isfinite(out).all()) and rec["k1_launches"] >= itern):
+                raise AssertionError(f"expm_small n={n} {label}: {it_fused} iterations against hybrid {itern}, "
+                                     f"relative difference {err:.3e}, {rec['k1_launches']} K1 launches")
+            cell[label] = {**rec, "iterations_built": rec["k1_launches"], "rel_err_vs_hybrid": err,
+                           "over_hybrid": rec["ms_median"] / hyb["ms_median"]}
+        if hyb["k1_launches"] != itern:
+            raise AssertionError(f"expm_small n={n}: hybrid launched K1 {hyb['k1_launches']} times for {itern}")
+        cells[str(n)] = cell
+    emit({"phase": "expm_small", "a": str(EXPM_SMALL_A), "dtype": "float32", "cells": cells})
 
 
 def main() -> int:
@@ -1834,6 +2039,7 @@ def main() -> int:
 
     timed("environment", phase_environment, torch)
     timed("build", phase_build)
+    timed("host_tridiagonal", phase_host_tridiagonal, np)
     timed("k1", phase_k1, torch, dev)
     timed("k3", phase_k3, torch, dev)
     k4 = timed("k4", phase_k4, torch, dev)
@@ -1846,6 +2052,7 @@ def main() -> int:
     launches, k1, k3, op, ref, main_iters, k3_seq = timed("main_path", phase_main_path, torch, np, dev)
     timed("thick_scalar", phase_thick_scalar, torch, np, op, ref)
     timed("expm_bsr", phase_expm_bsr, torch, np, dev, op)
+    timed("expm_small", phase_expm_small, torch, np, dev)
     del op
     torch.cuda.empty_cache()
     timed("k3_path", phase_k3_path, torch, dev, k3_seq)

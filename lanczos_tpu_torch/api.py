@@ -46,16 +46,13 @@ from .ops.operators import LinearOperator, as_operator
 from .parallel.sharded import ShardedOperator, refuse_sharded
 from .solvers import block_lanczos, block_thick, cheby_expm, lanczos_fused, thick_restart
 from .solvers import exponentiator as _expm
+from .solvers import exponentiator_fused as _expm_fused
 from .solvers import lanczos as _lanczos
 from .solvers.lanczos_fused import _PV_ITEM
 from .utils.random import random_initializer
 from .utils.stats import RunStats, trace_span
 
 __all__ = ["LambdaLanczos", "Exponentiator"]
-
-# ROADMAP.md names the work that would lift the Exponentiator's refusals
-# (with _PV_ITEM, item 10, for precise=True).
-_DEVICE_LOOP_ITEM = "ROADMAP.md, 'Modules to port', item 8 (device-loop part): the device-resident build"
 
 def _coerce_operator(mv_mul, matrix_size, dtype, device):
     """Operator/size/dtype resolution: a LinearOperator as it is (on its own
@@ -298,7 +295,7 @@ class Exponentiator:
         self.full_orthogonalize: bool = False
         self.tridiag_backend: str | None = None
         self.initial_buffer_size: int = 16  # Krylov buffer start capacity
-        self.mode = mode  # 'hybrid' (a host solve every iteration); 'fused' is not ported
+        self.mode = mode  # 'hybrid' (a host solve every iteration) | 'fused' (a host read per stage)
 
     def _config(self) -> _expm.ExponentiatorConfig:
         return _expm.ExponentiatorConfig(
@@ -331,13 +328,16 @@ class Exponentiator:
 
     def run(self, a, input_vector):
         """``(output, iteration_count)`` = exp(a*A) @ input
-        (exponentiator.hpp:87-173).  ``mode='fused'`` raises: the
-        device-resident build is not ported."""
-        if self.mode == "fused":
-            raise NotImplementedError(f"mode='fused' is not ported; see {_DEVICE_LOOP_ITEM}")
-        if self.mode != "hybrid":
+        (exponentiator.hpp:87-173).  ``mode='fused'`` queues the Krylov
+        build a stage at a time and replays the stop test on the host (one
+        host read per stage instead of one per iteration), with the hybrid
+        build's iteration count."""
+        if self.mode not in ("hybrid", "fused"):
             raise ValueError(f"mode must be 'hybrid' or 'fused', got {self.mode!r}")
-        return _expm.krylov_expm_apply(self.operator, a, self._vector(input_vector, "run"), self._config())
+        v = self._vector(input_vector, "run")
+        if self.mode == "fused":
+            return _expm_fused.krylov_expm_apply_fused(self.operator, a, v, self._config())
+        return _expm.krylov_expm_apply(self.operator, a, v, self._config())
 
     def run_grid(self, a_list, input_vector):
         """exp(a_i*A) @ input for a grid of scalars from ONE Krylov build
@@ -385,9 +385,15 @@ class Exponentiator:
         return cheby_expm.chebyshev_expm_grid_split(self.operator, list(a_list), v_re, v_im, lo=lo, hi=hi, tol=tol)
 
     def run_batch(self, a, input_batch):
-        """The batched device-resident build of the JAX package: not
-        ported."""
-        raise NotImplementedError(f"run_batch is not ported; see {_DEVICE_LOOP_ITEM}")
+        """exp(a*A) applied to each row of a (B, n) batch: the row norms in
+        one host read, then the device-resident build of ``mode='fused'``
+        on each row, so each row's iteration count and output are those of
+        ``run`` on it.  A zero row returns zeros with 1 iteration.  Returns
+        ``(outputs (B, n), iterations (B,))``."""
+        v = self._vector(input_batch, "run_batch")
+        if v.dim() != 2 or v.shape[1] != self.matrix_size:
+            raise ValueError(f"run_batch takes a (B, {self.matrix_size}) batch, got shape {tuple(v.shape)}")
+        return _expm_fused.krylov_expm_apply_batch(self.operator, a, v, self._config())
 
     def taylor_run(self, a, input_vector):
         """``(output, term_count)``: the Taylor-series fallback

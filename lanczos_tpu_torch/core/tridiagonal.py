@@ -1,21 +1,33 @@
-"""Tridiagonal eigensolvers (port of ``lanczos_tpu.core.tridiagonal``,
-main-path subset; the reference's L3 layer).
+"""Tridiagonal eigensolvers (port of ``lanczos_tpu.core.tridiagonal``; the
+reference's L3 layer).
+
+Reference counterparts: the implicit-shift QR
+(lambda_lanczos_tridiagonal_impl.hpp:181-343), Sturm bisection (:22-134)
+and LAPACK ?stev (lambda_lanczos_tridiagonal_lapack.hpp:22-88).  As in the
+JAX package the backend is chosen at run time.
 
 Host backends (numpy in, numpy out, always float64 — the m x m problem is
 tiny next to the n-dimensional matvec):
 
+* ``native`` — the implicit-shift QL sweep of the port's C++ library
+  (:mod:`lanczos_tpu_torch.native`, built with ``g++`` at first use);
+* ``bisect`` — the same library's Sturm bisection eigenvalues with
+  backward-recurrence eigenvectors refined by inverse iteration;
 * ``lapack`` — scipy's ``eigh_tridiagonal`` (LAPACK stev/steqr);
 * ``numpy``  — densify + ``numpy.linalg.eigh``.
 
-``auto`` resolves to ``lapack`` (``numpy`` where scipy is missing).  The
-JAX package's native C++ QL and bisection backends are not ported yet
-(ROADMAP.md, "Modules to port").
+``auto`` resolves as in the JAX package: ``native`` when the library
+builds and loads, else ``lapack``, else ``numpy``
+(:func:`set_default_host_backend` changes the process default).  Asked for
+by name, ``native`` and ``bisect`` raise with the compiler's message when
+the library does not build.
 
 :func:`extremal_eigenvalues_device` is the Sturm multisection of the JAX
-fused engine's convergence test.  The port runs it eagerly on whatever
-device its tensors are on; the fused engine hands it CPU tensors, because
-its dozens of tiny elementwise steps would each be one kernel launch on the
-card.
+fused engine's convergence test, and :func:`eigenvectors_backward_device`
+the backward-recurrence eigenvectors on the device.  The port runs both
+eagerly on whatever device their tensors are on; the fused engine hands
+the first CPU tensors, because its dozens of tiny elementwise steps would
+each be one kernel launch on the card.
 
 Eigenvector layout matches the reference: ``vecs[k, :]`` is the k-th
 eigenvector, eigenvalues ascending (tridiagonal_impl.hpp:177-179, :340).
@@ -26,38 +38,52 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..native import host_kernels
+
 __all__ = [
     "eigh_tridiagonal_host",
     "eigvals_tridiagonal_host",
     "extremal_eigvals_host",
     "extremal_eigenvalues_device",
+    "eigenvectors_backward_device",
+    "set_default_host_backend",
     "unconverged_total",
 ]
 
-_NATIVE_ITEM = "ROADMAP.md, 'Modules to port': core/tridiagonal.py native QL backend"
+_BACKENDS = ("auto", "native", "bisect", "lapack", "numpy")
+_DEFAULT_HOST_BACKEND = "auto"
 
 
 def unconverged_total() -> int:
     """Accumulated count of small-solve blocks that hit the native QL
-    iteration cap.  Only the native backend counts them (the LAPACK and
-    numpy backends report convergence by raising), and it is not ported, so
-    this is 0; ``api.run`` reports the per-run delta all the same."""
-    return 0
+    iteration cap (the reference's forced-break count,
+    tridiagonal_impl.hpp:342); ``api.run`` reports the per-run delta.  The
+    LAPACK and numpy backends report non-convergence by raising."""
+    return host_kernels.consume_unconverged()
+
+
+def set_default_host_backend(name: str) -> None:
+    """Set the process-wide default host backend ('auto', 'native',
+    'bisect', 'lapack', 'numpy')."""
+    global _DEFAULT_HOST_BACKEND
+    if name not in _BACKENDS:
+        raise ValueError(f"unknown tridiagonal backend {name!r}")
+    _DEFAULT_HOST_BACKEND = name
 
 
 def _resolve_backend(backend: str | None) -> str:
-    backend = backend or "auto"
-    if backend == "auto":
-        try:
-            import scipy.linalg  # noqa: F401
-        except ImportError:  # pragma: no cover
-            return "numpy"
-        return "lapack"
-    if backend in ("native", "bisect"):
-        raise NotImplementedError(f"tridiagonal backend {backend!r} is not ported; see {_NATIVE_ITEM}")
-    if backend not in ("lapack", "numpy"):
+    backend = backend or _DEFAULT_HOST_BACKEND
+    if backend not in _BACKENDS:
         raise ValueError(f"unknown tridiagonal backend {backend!r}")
-    return backend
+    if backend != "auto":
+        return backend
+    if host_kernels.available():
+        return "native"
+    try:
+        import scipy.linalg  # noqa: F401
+    except ImportError:  # pragma: no cover
+        return "numpy"
+    return "lapack"
 
 
 def eigh_tridiagonal_host(alpha, beta, *, eigvals_only: bool = False, backend: str | None = None):
@@ -79,7 +105,15 @@ def eigh_tridiagonal_host(alpha, beta, *, eigvals_only: bool = False, backend: s
             return (alpha.copy(),)
         return alpha.copy(), np.ones((1, 1), dtype=np.float64)
 
-    if _resolve_backend(backend) == "lapack":
+    backend = _resolve_backend(backend)
+    if backend == "native":
+        return host_kernels.tridiagonal_eigh(alpha, beta, eigvals_only=eigvals_only)
+    if backend == "bisect":
+        # Sturm-count eigenvalues and backward-recurrence eigenvectors
+        # (tridiagonal_impl.hpp:93-134); _eigh_bisect_np is its plain version.
+        vals, vecs = host_kernels.tridiagonal_eigh_bisect(alpha, beta, 0, m)
+        return (vals,) if eigvals_only else (vals, vecs)
+    if backend == "lapack":
         from scipy.linalg import eigh_tridiagonal as _stev
 
         if eigvals_only:
@@ -104,12 +138,68 @@ def eigvals_tridiagonal_host(alpha, beta, *, backend: str | None = None):
 def extremal_eigvals_host(alpha, beta, nroot: int, find_maximum: bool, *, backend: str | None = None):
     """The ``nroot`` smallest (or largest) eigenvalues: ``out[i]`` is the
     i-th largest when ``find_maximum`` else the i-th smallest (the order the
-    convergence test consumes)."""
+    convergence test consumes).  The native backend bisects only the wanted
+    index range (host_kernels.cpp ``lt_tridiagonal_eigvals_bisect``,
+    tridiagonal_impl.hpp:63-88); the others take the full spectrum."""
     alpha = np.asarray(alpha, dtype=np.float64).reshape(-1)
     beta = np.asarray(beta, dtype=np.float64).reshape(-1)[: max(alpha.shape[0] - 1, 0)]
-    k = min(int(nroot), alpha.shape[0])
+    m = alpha.shape[0]
+    k = min(int(nroot), m)
+    if _resolve_backend(backend) == "native" and m > 1:
+        first = m - k if find_maximum else 0
+        vals = host_kernels.tridiagonal_eigvals_bisect(alpha, beta, first, k)  # ascending
+        return vals[::-1].copy() if find_maximum else vals
     full = eigvals_tridiagonal_host(alpha, beta, backend=backend)
     return full[::-1][:k].copy() if find_maximum else full[:k]
+
+
+def _eigh_bisect_np(alpha, beta):
+    """Plain version of the ``bisect`` backend (the JAX package's numpy
+    fallback): numpy eigenvalues, each eigenvector from the backward
+    recurrence refined by two inverse iterations."""
+    (vals,) = eigh_tridiagonal_host(alpha, beta, eigvals_only=True, backend="numpy")
+    vecs = np.stack([
+        _inverse_iter_np(alpha, beta, lam, _inverse_iter_np(alpha, beta, lam, _eigvec_backward_np(alpha, beta, lam)))
+        for lam in vals
+    ])
+    return vals, vecs
+
+
+def _eigvec_backward_np(alpha, beta, lam):
+    """Backward three-term-recurrence eigenvector (numpy; the contract of
+    the native ``lt_tridiagonal_eigvec_backward``)."""
+    m = alpha.shape[0]
+    eps = np.finfo(np.float64).eps
+    v = np.zeros(m, np.float64)
+    v[m - 1] = 1.0
+    if m > 1:
+        b = beta[m - 2] if beta[m - 2] != 0 else eps
+        v[m - 2] = (lam - alpha[m - 1]) / b
+        for k in range(m - 2, 0, -1):
+            bkm1 = beta[k - 1] if beta[k - 1] != 0 else eps
+            w = ((lam - alpha[k]) * v[k] - beta[k] * v[k + 1]) / bkm1
+            if abs(w) > 1e100:
+                v[k:] /= abs(w)
+                w = np.sign(w) * 1.0
+            v[k - 1] = w
+    nrm = np.linalg.norm(v)
+    return v / nrm if nrm > 0 else v
+
+
+def _inverse_iter_np(alpha, beta, lam, v):
+    """One inverse-iteration refinement: a dense solve with a pivot-floor
+    shift (m is the small Krylov dimension; the native path does the O(m)
+    pivoted solve)."""
+    m = alpha.shape[0]
+    t = np.diag(alpha) + (np.diag(beta[: m - 1], 1) + np.diag(beta[: m - 1], -1) if m > 1 else 0)
+    scale = max(np.max(np.abs(alpha)), np.max(np.abs(beta)) if beta.size else 0.0, 1.0)
+    shift = lam + np.finfo(np.float64).eps * scale
+    try:
+        w = np.linalg.solve(t - shift * np.eye(m), v)
+    except np.linalg.LinAlgError:
+        return v
+    nrm = np.linalg.norm(w)
+    return w / nrm if (nrm > 0 and np.isfinite(nrm)) else v
 
 
 def _sturm_counts(cs, alpha, beta_sq, size: int):
@@ -215,3 +305,57 @@ def extremal_eigenvalues_device(alpha, beta, size: int, nroot: int, find_maximum
         upper = torch.where(ge, pts, upper).amin(dim=0)
         lower = torch.where(ge, lower, pts).amax(dim=0)
     return lower
+
+
+def eigenvectors_backward_device(alpha, beta, size, lams):
+    """Eigenvectors of the leading ``size`` x ``size`` block of the
+    tridiagonal in the (cap,) buffers ``alpha``/``beta`` for the given
+    (converged) eigenvalues ``lams``, on the buffers' device with no host
+    read (the reference's bisection eigenvector path,
+    tridiagonal_impl.hpp:93-115).
+
+    For each eigenvalue the backward three-term recurrence from the last
+    row, ``v[size-1] = 1``, ``v[k-1] = ((lam - alpha[k]) v[k] - beta[k]
+    v[k+1]) / beta[k-1]``, runs over the static capacity with the dynamic
+    active ``size`` (an int or a 0-d tensor); overflow is carried as a
+    log-scale (components are ``u * exp(logscale)``, and the final
+    renormalization subtracts the largest, so the negligible entries of a
+    graded eigenvector underflow to 0).  Returns (K, cap) rows, zero past
+    ``size`` and 2-normalized.  Meant for well-separated Ritz values, as
+    the reference's recurrence is.
+    """
+    dtype, dev = alpha.dtype, alpha.device
+    cap = alpha.shape[0]
+    eps = torch.finfo(dtype).eps
+    big = 1e15 if dtype == torch.float32 else 1e100
+    size = torch.as_tensor(size, device=dev)
+    lams = torch.as_tensor(lams, device=dev).to(dtype).reshape(-1)
+    zero = lams.new_zeros(())
+    u_prev, u_pp, ls = torch.ones_like(lams), torch.zeros_like(lams), torch.zeros_like(lams)
+    us, lss = [u_prev], [ls]  # u_j and its log-scale, j = 0 .. cap-1
+    for j in range(1, cap):
+        a_k = alpha[(size - j).clamp(0, cap - 1)]
+        b_k = zero if j == 1 else beta[(size - j).clamp(0, cap - 1)]
+        b_km1 = beta[(size - 1 - j).clamp(0, cap - 1)]
+        b_km1 = torch.where(b_km1 == 0, eps, b_km1)
+        w = ((lams - a_k) * u_prev - b_k * u_pp) / b_km1
+        mag = w.abs()
+        rescale = mag > big
+        scale = torch.where(rescale, 1.0 / mag.clamp(min=eps), 1.0)
+        ls_new = ls + torch.where(rescale, torch.log(mag.clamp(min=eps)), 0.0)
+        w = w * scale
+        active = j <= size - 1
+        u_prev, u_pp, ls = (torch.where(active, w, u_prev), torch.where(active, u_prev * scale, u_pp),
+                            torch.where(active, ls_new, ls))
+        us.append(torch.where(active, w, zero))
+        lss.append(ls)
+    u, ls = torch.stack(us, dim=1), torch.stack(lss, dim=1)  # (K, cap)
+    # v[p] = u[size-1-p] * exp(ls[size-1-p] - max ls) for p < size.
+    p = torch.arange(cap, device=dev)
+    jidx = (size - 1 - p).clamp(0, cap - 1)
+    in_range = p < size
+    ls_p = torch.where(in_range, ls[:, jidx], -torch.inf)
+    ls_max = ls_p.amax(dim=1, keepdim=True)
+    ls_max = torch.where(torch.isfinite(ls_max), ls_max, 0.0)
+    v = torch.where(in_range, u[:, jidx] * torch.exp(ls_p - ls_max), zero)
+    return v / torch.sqrt(torch.sum(v * v, dim=1, keepdim=True)).clamp(min=eps)

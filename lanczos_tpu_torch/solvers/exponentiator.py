@@ -22,8 +22,9 @@ no complex dtype.  Here :func:`krylov_expm_apply_split` builds one real
 Krylov basis per part of a complex input (a real operator's matvec sees
 only real vectors), takes complex coefficients on the host and recombines;
 :func:`evolve_split` takes the small exponential of each step in
-complex128 on the device.  The device-resident build (the JAX package's
-``krylov_expm_apply_fused`` and its batch) is not ported.
+complex128 on the device.  The device-resident build, which queues whole
+stages of iterations and replays the stop test on the host, is
+:mod:`.exponentiator_fused`.
 """
 
 from __future__ import annotations
@@ -73,10 +74,14 @@ def _expm_step(op, u_buf, k: int, beta_prev, full_orth: bool = False):
     by default, no reorthogonalization.  Writes the normalized u_k into row
     k of ``u_buf`` in place and returns ``(alpha_k, beta_k)``, 0-d real
     tensors on the device (beta_k unnormalized)."""
+    return _expm_update(u_buf, k, op.matvec(u_buf[k - 1]), beta_prev, full_orth)
+
+
+def _expm_update(u_buf, k: int, au, beta_prev, full_orth: bool = False):
+    """:func:`_expm_step` after its matvec, given ``au`` = A u_{k-1}."""
     rdtype = real_dtype(u_buf.dtype)
     u_prev = u_buf[k - 1]
     u_pp = u_buf[max(k - 2, 0)]
-    au = op.matvec(u_prev)
     alpha = linalg.inner_prod(u_prev, au).real.to(rdtype)
     w = au - alpha * u_prev
     if k >= 2:

@@ -107,7 +107,7 @@ class LanczosConfig:
     eigenvalue_offset: float = 0.0  # (:165)
     num_eigs_per_iteration: int = 5  # (:173)
     initial_buffer_size: int = 64  # initial Krylov-buffer capacity (analogue of :181)
-    tridiag_backend: str | None = None  # 'auto' | 'lapack' | 'numpy'
+    tridiag_backend: str | None = None  # 'auto' | 'native' | 'bisect' | 'lapack' | 'numpy'
     # float64 alpha/||w||^2 for the host solve; default on for 32-bit dtypes.
     precise_reductions: bool | None = None
     # Double-float Krylov vectors: not ported (ROADMAP.md, precise paths).

@@ -12,7 +12,9 @@ against ``scipy.linalg.expm``, not to the JAX package's loose complex bars
 with a real part), the JAX build runs to max_iteration and the port stops
 early; those cases are held to the reference's overlap bar.  The cases of
 ``tests/test_exponentiator.py`` that apply to the ported methods follow,
-and the refusals of what is not ported.
+then the device-resident build (``mode='fused'``, ``run_batch``) against
+the port's hybrid build, the JAX package's fused build and scipy, and the
+refusals of what is not ported.
 """
 
 import numpy as np
@@ -26,7 +28,7 @@ import scipy.linalg as sla  # noqa: E402
 import lanczos_tpu_torch as tl  # noqa: E402
 from lanczos_tpu_torch import convert  # noqa: E402
 from lanczos_tpu_torch.parallel.sharded import ShardedOperator  # noqa: E402
-from lanczos_tpu_torch.solvers import cheby_expm  # noqa: E402
+from lanczos_tpu_torch.solvers import cheby_expm, exponentiator_fused  # noqa: E402
 
 EPS_REF = np.finfo(np.float64).eps * 1e2  # the reference's overlap bar, exponentiator.hpp:58
 PARITY = 1e-12  # port against the JAX package, relative to max |output|, float64
@@ -275,23 +277,19 @@ class _Slab(ShardedOperator):
 
 
 @pytest.mark.parametrize("call, error, item", [
-    ("mode_fused", NotImplementedError, "item 8 (device-loop part)"),
-    ("run_batch", NotImplementedError, "item 8 (device-loop part)"),
     ("evolve_precise", NotImplementedError, "item 10"),
     ("chebyshev_precise", NotImplementedError, "item 10"),
     ("chebyshev_hermitian", NotImplementedError, "item 11"),
     ("sharded", NotImplementedError, "item 13"),
     ("complex_input", TypeError, "run_split"),
+    ("complex_batch", TypeError, "run_split"),
+    ("batch_shape", ValueError, "(B, 4)"),
 ])
 def test_refusals_name_their_item(call, error, item):
     ex = tl.Exponentiator(np.eye(4), device="cpu")
     v = np.ones(4)
     with pytest.raises(error, match=item.replace("(", r"\(").replace(")", r"\)")):
-        if call == "mode_fused":
-            tl.Exponentiator(np.eye(4), mode="fused", device="cpu").run(1.0, v)
-        elif call == "run_batch":
-            ex.run_batch(1.0, np.ones((2, 4)))
-        elif call == "evolve_precise":
+        if call == "evolve_precise":
             ex.evolve(1j, v, v * 0, 2, precise=True)
         elif call == "chebyshev_precise":
             ex.run_chebyshev(1j, v, v * 0, precise=True)
@@ -299,8 +297,12 @@ def test_refusals_name_their_item(call, error, item):
             cheby_expm.chebyshev_expm_apply_hermitian(None, 1j, v, v)
         elif call == "sharded":
             tl.Exponentiator(_Slab())
-        else:
+        elif call == "complex_input":
             ex.run(1.0, v + 1j)
+        elif call == "complex_batch":
+            ex.run_batch(1.0, np.ones((2, 4)) + 1j)
+        else:
+            ex.run_batch(1.0, np.ones(4))
 
 
 def test_default_device_is_the_card():
@@ -448,3 +450,167 @@ def test_taylor_overflow_raises():
     ex = tl.Exponentiator(a_mat.astype(np.float32), device="cpu")
     with pytest.raises(OverflowError, match="overflowed"):
         ex.taylor_run(-60.0, np.ones(n, np.float32))
+
+
+# The device-resident build: mode='fused' and run_batch.
+
+N_RING = 60
+
+
+def _fused_case(dtype, seed=3):
+    """The JAX package's batch case (tests/test_exponentiator.py:149-175):
+    the n = 60 hopping ring and a seeded complex unit state, taken real for
+    a real operator."""
+    v = _state(N_RING, seed)
+    return _ring(N_RING).astype(dtype), v if np.dtype(dtype).kind == "c" else v.real.copy()
+
+
+def _port_run(h, v, a, mode, full_orth):
+    ex = tl.Exponentiator(h, mode=mode, device="cpu")
+    ex.full_orthogonalize = full_orth
+    out, itern = ex.run(a, v)
+    return _np(out), itern
+
+
+@pytest.mark.parametrize("full_orth", [False, True])
+@pytest.mark.parametrize("a", [-0.7j, -0.5])
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_fused_matches_hybrid(dtype, a, full_orth):
+    """The fused build queues the hybrid step's arithmetic and replays its
+    stop test, so it stops at the hybrid's iteration; at a real a both stop
+    on the R7-repaired test, far below max_iteration = n."""
+    h, v = _fused_case(dtype)
+    got, it_fused = _port_run(h, v, a, "fused", full_orth)
+    want, it_hybrid = _port_run(h, v, a, "hybrid", full_orth)
+    assert it_fused == it_hybrid < N_RING // 2
+    assert got.dtype == want.dtype and np.iscomplexobj(got) == (a.imag != 0 or np.dtype(dtype).kind == "c")
+    assert np.abs(got - want).max() <= PARITY * np.abs(want).max()
+
+
+@pytest.mark.parametrize("full_orth", [False, True])
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_fused_matches_jax_fused(dtype, full_orth):
+    """At an imaginary a, where the reference's overlap test and the
+    port's relative-change test agree (R7 does not bite), the port's fused
+    build stops where the JAX package's does, with its output."""
+    import jax.numpy as jnp
+    import lanczos_tpu as lt
+
+    h, v = _fused_case(dtype)
+    jex = lt.Exponentiator(lt.DenseOperator(jnp.asarray(h)), mode="fused")
+    jex.full_orthogonalize = full_orth
+    want, it_jax = jex.run(-0.7j, jnp.asarray(v))
+    got, it_port = _port_run(h, v, -0.7j, "fused", full_orth)
+    want = np.asarray(want)
+    assert it_port == it_jax
+    assert np.abs(got - want).max() <= PARITY * np.abs(want).max()
+
+
+@pytest.mark.parametrize("full_orth", [False, True])
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_fused_real_a_meets_the_overlap_bar(dtype, full_orth):
+    """At a real a the JAX fused build runs to max_iteration = n (R7), so
+    scipy's expm is the reference: the port's fused build stops early and
+    meets the reference's overlap bar."""
+    h, v = _fused_case(dtype)
+    got, itern = _port_run(h, v, -0.5, "fused", full_orth)
+    truth = sla.expm(-0.5 * h) @ v
+    assert itern < N_RING // 2
+    assert _overlap_err(truth, got) < EPS_REF
+    assert np.linalg.norm(got - truth) <= 1e-7 * np.linalg.norm(truth)
+
+
+@pytest.mark.parametrize("dtype, a", [(np.complex128, -0.7j), (np.float64, -0.7j), (np.float64, -0.5),
+                                      (np.float32, -0.7j)])
+def test_run_batch_rows_are_single_runs(dtype, a):
+    """tests/test_exponentiator.py:149-175: each row of run_batch has the
+    iteration count and the output of run on that row, fused and hybrid,
+    and meets the exact propagator's overlap bar; a zero row gives zeros
+    and 1 iteration (:255-265)."""
+    h = _ring(N_RING).astype(dtype)
+    rng = np.random.default_rng(3)
+    batch = rng.standard_normal((4, N_RING)) + 1j * rng.standard_normal((4, N_RING))
+    batch /= np.linalg.norm(batch, axis=1, keepdims=True)
+    batch = np.concatenate([batch if np.dtype(dtype).kind == "c" else batch.real, np.zeros((1, N_RING))]).astype(dtype)
+    ex = tl.Exponentiator(h, device="cpu")
+    outs, iters = ex.run_batch(a, batch)
+    outs = _np(outs)
+    assert outs.shape == (5, N_RING) and iters.shape == (5,)
+    w, u = np.linalg.eigh(h.astype(np.complex128))
+    tol = PARITY if np.dtype(dtype) != np.float32 else 1e-6
+    for i in range(4):
+        for mode in ("fused", "hybrid"):
+            single, it_single = _port_run(h, batch[i], a, mode, False)
+            assert int(iters[i]) == it_single
+            assert np.abs(outs[i] - single).max() <= tol * np.abs(single).max()
+        truth = u @ (np.exp(a * w) * (u.conj().T @ batch[i].astype(np.complex128)))
+        assert _overlap_err(truth, outs[i]) < (EPS_REF if np.dtype(dtype) != np.float32 else ex.eps)
+    assert np.all(outs[4] == 0) and int(iters[4]) == 1
+
+
+def test_fused_zero_input_and_zero_batch():
+    """exp(a*A) 0 = 0 with no build: 0 iterations for run (as the hybrid
+    build), 1 per row for run_batch (the JAX batch's trivial rows)."""
+    ex = tl.Exponentiator(_ring(8), mode="fused", device="cpu")
+    out, itern = ex.run(-0.5j, np.zeros(8))
+    assert itern == 0 and not bool(out.abs().any())
+    outs, iters = ex.run_batch(-0.5j, np.zeros((3, 8)))
+    assert outs.shape == (3, 8) and outs.dtype == torch.complex128 and not bool(outs.abs().any())
+    assert iters.tolist() == [1, 1, 1]
+
+
+def test_fused_f32_breakdown_terminates():
+    """test_fused_f32_breakdown_terminates: beta falls below the float32
+    machine eps after ~2 steps; the fused build's queued stage runs on past
+    it, but the replay stops at the breakdown, as the hybrid build does, and
+    no row past it reaches the output."""
+    n = 8
+    h = np.diag(np.arange(1, n + 1, dtype=np.float32))
+    v = np.zeros(n, np.float32)
+    v[0], v[1] = 1.0, 1e-8
+    out, itern = tl.Exponentiator(h, mode="fused", device="cpu").run(0.5, v)
+    assert abs(float(out[0]) - np.exp(0.5)) < 1e-4
+    assert bool(torch.isfinite(out).all())
+    assert itern <= n and itern == tl.Exponentiator(h, device="cpu").run(0.5, v)[1]
+
+
+def test_run_batch_nan_row_is_built():
+    """A NaN row is not a trivial row: it is built and comes back
+    non-finite with the iteration count of run on it, fused and hybrid, as
+    the JAX batch's row test (norm < 10 * tiny) lets it; the other rows
+    keep their single runs' outputs."""
+    h = _ring(N_RING)
+    rng = np.random.default_rng(5)
+    batch = rng.standard_normal((2, N_RING))
+    batch /= np.linalg.norm(batch, axis=1, keepdims=True)
+    batch[0, 7] = np.nan
+    outs, iters = tl.Exponentiator(h, device="cpu").run_batch(-0.5, batch)
+    outs = _np(outs)
+    assert not np.isfinite(outs[0]).any() and np.isfinite(outs[1]).all()
+    for mode in ("fused", "hybrid"):
+        single, it_single = _port_run(h, batch[0], -0.5, mode, False)
+        assert int(iters[0]) == it_single and not np.isfinite(single).any()
+    single, it_single = _port_run(h, batch[1], -0.5, "fused", False)
+    assert int(iters[1]) == it_single and np.abs(outs[1] - single).max() <= PARITY * np.abs(single).max()
+
+
+@pytest.mark.parametrize("initial, max_iteration, stages, built", [(16, None, 1, 16), (8, None, 2, 32),
+                                                                   (8, 10, 2, 10)])
+def test_fused_reads_once_per_stage(monkeypatch, initial, max_iteration, stages, built):
+    """What the fused build is for: one host read per stage, not per
+    iteration.  The n = 60 ring at a = -0.5 stops after 9 iterations; a
+    first stage of 16 holds them, a first stage of 8 grows 4x (to 32, or
+    to max_iteration) once.  Every queued iteration is one matvec."""
+    reads, matvecs = [], []
+    read = exponentiator_fused._read
+    monkeypatch.setattr(exponentiator_fused, "_read", lambda s: reads.append(s.queued) or read(s))
+    h, v = _fused_case(np.float64)
+    ex = tl.Exponentiator(h, mode="fused", device="cpu")
+    ex.initial_buffer_size, ex.max_iteration = initial, max_iteration
+    matvec = ex.operator.matvec
+    ex.operator.matvec = lambda x: matvecs.append(1) or matvec(x)
+    out, itern = ex.run(-0.5, v)
+    want, it_hybrid = _port_run(h, v, -0.5, "hybrid", False)
+    assert itern == it_hybrid == 9
+    assert len(reads) == stages and reads[-1] == built and len(matvecs) == built
+    assert np.abs(_np(out) - want).max() <= PARITY * np.abs(want).max()

@@ -108,11 +108,15 @@ def test_unported_options_raise(setting):
         eng.run()
 
 
-def test_tridiagonal_native_backend_raises():
+def test_tridiagonal_native_backend_solves():
+    # The port's own g++ build of the native QL solver, with no QL block
+    # left unconverged.
     eng = tl.LambdaLanczos(np.diag([1.0, 2.0, 3.0, 4.0]), device="cpu")
     eng.tridiag_backend = "native"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run()
+    val, vec = eng.run_one()
+    assert abs(val - 1.0) < 1e-13
+    assert abs(abs(float(vec[0])) - 1.0) < 1e-13
+    assert eng.stats.tridiag_unconverged == 0
 
 
 def test_bad_inputs_raise():
