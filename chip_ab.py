@@ -14,9 +14,9 @@ share are used:
   the main path's k sequence (:data:`K3_MAIN_PATH_KS`) replayed as one
   sum beside the sum of its two-read streams; and the host's microseconds
   per call at k = 1 on a (2, 4096) basis beside two ``torch.mv``;
-- the main path's solve (n = 2**20, 176 iterations) under
-  ``torch.profiler``: K3's and K1's device time in it, its busy time and
-  idle share;
+- the main path's solve (n = 2**20, 176 iterations): its wall by host
+  clock, then under ``torch.profiler`` K3's and K1's device time in it,
+  its busy time and idle share;
 - ``cgs.cgs_pass_block`` at b = 3 on the block flagship's (258, 2**22)
   float32 buffer for k = 24, 96 and 255;
 - the Chebyshev flagship's filter apply (n = 2**22 chain, degree 400)
@@ -59,6 +59,7 @@ import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 E3_CAP1, E3_N = 256, 2**20
@@ -202,8 +203,9 @@ def profile_solve(torch, eng, iters) -> dict:
 def main_path_profile(torch, np, dev) -> dict:
     """The main path's solve (``chip_smoke.py`` phase main_path's problem
     and engine) run once, then again under ``torch.profiler``
-    (:func:`profile_solve`): K3's and K1's device milliseconds in the
-    solve, its device busy time and idle share."""
+    (:func:`profile_solve`): the warm solve's wall by host clock, K3's and
+    K1's device milliseconds in the solve, its device busy time and idle
+    share."""
     import lanczos_tpu_torch as tl
 
     rows, cols, vals = smoke._main_path_coo(np)
@@ -211,8 +213,13 @@ def main_path_profile(torch, np, dev) -> dict:
     eng = smoke._main_path_engine(tl, torch, op)
     eng.run()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     out = profile_solve(torch, eng, sum(eng.iteration_counts))
     out["iterations"] = sum(eng.iteration_counts)
+    out["solve_wall_s"] = wall  # the warm solve before the profiled one, by host clock
     return out
 
 

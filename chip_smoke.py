@@ -57,6 +57,9 @@ E2C_REPLACES = "experiments/pallas_bcgs_kernel3.py:66"
 E3_REPLACES = "experiments/carry_copy_bench.py:62"
 E1_V2_REPLACES = "experiments/pallas_spmv_bench.py:73"  # spmv_v2, vpu=False and vpu=True
 E1_V3_REPLACES = "experiments/pallas_spmv_bench.py:119"
+# K6 replaces no pallas_call: the JAX fused engine's check is XLA ops in its device loop.
+K6_REPLACES = ("lanczos_tpu/core/tridiagonal.py:322 extremal_eigenvalues_device "
+               "(XLA ops in the fused loop, no pallas_call)")
 SEED = 0
 MAIN_N = 2**20  # main-path problem size
 K3_N = 2**22  # width of the (257, n) basis in the K3 phase
@@ -274,6 +277,186 @@ def phase_k1(torch, dev):
     torch.cuda.empty_cache()
 
 
+# K6's cases: (size, cap, nroot) at random tridiagonals, each dtype and
+# both ends; caps above size leave rows the check must not read.
+# The shared-memory route ends at 3600 rows in float32 and 1800 in float64;
+# past 752 rows (f32) a CTA's dynamic and static shared memory exceed the
+# default 48 KB.
+K6_CASES = ((3, 3, 5), (17, 20, 3), (64, 64, 5), (128, 128, 5), (176, 256, 3), (256, 256, 5), (600, 640, 3),
+            (760, 800, 2), (1024, 1024, 5), (1800, 1800, 2), (1801, 1850, 1), (3600, 3600, 1), (3601, 3601, 2))
+K6_TIMED = (128, 5)  # K6's timed case: the check at k = 128 with 5 roots, float32
+
+
+def _k6_tridiagonal(np, rng, cap, size):
+    """alpha N(0, 1), beta U(0.1, 1) with a few exact zeros inside the live
+    block, and garbage past it."""
+    alpha = rng.standard_normal(cap)
+    beta = rng.uniform(0.1, 1.0, cap)
+    if size > 4:
+        beta[rng.choice(size - 1, max(1, size // 40), replace=False)] = 0.0
+    alpha[size:] = 1e30
+    beta[size:] = -7.0
+    return alpha, beta
+
+
+def k6_flops(size, nroot, rounds, points=15):
+    """Floating-point operations of one K6 multisection: per round and
+    cut, the rows' set-up (a subtraction and a square) and each scan step's
+    products (8 multiplications, 4 additions and 4 divisions a row), the
+    work of these inputs (no early exit)."""
+    steps = []
+    s = 1
+    while s < size:
+        steps.append(size - s)
+        s *= 2
+    return rounds * nroot * points * (2 * size + 16 * sum(steps)), len(steps)
+
+
+def phase_k6(torch, np, dev):
+    """K6 (the fused engine's convergence check, csrc/sturm_check.cu)
+    against its plain version on the same device tensors, bit for bit, in
+    both modes: the multisection (extremal_eigenvalues_device) over
+    K6_CASES in float32 and float64, both ends, on both routes; the check
+    (convergence_check) with a breakdown, with eps = 0 (the screen alone),
+    converging and not.  Then the timed case beside the plain version on
+    the card and on the host CPU."""
+    import scipy.linalg
+
+    from lanczos_tpu_torch.core import tridiagonal
+    from lanczos_tpu_torch.ops import sturm_check
+
+    rng = np.random.default_rng(SEED + 12)
+    cases, routes, worst = 0, collections.Counter(), 0.0
+    for dtype in (torch.float32, torch.float64):
+        for size, cap, nroot in K6_CASES:
+            alpha_np, beta_np = _k6_tridiagonal(np, rng, cap, size)
+            alpha = torch.tensor(alpha_np, dtype=dtype, device=dev)
+            beta = torch.tensor(beta_np, dtype=dtype, device=dev)
+            routes[sturm_check.plan(size, nroot, alpha.element_size()).route] += 1
+            exact = scipy.linalg.eigvalsh_tridiagonal(alpha.double().cpu().numpy()[:size],
+                                                      beta.double().cpu().numpy()[: size - 1])
+            for fm in (False, True):
+                launches = sturm_check.sturm_check.launches
+                got = tridiagonal.extremal_eigenvalues_device(alpha, beta, size, nroot, fm)
+                want = tridiagonal.extremal_eigenvalues_reference(alpha, beta, size, nroot, fm)
+                torch.cuda.synchronize()
+                if sturm_check.sturm_check.launches != launches + 1:
+                    raise AssertionError("K6 multisection: not one launch")
+                err = float((got.double() - want.double()).abs().max())
+                if not (err == 0.0 and torch.equal(got, want)):
+                    raise AssertionError(f"K6 {dtype} size={size} cap={cap} nroot={nroot} max={fm}: "
+                                         f"max abs error {err} against its plain version")
+                k = min(nroot, size)
+                ref = exact[::-1][:k] if fm else exact[:k]
+                scale = np.abs(alpha_np[:size]).sum() + 2 * np.abs(beta_np[: size - 1]).sum()
+                tol = (1e-4 if dtype == torch.float32 else 1e-12) * scale
+                if not np.abs(got.double().cpu().numpy()[:k] - ref).max() <= tol:
+                    raise AssertionError(f"K6 {dtype} size={size}: {got[:k].tolist()} against eigvalsh {ref}")
+                worst = max(worst, err)
+                cases += 1
+
+    # The check: both sides from the same buffers and previous estimate.
+    checks = []
+    for dtype in (torch.float32, torch.float64):
+        cap, nroot = 256, 3
+        alpha_np, beta_np = _k6_tridiagonal(np, rng, cap, cap)
+        beta_np[beta_np == 0.0] = 0.5
+        alpha = torch.tensor(alpha_np, dtype=dtype, device=dev)
+        beta = torch.tensor(beta_np, dtype=dtype, device=dev)
+        eps_m = float(torch.finfo(dtype).eps)
+        settled = tridiagonal.extremal_eigenvalues_reference(alpha[:176], beta[:176], 176, nroot, False)
+        broken = beta.clone()
+        broken[150] = 0.1 * eps_m
+        for label, b, screened, k, eps, prev, have_prev in (
+            ("not_converged", beta, 172, 176, 1e-6, torch.full((nroot,), float("inf"), dtype=dtype, device=dev), True),
+            ("converged", beta, 172, 176, 1e-6, settled.clone(), True),
+            ("no_previous", beta, 172, 176, 1e-6, settled.clone(), False),
+            ("benchmark_eps", beta, 172, 176, -1.0, settled.clone(), True),
+            ("breakdown", broken, 140, 176, 1e-6, settled.clone(), True),
+            ("screen_only", broken, 140, 176, 0.0, settled.clone(), True),
+            ("screen_clean", beta, 140, 176, 0.0, settled.clone(), True),
+        ):
+            kw = dict(screened=screened, k=k, nroot=nroot, find_maximum=False, eps=eps,
+                      breakdown_eps=eps_m * 10.0, have_prev=have_prev)
+            prev_k6, prev_plain = prev.clone(), prev.clone()
+            launches = sturm_check.sturm_check.launches
+            got = tridiagonal.convergence_check(alpha, b, prev_k6, **kw).tolist()
+            want = tridiagonal.convergence_check_reference(alpha, b, prev_plain, **kw).tolist()
+            if sturm_check.sturm_check.launches != launches + 1:
+                raise AssertionError(f"K6 check {label}: not one launch")
+            if got != want or not torch.equal(prev_k6, prev_plain):
+                raise AssertionError(f"K6 check {label} {dtype}: {got} / {prev_k6.tolist()} against the plain "
+                                     f"{want} / {prev_plain.tolist()}")
+            checks.append({"case": label, "dtype": str(dtype), "stop_itern": got})
+    expect = {"not_converged": [0, 0], "converged": [2, 176], "no_previous": [0, 0], "benchmark_eps": [0, 0],
+              "breakdown": [1, 151], "screen_only": [1, 151], "screen_clean": [0, 0]}
+    for c in checks:
+        if c["stop_itern"] != expect[c["case"]]:
+            raise AssertionError(f"K6 check {c}: expected {expect[c['case']]}")
+
+    # The timed case: one launch, the bound's ops beside it, the plain
+    # version on the card and on the host CPU.
+    size, nroot = K6_TIMED
+    alpha_np, beta_np = _k6_tridiagonal(np, rng, size, size)
+    alpha = torch.tensor(alpha_np, dtype=torch.float32, device=dev)
+    beta = torch.tensor(beta_np, dtype=torch.float32, device=dev)
+    rounds = tridiagonal._rounds(torch.float32, None, 15)
+    _, limit = tridiagonal._limit(alpha, beta, size)
+    kernel = functools.partial(sturm_check.sturm_check, alpha, beta, limit, size=size, nroot=nroot,
+                               find_maximum=False, rounds=rounds)
+    got = kernel()
+    want = tridiagonal.extremal_eigenvalues_reference(alpha, beta, size, nroot, False)
+    max_abs_err = float((got - want).abs().max())
+    if max_abs_err != 0.0:
+        raise AssertionError(f"K6 timed case: max abs error {max_abs_err}")
+    ms = cuda_ms(torch, kernel)
+    ms_per_call = cuda_ms_per_call(torch, kernel, calls=20, reps=5)  # back to back: the host's launch path hidden
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            kernel()
+        torch.cuda.synchronize()
+    k6_events = [e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and "sturm_check_kernel" in e.name]
+    if len(k6_events) != 10:
+        raise AssertionError(f"the profiler saw {len(k6_events)} K6 launches of 10")
+    device_ms = statistics.median((e.time_range.end - e.time_range.start) / 1e3 for e in k6_events)
+    with_limit_ms = cuda_ms(torch, lambda: tridiagonal.extremal_eigenvalues_device(alpha, beta, size, nroot, False))
+    plain_ms = cuda_ms(torch, lambda: tridiagonal.extremal_eigenvalues_reference(alpha, beta, size, nroot, False),
+                       reps=5, warmup=1)
+    alpha_h, beta_h = alpha.cpu(), beta.cpu()
+    tridiagonal.extremal_eigenvalues_reference(alpha_h, beta_h, size, nroot, False)
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tridiagonal.extremal_eigenvalues_reference(alpha_h, beta_h, size, nroot, False)
+        host.append((time.perf_counter() - t0) * 1e3)
+    # The whole device check as the engine runs it (the bound's ops, one
+    # launch, the eight-byte read), by host clock on an idle device.
+    prev = torch.full((nroot,), float("inf"), device=dev)
+    eps_m = float(torch.finfo(torch.float32).eps)
+    check = functools.partial(tridiagonal.convergence_check, alpha, beta, prev, screened=size - 4, k=size,
+                              nroot=nroot, find_maximum=False, eps=1e-6, breakdown_eps=10 * eps_m, have_prev=True)
+    check().tolist()
+    full = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check().tolist()
+        full.append((time.perf_counter() - t0) * 1e3)
+    flops, steps = k6_flops(size, nroot, rounds)
+    bytes_moved = (2 * size + 1 + nroot) * 4
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    out = {"phase": "k6", "cases": cases, "routes": dict(routes), "max_abs_err_all": worst, "checks": checks,
+           "timed": {"size": size, "nroot": nroot, "dtype": "float32", "rounds": rounds, "points": 15},
+           "max_abs_err": max_abs_err, "ms": ms, "ms_per_call": ms_per_call, "device_ms": device_ms,
+           "with_limit_ms": with_limit_ms, "plain_ms": plain_ms,
+           "plain_host_cpu_ms": statistics.median(host), "device_check_ms": statistics.median(full),
+           "flops": flops, "bytes": bytes_moved, "bound_ms": bound_ms, "bound_by": bound_by,
+           "dependent_steps": rounds * steps, "library_ms": None}
+    emit(out)
+    return out
+
+
 def _random_basis(torch, dev, cap, n, dtype, gen):
     basis = torch.randn((cap, n), generator=gen, device=dev, dtype=dtype)
     basis /= torch.linalg.vector_norm(basis, dim=1, keepdim=True)
@@ -347,6 +530,58 @@ def recording_k3(cgs):
     finally:
         cgs.cgs_pass = real
         real.launches = recorder.launches
+
+
+@contextlib.contextmanager
+def counting_checks():
+    """Count the fused engine's convergence checks while the context is
+    open: K6 launches (from 0), the host reads of the checks' decisions and
+    their bytes; and refuse a CUDA tensor at the checks' plain versions (a
+    check on the card must be K6).  Yields a dict filled on exit."""
+    from lanczos_tpu_torch.core import tridiagonal
+    from lanczos_tpu_torch.ops import sturm_check
+    from lanczos_tpu_torch.solvers import lanczos_fused
+
+    stats = {"k6_launches": 0, "checks": 0, "bytes_read": []}
+    read, refs = lanczos_fused._read_decision, {}
+
+    def counted_read(out):
+        stats["checks"] += 1
+        stats["bytes_read"].append(out.numel() * out.element_size())
+        return read(out)
+
+    def guarded(name):
+        fn = getattr(tridiagonal, name)
+
+        def plain(alpha, *args, **kwargs):
+            if alpha.device.type == "cuda":
+                raise AssertionError(f"a CUDA tensor reached {name} on the main path")
+            return fn(alpha, *args, **kwargs)
+        refs[name] = fn
+        return plain
+
+    for name in ("convergence_check_reference", "extremal_eigenvalues_reference"):
+        setattr(tridiagonal, name, guarded(name))
+    lanczos_fused._read_decision = counted_read
+    sturm_check.sturm_check.launches = 0
+    try:
+        yield stats
+    finally:
+        stats["k6_launches"] = sturm_check.sturm_check.launches
+        lanczos_fused._read_decision = read
+        for name, fn in refs.items():
+            setattr(tridiagonal, name, fn)
+        b = stats["bytes_read"]
+        stats["bytes_read_per_check"] = max(b) if b else 0
+        del stats["bytes_read"]
+
+
+def check_stats(stats) -> dict:
+    """The counts of :func:`counting_checks`, held to one K6 launch and one
+    read of at most 16 bytes per check."""
+    if not (stats["checks"] > 0 and stats["k6_launches"] == stats["checks"] and stats["bytes_read_per_check"] <= 16):
+        raise AssertionError(f"checks {stats}: expected one K6 launch and one read of <= 16 bytes per check")
+    return stats
 
 
 def l2_flusher(torch, dev):
@@ -1061,15 +1296,19 @@ def phase_main_path(torch, np, dev):
     torch.cuda.reset_peak_memory_stats()
     spmv.bsr_matvec.launches = 0
     cgs.cgs_pass.launches = 0
-    with recording_k3(cgs) as k3_seq:
+    with recording_k3(cgs) as k3_seq, counting_checks() as checks:
         t0 = time.perf_counter()
         evals, evecs = eng.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {"k1": spmv.bsr_matvec.launches, "k3": cgs.cgs_pass.launches}
+    launches = {"k1": spmv.bsr_matvec.launches, "k3": cgs.cgs_pass.launches, "k6": checks["k6_launches"]}
     if not (launches["k1"] > 0 and launches["k3"] > 0 and launches["k3"] == len(k3_seq)):
         raise AssertionError(f"main path did not launch both kernels: {launches}, {len(k3_seq)} K3 calls recorded")
+    check_stats(checks)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # Where the solve waits for the device (a second, untimed run under
+    # the sync debug mode): the checks' reads and the rounds' Ritz reads.
+    _, waits = host_waits(torch, eng.run)
 
     a = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
     t0 = time.perf_counter()
@@ -1088,8 +1327,9 @@ def phase_main_path(torch, np, dev):
           "tile_gb": op.blocks.numel() * 4 / 1e9, "pack_s": pack_s, "eigenvalues": list(map(float, evals)),
           "scipy_eigsh": list(map(float, ref)), "max_rel_err": float(rel.max()), "residuals": residuals,
           "iteration_counts": eng.iteration_counts, "wall_s": wall, "iterations_per_s": iters / wall,
-          "reorth_count": eng.stats.reorth_count, "launches": launches, "peak_device_gb": peak_gb,
-          "scipy_s": scipy_s})
+          "reorth_count": eng.stats.reorth_count, "launches": launches, "checks": checks,
+          "host_waits": len(waits), "host_wait_sites": dict(collections.Counter(waits)),
+          "peak_device_gb": peak_gb, "scipy_s": scipy_s})
 
     # The kernels at the shapes the main path gives them.
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1122,10 +1362,128 @@ def phase_main_path(torch, np, dev):
     beta = torch.rand(128, dtype=torch.float32)
     t0 = time.perf_counter()
     for _ in range(5):
-        tridiagonal.extremal_eigenvalues_device(alpha, beta, 128, 5, False)
+        tridiagonal.extremal_eigenvalues_reference(alpha, beta, 128, 5, False)
     check_ms = (time.perf_counter() - t0) / 5 * 1e3
-    emit({"phase": "iteration_rates", "n": n, "rows": 128, "iterations_per_s": rates, "host_check_ms_k128_f32": check_ms})
+    # The same check on the card as the engine runs it: the bound's torch
+    # ops, one K6 launch and the eight-byte read, by host clock.
+    alpha, beta = alpha.to(dev), beta.to(dev)
+    prev = torch.full((5,), float("inf"), device=dev)
+    kw = dict(screened=124, k=128, nroot=5, find_maximum=False, eps=1e-6, breakdown_eps=1.2e-6, have_prev=True)
+    lanczos_fused._read_decision(tridiagonal.convergence_check(alpha, beta, prev, **kw))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        lanczos_fused._read_decision(tridiagonal.convergence_check(alpha, beta, prev, **kw))
+    device_ms = (time.perf_counter() - t0) / 20 * 1e3
+    emit({"phase": "iteration_rates", "n": n, "rows": 128, "iterations_per_s": rates, "host_check_ms_k128_f32": check_ms,
+          "device_check_ms_k128_f32": device_ms})
     return launches, k1, k3, op, ref, eng.iteration_counts, k3_seq
+
+
+def phase_operators(torch, np, dev, ref):
+    """The main path's problem (n = 2**20, float32, fused, three pairs)
+    through the plain-PyTorch operators: ``CSROperator.from_scipy`` of its
+    scipy matrix (its matvec against scipy's in float64, and bit for bit
+    on repeat: a fixed sum order), ``SumOperator`` of a DIA hopping term
+    and a COO potential, and ``ScaledOperator`` of the CSR operator (2 A +
+    1); each solve within 1e-5 of scipy's ``eigsh``.  Then a
+    ``CheckpointedRun`` over the CSR operator, one pair a deflated
+    restart, stopped after its first restart and resumed from its file:
+    the uninterrupted run's eigenvalues and counts."""
+    import tempfile
+
+    import scipy.sparse
+
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cgs
+    from lanczos_tpu_torch.solvers import lanczos as tlz
+    from lanczos_tpu_torch.utils import checkpoint
+
+    n = MAIN_N
+    rows, cols, vals = _main_path_coo(np)
+    mat = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    csr = tl.CSROperator.from_scipy(mat, dtype=torch.float32, device=dev)
+    x = np.random.default_rng(SEED + 13).standard_normal(n)
+    xt = torch.tensor(x, dtype=torch.float32, device=dev)
+    y, y2 = csr.matvec(xt), csr.matvec(xt)
+    want = mat @ x.astype(np.float32).astype(np.float64)
+    matvec_rel = float(np.abs(y.double().cpu().numpy() - want).max() / np.abs(want).max())
+    if not (torch.equal(y, y2) and matvec_rel <= 1e-6):
+        raise AssertionError(f"CSR matvec: relative error {matvec_rel:.2e}, repeat equal {torch.equal(y, y2)}")
+    matvec_ms = cuda_ms(torch, lambda: csr.matvec(xt))
+
+    pot = vals[2 * (n - 1):]
+    dia = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0)] * 2, n, dtype=torch.float32, device=dev)
+    coo = tl.COOOperator.from_arrays(np.arange(n), np.arange(n), pot.astype(np.float32), n, device=dev)
+    cases = {"csr": (csr, 1.0, 0.0), "sum_dia_coo": (tl.SumOperator([dia, coo]), 1.0, 0.0),
+             "scaled_csr": (tl.ScaledOperator(csr, 2.0, 1.0), 2.0, 1.0)}
+    solves = {}
+    for label, (op, scale, shift) in cases.items():
+        eng = _main_path_engine(tl, torch, op)
+        cgs.cgs_pass.launches = 0
+        with counting_checks() as checks:
+            t0 = time.perf_counter()
+            evals, evecs = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check_stats(checks)
+        got = (np.asarray(evals) - shift) / scale
+        rel = np.abs(got - ref) / np.abs(ref)
+        residuals = eng.residuals(evals, evecs)
+        if not (np.all(np.isfinite(evals)) and np.all(rel <= 1e-5) and max(residuals) <= 1e-3 * scale):
+            raise AssertionError(f"operators {label}: eigenvalues {got} vs scipy {ref} ({rel}), residuals {residuals}")
+        solves[label] = {"eigenvalues": list(map(float, evals)), "max_rel_err": float(rel.max()),
+                         "residuals": residuals, "iteration_counts": eng.iteration_counts, "wall_s": wall,
+                         "k3_launches": cgs.cgs_pass.launches, "k6_launches": checks["k6_launches"]}
+
+    def checkpoint_engine():
+        eng = _main_path_engine(tl, torch, csr)
+        eng.num_eigs_per_iteration = 1  # one pair a deflated restart: three restarts
+        return eng
+
+    class Interrupt(Exception):
+        pass
+
+    driver = tlz.deflation_driver
+
+    def one_round(*args, after_round, **kwargs):
+        def save_then_stop(manager, counts, finished):
+            after_round(manager, counts, finished)
+            raise Interrupt
+        return driver(*args, after_round=save_then_stop, **kwargs)
+
+    whole = checkpoint_engine()
+    vals_whole, _ = whole.run()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/main_path_csr.npz"
+        tlz.deflation_driver = one_round
+        try:
+            checkpoint.CheckpointedRun(checkpoint_engine(), path).run()
+            raise AssertionError("the interrupted run was not interrupted")
+        except Interrupt:
+            pass
+        finally:
+            tlz.deflation_driver = driver
+        saved, saved_counts = checkpoint.load_state(path, device=dev)
+        resumed = checkpoint_engine()
+        t0 = time.perf_counter()
+        vals_resumed, vecs_resumed = checkpoint.CheckpointedRun(resumed, path).run()
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+    rel = np.abs(np.asarray(vals_resumed) - ref) / np.abs(ref)
+    if not (len(saved) == 1 and saved_counts == whole.iteration_counts[:1]
+            and resumed.iteration_counts == whole.iteration_counts and np.all(rel <= 1e-5)
+            and np.array_equal(np.asarray(vals_resumed), np.asarray(vals_whole))):
+        raise AssertionError(f"checkpointed run: saved {len(saved)} pairs / {saved_counts}, resumed "
+                             f"{resumed.iteration_counts} {vals_resumed} against {whole.iteration_counts} {vals_whole}")
+    out = {"phase": "operators", "n": n, "dtype": "float32", "csr_matvec_max_rel_err": matvec_rel,
+           "csr_matvec_ms": matvec_ms, "solves": solves,
+           "checkpoint": {"saved_pairs": len(saved), "saved_counts": saved_counts,
+                          "resumed_counts": resumed.iteration_counts, "whole_counts": whole.iteration_counts,
+                          "eigenvalues": list(map(float, vals_resumed)), "max_rel_err": float(rel.max()),
+                          "resume_wall_s": resume_wall}}
+    emit(out)
+    return out
 
 
 def check_k2(torch, blocks, col_blocks, x, label):
@@ -1250,13 +1608,16 @@ def phase_sharded_main_path(torch, np, dev, ref, main_iters):
         spmv.bsr_matvec.launches = 0
         spmv.bsr_matvec_rsmk.launches = 0
         cgs.cgs_pass.launches = 0
-        t0 = time.perf_counter()
-        evals, evecs = eng.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"k1": spmv.bsr_matvec.launches, "k2": spmv.bsr_matvec_rsmk.launches, "k3": cgs.cgs_pass.launches}
+        with counting_checks() as checks:
+            t0 = time.perf_counter()
+            evals, evecs = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {"k1": spmv.bsr_matvec.launches, "k2": spmv.bsr_matvec_rsmk.launches, "k3": cgs.cgs_pass.launches,
+                    "k6": checks["k6_launches"]}
         if not (launches["k2"] > 0 and launches["k1"] == 0 and launches["k3"] > 0):
             raise AssertionError(f"sharded main path: launches {launches} (K2 and K3 expected, no K1)")
+        check_stats(checks)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         rel = np.abs(np.asarray(evals) - ref) / np.abs(ref)
         residuals = eng.residuals(evals, evecs)
@@ -1273,7 +1634,7 @@ def phase_sharded_main_path(torch, np, dev, ref, main_iters):
               "eigenvalues": list(map(float, evals)), "scipy_eigsh": list(map(float, ref)),
               "max_rel_err": float(rel.max()), "residuals": residuals, "iteration_counts": eng.iteration_counts,
               "main_path_iteration_counts": main_iters, "wall_s": wall, "iterations_per_s": iters / wall,
-              "launches": launches, "peak_device_gb": peak_gb})
+              "launches": launches, "checks": checks, "peak_device_gb": peak_gb})
     finally:
         dist.destroy_process_group()
     return launches, op
@@ -1294,13 +1655,15 @@ def phase_thick_scalar(torch, np, op, ref):
     torch.cuda.synchronize()
     spmv.bsr_matvec.launches = 0
     cgs.cgs_pass.launches = 0
-    t0 = time.perf_counter()
-    evals, evecs = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"k1": spmv.bsr_matvec.launches, "k3": cgs.cgs_pass.launches}
+    with counting_checks() as checks:
+        t0 = time.perf_counter()
+        evals, evecs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"k1": spmv.bsr_matvec.launches, "k3": cgs.cgs_pass.launches, "k6": checks["k6_launches"]}
     if not (launches["k1"] > 0 and launches["k3"] > 0):
         raise AssertionError(f"thick path did not launch both kernels: {launches}")
+    check_stats(checks)
     rel = np.abs(np.asarray(evals) - ref) / np.abs(ref)
     residuals = eng.residuals(evals, evecs)
     if not (np.all(np.isfinite(evals)) and bool(torch.isfinite(evecs).all()) and np.all(rel <= 1e-5)):
@@ -1310,7 +1673,7 @@ def phase_thick_scalar(torch, np, op, ref):
     emit({"phase": "thick_scalar", "n": op.n, "dtype": "float32", "mode": eng._resolve_mode(), "max_iteration": 128,
           "eigenvalues": list(map(float, evals)), "max_rel_err": float(rel.max()), "residuals": residuals,
           "iteration_counts": eng.iteration_counts, "wall_s": wall,
-          "iterations_per_s": sum(eng.iteration_counts) / wall, "launches": launches})
+          "iterations_per_s": sum(eng.iteration_counts) / wall, "launches": launches, "checks": checks})
 
 
 def phase_block_thick_flagship(torch, np, dev, n):
@@ -2040,6 +2403,7 @@ def main() -> int:
     timed("environment", phase_environment, torch)
     timed("build", phase_build)
     timed("host_tridiagonal", phase_host_tridiagonal, np)
+    k6 = timed("k6", phase_k6, torch, np, dev)
     timed("k1", phase_k1, torch, dev)
     timed("k3", phase_k3, torch, dev)
     k4 = timed("k4", phase_k4, torch, dev)
@@ -2051,6 +2415,7 @@ def main() -> int:
     timed("small_solves", phase_small_solves, torch, np, dev)
     launches, k1, k3, op, ref, main_iters, k3_seq = timed("main_path", phase_main_path, torch, np, dev)
     timed("thick_scalar", phase_thick_scalar, torch, np, op, ref)
+    timed("operators", phase_operators, torch, np, dev, ref)
     timed("expm_bsr", phase_expm_bsr, torch, np, dev, op)
     timed("expm_small", phase_expm_small, torch, np, dev)
     del op
@@ -2087,7 +2452,11 @@ def main() -> int:
     # e1's (its checks, the study's run and the timing) at the study's
     # 64 Mi-nnz operator; its library call is the BSR tensor product; its
     # entries add the time per call over runs of 50 back-to-back calls
-    # (ms_per_call) beside the one-call ms.
+    # (ms_per_call) beside the one-call ms.  K6's launches are the main
+    # path's checks, its times phase k6's case at k = 128 with 5 roots
+    # (float32); no single PyTorch call computes a Sturm multisection, so
+    # its library time is null; its entry adds the dependent scan steps of
+    # that case, the latency floor beside the operations bound.
     emit({"kernels": [
         entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
         entry("bsr_matvec_rsmk", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K2_REPLACES, sharded_launches["k2"], k2),
@@ -2103,6 +2472,8 @@ def main() -> int:
            "ms_per_call": e1[name]["ms_per_call"]}
           for name, replaces in (("spmv_v2", E1_V2_REPLACES), ("spmv_v2_vpu", E1_V2_REPLACES),
                                  ("spmv_v3", E1_V3_REPLACES))),
+        {**entry("sturm_check", "lanczos_tpu_torch/csrc/sturm_check.cu", K6_REPLACES, launches["k6"], k6),
+         "ms_per_call": k6["ms_per_call"], "device_ms": k6["device_ms"], "dependent_steps": k6["dependent_steps"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

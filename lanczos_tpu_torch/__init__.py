@@ -6,9 +6,9 @@ Taylor and Chebyshev expansions, on an NVIDIA Hopper GPU (or the CPU, when
 asked with ``device="cpu"``).  The module tree and names mirror
 ``lanczos_tpu``; the kernels — the BSR sparse matvec (K1), its canonical
 rsmk layout for the sharded operators (K2), the classical Gram-Schmidt pass
-(K3), its block form (K4) and the Chebyshev filter's recurrence chain (K5)
-— are hand-written CUDA in ``csrc/``, built with ``nvcc`` at first use on
-the card.  ``filtered_lanczos`` is the Chebyshev-filtered solve and
+(K3), its block form (K4), the Chebyshev filter's recurrence chain (K5) and
+the fused engine's convergence check (K6) — are hand-written CUDA in
+``csrc/``, built with ``nvcc`` at first use on the card.  ``filtered_lanczos`` is the Chebyshev-filtered solve and
 ``Exponentiator`` the exponentiation engine;
 ``lanczos_tpu_torch.parallel`` holds the row-partitioned operators over
 ``torch.distributed``, and ``lanczos_tpu_torch.experiments`` the kernel
@@ -29,11 +29,15 @@ from .diagnostics import (
 from .ops.filters import ChebyshevFilterOperator
 from .ops.operators import (
     BSROperator,
+    COOOperator,
+    CSROperator,
     DenseOperator,
     DIAOperator,
     FunctionOperator,
     LinearOperator,
+    ScaledOperator,
     ShiftSquaredOperator,
+    SumOperator,
     as_operator,
 )
 from .solvers.filtered import filtered_lanczos
@@ -47,8 +51,12 @@ __all__ = [
     "LinearOperator",
     "FunctionOperator",
     "DenseOperator",
+    "COOOperator",
+    "CSROperator",
     "BSROperator",
     "DIAOperator",
+    "SumOperator",
+    "ScaledOperator",
     "ShiftSquaredOperator",
     "ChebyshevFilterOperator",
     "as_operator",

@@ -33,6 +33,7 @@ _LOCK = threading.Lock()
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _INT = ctypes.c_int
+_DBL = ctypes.c_double
 # name -> (restype, argtypes)
 _SIGNATURES = {
     "lt_bsr_spmv_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "lt_spmv_v2_info": (_INT, [_INT, _INT, _INT, _I64, _INT, ctypes.POINTER(_INT)]),
     "lt_spmv_v3_f32": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
     "lt_spmv_v3_f64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _I64, _INT, _P]),
+    "lt_sturm_check_f32": (_INT, [_P] * 9 + [_INT] * 7 + [_DBL, _DBL] + [_INT] * 5 + [_P]),
+    "lt_sturm_check_f64": (_INT, [_P] * 9 + [_INT] * 7 + [_DBL, _DBL] + [_INT] * 5 + [_P]),
     "lt_error_string": (ctypes.c_char_p, [_INT]),
 }
 

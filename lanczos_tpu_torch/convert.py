@@ -11,12 +11,14 @@ import numpy as np
 import torch
 
 from .ops.filters import ChebyshevFilterOperator
-from .ops.operators import BSROperator, DenseOperator, DIAOperator, resolve_device
+from .ops.operators import BSROperator, COOOperator, CSROperator, DenseOperator, DIAOperator, resolve_device
 from .parallel.sharded import ShardedBSROperator, ShardedDIAOperator
 from .solvers.lanczos import LanczosConfig
 
 __all__ = [
     "bsr_operator_from_arrays",
+    "coo_operator_from_arrays",
+    "csr_operator_from_arrays",
     "dense_operator_from_array",
     "dia_operator_from_arrays",
     "chebyshev_filter_from_arrays",
@@ -41,6 +43,18 @@ def bsr_operator_from_arrays(blocks, col_blocks, n: int, layout: str, device=Non
     blocks = torch.from_numpy(np.array(blocks, order="C"))
     col_blocks = torch.from_numpy(np.array(col_blocks, dtype=np.int32, order="C"))
     return BSROperator(blocks.to(device), col_blocks.to(device), int(n))
+
+
+def coo_operator_from_arrays(rows, cols, vals, n: int, device=None) -> COOOperator:
+    """A :class:`COOOperator` from ``lanczos_tpu.COOOperator``'s ``rows``,
+    ``cols``, ``vals`` and ``n`` (indices become int64)."""
+    return COOOperator.from_arrays(np.array(rows), np.array(cols), np.array(vals), int(n), device=device)
+
+
+def csr_operator_from_arrays(indptr, indices, data, n: int, device=None) -> CSROperator:
+    """A :class:`CSROperator` from ``lanczos_tpu.CSROperator``'s ``indptr``,
+    ``indices``, ``data`` and ``n``; ``row_of_nnz`` is derived again."""
+    return CSROperator.from_arrays(np.array(indptr), np.array(indices), np.array(data), int(n), device=device)
 
 
 def dense_operator_from_array(a, device=None) -> DenseOperator:

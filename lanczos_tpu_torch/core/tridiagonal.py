@@ -23,11 +23,12 @@ by name, ``native`` and ``bisect`` raise with the compiler's message when
 the library does not build.
 
 :func:`extremal_eigenvalues_device` is the Sturm multisection of the JAX
-fused engine's convergence test, and :func:`eigenvectors_backward_device`
-the backward-recurrence eigenvectors on the device.  The port runs both
-eagerly on whatever device their tensors are on; the fused engine hands
-the first CPU tensors, because its dozens of tiny elementwise steps would
-each be one kernel launch on the card.
+fused engine's convergence test and :func:`convergence_check` that test
+whole (breakdown screen, multisection, relative change): on CUDA buffers
+each is one launch of kernel K6 (``ops/sturm_check.py``,
+``csrc/sturm_check.cu``), on CPU buffers its plain version
+(``*_reference``, eager torch ops).  :func:`eigenvectors_backward_device`
+gives the backward-recurrence eigenvectors on the buffers' device.
 
 Eigenvector layout matches the reference: ``vecs[k, :]`` is the k-th
 eigenvector, eigenvalues ascending (tridiagonal_impl.hpp:177-179, :340).
@@ -39,12 +40,16 @@ import numpy as np
 import torch
 
 from ..native import host_kernels
+from ..ops import sturm_check
 
 __all__ = [
     "eigh_tridiagonal_host",
     "eigvals_tridiagonal_host",
     "extremal_eigvals_host",
     "extremal_eigenvalues_device",
+    "extremal_eigenvalues_reference",
+    "convergence_check",
+    "convergence_check_reference",
     "eigenvectors_backward_device",
     "set_default_host_backend",
     "unconverged_total",
@@ -260,6 +265,26 @@ def _sturm_counts(cs, alpha, beta_sq, size: int):
     return (neg & active).sum(dim=0).to(torch.int32)
 
 
+def _rounds(dtype, iters, points) -> int:
+    if iters is None:
+        iters = 110 if dtype == torch.float64 else 46
+    return int(np.ceil(iters / np.log2(points + 1)))
+
+
+def _limit(alpha, beta, size):
+    """The masked off-diagonal and the bound ``sum |alpha| + 2 sum |beta|``
+    of the leading ``size`` x ``size`` block, by the torch ops the plain
+    version has always used (K6 gets ``limit`` from here, so the two start
+    from the same bits on one device)."""
+    dtype = alpha.dtype
+    cap = alpha.shape[0]
+    ar = torch.arange(cap, device=alpha.device)
+    mask = (ar < size).to(dtype)
+    beta_masked = beta * (ar < size - 1).to(dtype)
+    limit = torch.sum(alpha.abs() * mask) + 2.0 * torch.sum(beta_masked.abs())
+    return beta_masked, limit
+
+
 def extremal_eigenvalues_device(alpha, beta, size: int, nroot: int, find_maximum: bool, *, iters: int | None = None, points: int = 15):
     """The ``nroot`` smallest (or largest) eigenvalues of the leading
     ``size`` x ``size`` block of the tridiagonal in the (cap,) buffers
@@ -273,19 +298,28 @@ def extremal_eigenvalues_device(alpha, beta, size: int, nroot: int, find_maximum
 
     Returns (nroot,) in the buffers' dtype and device: ``result[i]`` is the
     i-th largest eigenvalue when ``find_maximum`` else the i-th smallest;
-    roots with index >= ``size`` repeat the closest valid root.
+    roots with index >= ``size`` repeat the closest valid root.  CUDA
+    buffers go to kernel K6 (``ops/sturm_check.py``, one launch; a failed
+    build or launch raises), CPU buffers to
+    :func:`extremal_eigenvalues_reference`, its plain version; the two give
+    the same bits on one device.
     """
+    if alpha.device.type != "cuda":
+        return extremal_eigenvalues_reference(alpha, beta, size, nroot, find_maximum, iters=iters, points=points)
+    size = int(size)
+    _, limit = _limit(alpha, beta, size)
+    return sturm_check.sturm_check(alpha, beta, limit, size=size, nroot=int(nroot), find_maximum=find_maximum,
+                                   rounds=_rounds(alpha.dtype, iters, points), points=points)
+
+
+def extremal_eigenvalues_reference(alpha, beta, size: int, nroot: int, find_maximum: bool, *, iters: int | None = None, points: int = 15):
+    """Plain PyTorch version of :func:`extremal_eigenvalues_device` (and of
+    K6), on the buffers' device: eager torch ops, dozens a doubling step."""
     dtype = alpha.dtype
     dev = alpha.device
-    if iters is None:
-        iters = 110 if dtype == torch.float64 else 46
-    rounds = int(np.ceil(iters / np.log2(points + 1)))
-    cap = alpha.shape[0]
-    ar = torch.arange(cap, device=dev)
-    mask = (ar < size).to(dtype)
-    beta_masked = beta * (ar < size - 1).to(dtype)
+    rounds = _rounds(dtype, iters, points)
+    beta_masked, limit = _limit(alpha, beta, size)
     beta_sq = beta_masked**2
-    limit = torch.sum(alpha.abs() * mask) + 2.0 * torch.sum(beta_masked.abs())
 
     idx = torch.arange(nroot, device=dev)
     if find_maximum:
@@ -305,6 +339,56 @@ def extremal_eigenvalues_device(alpha, beta, size: int, nroot: int, find_maximum
         upper = torch.where(ge, pts, upper).amin(dim=0)
         lower = torch.where(ge, lower, pts).amax(dim=0)
     return lower
+
+
+def convergence_check(alpha, beta, evs_prev, *, screened: int, k: int, nroot: int, find_maximum: bool, eps: float,
+                      breakdown_eps: float, have_prev: bool):
+    """The fused engine's convergence check of iteration ``k`` on the
+    (cap,) buffers' device, with no host read: returns an int32 tensor
+    (stop, itern) of two values there, stop 0 (go on), 1 (a breakdown) or
+    2 (converged).
+
+    The first ``beta[screened:k] < breakdown_eps`` stops the build at that
+    iteration (itern = its index + 1).  Otherwise, unless ``eps == 0`` (no
+    test), the extremal eigenvalues of the leading k x k block are tested
+    against ``evs_prev`` by the relative change ``|evs - prev| < min(|evs|,
+    |prev|) eps`` and replace it in place; the build stops at k (itern =
+    k) when that holds for every root, ``have_prev`` and ``eps > 0``
+    (``eps < 0``: the check runs and never stops).  CUDA buffers go to kernel K6 (one launch
+    after the bound's few torch ops), CPU buffers to
+    :func:`convergence_check_reference`."""
+    if alpha.device.type != "cuda":
+        return convergence_check_reference(alpha, beta, evs_prev, screened=screened, k=k, nroot=nroot,
+                                           find_maximum=find_maximum, eps=eps, breakdown_eps=breakdown_eps,
+                                           have_prev=have_prev)
+    out = torch.empty(2, dtype=torch.int32, device=alpha.device)
+    if eps == 0.0:
+        return sturm_check.sturm_check(alpha, beta, None, size=k, nroot=nroot, find_maximum=find_maximum, rounds=0,
+                                       mode="screen", out=out, screened=screened, k=k, breakdown_eps=breakdown_eps)
+    _, limit = _limit(alpha[:k], beta[:k], k)
+    return sturm_check.sturm_check(alpha, beta, limit, size=k, nroot=nroot, find_maximum=find_maximum,
+                                   rounds=_rounds(alpha.dtype, None, 15), mode="check", evs=evs_prev, out=out,
+                                   screened=screened, k=k, breakdown_eps=breakdown_eps, eps=eps,
+                                   gate=have_prev and eps > 0)
+
+
+def convergence_check_reference(alpha, beta, evs_prev, *, screened: int, k: int, nroot: int, find_maximum: bool,
+                                eps: float, breakdown_eps: float, have_prev: bool):
+    """Plain PyTorch version of :func:`convergence_check` (and of K6's check
+    mode), on the buffers' device."""
+    broke = torch.nonzero(beta[screened:k] < breakdown_eps)
+    if broke.numel():
+        return torch.tensor([1, screened + int(broke[0, 0]) + 1], dtype=torch.int32, device=alpha.device)
+    if eps == 0.0:  # sentinel: no convergence test (JAX engine semantics)
+        return torch.zeros(2, dtype=torch.int32, device=alpha.device)
+    # The leading k entries only: the JAX engine passes its whole buffer,
+    # whose rows past k the Sturm count treats as the identity.
+    evs = extremal_eigenvalues_reference(alpha[:k], beta[:k], k, nroot, find_maximum)
+    eps_t = torch.tensor(eps, dtype=alpha.dtype, device=alpha.device)
+    rel_ok = bool(torch.all((evs - evs_prev).abs() < torch.minimum(evs.abs(), evs_prev.abs()) * eps_t))
+    converged = have_prev and rel_ok and eps > 0
+    evs_prev.copy_(evs)
+    return torch.tensor([2, k] if converged else [0, 0], dtype=torch.int32, device=alpha.device)
 
 
 def eigenvectors_backward_device(alpha, beta, size, lams):

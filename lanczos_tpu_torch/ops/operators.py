@@ -1,8 +1,10 @@
-"""Linear-operator layer (port of ``lanczos_tpu.ops.operators``, main-path
-subset): the reference's pluggable ``mv_mul`` closure
-(lambda_lanczos.hpp:120-126) as a small protocol — ``n``, ``dtype``,
-``device`` and ``matvec(x) -> A @ x`` on tensors of that device, plus
-``matvec_rows`` for a (b, n) block of row vectors (the block engines).
+"""Linear-operator layer (port of ``lanczos_tpu.ops.operators``): the
+reference's pluggable ``mv_mul`` closure (lambda_lanczos.hpp:120-126) as a
+small protocol — ``n``, ``dtype``, ``device`` and ``matvec(x) -> A @ x`` on
+tensors of that device, plus ``matvec_rows`` for a (b, n) block of row
+vectors (the block engines).  The JAX package's ``ShiftInvertOperator``
+waits for ROADMAP item 11, ``DenseDFOperator`` and every ``matvec_df`` for
+item 10.
 
 Operators hold their tensors; the device is theirs.  A constructor that
 takes host data (numpy arrays, CPU tensors, callables) puts the operator on
@@ -23,12 +25,19 @@ __all__ = [
     "LinearOperator",
     "FunctionOperator",
     "DenseOperator",
+    "COOOperator",
+    "CSROperator",
     "BSROperator",
     "DIAOperator",
+    "SumOperator",
+    "ScaledOperator",
     "ShiftSquaredOperator",
     "as_operator",
     "resolve_device",
 ]
+
+
+_DF_ITEM = "ROADMAP.md, module item 10 (precise paths on native float64)"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -114,6 +123,136 @@ class DenseOperator(LinearOperator):
 
     def matvec(self, x):
         return self.a @ x
+
+
+def _segment_sum(prod, offsets):
+    """Row sums of ``prod`` (products in row order, row r's at
+    ``offsets[r]:offsets[r+1]``) by ``torch.segment_reduce``: no atomics, so
+    the sum order is fixed and a matvec repeats bit for bit (sequential per
+    row on the CPU, one fixed reduction per row on CUDA; the two devices
+    may round differently).  Complex products are summed as their real and
+    imaginary parts."""
+    if prod.is_complex():
+        y = torch.segment_reduce(torch.view_as_real(prod), "sum", offsets=offsets, axis=0, unsafe=True)
+        return torch.view_as_complex(y.contiguous())
+    return torch.segment_reduce(prod, "sum", offsets=offsets, axis=0, unsafe=True)
+
+
+class COOOperator(LinearOperator):
+    """COO sparse operator: ``y[r] = sum of vals[j] * x[cols[j]]`` over the
+    entries j with ``rows[j] = r`` (the JAX package's segment-sum matvec;
+    the tuple-list sample, sample2_sparse.cpp:43-47).  Duplicates add up.
+
+    Plain PyTorch on both devices, as the JAX package's is XLA gather and
+    scatter (no Pallas kernel).  The entries are put in row order once (a
+    stable sort), so each matvec is a gather, a product and a row sum by
+    ``torch.segment_reduce``, with no atomic scatter-add: the sum order is
+    fixed and the result repeats bit for bit on the card.  Convert to
+    :class:`BSROperator` for kernel K1.
+    """
+
+    def __init__(self, rows, cols, vals, n: int):
+        self.rows, self.cols, self.vals = rows, cols, vals
+        self.n = int(n)
+        if not (rows.shape == cols.shape == vals.shape and rows.ndim == 1):
+            raise ValueError(f"rows/cols/vals of shapes {tuple(rows.shape)}/{tuple(cols.shape)}/"
+                             f"{tuple(vals.shape)} are not three (nnz,) arrays")
+        order = torch.sort(rows, stable=True).indices
+        self._cols_sorted = cols[order]
+        self._vals_sorted = vals[order]
+        counts = torch.bincount(rows, minlength=self.n)
+        if counts.numel() > self.n:
+            raise ValueError(f"a row index is not below n={self.n}")
+        self._offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+
+    @classmethod
+    def from_arrays(cls, rows, cols, vals, n: int, *, device=None):
+        """From host arrays (or tensors): indices as int64, the values as
+        they are, on ``device`` (default: the card)."""
+        device = resolve_device(device)
+        as_index = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64).to(device)  # noqa: E731
+        return cls(as_index(rows), as_index(cols), torch.as_tensor(np.asarray(vals)).to(device), int(n))
+
+    @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
+    def device(self):
+        return self.vals.device
+
+    def matvec(self, x):
+        return _segment_sum(self._vals_sorted * x[self._cols_sorted], self._offsets)
+
+    def matvec_df(self, x_hi, x_lo):
+        raise NotImplementedError(f"the double-float COO matvec is not ported; see {_DF_ITEM}")
+
+    def to_dense(self):
+        a = torch.zeros((self.n, self.n), dtype=self.dtype, device=self.device)
+        return a.index_put_((self.rows, self.cols), self.vals, accumulate=True)
+
+
+class CSROperator(LinearOperator):
+    """CSR sparse operator (``indptr``, ``indices``, ``data``: scipy's
+    layout).  The row of every nonzero, ``row_of_nnz``, is derived once
+    here, as in the JAX package (for :meth:`to_bsr` and the Gershgorin
+    bound); the matvec is a gather, a product and the row sums of
+    ``indptr``'s segments by ``torch.segment_reduce``, plain PyTorch on
+    both devices with a fixed sum order (no atomics; repeats bit for bit).
+    :meth:`to_bsr` packs the operator for kernel K1.
+    """
+
+    def __init__(self, indptr, indices, data, n: int, row_of_nnz=None):
+        self.indptr, self.indices, self.data = indptr, indices, data
+        self.n = int(n)
+        if indptr.shape != (self.n + 1,) or indices.shape != data.shape or indices.ndim != 1:
+            raise ValueError(f"indptr {tuple(indptr.shape)} / indices {tuple(indices.shape)} / data "
+                             f"{tuple(data.shape)} are not a CSR layout of {self.n} rows")
+        if row_of_nnz is None:
+            row_of_nnz = torch.repeat_interleave(torch.arange(self.n, device=indptr.device), torch.diff(indptr))
+        self.row_of_nnz = row_of_nnz
+
+    @classmethod
+    def from_arrays(cls, indptr, indices, data, n: int, *, device=None):
+        """From host arrays (or tensors): ``indptr`` and ``indices`` as
+        int64, the values as they are, on ``device`` (default: the card)."""
+        device = resolve_device(device)
+        as_index = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64).to(device)  # noqa: E731
+        return cls(as_index(indptr), as_index(indices), torch.as_tensor(np.asarray(data)).to(device), int(n))
+
+    @classmethod
+    def from_scipy(cls, mat, *, dtype=None, device=None):
+        """From any scipy.sparse matrix (converted to CSR), its values in
+        ``dtype`` (default: the matrix's), on ``device`` (default: the
+        card)."""
+        csr = mat.tocsr()
+        data = csr.data if dtype is None else csr.data.astype(to_numpy_dtype(dtype))
+        return cls.from_arrays(csr.indptr, csr.indices, data, int(csr.shape[0]), device=device)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def matvec(self, x):
+        return _segment_sum(self.data * x[self.indices], self.indptr)
+
+    def matvec_df(self, x_hi, x_lo):
+        raise NotImplementedError(f"the double-float CSR matvec is not ported; see {_DF_ITEM}")
+
+    def to_bsr(self, **kwargs):
+        """The same matrix as a :class:`BSROperator` (kernel K1 on the
+        card); ``kwargs`` go to :meth:`BSROperator.from_coo` (``bm``,
+        ``bk``, ``dtype``: default this operator's; ``device``: default
+        this operator's)."""
+        kwargs.setdefault("dtype", self.dtype)
+        kwargs.setdefault("device", self.device)
+        return BSROperator.from_coo(
+            self.row_of_nnz.cpu().numpy(), self.indices.cpu().numpy(), self.data.cpu().numpy(), self.n, **kwargs,
+        )
 
 
 class BSROperator(LinearOperator):
@@ -249,6 +388,76 @@ class DIAOperator(LinearOperator):
 
     def matvec_rows(self, x):
         return self.matvec(x)
+
+
+class SumOperator(LinearOperator):
+    """A + B + ... as an operator (e.g. H = H_hop + H_interaction); the
+    terms may be of different formats (DIA + COO, dense + function, ...)
+    and lie on one device.  Its dtype is the promotion of the terms'
+    dtypes, as ``np.result_type`` gives it in the JAX package."""
+
+    def __init__(self, terms):
+        self.terms = tuple(terms)
+        if not self.terms:
+            raise ValueError("SumOperator needs at least one term")
+
+    @property
+    def n(self):
+        return self.terms[0].n
+
+    @property
+    def dtype(self):
+        dt = self.terms[0].dtype
+        for t in self.terms[1:]:
+            dt = torch.promote_types(dt, t.dtype)
+        return dt
+
+    @property
+    def device(self):
+        return self.terms[0].device
+
+    def matvec(self, x):
+        y = self.terms[0].matvec(x)
+        for t in self.terms[1:]:
+            y = y + t.matvec(x)
+        return y
+
+    def matvec_df(self, x_hi, x_lo):
+        raise NotImplementedError(f"the double-float sum matvec is not ported; see {_DF_ITEM}")
+
+
+class ScaledOperator(LinearOperator):
+    """``scale * A + shift * I`` as an operator (spectral shift and scale):
+    ``scale`` multiplies in the base product's dtype and ``shift`` in
+    ``x``'s, as the JAX package casts them."""
+
+    def __init__(self, base, scale: float = 1.0, shift: float = 0.0):
+        self.base = base
+        self.scale = scale
+        self.shift = shift
+
+    @property
+    def n(self):
+        return self.base.n
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def matvec(self, x):
+        y = self.base.matvec(x)
+        if self.scale != 1.0:
+            y = y * self.scale
+        if self.shift != 0.0:
+            y = y + x * self.shift
+        return y
+
+    def matvec_df(self, x_hi, x_lo):
+        raise NotImplementedError(f"the double-float scaled matvec is not ported; see {_DF_ITEM}")
 
 
 class ShiftSquaredOperator(LinearOperator):

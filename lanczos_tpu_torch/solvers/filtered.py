@@ -12,13 +12,16 @@ A-space eigenpairs by a Rayleigh-Ritz over the converged B-space vectors.
 
 The JAX package's double-float grams become float64 products of the cast
 rows, and every projection here is a float64 product, so no float32 product
-can take a TF32 path on the card.  ``precise=True``, ``refine_vectors=True``
-and ``checkpoint_path=`` raise: they need the precise engines,
-``matvec_df`` and the checkpoint module (ROADMAP.md, module items 10 and 12).
+can take a TF32 path on the card.  ``precise=True`` and
+``refine_vectors=True`` raise: they need the precise engines and
+``matvec_df`` (ROADMAP.md, module item 10).  ``checkpoint_path=`` saves the
+round state after every deflation round and resumes from it, in the
+format of :mod:`lanczos_tpu_torch.utils.checkpoint`.
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -36,14 +39,13 @@ from ..diagnostics import (
 from ..ops.filters import ChebyshevFilterOperator
 from ..ops.operators import ShiftSquaredOperator, as_operator
 from ..parallel.sharded import refuse_sharded
-from ..utils import estimate
+from ..utils import checkpoint, estimate
 from ..utils.random import random_initializer
 from . import lanczos as _lanczos
 
 __all__ = ["filtered_lanczos"]
 
 _PRECISE_ITEM = "ROADMAP.md, module item 10 (precise paths on native float64)"
-_CHECKPOINT_ITEM = "ROADMAP.md, module item 12 (checkpoint)"
 
 
 def _safe_bound(op) -> float:
@@ -180,7 +182,7 @@ def _auto_mu(op, num_eigs, find_maximum, lo, hi, guard):
 
 
 def _filtered_interior(op, num_eigs, *, sigma, degree, mu, lo, hi, guard, residual_bound, max_extra_rounds,
-                       configure, device):
+                       checkpoint_path, configure, device):
     """The ``num_eigs`` eigenvalues of A nearest an interior ``sigma``,
     through ``(A - sigma)^2``: "nearest sigma" becomes the bottom edge, with
     the exact lower bound 0.  sigma-symmetric pairs merge in the squared
@@ -199,7 +201,8 @@ def _filtered_interior(op, num_eigs, *, sigma, degree, mu, lo, hi, guard, residu
         mu = _auto_mu(sq, num_eigs, False, 0.0, float(hi2), guard)
     _vals2, vecs, info = filtered_lanczos(
         sq, num_eigs, False, degree=degree, mu=mu, lo=0.0, hi=float(hi2), guard=guard,
-        residual_bound=residual_bound, max_extra_rounds=max_extra_rounds, configure=configure)
+        residual_bound=residual_bound, max_extra_rounds=max_extra_rounds, checkpoint_path=checkpoint_path,
+        configure=configure)
     theta, vecs_out, res = _rayleigh_ritz(base, vecs, num_eigs, False)
     order = np.argsort(np.abs(np.asarray(theta) - sigma))
     info["sigma"] = float(sigma)
@@ -246,14 +249,13 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     refuse_sharded(op, "filtered_lanczos")
     if precise or refine_vectors:
         raise NotImplementedError(f"precise=True and refine_vectors=True are not ported; see {_PRECISE_ITEM}")
-    if checkpoint_path is not None:
-        raise NotImplementedError(f"checkpoint_path is not ported; see {_CHECKPOINT_ITEM}")
     if sigma is not None:
         if find_maximum:
             raise ValueError("sigma (interior targets) and find_maximum are exclusive")
         return _filtered_interior(
             op, num_eigs, sigma=float(sigma), degree=degree, mu=mu, lo=lo, hi=hi, guard=guard,
-            residual_bound=residual_bound, max_extra_rounds=max_extra_rounds, configure=configure, device=device)
+            residual_bound=residual_bound, max_extra_rounds=max_extra_rounds, checkpoint_path=checkpoint_path,
+            configure=configure, device=device)
 
     op = as_operator(op, device=device)
     lo, hi = _spectrum_bounds(op, lo, hi, find_maximum)
@@ -323,15 +325,40 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     iter_counts: list[int] = []
     extra = 0
     prev_worst = np.inf
+    skip_round = False
+    if checkpoint_path is not None and os.path.exists(checkpoint.npz_path(checkpoint_path)):
+        # Round-boundary resume: the adaptive loop's state is the B-space
+        # manager and three loop scalars; a resumed run replays the checks
+        # after the saved round (skip_round) before any new round.
+        mgr_l, counts_l, extras_l = checkpoint.load_state(checkpoint_path, eng.dtype, device=fop.device,
+                                                          with_extras=True)
+        if mgr_l.num_eigs != capacity or mgr_l.find_maximum != cfg.find_maximum:
+            raise ValueError(
+                f"checkpoint at {checkpoint_path} was written for capacity={mgr_l.num_eigs}/"
+                f"find_maximum={mgr_l.find_maximum}, this solve needs {capacity}/{cfg.find_maximum}: the "
+                "num_eigs/guard/max_extra_rounds configuration changed; delete the file or restore the "
+                "original parameters")
+        manager, iter_counts = mgr_l, counts_l
+        extra = int(extras_l.get("round", 0))
+        prev_worst = float(extras_l.get("prev_worst", np.inf))
+        cfg.stop_when_count = int(extras_l.get("stop_when_count", cfg.stop_when_count))
+        skip_round = len(manager.pairs) > 0
     while True:
-        with warnings.catch_warnings():
-            # B-space eps-convergence is not this solve's accuracy contract,
-            # and degenerate band copies routinely exhaust the B-space budget.
-            warnings.filterwarnings("ignore", category=BudgetExhaustedWarning)
-            _lanczos.deflation_driver(
-                iterate_one, cfg, eng._init_fn(), eng.dtype, device=fop.device,
-                v0_rows=v0_rows, use_warm_restarts=use_warm, manager=manager, iter_counts=iter_counts,
-            )
+        if not skip_round:
+            with warnings.catch_warnings():
+                # B-space eps-convergence is not this solve's accuracy
+                # contract, and degenerate band copies routinely exhaust the
+                # B-space budget.
+                warnings.filterwarnings("ignore", category=BudgetExhaustedWarning)
+                _lanczos.deflation_driver(
+                    iterate_one, cfg, eng._init_fn(), eng.dtype, device=fop.device,
+                    v0_rows=v0_rows, use_warm_restarts=use_warm, manager=manager, iter_counts=iter_counts,
+                )
+            if checkpoint_path is not None:
+                checkpoint.save_state(checkpoint_path, manager, iter_counts,
+                                      extra={"round": extra, "prev_worst": prev_worst,
+                                             "stop_when_count": cfg.stop_when_count})
+        skip_round = False
         vals_b = np.asarray(manager.eigenvalues())
         V = torch.stack(manager.eigenvectors())
         theta, vecs_out, res = _rayleigh_ritz(op, V, num_eigs, find_maximum)

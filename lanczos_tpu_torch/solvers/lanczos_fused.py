@@ -8,15 +8,16 @@ the three-term recurrence, the deflation projection, the basis
 reorthogonalization (kernel K3) and beta, with alpha/beta written into
 device buffers.  The host waits
 for the device once per convergence check, every ``convergence_check_interval``
-iterations and at each stage's capacity, as the JAX loop's checks fall:
+iterations and at each stage's capacity, as the JAX loop's checks fall, and
+reads only the check's decision (stop, itern), eight bytes: the check itself,
+:func:`~lanczos_tpu_torch.core.tridiagonal.convergence_check`, runs on the
+buffers' device (kernel K6, one launch, on the card):
 
-* it pulls the alpha/beta buffers, finds the first ``beta < breakdown_eps``
-  since the last check and, if there is one, stops the build *at* that
-  iteration, as the JAX loop does (lanczos_fused.py:402, :422-427); the
-  iterations queued after it are discarded;
-* otherwise it runs :func:`~lanczos_tpu_torch.core.tridiagonal.extremal_eigenvalues_device`
-  on CPU tensors of the JAX engine's dtype, and stops on the same
-  relative-change test.
+* the first ``beta < breakdown_eps`` since the last check stops the build
+  *at* that iteration, as the JAX loop does (lanczos_fused.py:402,
+  :422-427); the iterations queued after it are discarded;
+* otherwise the Sturm multisection of the leading block, in the JAX
+  engine's dtype, and the same relative-change test decide.
 
 Capacity is staged as in the JAX engine: the build starts with a small
 buffer and grows it fourfold, resuming without repeating a matvec.  The
@@ -87,7 +88,7 @@ class _Build:
         cap = self.cap
         self.k = 1  # next iteration (1-based)
         self.screened = 0  # iterations whose beta has been checked for breakdown
-        self.evs_prev = torch.full((self.nroot,), float("inf"), dtype=self.rdtype)
+        self.evs_prev = torch.full((self.nroot,), float("inf"), dtype=self.rdtype, device=self.alpha.device)
         self.have_prev = False
         self.stop = False
         self.itern = 0
@@ -209,32 +210,30 @@ def _iterate(op, st: _Build, defl, defl_mask, offset: float, passes: int, select
     st.k = k + 1
 
 
+def _read_decision(out) -> tuple[int, int]:
+    """The check's one host read: (stop, itern), eight bytes (stop 0, 1 for
+    a breakdown, 2 for convergence); it waits for the device."""
+    stop, itern = out.tolist()
+    return stop, itern
+
+
 def _check(st: _Build, k: int, nroot: int, find_maximum: bool, eps: float, breakdown_eps: float) -> None:
-    """The host side of iteration k's convergence check: breakdown since
-    the last check, then the Sturm multisection and relative-change test."""
-    alpha = st.alpha.cpu()  # waits for the device
-    beta = st.beta.cpu()
-    broke = torch.nonzero(beta[st.screened : k] < breakdown_eps)
-    if broke.numel():
+    """Iteration k's convergence check: breakdown since the last check, then
+    the Sturm multisection and relative-change test, all on the build's
+    device (kernel K6 on the card); the host reads only the decision."""
+    stop, itern = _read_decision(tridiagonal.convergence_check(
+        st.alpha, st.beta, st.evs_prev, screened=st.screened, k=k, nroot=nroot, find_maximum=find_maximum,
+        eps=eps, breakdown_eps=breakdown_eps, have_prev=st.have_prev,
+    ))
+    if stop != 1:  # no breakdown: the screen and the estimate moved on
+        st.screened = k
+        if eps != 0.0:
+            # A full previous estimate exists once a solve saw >= nroot rows
+            # (the reference's pevs.size() == evs.size() gate, lambda_lanczos.hpp:291).
+            st.have_prev = k >= nroot
+    if stop:
         st.stop = True
-        st.itern = st.screened + int(broke[0, 0]) + 1
-        return
-    st.screened = k
-    if eps == 0.0:  # sentinel: no convergence test (JAX engine semantics)
-        return
-    # The leading k entries only: the JAX engine passes its whole buffer,
-    # whose rows past k the Sturm count treats as the identity.
-    evs = tridiagonal.extremal_eigenvalues_device(alpha[:k], beta[:k], k, nroot, find_maximum)
-    eps_t = torch.tensor(eps, dtype=st.rdtype)
-    rel_ok = bool(torch.all((evs - st.evs_prev).abs() < torch.minimum(evs.abs(), st.evs_prev.abs()) * eps_t))
-    converged = st.have_prev and rel_ok and eps > 0
-    st.evs_prev = evs
-    # A full previous estimate exists once a solve saw >= nroot rows
-    # (the reference's pevs.size() == evs.size() gate, lambda_lanczos.hpp:291).
-    st.have_prev = k >= nroot
-    if converged:
-        st.stop = True
-        st.itern = k
+        st.itern = itern
 
 
 def _run_stage(op, st: _Build, defl, defl_mask, *, eps, offset, nroot, find_maximum, check_every, passes, selective, k_lim):

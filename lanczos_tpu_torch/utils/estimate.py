@@ -5,9 +5,7 @@ Reference counterpart: the demo
 src/determine_eigenvalue_offset/determine_eigenvalue_offset.cpp:12-49,
 ``max_i sum_j |a_ij|`` (the infinity-norm Gershgorin bound).  Here it is a
 function over the port's operators, plus a matrix-free power-iteration
-bound for operators whose entries are not stored.  The COO, CSR, Sum and
-Scaled branches of the JAX function wait for those operators (ROADMAP.md,
-module item 4).
+bound for operators whose entries are not stored.
 """
 
 from __future__ import annotations
@@ -16,7 +14,18 @@ import numpy as np
 import torch
 
 from ..core.linalg import norm
-from ..ops.operators import BSROperator, DenseOperator, DIAOperator, LinearOperator, ShiftSquaredOperator
+from ..ops.operators import (
+    BSROperator,
+    COOOperator,
+    CSROperator,
+    DenseOperator,
+    DIAOperator,
+    LinearOperator,
+    ScaledOperator,
+    ShiftSquaredOperator,
+    SumOperator,
+    _segment_sum,
+)
 
 __all__ = ["gershgorin_bound", "power_bound", "suggest_eigenvalue_offset"]
 
@@ -28,13 +37,20 @@ class _MatrixFreeError(TypeError):
 def gershgorin_bound(op) -> float:
     """``max_i sum_j |a_ij|``: every eigenvalue satisfies |lambda| <= bound.
 
-    Takes a square array or a Dense, DIA or BSR operator, and a
-    :class:`ShiftSquaredOperator` over one of those, whose eigenvalues
-    (lambda - sigma)^2 are at most (bound(A) + |sigma|)^2.  Raises
-    ``_MatrixFreeError`` (a ``TypeError``) for other operators.
+    Takes a square array or a Dense, COO, CSR, DIA or BSR operator, Sum
+    and Scaled compositions of those (by the triangle inequality: still a
+    bound), and a :class:`ShiftSquaredOperator` over one of those, whose
+    eigenvalues (lambda - sigma)^2 are at most (bound(A) + |sigma|)^2.
+    Raises ``_MatrixFreeError`` (a ``TypeError``) for other operators.
     """
     if isinstance(op, DenseOperator):
         a = op.a
+    elif isinstance(op, COOOperator):
+        # |row sums| in the values' dtype, as the JAX package's segment sum,
+        # by the operator's own row sum (a fixed order).
+        return float(_segment_sum(op._vals_sorted.abs(), op._offsets).max())
+    elif isinstance(op, CSROperator):
+        return float(_segment_sum(op.data.abs(), op.indptr).max())
     elif isinstance(op, DIAOperator):
         # |row sums| over the stored rows (off-matrix entries are zero in
         # the port's DIAOperator), accumulated in float64.  A bound must
@@ -50,6 +66,10 @@ def gershgorin_bound(op) -> float:
         # tiles are zero.
         sums = op.blocks.abs().sum(dim=(2, 3)).reshape(-1)
         return float(sums[: op.n].max())
+    elif isinstance(op, SumOperator):
+        return float(sum(gershgorin_bound(t) for t in op.terms))
+    elif isinstance(op, ScaledOperator):
+        return abs(float(op.scale)) * gershgorin_bound(op.base) + abs(float(op.shift))
     elif isinstance(op, ShiftSquaredOperator):
         return (gershgorin_bound(op.base) + abs(op.sigma)) ** 2
     elif isinstance(op, LinearOperator):

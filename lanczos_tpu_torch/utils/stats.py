@@ -11,9 +11,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 
-__all__ = ["RunStats", "trace_span"]
+__all__ = ["RunStats", "trace_span", "vector_to_string"]
 
 
 @dataclasses.dataclass
@@ -43,3 +44,13 @@ def trace_span(name: str):
     """Name a region for ``torch.profiler`` (a no-op when no profiler runs)."""
     with torch.profiler.record_function(name):
         yield
+
+
+def vector_to_string(v, digits: int = 16) -> str:
+    """Space-joined repr of a vector (reference ``util::vectorToString``,
+    include/lambda_lanczos/util/common.hpp:206-221): each entry with
+    ``digits`` significant digits, the JAX package's string for the same
+    values.  Takes a tensor on any device or anything numpy takes."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return " ".join(f"{x:.{digits}g}" for x in np.asarray(v).ravel())

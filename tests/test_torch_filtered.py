@@ -1,7 +1,9 @@
 """The PyTorch port's Chebyshev-filtered path against the JAX package on the
 CPU: the plain version of kernel K5 (the filter's recurrence chain), the
 filter operator, the spectral bounds, ``ShiftSquaredOperator`` and
-``filtered_lanczos``.
+``filtered_lanczos`` (its ``checkpoint_path`` among them); and the
+checkpoint module the filtered solve saves through, whose files both
+packages read, with ``CheckpointedRun``.
 
 Inputs are drawn from numpy seeds and handed to both packages; each JAX
 reference runs once per module.  The Pallas chain runs in interpret mode,
@@ -401,7 +403,7 @@ def test_filtered_lanczos_configurations(case):
 # ---- (f) warnings and refusals --------------------------------------------
 
 
-def test_filtered_lanczos_warnings_and_refusals():
+def test_filtered_lanczos_warnings_and_refusals(tmp_path):
     a = _dense_spd(300, 11)
     w = np.linalg.eigvalsh(a)
     op = tl.DenseOperator(a, device="cpu")
@@ -424,15 +426,131 @@ def test_filtered_lanczos_warnings_and_refusals():
     assert info["filter_degree"] * np.arccosh(1 + 2 * 0.04 / (4 - 0.04)) <= 41
     assert abs(vals[0] - _chain_exact(512, 1)[0]) < 0.04
 
-    for kwargs, item in (({"precise": True}, "item 10"), ({"refine_vectors": True}, "item 10"),
-                         ({"checkpoint_path": "ckpt"}, "item 12")):
+    for kwargs, item in (({"precise": True}, "item 10"), ({"refine_vectors": True}, "item 10")):
         with pytest.raises(NotImplementedError, match=item):
             tl.filtered_lanczos(chain, num_eigs=1, lo=-2.0, hi=2.0, **kwargs)
+    # checkpoint_path (ROADMAP item 12, ported): the round state is saved
+    # after each deflation round, and a second call resumes from it with
+    # the checks after the saved round, running no new round.
+    ckpt = tmp_path / "filtered.npz"
+    vals, vecs, info = tl.filtered_lanczos(chain, num_eigs=2, degree=64, mu=0.04, lo=-2.0, hi=2.0, checkpoint_path=ckpt)
+    with np.load(ckpt) as z:
+        assert int(z["format_version"]) == 1 and {"extra_round", "extra_prev_worst", "extra_stop_when_count"} <= set(z.files)
+        assert list(z["iteration_counts"]) == info["iteration_counts"]
+    again, vecs2, info2 = tl.filtered_lanczos(chain, num_eigs=2, degree=64, mu=0.04, lo=-2.0, hi=2.0,
+                                              checkpoint_path=ckpt)
+    np.testing.assert_array_equal(again, vals)
+    assert info2["iteration_counts"] == info["iteration_counts"] and info2["residuals"] == info["residuals"]
+    np.testing.assert_allclose(vals, _chain_exact(512, 2), atol=0.04)
+    with pytest.raises(ValueError, match="configuration changed"):
+        tl.filtered_lanczos(chain, num_eigs=3, degree=64, mu=0.04, lo=-2.0, hi=2.0, checkpoint_path=ckpt)
     with pytest.raises(ValueError, match="exclusive"):
         tl.filtered_lanczos(chain, num_eigs=1, sigma=0.0, find_maximum=True)
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # a clean solve raises no warning
         tl.filtered_lanczos(chain, num_eigs=1, degree=64, mu=0.04, lo=-2.0, hi=2.0)
+
+
+# ---- (g) checkpoints: the npz format both packages read, CheckpointedRun -----
+
+def _checkpoint_problem():
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((90, 90))
+    return (a + a.T) / 2, np.random.default_rng(5).uniform(-1.0, 1.0, 90)
+
+
+def test_checkpoint_files_load_in_both_packages(tmp_path):
+    """The npz format is shared: a state written by
+    ``lanczos_tpu.utils.checkpoint.save_state`` loads in the port and the
+    reverse, with the same pairs, counts, flag and extras; and an engine
+    of either package resumes from the other's file (``CheckpointedRun``
+    returns a finished run's pairs without a new round)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from lanczos_tpu import LambdaLanczos as JaxLanczos
+    from lanczos_tpu.solvers.lanczos import EigenPairManager as JaxManager
+    from lanczos_tpu.utils import checkpoint as jck
+
+    from lanczos_tpu_torch.solvers.lanczos import EigenPairManager
+    from lanczos_tpu_torch.utils import checkpoint as tck
+
+    vecs = np.random.default_rng(1).standard_normal((2, 6))
+    jm, tm = JaxManager(True, 3), EigenPairManager(True, 3)
+    jm.insert([1.5, -0.25], [jnp.asarray(v) for v in vecs])
+    tm.insert([1.5, -0.25], [torch.from_numpy(v) for v in vecs])
+    jck.save_state(tmp_path / "from_jax", jm, [7, 9], extra={"finished": True, "round": 2})
+    tck.save_state(tmp_path / "from_torch", tm, [7, 9], extra={"finished": True, "round": 2})
+    with np.load(tmp_path / "from_jax.npz") as zj, np.load(tmp_path / "from_torch.npz") as zt:
+        assert sorted(zj.files) == sorted(zt.files)
+        for key in zj.files:
+            np.testing.assert_array_equal(zj[key], zt[key])
+            assert zj[key].dtype == zt[key].dtype, key
+    for src in ("from_jax", "from_torch"):
+        m, counts, finished, extras = tck.load_state(tmp_path / src, torch.float64, device="cpu", with_finished=True,
+                                                     with_extras=True)
+        assert (m.find_maximum, m.num_eigs, counts, finished, int(extras["round"])) == (True, 3, [7, 9], True, 2)
+        assert m.eigenvalues() == [1.5, -0.25]
+        np.testing.assert_array_equal(torch.stack(m.eigenvectors()).numpy(), vecs)
+        mj, counts_j = jck.load_state(tmp_path / src)
+        assert mj.eigenvalues() == [1.5, -0.25] and counts_j == [7, 9]
+
+    # A finished run saved by the JAX package: the port returns its pairs.
+    a, v0 = _checkpoint_problem()
+    ej = JaxLanczos(a, num_eigs=2)
+    ej.eps, ej.tridiag_backend, ej.init_vector = 1e-12, "lapack", lambda n: v0
+    vals_j, vecs_j = jck.CheckpointedRun(ej, tmp_path / "run_jax.npz").run()
+    et = tl.LambdaLanczos(a, num_eigs=2, device="cpu")
+    vals_t, vecs_t = tck.CheckpointedRun(et, tmp_path / "run_jax.npz").run()
+    np.testing.assert_array_equal(vals_t, np.asarray(vals_j))
+    np.testing.assert_array_equal(vecs_t.numpy(), np.asarray(vecs_j))
+    assert et.iteration_counts == ej.iteration_counts
+
+
+def test_checkpointed_run_resumes_after_one_round(tmp_path):
+    """``CheckpointedRun`` stopped right after its first deflated restart
+    (the file holds that round) and run again finishes with the
+    uninterrupted run's eigenvalues and per-round counts."""
+    from lanczos_tpu_torch.solvers import lanczos as tlz
+    from lanczos_tpu_torch.utils import checkpoint as tck
+
+    a, v0 = _checkpoint_problem()
+
+    def engine():
+        eng = tl.LambdaLanczos(a, num_eigs=3, device="cpu")
+        eng.eps, eng.tridiag_backend, eng.init_vector = 1e-12, "lapack", lambda n: v0
+        eng.num_eigs_per_iteration = 1  # one pair a round: several rounds
+        return eng
+
+    whole = engine()
+    vals_whole, vecs_whole = whole.run()
+
+    class Interrupt(Exception):
+        pass
+
+    driver = tlz.deflation_driver
+
+    def one_round(*args, after_round, **kwargs):
+        def save_then_stop(manager, counts, finished):
+            after_round(manager, counts, finished)
+            raise Interrupt
+
+        return driver(*args, after_round=save_then_stop, **kwargs)
+
+    path = tmp_path / "state.npz"
+    tlz.deflation_driver = one_round
+    try:
+        with pytest.raises(Interrupt):
+            tck.CheckpointedRun(engine(), path).run()
+    finally:
+        tlz.deflation_driver = driver
+    manager, counts = tck.load_state(path, device="cpu")
+    assert len(manager) == 1 and counts == whole.iteration_counts[:1]
+    resumed = engine()
+    vals, vecs = tck.CheckpointedRun(resumed, path).run()
+    np.testing.assert_allclose(vals, vals_whole, rtol=1e-12)
+    np.testing.assert_allclose(vals, np.linalg.eigvalsh(a)[:3], rtol=1e-11)
+    assert resumed.iteration_counts == whole.iteration_counts and len(whole.iteration_counts) > 1
+    np.testing.assert_allclose(np.abs(np.sum(vecs.numpy() * vecs_whole.numpy(), axis=1)), 1.0, atol=1e-10)
 
 
 # ---- on the card ------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Launch plans of kernels K4 (block CGS pass), K5 (Chebyshev chain), E2a
-and E2b (block-MGS pass and its one-chunk case) and E1's VPU form of the
-PyTorch port, held on the CPU: the plans live in Python (``ops/cgs.py``
-``block_plan``, ``ops/cheby.py`` ``plan``, ``experiments/_cgs_variants.py``
+"""Launch plans of kernels K4 (block CGS pass), K5 (Chebyshev chain), K6
+(the convergence check), E2a and E2b (block-MGS pass and its one-chunk
+case) and E1's VPU form of the PyTorch port, held on the CPU: the plans
+live in Python (``ops/cgs.py`` ``block_plan``, ``ops/cheby.py`` ``plan``,
+``ops/sturm_check.py`` ``plan``, ``experiments/_cgs_variants.py``
 ``mgs_plan``, ``experiments/spmv_bench.py`` ``vpu_plan``) and the CUDA
 entry points take and check what they say.  The K5 tests model the
 launches' overlapped windows with the plain recurrence step and hold them
@@ -17,7 +18,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from lanczos_tpu_torch.experiments import _cgs_variants as cv  # noqa: E402
 from lanczos_tpu_torch.experiments import spmv_bench  # noqa: E402
-from lanczos_tpu_torch.ops import cgs, cheby  # noqa: E402
+from lanczos_tpu_torch.ops import cgs, cheby, sturm_check  # noqa: E402
 
 H100_SMS = 132
 
@@ -234,3 +235,41 @@ def test_e2a_plan_forced_routes():
         cv.mgs_plan(1 << 22, 8, H100_SMS, route="smem")
     with pytest.raises(ValueError, match="route"):
         cv.mgs_plan(4096, 4, H100_SMS, route="registers")
+
+
+def test_k6_plan_spreads_a_root_over_one_cluster():
+    """K6's plan (``ops/sturm_check.py``): a cluster of eight CTAs per root,
+    cut p to CTA p mod 8, so a CTA holds ``ceil(points / 8)`` columns; a
+    thread per cell in whole warps up to 1024, and enough for the cuts and
+    the count exchange; a CTA's two copies of its columns in shared memory
+    exactly while they fit beside the static arrays in the 227 KB a CTA can
+    ask for, else in global scratch after the roots' new estimates.  Every
+    size the staged growth reaches (caps 64, 256, 1024, 4096 and the k
+    between) is taken."""
+    for itemsize in (4, 8):
+        last_shared = 0
+        for size in [1, 2, 3, 15, 16, 17, 63, 64, 65, 128, 176, 256, 257, 1024, 1800, 1801, 3600, 3601, 4096]:
+            for nroot in (1, 3, 5, 16):
+                for points in (1, 7, 8, 9, 15, 64):
+                    p = sturm_check.plan(size, nroot, itemsize, points)
+                    cuts = -(-points // 8)
+                    cells = cuts * size
+                    column = 8 * cells * itemsize
+                    assert p.ctas == 8 * nroot and p.cuts == cuts and p.threads % 32 == 0 and p.threads <= 1024
+                    assert p.threads == min(1024, -(-max(cells, points, 8 * cuts) // 32) * 32)
+                    assert points <= p.threads and 8 * cuts <= p.threads
+                    assert p.route == ("shared" if column + sturm_check.STATIC_BYTES <= 227 * 1024 else "global")
+                    if p.route == "shared":
+                        assert p.smem_bytes == column and p.scratch == nroot
+                        if points == 15:
+                            last_shared = max(last_shared, size)
+                    else:
+                        assert p.smem_bytes == 0 and p.scratch == nroot + p.ctas * column // itemsize
+        # Up to 3600 rows (float32) or 1800 (float64) at 15 cuts: every
+        # check the main path makes (float32, caps 64 and 256) stays in
+        # shared memory.
+        assert last_shared == (3600 if itemsize == 4 else 1800)
+    assert sturm_check.plan(256, 5, 4).route == "shared" and sturm_check.plan(1801, 3, 8).route == "global"
+    for bad in ((0, 3, 4), (8, 0, 4), (8, 3, 4, 65)):
+        with pytest.raises(ValueError, match="K6"):
+            sturm_check.plan(*bad)

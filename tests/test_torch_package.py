@@ -14,7 +14,7 @@ torch.set_num_threads(1)
 
 import lanczos_tpu_torch as tl  # noqa: E402
 from lanczos_tpu_torch import _build  # noqa: E402
-from lanczos_tpu_torch.ops import cgs, cheby, spmv  # noqa: E402
+from lanczos_tpu_torch.ops import cgs, cheby, spmv, sturm_check  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -34,6 +34,8 @@ def test_import_pulls_in_no_jax():
         "import lanczos_tpu_torch.experiments.carry_copy_bench, lanczos_tpu_torch.experiments.spmv_bench;"
         "import lanczos_tpu_torch.solvers.exponentiator, lanczos_tpu_torch.solvers.cheby_expm;"
         "from lanczos_tpu_torch import Exponentiator;"
+        "import lanczos_tpu_torch.utils.checkpoint, lanczos_tpu_torch.ops.sturm_check, lanczos_tpu_torch.utils.stats;"
+        "from lanczos_tpu_torch import COOOperator, CSROperator, SumOperator, ScaledOperator;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lanczos_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -45,7 +47,7 @@ def test_nvcc_command_targets_hopper_and_names_every_source():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {p.name for p in (REPO / "lanczos_tpu_torch" / "csrc").glob("*.cu")}
     assert {"bsr_spmv.cu", "cgs.cu", "cgs_block.cu", "cheby_chain.cu", "cgs_variants.cu", "row_set.cu",
-            "spmv_variants.cu"} <= {
+            "spmv_variants.cu", "sturm_check.cu"} <= {
         p.name for p in srcs
     }
     nvcc = "/usr/local/cuda/bin/nvcc"
@@ -70,6 +72,7 @@ def test_cpu_paths_launch_no_kernel():
     k1, k3, k4 = spmv.bsr_matvec.launches, cgs.cgs_pass.launches, cgs.cgs_pass_block.launches
     k5 = cheby.cheby_chain_apply.launches
     k2 = spmv.bsr_matvec_rsmk.launches
+    k6 = sturm_check.sturm_check.launches
     y = op.matvec(torch.ones(n, dtype=torch.float64))
     assert y.shape == (n,)
     rsmk = op.blocks.permute(0, 2, 1, 3).contiguous()
@@ -88,6 +91,7 @@ def test_cpu_paths_launch_no_kernel():
     assert cgs.cgs_pass_block.launches == k4
     assert cheby.cheby_chain_apply.launches == k5
     assert spmv.bsr_matvec_rsmk.launches == k2
+    assert sturm_check.sturm_check.launches == k6  # the fused engine's checks took the plain version
 
 
 @pytest.mark.parametrize(

@@ -173,3 +173,137 @@ def test_host_backend_resolution(monkeypatch, tmp_path):
     for backend in ("native", "bisect"):
         with pytest.raises(RuntimeError, match="not C\\+\\+"):
             ttri.eigh_tridiagonal_host([1.0, 2.0], [0.5], backend=backend)
+
+
+def _lanczos_tridiagonal(n, m, seed):
+    """The first m Lanczos coefficients (full reorthogonalization, numpy
+    float64) of a diagonal matrix with a few separated extremes: leading
+    blocks whose extremal eigenvalues settle, as a build's do."""
+    rng = np.random.default_rng(seed)
+    d = np.concatenate([[-3.0, -2.6, -2.3], rng.uniform(-1.0, 1.0, n - 6), [2.2, 2.5, 3.1]])
+    q = rng.standard_normal(n)
+    basis = [q / np.linalg.norm(q)]
+    alpha, beta = np.zeros(m), np.zeros(m)
+    for j in range(m):
+        w = d * basis[j]
+        alpha[j] = basis[j] @ w
+        for b in basis:
+            w -= (b @ w) * b
+        beta[j] = np.linalg.norm(w)
+        basis.append(w / beta[j])
+    return alpha, beta
+
+
+def _host_check_as_it_stood(st, k, nroot, find_maximum, eps, breakdown_eps):
+    """The fused engine's check before K6: the buffers copied to the host
+    and the decision taken there (solvers/lanczos_fused.py of PR 11)."""
+    alpha, beta = st.alpha.cpu(), st.beta.cpu()
+    broke = torch.nonzero(beta[st.screened : k] < breakdown_eps)
+    if broke.numel():
+        st.stop, st.itern = True, st.screened + int(broke[0, 0]) + 1
+        return
+    st.screened = k
+    if eps == 0.0:
+        return
+    evs = ttri.extremal_eigenvalues_reference(alpha[:k], beta[:k], k, nroot, find_maximum)
+    eps_t = torch.tensor(eps, dtype=alpha.dtype)
+    rel_ok = bool(torch.all((evs - st.evs_prev).abs() < torch.minimum(evs.abs(), st.evs_prev.abs()) * eps_t))
+    converged = st.have_prev and rel_ok and eps > 0
+    st.evs_prev, st.have_prev = evs, k >= nroot
+    if converged:
+        st.stop, st.itern = True, k
+
+
+def test_device_decision_matches_the_host_check():
+    """The check with its decision on the buffers' device
+    (``convergence_check`` through ``lanczos_fused._check``, the plain
+    version here) stops where the host check stopped, with the same
+    (stop, itern), screen position, gate and previous estimate after every
+    check: seeded Lanczos tridiagonals in float32 and float64, both ends,
+    eps > 0, eps = 0 (breakdown screen only) and eps < 0 (never stops), with
+    and without a breakdown between two checks."""
+    from types import SimpleNamespace
+
+    from lanczos_tpu_torch.solvers import lanczos_fused
+
+    stops = set()
+    for dtype in (torch.float32, torch.float64):
+        alpha_np, beta_np = _lanczos_tridiagonal(200, 96, seed=17)
+        eps_m = float(torch.finfo(dtype).eps)
+        for find_maximum in (False, True):
+            for eps in (1e-6 if dtype == torch.float32 else 1e-10, 0.0, -1.0):
+                for broken_at in (None, 9):
+                    beta = beta_np.copy()
+                    if broken_at is not None:
+                        beta[broken_at] = 0.01 * eps_m
+                    states = [
+                        SimpleNamespace(alpha=torch.tensor(alpha_np, dtype=dtype), beta=torch.tensor(beta, dtype=dtype),
+                                        screened=0, stop=False, itern=0, have_prev=False,
+                                        evs_prev=torch.full((3,), float("inf"), dtype=dtype))
+                        for _ in range(2)
+                    ]
+                    for k in [*range(4, 96, 4), 96]:
+                        _host_check_as_it_stood(states[0], k, 3, find_maximum, eps, 10 * eps_m)
+                        lanczos_fused._check(states[1], k, 3, find_maximum, eps, 10 * eps_m)
+                        old, new = states
+                        assert (new.stop, new.itern, new.screened, new.have_prev) == (
+                            old.stop, old.itern, old.screened, old.have_prev), (dtype, eps, broken_at, k)
+                        assert torch.equal(new.evs_prev, old.evs_prev)
+                        if old.stop:
+                            stops.add((eps > 0, broken_at is not None, old.itern))
+                            break
+    # Every kind of stop was seen: convergence, and a breakdown (at 10)
+    # with and without the test.
+    assert {s[:2] for s in stops} == {(True, False), (True, True), (False, True)}
+    assert all(it == 10 for conv, broke, it in stops if broke) and all(it > 10 for conv, broke, it in stops if not broke)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode (run on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_k6_matches_plain_on_card(cuda):
+    """K6 against its plain version on the same CUDA tensors, bit for bit,
+    in float32 and float64 (one item: the file's item count fixes its
+    place in pytest-xdist's loadfile queue)."""
+    for dtype in (torch.float32, torch.float64):
+        _check_k6_against_plain(cuda, dtype)
+
+
+def _check_k6_against_plain(cuda, dtype):
+    """K6 against its plain version on the same CUDA tensors, bit for bit:
+    the multisection on both routes (shared memory to 3600 rows in float32
+    and 1800 in float64, global scratch past them), both ends, zero betas,
+    buffers longer than the block; and the check's decision and new
+    estimate, one launch each."""
+    from lanczos_tpu_torch.ops import sturm_check
+
+    rng = np.random.default_rng(23)
+    for size, cap, nroot in ((1, 4, 2), (3, 3, 5), (40, 48, 3), (128, 128, 5), (700, 700, 2), (760, 800, 2),
+                             (1801, 1801, 3), (3601, 3650, 1)):
+        alpha = rng.standard_normal(cap)
+        beta = rng.uniform(0.1, 1.0, cap)
+        beta[rng.choice(max(size - 1, 1), max(1, size // 30), replace=False)] = 0.0
+        a, b = torch.tensor(alpha, dtype=dtype, device=cuda), torch.tensor(beta, dtype=dtype, device=cuda)
+        for find_maximum in (False, True):
+            launches = sturm_check.sturm_check.launches
+            got = ttri.extremal_eigenvalues_device(a, b, size, nroot, find_maximum)
+            want = ttri.extremal_eigenvalues_reference(a, b, size, nroot, find_maximum)
+            assert sturm_check.sturm_check.launches == launches + 1
+            assert torch.equal(got, want), (size, find_maximum, (got - want).abs().max())
+    alpha_np, beta_np = _lanczos_tridiagonal(200, 96, seed=5)
+    a, b = torch.tensor(alpha_np, dtype=dtype, device=cuda), torch.tensor(beta_np, dtype=dtype, device=cuda)
+    eps_m = float(torch.finfo(dtype).eps)
+    for eps, have_prev, screened in ((1e-6, True, 60), (1e-6, False, 60), (-1.0, True, 60), (0.0, True, 0)):
+        prev = [ttri.extremal_eigenvalues_reference(a[:60], b[:60], 60, 3, False) for _ in range(2)]
+        kw = dict(screened=screened, k=64, nroot=3, find_maximum=False, eps=eps, breakdown_eps=10 * eps_m,
+                  have_prev=have_prev)
+        launches = sturm_check.sturm_check.launches
+        got = ttri.convergence_check(a, b, prev[0], **kw)
+        want = ttri.convergence_check_reference(a, b, prev[1], **kw)
+        assert sturm_check.sturm_check.launches == launches + 1
+        assert got.device.type == "cuda" and got.tolist() == want.tolist() and torch.equal(prev[0], prev[1])
