@@ -25,7 +25,16 @@ both build modes (hybrid and fused) and ``run_batch`` runs beside single
 runs; phase ``expm_small`` sets the two modes side by side on the main
 path's chain cut to smaller widths.  The main path's K3 calls
 are recorded, and phase ``k3_path`` replays the recorded k sequence and
-sweeps K3 beside its bounds.  The launch counts are set to 0 just before each path and read
+sweeps K3 beside its bounds.  The precise tier runs on float64 bases from
+float32 storage: ``pv_main_path`` is the main path with
+``precise_vectors`` (kernel K1x, the float32 tiles against a float64
+vector, with K3 and K6 in float64), ``sharded_pv`` the same over the
+one-rank NCCL operator (K1x's rsmk form), ``pv_thick`` and
+``pv_block_thick`` the JAX package's bounded-basis precise solve of an
+n = 2**20 degenerate chain (K3, K4 in float64), ``precise_filter`` the
+precise filtered solve with refined vectors and ``expm_precise`` the
+precise evolution and Chebyshev chain at n = 2**20; phase ``k1x`` holds
+K1x and its twin against their plain versions and scipy.  The launch counts are set to 0 just before each path and read
 just after it.
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero and prints no result.  The last two lines are the kernel table and
@@ -60,6 +69,9 @@ E1_V3_REPLACES = "experiments/pallas_spmv_bench.py:119"
 # K6 replaces no pallas_call: the JAX fused engine's check is XLA ops in its device loop.
 K6_REPLACES = ("lanczos_tpu/core/tridiagonal.py:322 extremal_eigenvalues_device "
                "(XLA ops in the fused loop, no pallas_call)")
+# K1x replaces no pallas_call: the JAX package's precise BSR product is XLA ops.
+K1X_REPLACES = ("lanczos_tpu/ops/operators.py:484 BSROperator.matvec_df "
+                "(XLA ops, no pallas_call)")
 SEED = 0
 MAIN_N = 2**20  # main-path problem size
 K3_N = 2**22  # width of the (257, n) basis in the K3 phase
@@ -92,10 +104,23 @@ EXPM_SMALL_NS = (100, 2**12, 2**16, 2**18)
 EXPM_SMALL_A = -1j
 EXPM_SMALL_REPS = 15  # timed runs a mode in each expm_small cell (a few ms each; the host clock spreads)
 HOST_TRIDIAG_M = 128  # the size of the host tridiagonal solves timed by backend
+# The precise tier (ROADMAP item 10): K1x's bar against its plain version
+# and a float64 scipy product, relative to max |y| (float64 rounding of a
+# few hundred products a row); the JAX package's accuracy bars of each
+# precise path (BASELINE.md), as ISSUE 13 set them.
+K1X_TOL = 1e-13
+PV_MAIN_BAR = 1e-11  # pv_main_path eigenvalues against scipy eigsh on the same float32 entries
+PV_THICK_N, PV_THICK_NB = 2**20, 128  # bench.py sec_pv_thick: the block-diagonal chain
+PV_THICK_BAR = 1e-10
+PRECISE_FILTER_N = 4000  # bench.py sec_precise_filter
+PRECISE_FILTER_BAR, PRECISE_FILTER_RES_BAR = 1e-12, 1e-10
+EXPM_PRECISE_N = 2**20  # bench.py sec_expm_evolve_precise and sec_expm_cheby
+EVOLVE_PRECISE_BAR, CHEBY_PRECISE_BAR = 1e-10, 1e-12
 # NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
 # cores (the kernels use plain FMAs).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12  # float64 outside the tensor cores (the same data sheet)
 
 
 def emit(obj) -> None:
@@ -119,12 +144,12 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS) -> tuple[float, str]:
     """The least time the card could take (ms) and what bounds it: bytes
-    over the data-sheet HBM rate or float32 operations over the data-sheet
-    rate, whichever is larger."""
+    over the data-sheet HBM rate or operations over the data-sheet rate of
+    their type (float32 by default), whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1565,10 +1590,12 @@ def phase_k2(torch, dev, op):
     return main
 
 
-def phase_sharded_main_path(torch, np, dev, ref, main_iters):
+def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref):
     """The main path's problem over a ShardedBSROperator in a one-rank NCCL
     process group: the fused engine on the rank's slab (the whole vector),
-    the all-gather and the all-reduces over NCCL, the local SpMV on K2."""
+    the all-gather and the all-reduces over NCCL, the local SpMV on K2;
+    then, in the same group, with ``precise_vectors`` (:func:`sharded_pv`,
+    its own line and seconds)."""
     import datetime
     import socket
 
@@ -1635,9 +1662,12 @@ def phase_sharded_main_path(torch, np, dev, ref, main_iters):
               "max_rel_err": float(rel.max()), "residuals": residuals, "iteration_counts": eng.iteration_counts,
               "main_path_iteration_counts": main_iters, "wall_s": wall, "iterations_per_s": iters / wall,
               "launches": launches, "checks": checks, "peak_device_gb": peak_gb})
+        t0 = time.perf_counter()
+        pv = sharded_pv(torch, np, op, pv_ref)
+        pv["seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
-    return launches, op
+    return launches, op, pv
 
 
 def phase_thick_scalar(torch, np, op, ref):
@@ -2381,6 +2411,417 @@ def phase_expm_small(torch, np, dev):
     emit({"phase": "expm_small", "a": str(EXPM_SMALL_A), "dtype": "float32", "cells": cells})
 
 
+@contextlib.contextmanager
+def recording_dtypes(module, name):
+    """Count the calls of ``module.name`` (a kernel wrapper whose first
+    argument is a tensor) by that tensor's dtype, for calls on CUDA
+    tensors, while the context is open; yields the Counter.  Like
+    :func:`recording_k3`, the recorder stands in for the wrapper on its
+    module, carries its launch count meanwhile and hands it back."""
+    real = getattr(module, name)
+    seen = collections.Counter()
+
+    def recorder(t, *args, **kwargs):
+        if t.device.type == "cuda":
+            seen[str(t.dtype)] += 1
+        return real(t, *args, **kwargs)
+
+    recorder.launches = real.launches
+    setattr(module, name, recorder)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+        real.launches = recorder.launches
+
+
+def _scipy_bsr(np, blocks, col_blocks, layout, n_cols):
+    """The float64 scipy matrix of float32 BSR tiles, for an independent
+    product on the host."""
+    import scipy.sparse
+
+    if layout == "rmsk":
+        r, bm, s, bk = blocks.shape
+        data = blocks.permute(0, 2, 1, 3).reshape(r * s, bm, bk)
+    else:
+        r, s, bm, bk = blocks.shape
+        data = blocks.reshape(r * s, bm, bk)
+    return scipy.sparse.bsr_matrix(
+        (data.double().cpu().numpy(), col_blocks.reshape(-1).long().cpu().numpy(), np.arange(0, r * s + 1, s)),
+        shape=(r * bm, n_cols))
+
+
+def check_k1x(torch, np, blocks, col_blocks, x, n_out, layout, label, *, timing=False, scipy_y=None):
+    """K1x (``layout='rmsk'``) or its rsmk twin on float32 tiles and a
+    float64 ``x``: against the plain version (float64 accumulation on the
+    card) and a float64 scipy product at K1X_TOL of max |y|, a bit-for-bit
+    repeat, the launch plan beside the library's own, and with ``timing``
+    its time beside the bound (float64 operations at the float64 rate),
+    the plain version, K1 or K2 on the same tiles with a float32 x, a read
+    stream of the tiles and ``torch.sparse_bsr_tensor`` over a float64
+    copy of the tiles (the one PyTorch call for the same product; it reads
+    twice the bytes)."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from lanczos_tpu_torch import _build
+    from lanczos_tpu_torch.ops import spmv
+
+    if layout == "rmsk":
+        r, bm, s, bk = blocks.shape
+        n_pad = r * bm
+        x_read = x.numel()
+        counter = spmv.bsr_matvec_f32x64
+
+        def kernel():
+            return spmv.bsr_matvec_f32x64(blocks, col_blocks, x, n_out)
+
+        def f32_twin():
+            return spmv.bsr_matvec(blocks, col_blocks, x32, n_out)
+
+        def plain():
+            return spmv.bsr_matvec_reference(blocks, col_blocks, F.pad(x, (0, n_pad - x.shape[0])), layout="rmsk")[:n_out]
+    else:
+        r, s, bm, bk = blocks.shape
+        c_rows = x.numel() // bk
+        x_read = x.numel()
+        counter = spmv.bsr_matvec_rsmk_f32x64
+
+        def kernel():
+            return spmv.bsr_matvec_rsmk(blocks, col_blocks, x, n_out, col_bound=c_rows)
+
+        def f32_twin():
+            return spmv.bsr_matvec_rsmk(blocks, col_blocks, x32, n_out, col_bound=c_rows)
+
+        def plain():
+            return spmv.bsr_matvec_reference(blocks, col_blocks, x, layout="rsmk")[:n_out]
+    x32 = x.float()
+    before = counter.launches
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    if counter.launches != before + 2 or got.dtype != torch.float64:
+        raise AssertionError(f"K1x {layout} {label}: {counter.launches - before} launches, output {got.dtype}")
+    repeat = bool(torch.equal(got, again))
+    err, rel = rel_err(got, plain())
+    out = {"phase": "k1x", "case": label, "layout": layout, "shape": list(blocks.shape), "n_out": n_out,
+           "max_abs_err": err, "max_rel_err": rel, "tol": K1X_TOL, "bitwise_repeat": repeat}
+    if scipy_y is not None:
+        out["scipy_max_rel_err"] = rel_err(got.cpu(), torch.from_numpy(np.asarray(scipy_y)[:n_out]))[1]
+    info = (ctypes.c_int * 4)()
+    _build.check(_build.library().lt_bsr_spmv_info(bm, s, bk, 8, info), "lt_bsr_spmv_info")
+    out["plan"] = {"f64_x": spmv.plan(bm, s, bk, 8), "f32_x": spmv.plan(bm, s, bk, 4),
+                   "library_f64_x": {"s_piece": info[0], "smem": info[1], "opt_in": bool(info[2]),
+                                     "static_smem": info[3]}}
+    p = out["plan"]
+    if (p["f64_x"]["s_piece"], p["f64_x"]["smem"], p["f64_x"]["opt_in"]) != (info[0], info[1], bool(info[2])):
+        raise AssertionError(f"K1x {label}: the Python plan {p['f64_x']} is not the kernel's {p['library_f64_x']}")
+    if not (rel <= K1X_TOL and repeat and out.get("scipy_max_rel_err", 0.0) <= K1X_TOL):
+        raise AssertionError(f"K1x {layout} {label}: {out}")
+    if timing:
+        tiles = blocks.numel() * 4
+        # Each input read once (tiles, column indices, x), y written once;
+        # one multiply and one add a stored value, in float64.
+        bytes_moved = tiles + col_blocks.numel() * 4 + (x_read + n_out) * 8
+        bound_ms, bound_by = bound(bytes_moved, 2 * blocks.numel(), F64_FLOPS)
+        ms, plain_ms, f32_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain), cuda_ms(torch, f32_twin)
+        stream_ms = cuda_ms(torch, lambda: torch.sum(blocks))
+        values = (blocks.permute(0, 2, 1, 3) if layout == "rmsk" else blocks).reshape(r * s, bm, bk).double()
+        crow = torch.arange(0, r * s + 1, s, dtype=torch.int64, device=blocks.device)
+        n_cols = n_pad if layout == "rmsk" else x.numel()
+        a = torch.sparse_bsr_tensor(crow, col_blocks.reshape(-1).to(torch.int64), values, size=(r * bm, n_cols))
+        xp = F.pad(x, (0, n_cols - x.shape[0]))
+        lib_rel = rel_err((a @ xp)[:n_out], got)[1]
+        library_ms = cuda_ms(torch, lambda: a @ xp)
+        del a, values
+        torch.cuda.empty_cache()
+        out.update(ms=ms, plain_ms=plain_ms, f32_kernel_ms=f32_ms, library_ms=library_ms, library_max_rel_err=lib_rel,
+                   bound_ms=bound_ms, bound_by=bound_by, gbps=bytes_moved / ms / 1e6,
+                   stream_bound_ms=stream_ms * bytes_moved / tiles,
+                   fraction_of_bound=bound_ms / ms)
+    emit(out)
+    return out
+
+
+def phase_k1x(torch, np, dev):
+    """K1x and its rsmk twin against their plain versions and scipy on
+    seeded tiles: small, ragged, S*bk past one float64 x piece, a tile
+    width (bk = 8192) whose float64 piece needs the shared-memory opt-in
+    where the float32 plan's does not, and the 64 Mi-nnz case (timed)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    timed = {}
+    for label, (r, bm, s, bk, n) in {
+        "small": (4, 8, 3, 8, 30),
+        "ragged": (37, 16, 5, 16, 37 * 16 - 5),
+        "wide_s": (9, 16, 400, 16, 144),
+        "smem_boundary_bk8192": (64, 128, 2, 8192, 64 * 128),
+        "bench_64Mi_nnz": (BENCH_R, 128, 8, 128, BENCH_R * 128),
+    }.items():
+        blocks, cb = _random_bsr(torch, dev, r, bm, s, bk, torch.float32, gen)
+        x = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+        xh = np.zeros(r * bm)
+        xh[:n] = x.cpu().numpy()
+        y_ref = _scipy_bsr(np, blocks, cb, "rmsk", r * bm) @ xh
+        timed_case = label.startswith("bench")
+        out = check_k1x(torch, np, blocks, cb, x, n, "rmsk", label, timing=timed_case, scipy_y=y_ref)
+        if label.startswith("smem_boundary") and not (out["plan"]["f64_x"]["opt_in"]
+                                                      and not out["plan"]["f32_x"]["opt_in"]):
+            raise AssertionError(f"K1x {label}: not past the float32 plan's shared-memory boundary: {out['plan']}")
+        del blocks, cb, x
+        c_rows = (r * bm) // bk
+        blocks, cb, x32 = _random_rsmk(torch, dev, r, s, bm, bk, c_rows, torch.float32, gen)
+        x = x32.double()
+        y_ref = _scipy_bsr(np, blocks, cb, "rsmk", c_rows * bk) @ x.cpu().numpy()
+        out_r = check_k1x(torch, np, blocks, cb, x, r * bm, "rsmk", label, timing=timed_case, scipy_y=y_ref)
+        if timed_case:
+            timed = {"rmsk": out, "rsmk": out_r}
+        del blocks, cb, x, x32
+        torch.cuda.empty_cache()
+    return timed
+
+
+def _pv_counts(torch, stage):
+    """Run ``stage()`` with the launch counts of K1, K1x (both forms), K2
+    and K4 from 0, and K3 and K6 launches recorded by dtype; returns its
+    result, the wall time and the counts."""
+    from lanczos_tpu_torch.ops import cgs, spmv, sturm_check
+
+    for fn in (spmv.bsr_matvec, spmv.bsr_matvec_f32x64, spmv.bsr_matvec_rsmk, spmv.bsr_matvec_rsmk_f32x64,
+               cgs.cgs_pass_block):
+        fn.launches = 0
+    with counting_checks() as checks, recording_dtypes(cgs, "cgs_pass") as k3, \
+            recording_dtypes(cgs, "cgs_pass_block") as k4, recording_dtypes(sturm_check, "sturm_check") as k6:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = stage()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {"k1": spmv.bsr_matvec.launches, "k1x": spmv.bsr_matvec_f32x64.launches,
+              "k2": spmv.bsr_matvec_rsmk.launches, "k1x_rsmk": spmv.bsr_matvec_rsmk_f32x64.launches,
+              "k3_by_dtype": dict(k3), "k4_by_dtype": dict(k4), "k6_by_dtype": dict(k6), "checks": checks}
+    return result, wall, counts
+
+
+def _all_f64(counts, key):
+    by = counts[key]
+    return bool(by) and set(by) == {"torch.float64"}
+
+
+def _pv_basis_gb(counts, n, first=64):
+    """The float64 basis the fused engine grew to: stages of 16x(4^j)
+    rows from ``initial_buffer_size`` up to the longest round."""
+    cap = first
+    while cap < max(counts):
+        cap *= 4
+    return (min(cap, n) + 1) * n * 8 / 1e9
+
+
+def phase_pv_main_path(torch, np, dev, op):
+    """The main path's problem with ``precise_vectors``: the fused engine
+    over a float64 basis and the float32 tiles' ``matvec_f64`` (K1x, never
+    a float64 copy of the tiles), K3 and K6 in float64, eps = 1e-12; the
+    eigenvalues against scipy eigsh in float64 on the same float32
+    entries.  K1x at the main path's tiles beside K1."""
+    import scipy.sparse
+    import scipy.sparse.linalg
+
+    import lanczos_tpu_torch as tl
+
+    n = MAIN_N
+    rows, cols, vals = _main_path_coo(np)
+    a32 = scipy.sparse.coo_matrix((vals.astype(np.float32).astype(np.float64), (rows, cols)), shape=(n, n)).tocsr()
+    t0 = time.perf_counter()
+    ref32 = np.sort(scipy.sparse.linalg.eigsh(a32, k=3, which="SA", tol=0)[0])
+    scipy_s = time.perf_counter() - t0
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    k1x = check_k1x(torch, np, op.blocks, op.col_blocks, x, n, "rmsk", "main_path", timing=True,
+                    scipy_y=a32 @ x.cpu().numpy())
+    del x
+    torch.cuda.empty_cache()
+
+    eng = _main_path_engine(tl, torch, op)
+    eng.precise_vectors = True
+    eng.eps = 1e-12
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    (evals, evecs), wall, counts = _pv_counts(torch, eng.run)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    err = np.abs(np.sort(np.asarray(evals)) - ref32)
+    if not (counts["k1x"] > 0 and counts["k1"] == 0 and _all_f64(counts, "k3_by_dtype")
+            and _all_f64(counts, "k6_by_dtype")):
+        raise AssertionError(f"pv main path: launches {counts} (K1x, float64 K3 and K6 expected, no K1)")
+    check_stats(counts["checks"])
+    if not (evecs.shape == (3, n) and evecs.dtype == torch.float32 and bool(torch.isfinite(evecs).all())):
+        raise AssertionError(f"pv main path: eigenvectors {evecs.dtype} {tuple(evecs.shape)}")
+    if not np.all(err <= PV_MAIN_BAR):
+        raise AssertionError(f"pv main path: eigenvalues {evals} vs scipy {ref32}: errors {err}")
+    emit({"phase": "pv_main_path", "n": n, "storage": "float32", "basis": "float64", "eps": eng.eps,
+          "eigenvalues": list(map(float, evals)), "scipy_eigsh_f32_entries": ref32.tolist(),
+          "abs_errs": err.tolist(), "bar": PV_MAIN_BAR, "iteration_counts": eng.iteration_counts, "wall_s": wall,
+          "iterations_per_s": sum(eng.iteration_counts) / wall, "launches": counts,
+          "basis_gb": _pv_basis_gb(eng.iteration_counts, n), "tile_gb": op.blocks.numel() * 4 / 1e9,
+          "peak_device_gb_over_start": peak_gb - base_gb, "residuals_f32_matvec": eng.residuals(evals, evecs),
+          "scipy_s": scipy_s})
+    return {"k1x": k1x, "launches": counts["k1x"], "ref32": ref32}
+
+
+def _pv_block_chain(tl, np, dev, n, nb):
+    off = np.ones(n - 1, np.float32)
+    off[nb - 1::nb] = 0.0
+    d = np.zeros((2, n), np.float32)
+    d[0, 1:] = -off
+    d[1, : n - 1] = -off
+    return tl.DIAOperator.from_diagonals([-1, 1], d, n, device=dev)
+
+
+def phase_pv_thick(torch, np, dev, block_size):
+    """bench.py sec_pv_thick at full size: the n = 2**20 block-diagonal
+    chain (copies of the 128-site chain, every eigenvalue of multiplicity
+    8192) as float32 DIA, three lowest with ``precise_vectors`` and
+    ``restart_policy='thick'`` in a 128-row basis at eps 1e-11; with
+    ``block_size`` 3 the block thick engine (K4 in float64)."""
+    import lanczos_tpu_torch as tl
+
+    n, nb = PV_THICK_N, PV_THICK_NB
+    op = _pv_block_chain(tl, np, dev, n, nb)
+    eng = tl.LambdaLanczos(op, find_maximum=False, num_eigs=3)
+    eng.precise_vectors = True
+    eng.restart_policy = "thick"
+    eng.max_iteration = 128
+    eng.eps = 1e-11
+    eng.eigenvalue_offset = -4.0
+    eng.init_vector = tl.fixed_seed_initializer(torch.float32, seed=SEED)
+    if block_size > 1:
+        eng.block_size = block_size
+        eng.max_restarts = 32
+        rng = np.random.default_rng(SEED)  # distinct start rows, the same every run
+        eng.init_vector = lambda n_: rng.uniform(-1.0, 1.0, n_).astype(np.float32)
+    (evals, evecs), wall, counts = _pv_counts(torch, eng.run)
+    truth = -2.0 * np.cos(np.pi / (nb + 1))
+    err = np.abs(np.asarray(evals) - truth)
+    name = "pv_thick" if block_size == 1 else "pv_block_thick"
+    kernel_key = "k3_by_dtype" if block_size == 1 else "k4_by_dtype"
+    if not _all_f64(counts, kernel_key):
+        raise AssertionError(f"{name}: launches {counts} (float64 {kernel_key[:2].upper()} expected)")
+    if not (evecs.shape == (3, n) and bool(torch.isfinite(evecs).all()) and np.all(err <= PV_THICK_BAR)):
+        raise AssertionError(f"{name}: eigenvalues {evals} vs {truth}: errors {err}")
+    emit({"phase": name, "n": n, "nb": nb, "block_size": block_size, "max_iteration": 128, "eps": eng.eps,
+          "eigenvalues": list(map(float, evals)), "truth": truth, "abs_errs": err.tolist(), "bar": PV_THICK_BAR,
+          "iteration_counts": eng.iteration_counts, "unconverged_rounds": eng.stats.unconverged_rounds,
+          "wall_s": wall, "launches": counts})
+
+
+def sharded_pv(torch, np, op, ref32):
+    """The main path's problem with ``precise_vectors`` over the one-rank
+    NCCL ShardedBSROperator ``op``: K1x's rsmk form as the local product,
+    float64 slabs through the collectives; then K1x-rsmk on its tiles."""
+    import lanczos_tpu_torch as tl
+
+    eng = _main_path_engine(tl, torch, op)
+    eng.precise_vectors = True
+    eng.eps = 1e-12
+    (evals, evecs), wall, counts = _pv_counts(torch, eng.run)
+    err = np.abs(np.sort(np.asarray(evals)) - ref32)
+    if not (counts["k1x_rsmk"] > 0 and counts["k2"] == 0 and counts["k1x"] == 0
+            and _all_f64(counts, "k3_by_dtype")):
+        raise AssertionError(f"sharded pv: launches {counts} (K1x-rsmk and float64 K3 expected, no K2)")
+    if not (evecs.shape == (3, op.n) and np.all(err <= PV_MAIN_BAR)):
+        raise AssertionError(f"sharded pv: eigenvalues {evals} vs scipy {ref32}: errors {err}")
+    emit({"phase": "sharded_pv", "n": op.n, "world_size": op.mesh.size, "comm": op.comm,
+          "eigenvalues": list(map(float, evals)), "abs_errs": err.tolist(), "bar": PV_MAIN_BAR,
+          "iteration_counts": eng.iteration_counts, "wall_s": wall, "launches": counts})
+    gen = torch.Generator(device=op.device).manual_seed(SEED + 19)
+    x = torch.randn(op.n_padded, generator=gen, device=op.device, dtype=torch.float64)
+    timing = check_k1x(torch, np, op.blocks, op.col_blocks, x, op.blocks.shape[0] * op.bm, "rsmk", "main_path",
+                       timing=True)
+    return {"k1x_rsmk": timing, "launches": counts["k1x_rsmk"]}
+
+
+def phase_precise_filter(torch, np, dev):
+    """bench.py sec_precise_filter: the n = 4000 chain as float32 DIA, the
+    three lowest by ``filtered_lanczos(precise=True)`` on [-2, 2] (the
+    scout, the float64-basis B-space solve over the filter's float64 chain,
+    the inverse map, then the refined vectors), against the analytic
+    values and the host float64 stencil's residuals."""
+    import lanczos_tpu_torch as tl
+
+    n = PRECISE_FILTER_N
+    op = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, device=dev)
+    exact = np.array([-2.0 * np.cos((k + 1) * np.pi / (n + 1)) for k in range(3)])
+    walls = []
+    for _ in range(2):  # cold, then warm
+        (vals, vecs, info), wall, counts = _pv_counts(
+            torch, lambda: tl.filtered_lanczos(op, num_eigs=3, lo=-2.0, hi=2.0, precise=True))
+        walls.append(wall)
+    err = np.abs(np.asarray(vals) - exact)
+    v = np.asarray(vecs, np.float64)
+    av = np.zeros_like(v)
+    av[:, 0] = -v[:, 1]
+    av[:, -1] = -v[:, -2]
+    av[:, 1:-1] = -(v[:, :-2] + v[:, 2:])
+    res = np.linalg.norm(av - np.asarray(vals)[:, None] * v, axis=1)
+    if not (np.all(err <= PRECISE_FILTER_BAR) and np.all(res <= PRECISE_FILTER_RES_BAR)):
+        raise AssertionError(f"precise filter: errors {err}, residuals {res}")
+    if not counts["k3_by_dtype"].get("torch.float64", 0) > 0:  # the scout's coarse pass runs K3 in float32
+        raise AssertionError(f"precise filter: launches {counts} (float64 K3 expected)")
+    emit({"phase": "precise_filter", "n": n, "eigenvalues": list(map(float, vals)), "abs_errs": err.tolist(),
+          "bar": PRECISE_FILTER_BAR, "vector_residuals": res.tolist(), "residual_bar": PRECISE_FILTER_RES_BAR,
+          "cold_s": walls[0], "warm_s": walls[1], "filter_degree": info["filter_degree"], "mu": info["mu"],
+          "iteration_counts": info["iteration_counts"], "refine_sweeps": info.get("refine_sweeps"),
+          "launches": counts})
+
+
+def phase_expm_precise(torch, np, dev):
+    """bench.py sec_expm_evolve_precise and sec_expm_cheby's precise chain
+    at full size: the n = 2**20 chain as float32 DIA, a complex state from
+    default_rng(7); ``evolve(0.05j, ..., 100, krylov_dim=16,
+    precise=True)`` and ``run_chebyshev(5.0j, lo=-2, hi=2, precise=True)``,
+    each against the DST-I truth by state angle."""
+    from scipy.fft import dst
+
+    import lanczos_tpu_torch as tl
+
+    n, steps = EXPM_PRECISE_N, 100
+    op = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, device=dev)
+    rng = np.random.default_rng(7)
+    v = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    v /= np.linalg.norm(v)
+    lam = -2.0 * np.cos(np.arange(1, n + 1) * np.pi / (n + 1))
+    coef = dst(v, type=1, norm="ortho")
+    truth = dst(np.exp(5.0j * lam) * coef, type=1, norm="ortho")  # 100 steps of 0.05 and the chain's t = 5
+    tn = truth / np.linalg.norm(truth)
+
+    def angle(o_re, o_im):
+        out = np.asarray(o_re, np.float64) + 1j * np.asarray(o_im, np.float64)
+        on = out / np.linalg.norm(out)
+        ip = np.vdot(tn, on)
+        return float(np.linalg.norm(on - (ip / abs(ip)) * tn))
+
+    ex = tl.Exponentiator(op)
+    ex.evolve(0.05j, v.real, v.imag, 1, krylov_dim=16, precise=True)  # warm-up
+    (re, im), evolve_s, counts = _pv_counts(
+        torch, lambda: ex.evolve(0.05j, v.real, v.imag, steps, krylov_dim=16, precise=True))
+    evolve_angle = angle(re, im)
+    if not (evolve_angle <= EVOLVE_PRECISE_BAR and _all_f64(counts, "k3_by_dtype") and re.dtype == np.float64):
+        raise AssertionError(f"precise evolve: angle {evolve_angle:.3e}, launches {counts}, {re.dtype}")
+    cheby_s = []
+    for _ in range(2):
+        ((c_re, c_im), terms), wall, _c = _pv_counts(
+            torch, lambda: ex.run_chebyshev(5.0j, v.real, v.imag, lo=-2.0, hi=2.0, precise=True))
+        cheby_s.append(wall)
+    cheby_angle = angle(c_re, c_im)
+    if not cheby_angle <= CHEBY_PRECISE_BAR:
+        raise AssertionError(f"precise Chebyshev chain: angle {cheby_angle:.3e}")
+    emit({"phase": "expm_precise", "n": n, "storage": "float32", "steps": steps, "krylov_dim": 16,
+          "evolve_s": evolve_s, "evolve_ms_per_step": evolve_s / steps * 1e3, "evolve_angle": evolve_angle,
+          "evolve_bar": EVOLVE_PRECISE_BAR, "evolve_launches": counts, "cheby_cold_s": cheby_s[0],
+          "cheby_warm_s": cheby_s[1], "cheby_terms": terms, "cheby_ms_per_term": cheby_s[1] / terms * 1e3,
+          "cheby_angle": cheby_angle, "cheby_bar": CHEBY_PRECISE_BAR})
+
+
 def main() -> int:
     import torch
 
@@ -2414,6 +2855,7 @@ def main() -> int:
     timed("expm_chain", phase_expm_chain, torch, np, dev)
     timed("small_solves", phase_small_solves, torch, np, dev)
     launches, k1, k3, op, ref, main_iters, k3_seq = timed("main_path", phase_main_path, torch, np, dev)
+    pv_main = timed("pv_main_path", phase_pv_main_path, torch, np, dev, op)
     timed("thick_scalar", phase_thick_scalar, torch, np, op, ref)
     timed("operators", phase_operators, torch, np, dev, ref)
     timed("expm_bsr", phase_expm_bsr, torch, np, dev, op)
@@ -2421,14 +2863,22 @@ def main() -> int:
     del op
     torch.cuda.empty_cache()
     timed("k3_path", phase_k3_path, torch, dev, k3_seq)
-    sharded_launches, sharded_op = timed("sharded_main_path", phase_sharded_main_path, torch, np, dev, ref, main_iters)
+    sharded_launches, sharded_op, sharded_pv_out = timed("sharded_main_path", phase_sharded_main_path, torch, np, dev,
+                                                         ref, main_iters, pv_main["ref32"])
+    seconds["sharded_pv"] = sharded_pv_out["seconds"]  # inside sharded_main_path's seconds
     k2 = timed("k2", phase_k2, torch, dev, sharded_op)
     del sharded_op
+    torch.cuda.empty_cache()
+    timed("k1x", phase_k1x, torch, np, dev)
+    timed("pv_thick", phase_pv_thick, torch, np, dev, 1)
+    timed("pv_block_thick", phase_pv_thick, torch, np, dev, 3)
     torch.cuda.empty_cache()
     flagship = timed("block_thick_flagship", phase_block_thick_flagship, torch, np, dev, FLAGSHIP_N)
     torch.cuda.empty_cache()
     k5 = timed("k5", phase_k5, torch, np, dev)
     cheby_launches = timed("cheby_flagship", phase_cheby_flagship, torch, np, dev, CHEBY_N)
+    timed("precise_filter", phase_precise_filter, torch, np, dev)
+    timed("expm_precise", phase_expm_precise, torch, np, dev)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "phase_seconds": seconds})
 
     def entry(name, source, replaces, n_launches, timed):
@@ -2456,7 +2906,12 @@ def main() -> int:
     # path's checks, its times phase k6's case at k = 128 with 5 roots
     # (float32); no single PyTorch call computes a Sturm multisection, so
     # its library time is null; its entry adds the dependent scan steps of
-    # that case, the latency floor beside the operations bound.
+    # that case, the latency floor beside the operations bound.  K1x's
+    # launches are the precise main path's (bsr_matvec_f32x64) and the
+    # sharded precise main path's (its rsmk form), its times those of the
+    # main path's tiles in each layout, with K1 (K2) on the same tiles and a
+    # float32 x beside them (f32_kernel_ms); its library call is the BSR
+    # tensor product over a float64 copy of the tiles.
     emit({"kernels": [
         entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
         entry("bsr_matvec_rsmk", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K2_REPLACES, sharded_launches["k2"], k2),
@@ -2474,6 +2929,11 @@ def main() -> int:
                                  ("spmv_v3", E1_V3_REPLACES))),
         {**entry("sturm_check", "lanczos_tpu_torch/csrc/sturm_check.cu", K6_REPLACES, launches["k6"], k6),
          "ms_per_call": k6["ms_per_call"], "device_ms": k6["device_ms"], "dependent_steps": k6["dependent_steps"]},
+        {**entry("bsr_matvec_f32x64", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1X_REPLACES, pv_main["launches"],
+                 pv_main["k1x"]), "f32_kernel_ms": pv_main["k1x"]["f32_kernel_ms"]},
+        {**entry("bsr_matvec_rsmk_f32x64", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1X_REPLACES,
+                 sharded_pv_out["launches"], sharded_pv_out["k1x_rsmk"]),
+         "f32_kernel_ms": sharded_pv_out["k1x_rsmk"]["f32_kernel_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -7,7 +7,8 @@ asked with ``device="cpu"``).  The module tree and names mirror
 ``lanczos_tpu``; the kernels — the BSR sparse matvec (K1), its canonical
 rsmk layout for the sharded operators (K2), the classical Gram-Schmidt pass
 (K3), its block form (K4), the Chebyshev filter's recurrence chain (K5) and
-the fused engine's convergence check (K6) — are hand-written CUDA in
+the fused engine's convergence check (K6), and K1x, the BSR matvec of
+float32 tiles against a float64 vector for the precise paths — are hand-written CUDA in
 ``csrc/``, built with ``nvcc`` at first use on the card.  ``filtered_lanczos`` is the Chebyshev-filtered solve and
 ``Exponentiator`` the exponentiation engine;
 ``lanczos_tpu_torch.parallel`` holds the row-partitioned operators over
@@ -31,6 +32,7 @@ from .ops.operators import (
     BSROperator,
     COOOperator,
     CSROperator,
+    DenseDFOperator,
     DenseOperator,
     DIAOperator,
     FunctionOperator,
@@ -51,6 +53,7 @@ __all__ = [
     "LinearOperator",
     "FunctionOperator",
     "DenseOperator",
+    "DenseDFOperator",
     "COOOperator",
     "CSROperator",
     "BSROperator",

@@ -48,7 +48,6 @@ from .solvers import block_lanczos, block_thick, cheby_expm, lanczos_fused, thic
 from .solvers import exponentiator as _expm
 from .solvers import exponentiator_fused as _expm_fused
 from .solvers import lanczos as _lanczos
-from .solvers.lanczos_fused import _PV_ITEM
 from .utils.random import random_initializer
 from .utils.stats import RunStats, trace_span
 
@@ -89,7 +88,7 @@ class LambdaLanczos:
         self.init_vector = None  # callable(n) -> vector, a vector, or None (random)
         self.tridiag_backend: str | None = None
         self.precise_reductions: bool | None = None
-        self.precise_vectors: bool = False  # not ported
+        self.precise_vectors: bool = False  # float64 basis and matvec_f64 (forces the fused engine)
         self.convergence_check_interval: int | None = None
         self.reorth_passes: int | None = None
         self.reorth_policy: str = "full"  # fused: 'full' | 'selective'
@@ -154,8 +153,11 @@ class LambdaLanczos:
         ``iterate_one(v0, nroot, defl, defl_mask) -> (vals, vecs, itern,
         converged)``."""
         op = self.operator
-        if self.precise_vectors and (self.block_size > 1 or self.restart_policy == "thick"):
-            raise NotImplementedError(f"precise_vectors with the block or thick engines is not ported; see {_PV_ITEM}")
+        if self.precise_vectors and self.block_size > 1 and self.restart_policy != "thick":
+            raise ValueError(
+                "precise_vectors with block_size > 1 requires restart_policy='thick' (the plain block engine "
+                "has no precise path)"
+            )
         if self.block_size > 1:
             refuse_sharded(op, "block_size > 1")
             b = int(self.block_size)
@@ -359,10 +361,16 @@ class Exponentiator:
         wait between steps: a fixed ``krylov_dim`` build per part with full
         reorthogonalization (K3 on CUDA) and the small exponential on the
         device.  Real operator only; ``renormalize`` cancels norm drift in
-        unitary evolution.  Returns ``(re, im)``.  ``precise=True`` raises:
-        the double-float evolution is ROADMAP item 10."""
+        unitary evolution.  Returns ``(re, im)``.  ``precise=True`` carries
+        the state, the build (over ``matvec_f64``) and the small exponential
+        in float64 and returns host float64 ``(re, im)`` arrays, as the JAX
+        package does; a float64 host state enters at full precision."""
         if precise:
-            raise NotImplementedError(f"evolve(precise=True) is not ported; see {_PV_ITEM}")
+            if self.dtype.is_complex:
+                raise TypeError("evolve takes the real and imaginary parts of a state for a real operator")
+            re, im = _expm.evolve_split_precise(self.operator, v_re, v_im, a, int(steps), int(krylov_dim),
+                                                renormalize=renormalize)
+            return re.cpu().numpy(), im.cpu().numpy()
         v_re, v_im = self._real_parts(v_re, v_im, "evolve")
         return _expm.evolve_split(self.operator, v_re, v_im, a, int(steps), int(krylov_dim), full_orth=True,
                                   renormalize=renormalize)
@@ -372,7 +380,8 @@ class Exponentiator:
         chain of ~|a|*e terms for the whole evolution, no Krylov basis.
         Real operator; ``lo``/``hi`` default to +-Gershgorin and MUST
         enclose the spectrum.  Returns ``((out_re, out_im), n_terms)``.
-        ``precise=True`` raises (ROADMAP item 10)."""
+        ``precise=True`` runs the chain in float64 over ``matvec_f64``
+        (host float64 in and out, as in the JAX package)."""
         if precise:
             return cheby_expm.chebyshev_expm_apply_split_precise(self.operator, a, v_re, v_im, lo=lo, hi=hi, tol=tol)
         v_re, v_im = self._real_parts(v_re, v_im, "run_chebyshev")

@@ -1,5 +1,13 @@
 // K1 and K2: BSR sparse matvec y = A x over tiles in the "rmsk" (K1) and
-// the canonical "rsmk" (K2) layouts.
+// the canonical "rsmk" (K2) layouts; K1x: the same two forms with float32
+// tiles against a float64 x (float64 y and accumulation).
+//
+// K1x is the precise paths' product (the JAX package's BSROperator.matvec_df,
+// lanczos_tpu/ops/operators.py, XLA ops there): an f32 entry is exact in f64,
+// so A x in float64 is the f32 tiles streamed once, each value converted
+// exactly and multiplied into a DFMA accumulator.  The tile stream, 4 bytes
+// a stored value, still bounds it; x's gathered pieces double in bytes
+// (bk * 8 a tile column), so a piece holds half the tiles it does in f32.
 //
 // K1 replaces the Pallas TPU kernel lanczos_tpu/ops/pallas_spmv.py
 // bsr_matvec_pallas_t (kernel _spmv_kernel_t): per row block, gather the S
@@ -52,17 +60,25 @@ constexpr size_t kXPieceBytes = 32 * 1024;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-template <typename T, bool RSMK>
+// T is the tile type, X the type of x, y and the accumulator: X = T for
+// K1 and K2, and float tiles against double vectors for K1x (each tile
+// value converted exactly, every product and sum a DFMA on the CUDA cores).
+template <typename T, typename X, bool RSMK>
 __global__ void __launch_bounds__(kThreads)
     bsr_spmv_kernel(const T* __restrict__ blocks, const int* __restrict__ col_blocks,
-                    const T* __restrict__ x, T* __restrict__ y, int bm, int S, int bk,
+                    const X* __restrict__ x, X* __restrict__ y, int bm, int S, int bk,
                     int64_t n_x, int64_t n_out, int s_piece, size_t acc_bytes, bool vec_ok) {
-  using A = typename lt::Acc<T>::type;
+  using A = typename lt::Acc<X>::type;
   using V = typename lt::Vec<T>::type;
   constexpr int VN = lt::Vec<T>::n;
+  // x's values for one 16-byte tile vector: one 16-byte load when X = T,
+  // two for double against float.
+  using XV = typename lt::Vec<X>::type;
+  constexpr int XN = lt::Vec<X>::n;
+  static_assert(VN % XN == 0, "a tile vector must cover whole x vectors");
   extern __shared__ __align__(16) unsigned char smem[];
   A* acc = reinterpret_cast<A*>(smem);
-  T* xg = reinterpret_cast<T*>(smem + acc_bytes);
+  X* xg = reinterpret_cast<X*>(smem + acc_bytes);
 
   const int r = blockIdx.x;
   const int lane = threadIdx.x & 31;
@@ -83,7 +99,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = threadIdx.x; e < len; e += kThreads) {
       const int s = e / bk;
       const int64_t col = int64_t(cb[s0 + s]) * bk + (e - s * bk);
-      xg[e] = uint64_t(col) < uint64_t(n_x) ? x[col] : T(0);  // also refuses col < 0
+      xg[e] = uint64_t(col) < uint64_t(n_x) ? x[col] : X(0);  // also refuses col < 0
     }
     __syncthreads();
     for (int i = warp; i < bm; i += kWarps) {
@@ -94,7 +110,7 @@ __global__ void __launch_bounds__(kThreads)
       A sum = A(0);
       if (vec_ok) {
         const V* rv = reinterpret_cast<const V*>(row);
-        const V* xv = reinterpret_cast<const V*>(xg);
+        const XV* xv = reinterpret_cast<const XV*>(xg);
         const int nv = len / VN;
         const int64_t vstride = tile_stride / VN;
 #pragma unroll 4
@@ -105,9 +121,11 @@ __global__ void __launch_bounds__(kThreads)
             off = s * vstride + (q - s * vpt);
           }
           const V t = __ldcs(rv + off);
-          const V u = xv[q];
+          XV u[VN / XN];
+#pragma unroll
+          for (int h = 0; h < VN / XN; ++h) u[h] = xv[q * (VN / XN) + h];
           const T* tt = reinterpret_cast<const T*>(&t);
-          const T* uu = reinterpret_cast<const T*>(&u);
+          const X* uu = reinterpret_cast<const X*>(u);
 #pragma unroll
           for (int c = 0; c < VN; ++c) sum = fma(A(tt[c]), A(uu[c]), sum);
         }
@@ -128,29 +146,44 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   for (int i = threadIdx.x; i < bm; i += kThreads) {
     const int64_t gi = int64_t(r) * bm + i;
-    if (gi < n_out) y[gi] = T(acc[i]);
+    if (gi < n_out) y[gi] = X(acc[i]);
   }
 }
 
-template <typename T, bool RSMK>
-cudaError_t bsr_spmv(const T* blocks, const int* col_blocks, const T* x, T* y, int R, int bm,
+// The launch plan: x pieces of s_piece tiles (the largest that fits
+// kXPieceBytes, at least one), shared memory for the row accumulators and
+// one piece, and whether that passes the default 48 KB (the kernel opts in
+// to more).  The kernel has no static shared memory.
+struct Plan {
+  int s_piece;
+  size_t acc_bytes, smem;
+};
+
+inline Plan plan(int bm, int S, int bk, size_t x_bytes) {
+  Plan p;
+  p.acc_bytes = lt::round_up16(size_t(bm) * x_bytes);
+  int s_piece = int(kXPieceBytes / (size_t(bk) * x_bytes));
+  p.s_piece = s_piece < 1 ? 1 : (s_piece > S ? S : s_piece);
+  p.smem = p.acc_bytes + size_t(p.s_piece) * bk * x_bytes;
+  return p;
+}
+
+template <typename T, typename X, bool RSMK>
+cudaError_t bsr_spmv(const T* blocks, const int* col_blocks, const X* x, X* y, int R, int bm,
                      int S, int bk, int64_t n_x, int64_t n_out, cudaStream_t stream) {
-  using A = typename lt::Acc<T>::type;
   constexpr int VN = lt::Vec<T>::n;
+  static_assert(sizeof(typename lt::Acc<X>::type) == sizeof(X), "the accumulator is x's type");
   if (R <= 0 || bm <= 0 || S <= 0 || bk <= 0) return cudaErrorInvalidValue;
-  const size_t acc_bytes = lt::round_up16(size_t(bm) * sizeof(A));
-  int s_piece = int(kXPieceBytes / (size_t(bk) * sizeof(T)));
-  s_piece = s_piece < 1 ? 1 : (s_piece > S ? S : s_piece);
-  const size_t smem = acc_bytes + size_t(s_piece) * bk * sizeof(T);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(bsr_spmv_kernel<T, RSMK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  const Plan p = plan(bm, S, bk, sizeof(X));
+  if (p.smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (p.smem > kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(bsr_spmv_kernel<T, X, RSMK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(p.smem));
     if (e != cudaSuccess) return e;
   }
   const bool vec_ok = bk % VN == 0 && lt::aligned16(blocks);
-  bsr_spmv_kernel<T, RSMK><<<R, kThreads, smem, stream>>>(blocks, col_blocks, x, y, bm, S, bk,
-                                                          n_x, n_out, s_piece, acc_bytes, vec_ok);
+  bsr_spmv_kernel<T, X, RSMK><<<R, kThreads, p.smem, stream>>>(
+      blocks, col_blocks, x, y, bm, S, bk, n_x, n_out, p.s_piece, p.acc_bytes, vec_ok);
   return cudaGetLastError();
 }
 
@@ -165,7 +198,7 @@ int lt_bsr_spmv_f32(const float* blocks, const int* col_blocks, const float* x, 
                     void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(bsr_spmv<float, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+  return int(bsr_spmv<float, float, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
                                     static_cast<cudaStream_t>(stream)));
 }
 
@@ -174,7 +207,7 @@ int lt_bsr_spmv_f64(const double* blocks, const int* col_blocks, const double* x
                     void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(bsr_spmv<double, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+  return int(bsr_spmv<double, double, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
                                      static_cast<cudaStream_t>(stream)));
 }
 
@@ -184,7 +217,7 @@ int lt_bsr_spmv_rsmk_f32(const float* blocks, const int* col_blocks, const float
                          void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(bsr_spmv<float, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+  return int(bsr_spmv<float, float, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
                                    static_cast<cudaStream_t>(stream)));
 }
 
@@ -193,8 +226,44 @@ int lt_bsr_spmv_rsmk_f64(const double* blocks, const int* col_blocks, const doub
                          int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(bsr_spmv<double, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+  return int(bsr_spmv<double, double, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
                                     static_cast<cudaStream_t>(stream)));
+}
+
+// K1x: float tiles against a double x, double y, double accumulation; the
+// rmsk (K1's) and rsmk (K2's) forms.
+int lt_bsr_spmv_f32x64(const float* blocks, const int* col_blocks, const double* x, double* y,
+                       int R, int bm, int S, int bk, long long n_x, long long n_out, int device,
+                       void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<float, double, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                            static_cast<cudaStream_t>(stream)));
+}
+
+int lt_bsr_spmv_rsmk_f32x64(const float* blocks, const int* col_blocks, const double* x,
+                            double* y, int R, int bm, int S, int bk, long long n_x,
+                            long long n_out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<float, double, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// The plan of a launch with x values of x_bytes bytes: out = {s_piece,
+// dynamic shared bytes, whether it opts in past 48 KB, static shared bytes
+// of the f32x64 rmsk kernel}.
+int lt_bsr_spmv_info(int bm, int S, int bk, int x_bytes, int* out) {
+  if (bm <= 0 || S <= 0 || bk <= 0 || (x_bytes != 4 && x_bytes != 8)) return int(cudaErrorInvalidValue);
+  const Plan p = plan(bm, S, bk, size_t(x_bytes));
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, bsr_spmv_kernel<float, double, false>);
+  if (e != cudaSuccess) return int(e);
+  out[0] = p.s_piece;
+  out[1] = int(p.smem);
+  out[2] = p.smem > kDefaultSmem ? 1 : 0;
+  out[3] = int(attr.sharedSizeBytes);
+  return 0;
 }
 
 const char* lt_error_string(int code) { return cudaGetErrorString(cudaError_t(code)); }

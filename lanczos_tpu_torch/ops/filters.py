@@ -13,12 +13,15 @@ Two routes apply the filter, as in the JAX package:
 * the default: the three-term recurrence as a Python loop of
   ``op.matvec`` (the JAX package's ``lax.scan``);
 * ``use_fused=True`` on a float32 DIA operator of bandwidth 1..8 and a
-  vector: the chain of :mod:`lanczos_tpu_torch.ops.cheby` over rows
+  float32 vector: the chain of :mod:`lanczos_tpu_torch.ops.cheby` over rows
   prescaled once per operator, kernel K5 on CUDA tensors and its plain
   version on CPU tensors.  On by default for an operator on the card,
   where a degree-400 apply at n = 2**22 takes 0.73 ms through K5 against
   66 ms unfused (PERF.md); off by default on the CPU, as in the JAX
   package.
+
+The precise paths apply the filter in float64 through ``matvec_f64``
+(the JAX package's double-float ``matvec_df``), unfused.
 """
 
 from __future__ import annotations
@@ -31,8 +34,6 @@ from . import cheby
 from .operators import DIAOperator, LinearOperator
 
 __all__ = ["ChebyshevFilterOperator"]
-
-_DF_ITEM = "ROADMAP.md, module item 10 (precise paths on native float64)"
 
 
 class ChebyshevFilterOperator(LinearOperator):
@@ -115,8 +116,19 @@ class ChebyshevFilterOperator(LinearOperator):
             t_prev, t = t, 2.0 * (op.matvec(t) - c * t) / e - t_prev
         return t
 
-    def matvec_df(self, x_hi, x_lo):
-        raise NotImplementedError(f"the double-float filter application is not ported; see {_DF_ITEM}")
+    def matvec_f64(self, x):
+        """The filter in float64 (complex128): the three-term recurrence of
+        the JAX package's ``matvec_df`` over the base operator's
+        ``matvec_f64``, unfused (the JAX one is a ``lax.scan`` over
+        ``matvec_df``; kernel K5 is float32 only).  The effective applied
+        operator is T_p(A) + E with ||E|| at float64's rounding of the
+        amplified scale, the floor that ``invert_value``'s eigenvalues
+        inherit, attenuated by 1/T_p'."""
+        op, c, e = self.op, self.c, self.e
+        t_prev, t = x, (op.matvec_f64(x) - c * x) / e
+        for _ in range(self.degree - 1):
+            t_prev, t = t, 2.0 * (op.matvec_f64(t) - c * t) / e - t_prev
+        return t
 
     def invert_value(self, b):
         """Host inverse of the filter map on the amplified side: the

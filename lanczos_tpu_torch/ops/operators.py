@@ -3,8 +3,19 @@ reference's pluggable ``mv_mul`` closure (lambda_lanczos.hpp:120-126) as a
 small protocol — ``n``, ``dtype``, ``device`` and ``matvec(x) -> A @ x`` on
 tensors of that device, plus ``matvec_rows`` for a (b, n) block of row
 vectors (the block engines).  The JAX package's ``ShiftInvertOperator``
-waits for ROADMAP item 11, ``DenseDFOperator`` and every ``matvec_df`` for
-item 10.
+waits for ROADMAP item 11.
+
+The precise paths (``precise_vectors``, ``filtered_lanczos(precise=True)``,
+the precise exponentiator) take ``matvec_f64(x)``: A x computed in float64
+(complex128) from the operator's own entries, for a float64 (complex128)
+``x``.  It is the port's counterpart of the JAX package's double-float
+``matvec_df``: a float32 entry is exact in float64, so the float64 product
+of the stored entries is what the word-pair arithmetic approximates to
+2^-45.  ``matvec_df(x_hi, x_lo)`` stays as a thin adapter over it (join the
+pair, multiply in float64, split the result), and :func:`float64_view`
+wraps an operator as one whose ``dtype`` is float64 and whose ``matvec``
+is ``matvec_f64``, which is how the engines run over a float64 basis.
+:class:`DenseDFOperator` keeps a float64 matrix behind float32 storage.
 
 Operators hold their tensors; the device is theirs.  A constructor that
 takes host data (numpy arrays, CPU tensors, callables) puts the operator on
@@ -18,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import df64
 from ..core.types import to_numpy_dtype, to_torch_dtype
 from . import spmv
 
@@ -32,12 +44,23 @@ __all__ = [
     "SumOperator",
     "ScaledOperator",
     "ShiftSquaredOperator",
+    "DenseDFOperator",
+    "Float64View",
+    "float64_view",
     "as_operator",
     "resolve_device",
 ]
 
 
-_DF_ITEM = "ROADMAP.md, module item 10 (precise paths on native float64)"
+def wide_dtype(dtype) -> torch.dtype:
+    """float64, or complex128 for a complex ``dtype``: the precise paths'
+    dtype for an operator of storage ``dtype``."""
+    return torch.complex128 if to_torch_dtype(dtype).is_complex else torch.float64
+
+
+def _widened(t, x):
+    """``t`` in the promotion of its own wide dtype and ``x``'s."""
+    return t.to(torch.promote_types(wide_dtype(t.dtype), x.dtype))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,6 +99,30 @@ class LinearOperator:
         (the JAX package's ``vmap(op.matvec)``); operators with a batched
         product override it."""
         return torch.stack([self.matvec(row) for row in x])
+
+    def matvec_f64(self, x):
+        """A x in float64 (complex128) for a float64 (complex128) ``x``,
+        from the operator's own entries.  This default serves operators
+        whose dtype is already float64 or complex128 and raises for any
+        other, as the JAX package's default ``matvec_df`` does."""
+        if self.dtype in (torch.float64, torch.complex128):
+            return self.matvec(x)
+        raise NotImplementedError(
+            f"{type(self).__name__} of dtype {self.dtype} has no float64 matvec; the precise paths need "
+            "one (Dense/COO/CSR/BSR/DIA/Sum/Scaled/ShiftSquared and the filter provide it), or implement "
+            "matvec_f64 on your operator"
+        )
+
+    def matvec_rows_f64(self, x):
+        """:meth:`matvec_f64` of every row of a (b, n) block."""
+        return torch.stack([self.matvec_f64(row) for row in x])
+
+    def matvec_df(self, x_hi, x_lo):
+        """The JAX package's double-float matvec on word pairs, as an
+        adapter: ``(y_hi, y_lo)`` with ``y_hi`` the rounding of the float64
+        product of ``x_hi + x_lo`` to ``x_hi``'s dtype and ``y_lo`` the
+        remainder."""
+        return df64.split(self.matvec_f64(df64.join(x_hi, x_lo)), x_hi.dtype)
 
 
 class FunctionOperator(LinearOperator):
@@ -123,6 +170,53 @@ class DenseOperator(LinearOperator):
 
     def matvec(self, x):
         return self.a @ x
+
+    def matvec_f64(self, x):
+        return _widened(self.a, x) @ x
+
+
+class DenseDFOperator(LinearOperator):
+    """Dense operator whose entries are float64 behind float32 storage
+    (port of the JAX package's word-pair ``DenseDFOperator``).
+
+    A :class:`DenseOperator` in float32 rounds the entries, and the precise
+    engines then solve the rounded matrix: eigenvalues floor at the ~1e-8
+    entry rounding (the reference's random-rotation zoo generators,
+    lambda_lanczos_test.cpp:538-713).  This operator keeps the float64
+    matrix: ``dtype`` is float32 and :meth:`matvec` is the JAX package's
+    float32 product ``hi @ x + lo @ x`` (``hi`` the float32 rounding of the
+    entries, ``lo`` the float32 remainder), while :meth:`matvec_f64` uses
+    the full float64 entries.  Build it with :meth:`from_f64`.
+    """
+
+    def __init__(self, a64, device=None):
+        if device is None and isinstance(a64, torch.Tensor) and a64.device.type != "cpu":
+            device = a64.device
+        self.a64 = torch.as_tensor(a64, dtype=torch.float64).to(resolve_device(device))
+        if self.a64.ndim != 2 or self.a64.shape[0] != self.a64.shape[1]:
+            raise ValueError(f"expected a square matrix, got shape {tuple(self.a64.shape)}")
+        self.a_hi, self.a_lo = df64.split(self.a64, torch.float32)
+        self.n = int(self.a64.shape[0])
+
+    @classmethod
+    def from_f64(cls, a64, *, device=None):
+        """From a float64 matrix (anything ``torch.as_tensor`` takes), on
+        ``device`` (default: the card)."""
+        return cls(np.asarray(a64, np.float64) if not isinstance(a64, torch.Tensor) else a64, device=device)
+
+    @property
+    def dtype(self):
+        return torch.float32
+
+    @property
+    def device(self):
+        return self.a64.device
+
+    def matvec(self, x):
+        return self.a_hi @ x + self.a_lo @ x
+
+    def matvec_f64(self, x):
+        return self.a64.to(x.dtype) @ x
 
 
 def _segment_sum(prod, offsets):
@@ -184,8 +278,11 @@ class COOOperator(LinearOperator):
     def matvec(self, x):
         return _segment_sum(self._vals_sorted * x[self._cols_sorted], self._offsets)
 
-    def matvec_df(self, x_hi, x_lo):
-        raise NotImplementedError(f"the double-float COO matvec is not ported; see {_DF_ITEM}")
+    def matvec_f64(self, x):
+        """The gather, the products and the row sums in float64 (the JAX
+        package's f64 segmented reduction for COO and CSR), in the fixed
+        order of :meth:`matvec`."""
+        return _segment_sum(_widened(self._vals_sorted, x) * x[self._cols_sorted], self._offsets)
 
     def to_dense(self):
         a = torch.zeros((self.n, self.n), dtype=self.dtype, device=self.device)
@@ -240,8 +337,10 @@ class CSROperator(LinearOperator):
     def matvec(self, x):
         return _segment_sum(self.data * x[self.indices], self.indptr)
 
-    def matvec_df(self, x_hi, x_lo):
-        raise NotImplementedError(f"the double-float CSR matvec is not ported; see {_DF_ITEM}")
+    def matvec_f64(self, x):
+        """The gather, the products and the row sums in float64, in the
+        fixed order of :meth:`matvec`."""
+        return _segment_sum(_widened(self.data, x) * x[self.indices], self.indptr)
 
     def to_bsr(self, **kwargs):
         """The same matrix as a :class:`BSROperator` (kernel K1 on the
@@ -267,7 +366,10 @@ class BSROperator(LinearOperator):
 
     On the card ``matvec`` is kernel K1 (``csrc/bsr_spmv.cu``), which reads
     the unpadded ``x`` with a bound check and writes only the first ``n``
-    rows; on the CPU it is the plain version.
+    rows; on the CPU it is the plain version.  ``matvec_f64`` of float32
+    tiles is kernel K1x on the card (the tiles streamed once as stored,
+    each value converted exactly, float64 accumulation) and the plain
+    version accumulating in float64 on the CPU.
     """
 
     def __init__(self, blocks, col_blocks, n: int):
@@ -314,6 +416,8 @@ class BSROperator(LinearOperator):
 
     def matvec(self, x):
         return spmv.bsr_matvec(self.blocks, self.col_blocks, x, n_out=self.n)
+
+    matvec_f64 = matvec  # a float64 x takes K1x (float32 tiles) or K1 (float64 tiles)
 
 
 class DIAOperator(LinearOperator):
@@ -389,6 +493,11 @@ class DIAOperator(LinearOperator):
     def matvec_rows(self, x):
         return self.matvec(x)
 
+    # A float64 x gives the same shifted products in float64, each stored
+    # value converted exactly (the JAX package's per-diagonal two_prod with
+    # a compensated sum), for a vector or a (b, n) block.
+    matvec_f64 = matvec_rows_f64 = matvec
+
 
 class SumOperator(LinearOperator):
     """A + B + ... as an operator (e.g. H = H_hop + H_interaction); the
@@ -422,8 +531,11 @@ class SumOperator(LinearOperator):
             y = y + t.matvec(x)
         return y
 
-    def matvec_df(self, x_hi, x_lo):
-        raise NotImplementedError(f"the double-float sum matvec is not ported; see {_DF_ITEM}")
+    def matvec_f64(self, x):
+        y = self.terms[0].matvec_f64(x)
+        for t in self.terms[1:]:
+            y = y + t.matvec_f64(x)
+        return y
 
 
 class ScaledOperator(LinearOperator):
@@ -456,8 +568,15 @@ class ScaledOperator(LinearOperator):
             y = y + x * self.shift
         return y
 
-    def matvec_df(self, x_hi, x_lo):
-        raise NotImplementedError(f"the double-float scaled matvec is not ported; see {_DF_ITEM}")
+    def matvec_f64(self, x):
+        """``scale`` and ``shift`` enter as the float64 values given (the
+        JAX package splits them on the host for the same reason)."""
+        y = self.base.matvec_f64(x)
+        if self.scale != 1.0:
+            y = y * self.scale
+        if self.shift != 0.0:
+            y = y + x * self.shift
+        return y
 
 
 class ShiftSquaredOperator(LinearOperator):
@@ -487,6 +606,51 @@ class ShiftSquaredOperator(LinearOperator):
     def matvec(self, x):
         w = self.base.matvec(x) - self.sigma * x
         return self.base.matvec(w) - self.sigma * w
+
+    def matvec_f64(self, x):
+        w = self.base.matvec_f64(x) - self.sigma * x
+        return self.base.matvec_f64(w) - self.sigma * w
+
+
+class Float64View(LinearOperator):
+    """``base`` seen as a float64 (complex128) operator: ``matvec`` is
+    ``base.matvec_f64``.  The precise engines run the ordinary engines over
+    this view and a float64 basis; ``group`` is passed on, so a
+    row-partitioned base keeps its collectives.  Build it with
+    :func:`float64_view`."""
+
+    def __init__(self, base):
+        self.base = base
+
+    @property
+    def n(self):
+        return self.base.n
+
+    @property
+    def dtype(self):
+        return wide_dtype(self.base.dtype)
+
+    @property
+    def device(self):
+        return self.base.device
+
+    @property
+    def group(self):
+        return getattr(self.base, "group", None)
+
+    def matvec(self, x):
+        return self.base.matvec_f64(x)
+
+    def matvec_rows(self, x):
+        return self.base.matvec_rows_f64(x)
+
+
+def float64_view(op) -> LinearOperator:
+    """``op`` as a :class:`Float64View` (``op`` itself when its dtype is
+    already float64 or complex128)."""
+    if op.dtype in (torch.float64, torch.complex128):
+        return op
+    return Float64View(op)
 
 
 def _pack_bsr(rows, cols, vals, n: int, bm: int, bk: int, dtype, layout: str = "rmsk"):

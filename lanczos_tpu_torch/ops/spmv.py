@@ -13,8 +13,15 @@ the local SpMV of :class:`~lanczos_tpu_torch.parallel.sharded.ShardedBSROperator
 run the hand-written CUDA kernels of ``csrc/bsr_spmv.cu`` on CUDA tensors
 and :func:`bsr_matvec_reference` on CPU tensors.  The Pallas kernel's VMEM
 budget (``VMEM_BUDGET``, ``pallas_t_fits``) has no counterpart: K1 and K2
-gather x into shared memory in pieces, so every operator that packs runs on
-the card.
+gather x into shared memory in pieces (:func:`plan`), so every operator that
+packs runs on the card.
+
+Given float32 tiles and a float64 ``x``, both wrappers compute the product in
+float64 (the precise paths' ``matvec_f64``): kernel K1x,
+:func:`bsr_matvec_f32x64` and :func:`bsr_matvec_rsmk_f32x64`, on CUDA
+tensors, each with its own launch count; the plain version accumulates in
+float64 on the CPU.  The tiles are read as they are stored: no float64 copy
+of them is made.
 """
 
 from __future__ import annotations
@@ -24,7 +31,14 @@ import torch.nn.functional as F
 
 from .. import _build
 
-__all__ = ["bsr_matvec", "bsr_matvec_rsmk", "bsr_matvec_reference"]
+__all__ = [
+    "bsr_matvec",
+    "bsr_matvec_rsmk",
+    "bsr_matvec_f32x64",
+    "bsr_matvec_rsmk_f32x64",
+    "bsr_matvec_reference",
+    "plan",
+]
 
 # ROADMAP.md names the work that would lift each refusal below.
 _DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K1 for complex and bfloat16 tiles"
@@ -34,9 +48,10 @@ _RSMK_DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K2 for complex and bfloat
 def bsr_matvec_reference(blocks, col_blocks, x, layout: str = "rsmk"):
     """Plain PyTorch BSR matvec for either layout, any dtype.
 
-    Accumulates in at least float32 (bfloat16 tiles widen, as
-    ``preferred_element_type`` does in the JAX package) and returns
-    ``x.dtype``.  ``x`` has the padded length R*bm.
+    Accumulates in the wider of the tiles' and ``x``'s dtypes, at least
+    float32 (bfloat16 tiles widen, as ``preferred_element_type`` does in the
+    JAX package; float32 tiles against a float64 ``x`` accumulate in
+    float64), and returns ``x.dtype``.  ``x`` has the padded length R*bm.
     """
     if layout == "rmsk":
         spec = "rmsk,rsk->rm"
@@ -46,7 +61,7 @@ def bsr_matvec_reference(blocks, col_blocks, x, layout: str = "rsmk"):
         raise ValueError(f"layout must be 'rmsk' or 'rsmk', got {layout!r}")
     bk = blocks.shape[3]
     xg = x.reshape(-1, bk)[col_blocks.long()]  # (R, S, bk) gather of needed segments
-    acc = torch.promote_types(blocks.dtype, torch.float32)
+    acc = torch.promote_types(torch.promote_types(blocks.dtype, x.dtype), torch.float32)
     y = torch.einsum(spec, blocks.to(acc), xg.to(acc))
     return y.reshape(-1).to(x.dtype)
 
@@ -73,26 +88,66 @@ def bsr_matvec(blocks, col_blocks, x, n_out: int | None = None):
         raise ValueError(f"bsr_matvec runs on CPU or CUDA tensors, got {x.device}")
     if blocks.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"K1 takes float32/float64 tiles on CUDA, got {blocks.dtype}; see {_DTYPE_ITEM}")
-    if x.dtype != blocks.dtype:
-        raise TypeError(f"x dtype {x.dtype} differs from the tile dtype {blocks.dtype}")
-    if col_blocks.dtype != torch.int32 or col_blocks.shape != (r, s):
-        raise TypeError(f"col_blocks must be int32 of shape {(r, s)}, got {col_blocks.dtype} {tuple(col_blocks.shape)}")
-    if not (blocks.device == col_blocks.device == x.device):
-        raise ValueError("blocks, col_blocks and x must be on one device")
-    if not (blocks.is_contiguous() and col_blocks.is_contiguous() and x.is_contiguous()):
-        raise ValueError("bsr_matvec needs contiguous tensors")
+    if blocks.dtype == torch.float32 and x.dtype == torch.float64:
+        return bsr_matvec_f32x64(blocks, col_blocks, x, n_out)
+    _check_cuda_args(blocks, col_blocks, x, (r, s), "bsr_matvec")
     lib = _build.library()
     fn = lib.lt_bsr_spmv_f32 if blocks.dtype == torch.float32 else lib.lt_bsr_spmv_f64
-    y = torch.empty(n_out, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(blocks.data_ptr(), col_blocks.data_ptr(), x.data_ptr(), y.data_ptr(),
-             r, bm, s, bk, x.shape[0], n_out, x.device.index, stream)
-    _build.check(err, "bsr_matvec (K1)")
+    y = _launch(fn, blocks, col_blocks, x, n_out, (r, bm, s, bk), "bsr_matvec (K1)")
     bsr_matvec.launches += 1
     return y
 
 
 bsr_matvec.launches = 0
+
+
+def _check_cuda_args(blocks, col_blocks, x, cb_shape, what: str) -> None:
+    """The CUDA launch's conditions on its arguments, for K1, K2 and K1x."""
+    if x.dtype != blocks.dtype and not (blocks.dtype == torch.float32 and x.dtype == torch.float64):
+        raise TypeError(f"x dtype {x.dtype} differs from the tile dtype {blocks.dtype}")
+    if col_blocks.dtype != torch.int32 or col_blocks.shape != cb_shape:
+        raise TypeError(f"col_blocks must be int32 of shape {cb_shape}, got {col_blocks.dtype} {tuple(col_blocks.shape)}")
+    if not (blocks.device == col_blocks.device == x.device):
+        raise ValueError("blocks, col_blocks and x must be on one device")
+    if not (blocks.is_contiguous() and col_blocks.is_contiguous() and x.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous tensors")
+
+
+def _launch(fn, blocks, col_blocks, x, n_out: int, dims, what: str):
+    """One launch of a ``csrc/bsr_spmv.cu`` entry point on x's stream."""
+    y = torch.empty(n_out, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(blocks.data_ptr(), col_blocks.data_ptr(), x.data_ptr(), y.data_ptr(),
+             *dims, x.shape[0], n_out, x.device.index, stream)
+    _build.check(err, what)
+    return y
+
+
+def bsr_matvec_f32x64(blocks, col_blocks, x, n_out: int | None = None):
+    """K1x: y = A x in float64 for float32 ``rmsk`` tiles and a float64
+    ``x`` (the precise paths' product); the arguments of :func:`bsr_matvec`,
+    which routes such calls here.  Counts its launches in
+    ``bsr_matvec_f32x64.launches``; CPU tensors take the plain version."""
+    r, bm, s, bk = blocks.shape
+    n_pad = r * bm
+    n_out = n_pad if n_out is None else int(n_out)
+    if x.ndim != 1 or x.shape[0] > n_pad or not 0 <= n_out <= n_pad:
+        raise ValueError(f"x of shape {tuple(x.shape)} / n_out={n_out} do not fit {n_pad} padded rows")
+    if blocks.dtype != torch.float32 or x.dtype != torch.float64:
+        raise TypeError(f"K1x takes float32 tiles and a float64 x, got {blocks.dtype} and {x.dtype}")
+    if x.device.type == "cpu":
+        xp = F.pad(x, (0, n_pad - x.shape[0])) if x.shape[0] != n_pad else x
+        return bsr_matvec_reference(blocks, col_blocks, xp, layout="rmsk")[:n_out]
+    if x.device.type != "cuda":
+        raise ValueError(f"bsr_matvec_f32x64 runs on CPU or CUDA tensors, got {x.device}")
+    _check_cuda_args(blocks, col_blocks, x, (r, s), "bsr_matvec_f32x64")
+    y = _launch(_build.library().lt_bsr_spmv_f32x64, blocks, col_blocks, x, n_out, (r, bm, s, bk),
+                "bsr_matvec_f32x64 (K1x)")
+    bsr_matvec_f32x64.launches += 1
+    return y
+
+
+bsr_matvec_f32x64.launches = 0
 
 
 def bsr_matvec_rsmk(blocks, col_blocks, x, n_out: int | None = None, *, col_bound: int | None = None):
@@ -130,23 +185,50 @@ def bsr_matvec_rsmk(blocks, col_blocks, x, n_out: int | None = None, *, col_boun
         raise ValueError(f"bsr_matvec_rsmk runs on CPU or CUDA tensors, got {x.device}")
     if blocks.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"K2 takes float32/float64 tiles on CUDA, got {blocks.dtype}; see {_RSMK_DTYPE_ITEM}")
-    if x.dtype != blocks.dtype:
-        raise TypeError(f"x dtype {x.dtype} differs from the tile dtype {blocks.dtype}")
-    if col_blocks.dtype != torch.int32:
-        raise TypeError(f"col_blocks must be int32, got {col_blocks.dtype}")
-    if not (blocks.device == col_blocks.device == x.device):
-        raise ValueError("blocks, col_blocks and x must be on one device")
-    if not (blocks.is_contiguous() and col_blocks.is_contiguous() and x.is_contiguous()):
-        raise ValueError("bsr_matvec_rsmk needs contiguous tensors")
+    _check_cuda_args(blocks, col_blocks, x, (r, s), "bsr_matvec_rsmk")
+    if blocks.dtype == torch.float32 and x.dtype == torch.float64:
+        y = _launch(_build.library().lt_bsr_spmv_rsmk_f32x64, blocks, col_blocks, x, n_out, (r, bm, s, bk),
+                    "bsr_matvec_rsmk_f32x64 (K1x, rsmk)")
+        bsr_matvec_rsmk_f32x64.launches += 1
+        return y
     lib = _build.library()
     fn = lib.lt_bsr_spmv_rsmk_f32 if blocks.dtype == torch.float32 else lib.lt_bsr_spmv_rsmk_f64
-    y = torch.empty(n_out, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(blocks.data_ptr(), col_blocks.data_ptr(), x.data_ptr(), y.data_ptr(),
-             r, bm, s, bk, x.shape[0], n_out, x.device.index, stream)
-    _build.check(err, "bsr_matvec_rsmk (K2)")
+    y = _launch(fn, blocks, col_blocks, x, n_out, (r, bm, s, bk), "bsr_matvec_rsmk (K2)")
     bsr_matvec_rsmk.launches += 1
     return y
 
 
 bsr_matvec_rsmk.launches = 0
+
+
+def bsr_matvec_rsmk_f32x64(blocks, col_blocks, x, n_out: int | None = None, *, col_bound: int | None = None):
+    """K1x's ``rsmk`` form (K2's body with float32 tiles and a float64
+    ``x``), for the sharded operators' precise product: the arguments of
+    :func:`bsr_matvec_rsmk`, which routes such calls here and counts them in
+    ``bsr_matvec_rsmk_f32x64.launches``."""
+    if blocks.dtype != torch.float32 or x.dtype != torch.float64:
+        raise TypeError(f"K1x takes float32 tiles and a float64 x, got {blocks.dtype} and {x.dtype}")
+    return bsr_matvec_rsmk(blocks, col_blocks, x, n_out, col_bound=col_bound)
+
+
+bsr_matvec_rsmk_f32x64.launches = 0
+
+# csrc/bsr_spmv.cu's launch constants.
+X_PIECE_BYTES = 32 * 1024
+DEFAULT_SMEM_BYTES = 48 * 1024
+MAX_SMEM_BYTES = 227 * 1024
+
+
+def plan(bm: int, s: int, bk: int, x_itemsize: int) -> dict:
+    """The launch plan ``csrc/bsr_spmv.cu`` makes for K1, K2 and K1x: the
+    tiles per gathered x piece (``s_piece``, those that fit 32 KB of x
+    values, at least one), the dynamic shared bytes (row accumulators in
+    x's type, then one piece) and whether they pass the default 48 KB, so
+    that the kernel opts in to more (``opt_in``).  float64 x halves the
+    piece of float32's."""
+    acc = -(-bm * x_itemsize // 16) * 16
+    s_piece = min(max(X_PIECE_BYTES // (bk * x_itemsize), 1), s)
+    smem = acc + s_piece * bk * x_itemsize
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"bm={bm}, bk={bk} need {smem} bytes of shared memory, past the {MAX_SMEM_BYTES} an SM offers")
+    return {"s_piece": s_piece, "smem": smem, "opt_in": smem > DEFAULT_SMEM_BYTES}

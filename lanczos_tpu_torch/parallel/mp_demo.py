@@ -31,10 +31,13 @@ __all__ = ["run_solves", "launch", "main"]
 
 def run_solves(n: int = 512) -> dict:
     """Solve the -1 hopping chain, a :class:`ShardedDIAOperator` over the
-    world, with the hybrid engine; returns its eigenvalue and error.  The
-    JAX demo's second part, a precise-vector thick solve, is not ported: the
-    result records the ``NotImplementedError`` it raises (ROADMAP item 10).
-    Call after the process group is initialized."""
+    world, with the hybrid engine, then its two lowest eigenvalues with
+    ``precise_vectors`` (the fused engine over a float64 slab basis, the
+    float32 diagonals' ``matvec_f64``); returns the values and their errors.
+    The JAX demo's precise part is a thick-restart solve: over a sharded
+    operator the thick engine waits for ROADMAP item 13, and the result
+    records the ``NotImplementedError`` it raises.  Call after the process
+    group is initialized."""
     import numpy as np
     import torch
 
@@ -50,20 +53,32 @@ def run_solves(n: int = 512) -> dict:
     val, vec = eng.run_one()
     exact = -2 * np.cos(np.pi / (n + 1))
 
-    eng2 = LambdaLanczos(op, find_maximum=False, num_eigs=2)
-    eng2.precise_vectors = True
-    eng2.restart_policy = "thick"
+    op32 = ShardedDIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0)] * 2, n, m, dtype=torch.float32)
+    pv = LambdaLanczos(op32, find_maximum=False, num_eigs=2)
+    pv.precise_vectors = True
+    pv.eigenvalue_offset = -4.0
+    pv.eps = 1e-12
+    pv_vals, pv_vecs = pv.run()
+    pv_exact = -2 * np.cos(np.pi * np.arange(1, 3) / (n + 1))
+
+    thick = LambdaLanczos(op32, find_maximum=False, num_eigs=2)
+    thick.precise_vectors = True
+    thick.restart_policy = "thick"
     try:
-        eng2.run()
-        pv = "ran"
+        thick.run()
+        pv_thick = "ran"
     except NotImplementedError as e:
-        pv = f"NotImplementedError: {e}"
+        pv_thick = f"NotImplementedError: {e}"
     return {
         "stencil_val": float(val),
         "stencil_err": abs(float(val) - exact),
         "stencil_vec_sum": float(vec.double().sum()),
         "iteration_counts": eng.iteration_counts,
-        "pv_thick": pv,
+        "pv_vals": [float(v) for v in np.sort(np.asarray(pv_vals))],
+        "pv_err": float(np.max(np.abs(np.sort(np.asarray(pv_vals)) - pv_exact))),
+        "pv_vec_dtype": str(pv_vecs.dtype),
+        "pv_iteration_counts": pv.iteration_counts,
+        "pv_thick": pv_thick,
     }
 
 

@@ -23,6 +23,14 @@ and runs the engines on its own slab:
 The local SpMV of :class:`ShardedBSROperator` is kernel K2
 (:func:`~lanczos_tpu_torch.ops.spmv.bsr_matvec_rsmk`, ``csrc/bsr_spmv.cu``)
 on CUDA tensors, for every tile group, and its plain version on the CPU.
+
+``matvec_f64`` (the precise paths' float64 product, the JAX package's
+``matvec_df``) runs the same schedule on a float64 slab: the same
+collectives carry float64 words, and the local products are float64 (K1x's
+rsmk form for float32 tiles on CUDA; the DIA and dense slabs convert their
+entries).  The fused engine's ``precise_vectors`` runs on it; the thick,
+block and filtered engines over a sharded operator, precise or not, raise
+(ROADMAP item 13).
 """
 
 from __future__ import annotations
@@ -45,9 +53,8 @@ __all__ = [
     "refuse_sharded",
 ]
 
-_DF_ITEM = "ROADMAP.md, 'Modules to port', item 10: precise paths on native float64"
-_ENGINE_ITEM = ("ROADMAP.md, 'Modules to port', item 13: the thick, block, filtered, precise and "
-                "exponentiator engines over sharded operators")
+_ENGINE_ITEM = ("ROADMAP.md, 'Modules to port', item 13: the thick, block, filtered and exponentiator "
+                "engines over sharded operators, precise or not")
 
 
 class ShardedOperator(LinearOperator):
@@ -81,8 +88,10 @@ class ShardedOperator(LinearOperator):
         """The global vector, trimmed to n, from every rank's slab."""
         return gather_vector(y_local, self.mesh, self.n)
 
-    def matvec_df(self, x_hi, x_lo):
-        raise NotImplementedError(f"the double-float sharded matvec is not ported; see {_DF_ITEM}")
+    def matvec_f64(self, x):
+        """A x on slabs in float64, for a float64 slab ``x``: the matvec's
+        schedule with float64 words and float64 local products."""
+        return self.matvec(x)  # each subclass's matvec computes in x's dtype
 
     def _check_slab(self, x):
         if x.shape != (self.n_local,):
@@ -420,7 +429,7 @@ class ShardedDenseOperator(ShardedOperator):
 
     def matvec(self, x):
         self._check_slab(x)
-        return self.a @ all_gather(x, self.mesh)[: self.n]
+        return self.a.to(x.dtype) @ all_gather(x, self.mesh)[: self.n]
 
 
 def shard_operator(op: LinearOperator, mesh: RowMesh) -> LinearOperator:

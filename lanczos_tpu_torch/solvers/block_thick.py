@@ -1,6 +1,5 @@
 """Fused block thick-restart Lanczos: degenerate clusters in one build
-(port of ``lanczos_tpu.solvers.block_thick`` without its precise-vector
-engine).
+(port of ``lanczos_tpu.solvers.block_thick``).
 
 It combines the block engine (block_lanczos.py: a width-b block captures
 multiplicity <= b in one build, and every reorthogonalization pass reads the
@@ -38,6 +37,16 @@ For float32 storage the JAX engine carries the coefficient blocks as df64
 word pairs; the port takes float64 dot products of the float32 vectors
 (:func:`lanczos_tpu_torch.core.linalg.block_inner_f64`) and keeps the
 float64 values for the host's T.
+
+``precise_vectors`` (the JAX package's ``block_thick_iteration_fused_pv``)
+runs this engine over a float64 block basis and the operator's
+``matvec_f64`` (``lanczos_fused.precise_iteration``; K4 in float64 on the
+card).  The JAX variant's word-pair block machinery (the recaptured band
+and deflation couplings, the ordered-Schur invariant subspace of the
+nonsymmetric band, ``orthogonalize_block_cgs2_df(df)_coeffs`` and the
+word-pair rotation) is not carried over: it makes up for a float32 basis
+orthonormal only to 2^-24, and a float64 basis is orthonormal to float64's
+rounding.
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ from ..core.types import is_complex_dtype, machine_eps, real_dtype
 from ..ops import cgs
 from .block_lanczos import _orthonormalize_block, _repair_block
 from .lanczos import LanczosConfig, _host_dtype, _rotate, deflation_driver
-from .lanczos_fused import _PV_ITEM, _add_reorth
+from .lanczos_fused import _add_reorth, precise_iteration
 from .thick_restart import thick_lanczos_iteration_fused
 
 __all__ = ["block_thick_iteration_fused", "lanczos_run_block_thick"]
@@ -288,9 +297,11 @@ def _coupling_block(op, y_rows, u0, offset: float, precise: bool):
 
 def block_thick_iteration_fused(op, v0_block, nroot: int, defl, defl_mask, cfg: LanczosConfig, block_size: int, rng=None):
     """One deflated solve of the fused block thick-restart engine; returns
-    ``(eigenvalues, eigenvectors, total_block_steps, converged)``."""
+    ``(eigenvalues, eigenvectors, total_block_steps, converged)``;
+    ``cfg.precise_vectors`` runs it over a float64 block basis."""
     if cfg.precise_vectors:
-        raise NotImplementedError(f"precise_vectors is not ported; see {_PV_ITEM}")
+        return precise_iteration(block_thick_iteration_fused, op, v0_block, nroot, defl, defl_mask, cfg,
+                                 block_size, rng)
 
     dtype = v0_block.dtype
     dev = v0_block.device

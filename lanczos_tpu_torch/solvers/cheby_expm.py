@@ -19,8 +19,11 @@ imaginary words apart (the matvec sees real vectors only: kernel K1 over a
 accumulators.  [lo, hi] MUST enclose the spectrum (|x| > 1 makes T_k grow
 like cosh); the defaults are +-Gershgorin, which always do.
 
-The double-float chain (``precise=True``) belongs to ROADMAP item 10 and
-the complex Hermitian variants to item 11; they raise, naming their item.
+``precise=True`` (:func:`chebyshev_expm_apply_split_precise`) runs the
+same chain in float64 over the operator's ``matvec_f64``, the state taken
+in float64 from the start: the JAX package's word-pair chain
+(``_cheby_chain_df``) with float64 in place of the pairs.  The complex
+Hermitian variants wait for ROADMAP item 11 and raise, naming it.
 """
 
 from __future__ import annotations
@@ -28,8 +31,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.operators import as_operator
+from ..ops.operators import as_operator, float64_view
 from ..utils import estimate
+from .exponentiator import HERMITIAN_ITEM as _HERMITIAN_ITEM
+from .exponentiator import precise_state
 
 __all__ = [
     "chebyshev_expm_coeffs",
@@ -40,8 +45,6 @@ __all__ = [
     "chebyshev_expm_grid_hermitian",
 ]
 
-_PRECISE_ITEM = "ROADMAP.md, 'Modules to port', item 10: precise paths on native float64"
-_HERMITIAN_ITEM = "ROADMAP.md, 'Modules to port', item 11: complex Hermitian input and the scipy facade"
 
 
 def chebyshev_expm_coeffs(a, c, e, tol: float = 1e-16, kmax: int = 100_000):
@@ -192,8 +195,17 @@ def chebyshev_expm_grid_split(op, a_list, v_re, v_im, *, lo=None, hi=None, tol: 
 
 
 def chebyshev_expm_apply_split_precise(op, a, v_re, v_im, *, lo=None, hi=None, tol: float = 1e-16):
-    """The double-float chain of the JAX package: not ported."""
-    raise NotImplementedError(f"the double-float Chebyshev chain (precise=True) is not ported; see {_PRECISE_ITEM}")
+    """exp(a*A) (v_re + i v_im) at float64 grade from the operator's
+    storage: the chain over ``matvec_f64`` with the state in float64 (a
+    missing ``v_im`` is zero).  Returns ``((re, im) host float64 arrays,
+    n_terms)``, as the JAX package's word-pair chain does."""
+    op = as_operator(op)
+    c, e = _window(op, lo, hi)
+    coef = chebyshev_expm_coeffs(a, c, e, tol=tol)
+    vr = precise_state(v_re, op.device)
+    vi = torch.zeros_like(vr) if v_im is None else precise_state(v_im, op.device)
+    re, im = _cheby_chain(float64_view(op), c, e, coef.real.tolist(), coef.imag.tolist(), vr, vi)
+    return (re.cpu().numpy(), im.cpu().numpy()), int(coef.shape[0])
 
 
 def chebyshev_expm_apply_hermitian(split_op, a, psi_re, psi_im, *, lo=None, hi=None, tol: float = 1e-16,

@@ -25,6 +25,13 @@ only real vectors), takes complex coefficients on the host and recombines;
 complex128 on the device.  The device-resident build, which queues whole
 stages of iterations and replays the stop test on the host, is
 :mod:`.exponentiator_fused`.
+
+:func:`evolve_split_precise` is the JAX package's
+``exponentiator_precise.evolve_split_precise``: the same multi-step
+evolution with the state, the Krylov build (over the operator's
+``matvec_f64``, CGS2 in float64: kernel K3 on the card) and the small
+exponential in float64 and complex128, where the JAX module carries every
+one of them as word pairs.  Its Hermitian twin waits for ROADMAP item 11.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import torch
 
 from ..core import linalg, tridiagonal
 from ..core.types import machine_eps, real_dtype
+from ..ops.operators import float64_view
 
 __all__ = [
     "ExponentiatorConfig",
@@ -44,7 +52,12 @@ __all__ = [
     "krylov_expm_apply_split",
     "taylor_expm_apply",
     "evolve_split",
+    "evolve_split_precise",
+    "evolve_hermitian_split_precise",
+    "precise_state",
 ]
+
+HERMITIAN_ITEM = "ROADMAP.md, 'Modules to port', item 11: complex Hermitian input and the scipy facade"
 
 
 @dataclasses.dataclass
@@ -394,3 +407,31 @@ def evolve_split(op, v_re, v_im, a, steps: int, krylov_dim: int = 12, *, full_or
             "use a smaller time step"
         )
     return vr, vi
+
+
+def precise_state(v, device):
+    """A real state word as a float64 tensor on ``device``, at full
+    precision: a float64 host array is taken as it is, never rounded to the
+    operator's dtype first (the JAX package's ``evolve(precise=True)``
+    lesson: a float32 cast bakes a ~1e-8 error into the initial state)."""
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+    if t.is_complex():
+        raise TypeError("the precise evolution takes split (re, im) real arrays")
+    return t.to(device=device, dtype=torch.float64)
+
+
+def evolve_split_precise(op, v_re, v_im, a, steps: int, krylov_dim: int = 16, *, renormalize: bool = False):
+    """``steps`` applications of exp(a*A) to (v_re + i v_im) at float64
+    grade for a real operator: :func:`evolve_split` over the operator's
+    ``matvec_f64`` with the state in float64 from the start.  Returns the
+    float64 ``(re, im)`` on the operator's device."""
+    dev = op.device
+    return evolve_split(float64_view(op), precise_state(v_re, dev), precise_state(v_im, dev), a, int(steps),
+                        int(krylov_dim), full_orth=True, renormalize=renormalize)
+
+
+def evolve_hermitian_split_precise(split_op, psi_re, psi_im, a, steps: int, krylov_dim: int = 16, *,
+                                   renormalize: bool = False):
+    """The precise evolution of a complex Hermitian operator's real
+    embedding: not ported."""
+    raise NotImplementedError(f"the precise evolution of complex Hermitian operators is not ported; see {HERMITIAN_ITEM}")

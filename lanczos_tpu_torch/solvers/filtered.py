@@ -1,5 +1,5 @@
 """Chebyshev-filtered Lanczos: extremal eigenpairs at huge n (port of
-``lanczos_tpu.solvers.filtered`` without its precise parts).
+``lanczos_tpu.solvers.filtered``).
 
 ``filtered_lanczos`` wraps the operator in a
 :class:`~lanczos_tpu_torch.ops.filters.ChebyshevFilterOperator`, runs the
@@ -12,11 +12,15 @@ A-space eigenpairs by a Rayleigh-Ritz over the converged B-space vectors.
 
 The JAX package's double-float grams become float64 products of the cast
 rows, and every projection here is a float64 product, so no float32 product
-can take a TF32 path on the card.  ``precise=True`` and
-``refine_vectors=True`` raise: they need the precise engines and
-``matvec_df`` (ROADMAP.md, module item 10).  ``checkpoint_path=`` saves the
-round state after every deflation round and resumes from it, in the
-format of :mod:`lanczos_tpu_torch.utils.checkpoint`.
+can take a TF32 path on the card.  ``precise=True`` runs the B-space solve
+with ``precise_vectors`` over the filter's float64 chain
+(``ChebyshevFilterOperator.matvec_f64``) and maps its Ritz values back
+through the filter's analytic inverse; ``refine_vectors`` (on by default
+with ``precise``) is the JAX package's ``_refine_vectors_df`` in float64:
+filter-subspace sweeps on a steeper filter, block orthonormalization and a
+Rayleigh-Ritz, all float64 products of ``matvec_f64``.
+``checkpoint_path=`` saves the round state after every deflation round and
+resumes from it, in the format of :mod:`lanczos_tpu_torch.utils.checkpoint`.
 """
 
 from __future__ import annotations
@@ -44,8 +48,6 @@ from ..utils.random import random_initializer
 from . import lanczos as _lanczos
 
 __all__ = ["filtered_lanczos"]
-
-_PRECISE_ITEM = "ROADMAP.md, module item 10 (precise paths on native float64)"
 
 
 def _safe_bound(op) -> float:
@@ -112,6 +114,105 @@ def _rayleigh_ritz(op, V, num_eigs: int, find_maximum: bool):
     R = AQ / norms - torch.as_tensor(theta, device=V.device)[:, None] * (Q / norms)
     res = torch.linalg.vector_norm(R, dim=1).tolist()
     return theta, (Q / norms).to(V.dtype), res
+
+
+def _whiten_coeffs(G):
+    """Host float64 combination rows C with C G C^T = I, robust to a
+    (near-)collapsed gram: inverse Cholesky when it is positive definite,
+    eigen-whitening with a floored spectrum otherwise (a steep filter apply
+    can align block rows to ~1e-17, and the gram then loses definiteness at
+    float64 resolution)."""
+    try:
+        return np.linalg.inv(np.linalg.cholesky(G))
+    except np.linalg.LinAlgError:
+        w, E = np.linalg.eigh(0.5 * (G + G.conj().T))
+        w = np.maximum(w, max(float(w.max()), 1.0) * 1e-28)
+        return (E / np.sqrt(w)).conj().T
+
+
+def _gram(X, Y):
+    """The host matrix ``X^H Y^T`` of two row blocks (float64 products)."""
+    return (X.conj() @ Y.T).cpu().numpy()
+
+
+def _rotate_rows(C, X):
+    """Rows ``C @ X`` for host coefficients ``C``, each divided by its norm."""
+    Y = torch.as_tensor(np.ascontiguousarray(C), device=X.device).to(X.dtype) @ X
+    return Y / torch.linalg.vector_norm(Y, dim=1, keepdim=True).clamp_min(torch.finfo(torch.float64).tiny)
+
+
+def _orthonormalize_block(X):
+    """Block orthonormalization by the gram's whitening rows: keeps k
+    independent directions through steep filter applies (plain row
+    normalization lets the block collapse onto the most amplified one)."""
+    G = _gram(X, X)
+    return _rotate_rows(_whiten_coeffs(0.5 * (G + G.conj().T)), X)
+
+
+def _refine_filter(base_op, lo, hi, mu, find_maximum):
+    """A much steeper filter dedicated to vector refinement (the JAX
+    package's).  The decay per sweep is T_p(contaminant)/T_p(target), and
+    the dangerous contaminants are in-band states barely shallower than the
+    targets; at the solve filter's d*theta ~ 3 that ratio is ~0.95.  Each
+    sweep chains two normalized applies of a d*theta ~ 36 filter (the same
+    d*theta <= 40 wall as the solve's: the norms square the amplified
+    components), a degree capped at 2n (past ~n it buys nothing)."""
+    e_half = 0.5 * ((hi - lo) - mu)
+    theta = float(np.arccosh(1.0 + mu / max(e_half, mu)))
+    d_cap = int(min(8192, max(64, 2 * int(getattr(base_op, "n", 8192)))))
+    degree = int(np.clip(np.ceil(36.0 / max(theta, 1e-9)), 16, d_cap))
+    degree = ((degree + 31) // 32) * 32
+    if degree * theta > 40.0:
+        degree = max(2, int(40.0 / max(theta, 1e-9)))
+    degree = int(degree) + (int(degree) % 2)
+    return ChebyshevFilterOperator.from_interval(base_op, degree, lo, hi, mu, find_maximum=find_maximum)
+
+
+def _refine_vectors(op, fop, vecs, find_maximum, span, *, tol: float | None = None, max_sweeps: int = 8):
+    """Push the returned Ritz vectors to float64-grade A-space residuals by
+    filter-subspace iteration (the JAX package's ``_refine_vectors_df``,
+    whose word-pair products are float64 products here).
+
+    Each sweep is a Rayleigh-Ritz of A over the rows (grams of
+    ``matvec_f64`` products, solved on the host), the rows rotated and
+    normalized, their residuals, and, while the residuals exceed ``tol``
+    (default ``1e-11 * max(span, 1)``), two applies of the refinement
+    filter ``fop`` each followed by a block orthonormalization.  Returns
+    ``(theta (k,) float64, X (k, n) float64 tensor, residuals, sweeps)``.
+    """
+    X = vecs.to(torch.complex128 if vecs.is_complex() else torch.float64)
+    if tol is None:
+        tol = 1e-11 * max(float(span), 1.0)
+    theta, res, sweeps = None, None, 0
+    for sweep in range(max_sweeps):
+        sweeps = sweep + 1
+        AX = op.matvec_rows_f64(X)
+        S = _gram(X, AX)
+        G = _gram(X, X)
+        S = 0.5 * (S + S.conj().T)
+        G = 0.5 * (G + G.conj().T)
+        try:
+            theta_all, Y = sla.eigh(S, G)
+        except np.linalg.LinAlgError:
+            # a near-collapsed block: whiten explicitly and solve the
+            # standard problem in the whitened coordinates
+            W = _whiten_coeffs(G)
+            M = W @ S @ W.conj().T
+            theta_all, Z = np.linalg.eigh(0.5 * (M + M.conj().T))
+            Y = W.conj().T @ Z
+        order = np.argsort(theta_all)
+        if find_maximum:
+            order = order[::-1]
+        theta = theta_all[order]
+        X = _rotate_rows(Y[:, order].T, X)
+        AX = op.matvec_rows_f64(X)
+        res = torch.linalg.vector_norm(AX - torch.as_tensor(theta, device=X.device)[:, None] * X, dim=1).tolist()
+        if max(res) <= tol:
+            break
+        if sweep < max_sweeps - 1:
+            for _rep in range(2):
+                X = _orthonormalize_block(fop.matvec_rows_f64(X))
+    return np.asarray(theta, np.float64), X, res, sweeps
 
 
 def _probe_remaining_band(fop, V, w0, steps: int) -> float:
@@ -182,12 +283,16 @@ def _auto_mu(op, num_eigs, find_maximum, lo, hi, guard):
 
 
 def _filtered_interior(op, num_eigs, *, sigma, degree, mu, lo, hi, guard, residual_bound, max_extra_rounds,
-                       checkpoint_path, configure, device):
+                       precise, refine_vectors, checkpoint_path, configure, device):
     """The ``num_eigs`` eigenvalues of A nearest an interior ``sigma``,
     through ``(A - sigma)^2``: "nearest sigma" becomes the bottom edge, with
     the exact lower bound 0.  sigma-symmetric pairs merge in the squared
     spectrum; the subspace still spans both A-eigenvectors, so a final
-    A-space Rayleigh-Ritz splits them.  Returned nearest-sigma first."""
+    A-space Rayleigh-Ritz splits them.  Returned nearest-sigma first.
+    ``precise`` maps the squared values back as sigma + sign(theta - sigma)
+    sqrt(v2), pairing each Rayleigh-Ritz theta with its nearest inverse
+    value; ``refine_vectors`` refines against the squared operator's filter
+    with the Rayleigh-Ritz of the base operator."""
     base = as_operator(op, device=device)
     if lo is None or hi is None:
         g = _safe_bound(base)
@@ -199,16 +304,47 @@ def _filtered_interior(op, num_eigs, *, sigma, degree, mu, lo, hi, guard, residu
         # The static default (2.5e-6 of the span) is calibrated for an edge
         # cluster; interior spacings in squared units vary with sigma.
         mu = _auto_mu(sq, num_eigs, False, 0.0, float(hi2), guard)
-    _vals2, vecs, info = filtered_lanczos(
+    vals2, vecs, info = filtered_lanczos(
         sq, num_eigs, False, degree=degree, mu=mu, lo=0.0, hi=float(hi2), guard=guard,
-        residual_bound=residual_bound, max_extra_rounds=max_extra_rounds, checkpoint_path=checkpoint_path,
-        configure=configure)
+        residual_bound=residual_bound, max_extra_rounds=max_extra_rounds, precise=precise,
+        refine_vectors=False,  # refined below against the base operator
+        checkpoint_path=checkpoint_path, configure=configure)
     theta, vecs_out, res = _rayleigh_ritz(base, vecs, num_eigs, False)
     order = np.argsort(np.abs(np.asarray(theta) - sigma))
+    theta = np.asarray(theta)[order]
+    vecs_out = vecs_out[torch.as_tensor(order, device=vecs_out.device)]
+    res = [res[i] for i in order]
+    if precise:
+        v2 = np.asarray(vals2, np.float64)
+        vals = np.empty(len(theta), np.float64)
+        for j, t in enumerate(theta):
+            k = int(np.argmin(np.abs(v2 - (t - sigma) ** 2)))
+            vals[j] = sigma + np.sign(t - sigma) * np.sqrt(max(v2[k], 0.0))
+        info["rr_values"] = [float(t) for t in theta]
+    else:
+        vals = theta
+    if refine_vectors is None:
+        refine_vectors = precise
+    if refine_vectors:
+        # The squared operator's filter amplifies this target's band; the
+        # Rayleigh-Ritz against the base operator splits the sigma-symmetric
+        # pairs.  The values are (near-)exact, so the band can hug the
+        # targets: one ending at 2x the deepest target depth usually leaves
+        # the next level outside, where it decays by the full band/damp
+        # separation.
+        max_v2 = float(np.max((np.asarray(vals, np.float64) - sigma) ** 2))
+        mu_ref = min(float(info["mu"]), max(2.0 * max_v2, 1e-3 * float(info["mu"])))
+        fop_sq = _refine_filter(sq, 0.0, float(hi2), mu_ref, find_maximum=False)
+        theta_r, X, res_r, sweeps = _refine_vectors(base, fop_sq, vecs_out, False, hi - lo, max_sweeps=12)
+        order_r = np.argsort(np.abs(theta_r - sigma))
+        vals = theta_r[order_r]
+        vecs_out = X[torch.as_tensor(order_r.copy(), device=X.device)].cpu().numpy()
+        res = [res_r[i] for i in order_r]
+        info["refine_sweeps"] = sweeps
     info["sigma"] = float(sigma)
-    info["residuals"] = [res[i] for i in order]
+    info["residuals"] = res
     info["matvecs"] = 2 * int(info["matvecs"])  # each squared application is two base matvecs
-    return np.asarray(theta)[order], vecs_out[torch.as_tensor(order, device=vecs_out.device)], info
+    return np.asarray(vals), vecs_out, info
 
 
 def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
@@ -227,7 +363,8 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     lo)``).  ``degree`` is the filter degree (default: amplification
     exponent ~1.3 for the band, quantized up to 32, coerced even).
     ``lo``/``hi`` default to a plain-Lanczos estimate on the target side and
-    a safe bound on the far side.  ``configure(engine)`` adjusts the B-space
+    a safe bound on the far side (``precise=True`` scouts the window unless
+    ``auto_window=False``).  ``configure(engine)`` adjusts the B-space
     engine before it runs (``eng.operator.use_fused`` selects the fused
     chain, kernel K5 on the card, where it is the default).  ``guard`` oversamples the B-space
     solve by that many pairs and returns the best ``num_eigs`` after the
@@ -236,8 +373,23 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     ``0.5 * sqrt(mu * (hi - lo))``) for up to ``max_extra_rounds`` extra
     rounds (default ``num_eigs + 2``).  ``sigma`` targets the eigenvalues
     nearest an interior point through ``(A - sigma)^2``; ``auto_window``
-    runs the scout-based band sizing (default off).  An array or callable
-    ``op`` becomes an operator on ``device`` (default: the CUDA card).
+    runs the scout-based band sizing (default: only with ``precise``).  An
+    array or callable ``op`` becomes an operator on ``device`` (default:
+    the CUDA card).
+
+    ``precise=True`` returns reference-grade eigenvalues: the B-space solve
+    runs with ``precise_vectors`` (a float64 basis over the filter's
+    float64 chain) to a drift eps that the filter's steepness attenuates on
+    the way back, and the values are the B Ritz values mapped through the
+    filter's analytic inverse (``invert_value``); a value farther than 4 mu
+    from its Rayleigh-Ritz value falls back to it with an
+    ``AccuracyWarning`` (``info['rr_values']`` keeps the Rayleigh-Ritz
+    values).  ``refine_vectors`` (default: ``precise``) refines the
+    eigenvectors by float64 filter-subspace sweeps and returns them as host
+    float64 rows (a numpy array), the JAX package's contract; a refined
+    value replaces the returned one where its residual is at most 1e-8 of
+    the spectral scale (``info`` gains ``refine_sweeps``,
+    ``rr_values_refined`` and, with ``precise``, ``inverse_map_values``).
 
     Returns ascending eigenvalues (descending with ``find_maximum``,
     nearest-``sigma`` first with ``sigma``), eigenvectors as rows of a
@@ -247,28 +399,31 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     from ..api import LambdaLanczos  # late import: api imports the solvers
 
     refuse_sharded(op, "filtered_lanczos")
-    if precise or refine_vectors:
-        raise NotImplementedError(f"precise=True and refine_vectors=True are not ported; see {_PRECISE_ITEM}")
     if sigma is not None:
         if find_maximum:
             raise ValueError("sigma (interior targets) and find_maximum are exclusive")
         return _filtered_interior(
             op, num_eigs, sigma=float(sigma), degree=degree, mu=mu, lo=lo, hi=hi, guard=guard,
-            residual_bound=residual_bound, max_extra_rounds=max_extra_rounds, checkpoint_path=checkpoint_path,
-            configure=configure, device=device)
+            residual_bound=residual_bound, max_extra_rounds=max_extra_rounds, precise=precise,
+            refine_vectors=refine_vectors, checkpoint_path=checkpoint_path, configure=configure, device=device)
+    scout = auto_window if auto_window is not None else precise
 
     op = as_operator(op, device=device)
     lo, hi = _spectrum_bounds(op, lo, hi, find_maximum)
-    if auto_window and mu is None:
+    if scout and mu is None:
         mu = _auto_mu(op, num_eigs, find_maximum, lo, hi, guard)
     if mu is None:
         mu = 2.5e-6 * (hi - lo)
     theta = float(np.arccosh(1.0 + 2.0 * mu / max((hi - lo) - mu, mu)))
     if degree is None:
         # Amplification exponent d*theta ~ 1.3 (the flagship's optimum:
-        # d = 400 at mu = 1e-5 on a span of 4), quantized up to a 32-grid so
-        # that run-to-run jitter of a scouted mu gives few distinct degrees.
-        degree = int(np.clip(np.ceil(1.3 / max(theta, 1e-9)), 16, 2400))
+        # d = 400 at mu = 1e-5 on a span of 4) and ~3 (cosh ~ 10) with
+        # ``precise``, where band/bulk separation drives both the B-space
+        # rate and the inverse map's attenuation; quantized up to a 32-grid
+        # so that run-to-run jitter of a scouted mu gives few distinct
+        # degrees.
+        target_exp = 3.0 if precise else 1.3
+        degree = int(np.clip(np.ceil(target_exp / max(theta, 1e-9)), 16, 2400))
         degree = ((degree + 31) // 32) * 32
     if degree * theta > 40.0:
         # The band tops out at cosh(d*theta) and the engine squares norms of
@@ -296,6 +451,20 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     eng.eps = 1e-4
     eng.max_iteration = 48
     eng.max_restarts = 4
+    if precise:
+        # Inverse-map refinement: the B-space solve runs with a float64
+        # basis to a drift eps_b, and its Ritz values map back through the
+        # analytic inverse of the filter, which attenuates their error: a_err
+        # <= eps_b * e * max(1, d theta_mu) / d^2 across the band, so the eps
+        # below returns 1e-12 A values.  A deeper unrestarted basis than the
+        # coarse mode's, bounded by 2^28 / n rows (512 at n = 4000).
+        a_target = 1e-12
+        e_half = 0.5 * ((hi - lo) - mu)  # window half-width
+        theta_mu = float(np.arccosh(1.0 + mu / e_half))
+        eng.precise_vectors = True
+        eng.eps = max(1e-13, a_target * degree**2 / (e_half * 8.0 * max(1.0, degree * theta_mu)))
+        eng.max_iteration = int(max(96, min(512, (1 << 28) // max(op.n, 1))))
+        eng.max_restarts = 64
     # Each driver call stops as soon as the manager holds the wanted count:
     # the A-space residuals, not the B-space fixed point, govern the rounds.
     eng.stop_when_full = True
@@ -368,8 +537,11 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
         if worst <= res_bar:
             # The residuals passed, but a degenerate copy the Krylov space
             # never saw leaves no residual trace: the probe buys it a round.
-            # Its margin covers the returned values' own error, ~mu/3.
-            if _missed_copy_probe(fop, V, vals_b, float(theta[num_eigs - 1]), mu, find_maximum, num_eigs):
+            # Its margin covers the returned values' own error: ~mu/3, and
+            # ~1e-6 of the span with ``precise`` (the inverse map makes the
+            # values near-exact).
+            margin = (1e-6 * (hi - lo)) if precise else mu
+            if _missed_copy_probe(fop, V, vals_b, float(theta[num_eigs - 1]), margin, find_maximum, num_eigs):
                 break
             cfg.stop_when_count = min(cfg.stop_when_count + 1, capacity)
         elif worst > prev_worst / 1.5:
@@ -380,7 +552,8 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     if extra >= extra_cap and max(res) <= res_bar:
         # Out on the round cap with clean residuals, possibly without the
         # probe ever running: probe the final subspace once before warning.
-        if not _missed_copy_probe(fop, V, vals_b, float(theta[num_eigs - 1]), mu, find_maximum, num_eigs):
+        margin = (1e-6 * (hi - lo)) if precise else mu
+        if not _missed_copy_probe(fop, V, vals_b, float(theta[num_eigs - 1]), margin, find_maximum, num_eigs):
             warnings.warn(
                 "filtered_lanczos: the deflated band-weight probe detects a "
                 f"missed band state after {extra} extra round(s) — a "
@@ -422,4 +595,53 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     }
     # theta is in engine order: ascending when minimizing, descending when
     # maximizing.
-    return np.asarray([float(t) for t in theta]), vecs_out, info
+    vals = np.asarray([float(t) for t in theta])
+    if precise:
+        # Values from the analytic inverse of the float64-basis B Ritz
+        # values; theta stays in info as the mu-grade cross-check.  A
+        # disagreement beyond the mu budget means the pairing broke (a
+        # bulk-level value, an unresolved cluster): warn and keep the
+        # Rayleigh-Ritz value there.
+        lam = np.asarray(fop.invert_value(vals_b[:num_eigs]), np.float64)
+        info["rr_values"] = [float(t) for t in vals]
+        bad = [i for i in range(len(lam)) if not np.isfinite(lam[i]) or abs(lam[i] - vals[i]) > 4.0 * mu]
+        if bad:
+            warnings.warn(
+                f"filtered_lanczos(precise=True): inverse-map values at indices {bad} disagree with the "
+                "Rayleigh-Ritz values beyond the mu budget (or fell below the bulk ceiling) — returning "
+                "the RR values there; raise degree or tighten the window",
+                AccuracyWarning,
+                stacklevel=2,
+            )
+            for i in bad:
+                lam[i] = vals[i]
+        vals = lam
+    if refine_vectors is None:
+        refine_vectors = precise
+    if refine_vectors:
+        # Tighten the refinement band around the returned values: cutting
+        # it at the deepest target + 0.8x the target spacing usually pushes
+        # the next level outside the band, where it decays by the full
+        # band/damp separation; degenerate targets keep a 1.3x-depth band.
+        depth_max = float((hi - np.min(vals)) if find_maximum else (np.max(vals) - lo))
+        gaps = np.diff(np.sort(vals))
+        gap_est = float(np.max(gaps)) if gaps.size else 0.0
+        mu_ref = float(mu)
+        if depth_max > 0:
+            mu_ref = min(mu_ref, depth_max + max(0.8 * gap_est, 0.3 * depth_max))
+        fop_ref = _refine_filter(op, lo, hi, mu_ref, find_maximum)
+        theta_r, X, res_r, sweeps = _refine_vectors(op, fop_ref, vecs_out, find_maximum, hi - lo)
+        vecs_out = X.cpu().numpy()
+        info["residuals"] = res_r
+        info["refine_sweeps"] = sweeps
+        info["rr_values_refined"] = [float(t) for t in theta_r]
+        if precise:
+            info["inverse_map_values"] = [float(v) for v in vals]
+        # A refined Rayleigh-Ritz value carries err ~ res^2 / gap: adopt it
+        # entry by entry where its residual supports it.
+        scale = max(1.0, float(np.max(np.abs(theta_r))))
+        vals = np.asarray(vals, np.float64).copy()
+        for i in range(len(theta_r)):
+            if res_r[i] <= 1e-8 * scale:
+                vals[i] = theta_r[i]
+    return vals, vecs_out, info

@@ -110,7 +110,9 @@ class LanczosConfig:
     tridiag_backend: str | None = None  # 'auto' | 'native' | 'bisect' | 'lapack' | 'numpy'
     # float64 alpha/||w||^2 for the host solve; default on for 32-bit dtypes.
     precise_reductions: bool | None = None
-    # Double-float Krylov vectors: not ported (ROADMAP.md, precise paths).
+    # The precise tier: the fused, thick and block-thick engines over a
+    # float64 basis and the operator's matvec_f64 (the JAX package's
+    # double-float Krylov vectors).
     precise_vectors: bool = False
     # Reorthogonalization passes per CGS application (None -> 1, one
     # classical pass, as the JAX package resolves it since its round 3).

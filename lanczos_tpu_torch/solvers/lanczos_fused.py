@@ -37,20 +37,37 @@ and evaluates the recurrence on the host in the JAX engine's dtype; a
 triggered pass runs kernel K3 as the full policy does.  (The JAX engine
 kept its Pallas pass out of the ``lax.cond`` at that site for a measured
 slowdown that eager execution does not have.)
+
+``precise_vectors`` (:func:`precise_iteration`) runs this same engine over
+a float64 basis and the operator's ``matvec_f64`` (through
+:func:`~lanczos_tpu_torch.ops.operators.float64_view`): K1x for a float32
+``BSROperator``, and K3 and K6 in float64 on the card.  The JAX engine's
+word-pair machinery is not carried over: its recaptured CGS couplings and
+the nonsymmetric relation solve (M = T + C by ``np.linalg.eig``) exist
+because a float32 basis is orthonormal only to 2^-24, while a float64
+basis under two classical passes is orthonormal to float64's rounding, so
+the ordinary symmetric tridiagonal solve (``tridiag_backend``) is exact to
+that level.  The breakdown threshold is the float64 engine's, 10 machine
+epsilons of float64 absolute (the reference's, lambda_lanczos.hpp:279),
+where the JAX engine stops at 100 float32 epsilons relative to the matrix
+scale, its CGS noise floor: on an exhausted space the two stop at
+different iterations with the same values.  Eigenvalues come back as
+floats and eigenvectors in the storage dtype, as in the JAX engine.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..core import linalg, tridiagonal
 from ..core.types import machine_eps, real_dtype, to_numpy_dtype
+from ..ops.operators import float64_view
 from .lanczos import LanczosConfig, _prepare_init_vector, _ritz_combine
 
-__all__ = ["lanczos_iteration_fused", "fused_krylov", "reorth_total"]
-
-_PV_ITEM = "ROADMAP.md, 'Modules to port', item 10: precise paths on native float64"
+__all__ = ["lanczos_iteration_fused", "fused_krylov", "precise_iteration", "reorth_total"]
 
 # Cumulative basis-reorthogonalization count across fused solves in this
 # process; api.run snapshots it around a run to fill RunStats.reorth_count.
@@ -258,11 +275,32 @@ def fused_krylov(op, v0, defl, defl_mask, eps, offset, *, nroot: int, m_cap: int
     return st.u, st.alpha, st.beta, st.done, st.evs_prev
 
 
+def precise_iteration(engine, op, v0, nroot: int, defl, defl_mask, cfg: LanczosConfig, *args):
+    """``engine`` (the fused, thick or block-thick iteration) run as its
+    ``precise_vectors`` variant: over ``float64_view(op)`` with the start
+    rows, the accepted eigenvectors and the mask in float64, the full
+    reorthogonalization policy (the JAX engine forces it, its selective
+    thresholds being float32-scaled) and no separate float64 reductions
+    (every reduction is float64 already).  The eigenvectors come back in
+    the storage dtype of ``v0``.  Real dtypes only, as in the JAX package."""
+    if v0.is_complex():
+        raise TypeError("precise_vectors supports real dtypes only")
+    storage = v0.dtype
+    cfg64 = dataclasses.replace(cfg, precise_vectors=False, reorth_policy="full", precise_reductions=False)
+    wide = torch.float64
+    vals, vecs, itern, converged = engine(
+        float64_view(op), v0.to(wide), nroot, defl.to(wide), defl_mask.to(wide), cfg64, *args,
+    )
+    return vals, vecs.to(storage), itern, converged
+
+
 def lanczos_iteration_fused(op, v0, nroot: int, defl, defl_mask, cfg: LanczosConfig):
     """One deflated restart with the fused engine; the return contract of
-    :func:`lanczos_tpu_torch.solvers.lanczos.lanczos_iteration`."""
+    :func:`lanczos_tpu_torch.solvers.lanczos.lanczos_iteration`.
+    ``cfg.precise_vectors`` runs it over a float64 basis
+    (:func:`precise_iteration`)."""
     if cfg.precise_vectors:
-        raise NotImplementedError(f"precise_vectors is not ported; see {_PV_ITEM}")
+        return precise_iteration(lanczos_iteration_fused, op, v0, nroot, defl, defl_mask, cfg)
     if cfg.reorth_policy not in ("full", "selective"):
         raise ValueError(f"reorth_policy must be 'full' or 'selective', got {cfg.reorth_policy!r}")
     rdtype = real_dtype(v0.dtype)

@@ -1,5 +1,5 @@
 """Thick-restart Lanczos (TRLan), bounded memory with subspace reuse (port
-of ``lanczos_tpu.solvers.thick_restart`` without its precise-vector engine).
+of ``lanczos_tpu.solvers.thick_restart``).
 
 Warm restarts (``run_restarted``) keep one Ritz vector and lose the rest of
 the subspace.  Thick restart keeps the best ``l`` Ritz vectors with their
@@ -16,8 +16,17 @@ as if unrestarted (Wu & Simon, SIAM J. Matrix Anal. 2000).  Two engines:
   ``[[diag(theta), s], [s^H, tridiag(alpha, beta)]]`` in float64 at segment
   boundaries.
 
-The precise-vector engine (``thick_lanczos_iteration_fused_pv``) is not
-ported: ``precise_vectors`` raises, naming ROADMAP item 10.
+``precise_vectors`` (the JAX package's ``thick_lanczos_iteration_fused_pv``)
+runs the fused engine over a float64 basis and the operator's
+``matvec_f64`` (``lanczos_fused.precise_iteration``): the kept Ritz rows
+are float64 rows of the deflation slot, where the JAX engine carries them
+as word pairs with their low words (``defl_lo``).  Its df machinery is not
+carried over: the recaptured couplings ``coup``/``coup_d``, the
+nonsymmetric relation matrix M with its invariant-subspace selection
+(``_select_invariant_pv``, ``_pv_converged``) and the word-pair rotation
+(``_df_rotate``) exist because a float32 basis is orthonormal only to
+2^-24; a float64 basis under two classical passes is orthonormal to
+float64's rounding, so the symmetric arrowhead is exact to that level.
 """
 
 from __future__ import annotations
@@ -28,7 +37,7 @@ import torch
 from ..core import linalg
 from ..core.types import machine_eps, real_dtype
 from .lanczos import LanczosConfig, _host_dtype, _prepare_init_vector, _rotate, _unit_rows, deflation_driver
-from .lanczos_fused import _PV_ITEM, _add_reorth, _Build, _run_stage
+from .lanczos_fused import _add_reorth, _Build, _run_stage, precise_iteration
 
 __all__ = ["thick_lanczos_iteration", "thick_lanczos_iteration_fused", "lanczos_run_thick"]
 
@@ -50,9 +59,11 @@ def _project_step(op, basis, defl, defl_mask, nb: int, offset: float):
 
 def thick_lanczos_iteration(op, v0, nroot: int, defl, defl_mask, cfg: LanczosConfig):
     """One deflated solve with internal thick restarts; returns
-    ``(eigenvalues, eigenvectors, total_iterations, converged)``."""
+    ``(eigenvalues, eigenvectors, total_iterations, converged)``.
+    ``precise_vectors`` is a fused-engine feature, as in the JAX package:
+    it runs :func:`thick_lanczos_iteration_fused` over a float64 basis."""
     if cfg.precise_vectors:
-        raise NotImplementedError(f"precise_vectors is not ported; see {_PV_ITEM}")
+        return precise_iteration(thick_lanczos_iteration_fused, op, v0, nroot, defl, defl_mask, cfg)
     dtype = v0.dtype
     rdtype = real_dtype(dtype)
     n = cfg.matrix_size
@@ -177,9 +188,11 @@ def thick_lanczos_iteration_fused(op, v0, nroot: int, defl, defl_mask, cfg: Lanc
     at the build's convergence checks (cycle 0), at segment boundaries
     (later cycles, whose arrowhead the in-build check cannot see), once for
     the couplings ``s_i = <Y_i, A r>`` and once for the restart rotation.
+    ``cfg.precise_vectors`` runs it over a float64 basis
+    (``lanczos_fused.precise_iteration``).
     """
     if cfg.precise_vectors:
-        raise NotImplementedError(f"precise_vectors is not ported; see {_PV_ITEM}")
+        return precise_iteration(thick_lanczos_iteration_fused, op, v0, nroot, defl, defl_mask, cfg)
     dtype = v0.dtype
     n = cfg.matrix_size
     m_max = max(min(cfg.max_iteration, n), 4)

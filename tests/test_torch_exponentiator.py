@@ -23,12 +23,15 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_jax_release import release_jax_executables  # noqa: E402,F401
+
 import scipy.linalg as sla  # noqa: E402
 
 import lanczos_tpu_torch as tl  # noqa: E402
 from lanczos_tpu_torch import convert  # noqa: E402
 from lanczos_tpu_torch.parallel.sharded import ShardedOperator  # noqa: E402
 from lanczos_tpu_torch.solvers import cheby_expm, exponentiator_fused  # noqa: E402
+from lanczos_tpu_torch.solvers import exponentiator as _expm  # noqa: E402
 
 EPS_REF = np.finfo(np.float64).eps * 1e2  # the reference's overlap bar, exponentiator.hpp:58
 PARITY = 1e-12  # port against the JAX package, relative to max |output|, float64
@@ -277,8 +280,8 @@ class _Slab(ShardedOperator):
 
 
 @pytest.mark.parametrize("call, error, item", [
-    ("evolve_precise", NotImplementedError, "item 10"),
-    ("chebyshev_precise", NotImplementedError, "item 10"),
+    ("evolve_hermitian_precise", NotImplementedError, "item 11"),
+    ("chebyshev_hermitian_precise", NotImplementedError, "item 11"),
     ("chebyshev_hermitian", NotImplementedError, "item 11"),
     ("sharded", NotImplementedError, "item 13"),
     ("complex_input", TypeError, "run_split"),
@@ -289,10 +292,10 @@ def test_refusals_name_their_item(call, error, item):
     ex = tl.Exponentiator(np.eye(4), device="cpu")
     v = np.ones(4)
     with pytest.raises(error, match=item.replace("(", r"\(").replace(")", r"\)")):
-        if call == "evolve_precise":
-            ex.evolve(1j, v, v * 0, 2, precise=True)
-        elif call == "chebyshev_precise":
-            ex.run_chebyshev(1j, v, v * 0, precise=True)
+        if call == "evolve_hermitian_precise":
+            _expm.evolve_hermitian_split_precise(None, v, v * 0, 1j, 2)
+        elif call == "chebyshev_hermitian_precise":
+            cheby_expm.chebyshev_expm_apply_hermitian(None, 1j, v, v, precise=True)
         elif call == "chebyshev_hermitian":
             cheby_expm.chebyshev_expm_apply_hermitian(None, 1j, v, v)
         elif call == "sharded":
@@ -392,6 +395,65 @@ def test_evolve_matches_the_exact_propagator(renormalize):
     truth = np.linalg.matrix_power(sla.expm(-0.3j * h), 5) @ psi
     assert abs(np.linalg.norm(got) - 1.0) < 1e-12
     assert np.abs(got - truth).max() < 1e-13
+    _check_precise_evolve(renormalize)
+
+
+def _angle(truth, out):
+    tn = truth / np.linalg.norm(truth)
+    on = out / np.linalg.norm(out)
+    ip = np.vdot(tn, on)
+    return np.linalg.norm(on - (ip / abs(ip)) * tn)
+
+
+def _check_precise_evolve(renormalize):
+    """``evolve(precise=True)`` (ROADMAP item 10) on the JAX tests' problems
+    (tests/test_exponentiator.py::test_evolve_precise_df64, and with
+    ``renormalize`` ::test_evolve_precise_renormalize_real_a): float32
+    storage, host float64 out, at the JAX bars against the exact
+    propagator and within 2e-12 of the JAX package's state; a float32
+    operator without a float64 product refuses."""
+    from lanczos_tpu import DIAOperator as JaxDIA
+    from lanczos_tpu import Exponentiator as JaxExponentiator
+
+    if not renormalize:
+        n, steps, a, m = 192, 25, 0.1j, 16
+        rng = np.random.default_rng(3)
+        v = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+        v /= np.linalg.norm(v)
+        offsets, diags = [-1, 1], [np.full(n, -1.0, np.float32)] * 2
+        d = np.diag(np.full(n - 1, -1.0), 1) + np.diag(np.full(n - 1, -1.0), -1)
+        w, u = np.linalg.eigh(d)
+        truth = u @ (np.exp(a * steps * w) * (u.conj().T @ v))
+    else:  # imaginary time onto the ground state of a unit-gapped diagonal
+        n, steps, a, m = 64, 20, -1.0, 12
+        v = np.random.default_rng(0).standard_normal(n) + 0j
+        v /= np.linalg.norm(v)
+        offsets, diags = [0], [np.arange(n, dtype=np.float32)]
+        truth = np.zeros(n, np.complex128)
+        truth[0] = 1.0
+    re_j, im_j = JaxExponentiator(JaxDIA.from_diagonals(offsets, diags, n), dtype=np.float32).evolve(
+        a, v.real, v.imag, steps, krylov_dim=m, renormalize=renormalize, precise=True)
+    ex = tl.Exponentiator(tl.DIAOperator.from_diagonals(offsets, diags, n, device="cpu"))
+    re, im = ex.evolve(a, v.real, v.imag, steps, krylov_dim=m, renormalize=renormalize, precise=True)
+    assert isinstance(re, np.ndarray) and re.dtype == im.dtype == np.float64
+    out = re + 1j * im
+    if renormalize:
+        assert abs(np.linalg.norm(out) - 1.0) < 1e-10 and abs(re @ (np.arange(n) * re)) < 1e-8
+    else:
+        assert _angle(truth, out) < 1e-10
+        r32, i32 = ex.evolve(a, v.real.astype(np.float32), v.imag.astype(np.float32), steps, krylov_dim=m)
+        assert _angle(truth, out) < 1e-2 * _angle(truth, _complex(r32, i32))  # >= 100x the float32 path
+    # Within 2e-12 of the JAX state, or of its own distance from the exact
+    # propagator where its word-pair floor is wider (3.0e-12 on the
+    # unitary case, where the port's float64 state is within 1e-15).
+    out_j = np.asarray(re_j) + 1j * np.asarray(im_j)
+    floor = 0.0 if renormalize else np.abs(out_j - truth).max()
+    assert np.abs(out - out_j).max() < max(2e-12, floor + 1e-13)
+    if not renormalize:
+        assert np.abs(out - truth).max() < 1e-13
+    fn = tl.Exponentiator(tl.FunctionOperator(lambda x: -x, 16, np.float32, device="cpu"))
+    with pytest.raises(NotImplementedError, match="matvec_f64"):
+        fn.evolve(1j, np.ones(16), np.zeros(16), 2, precise=True)
 
 
 def test_chebyshev_propagator_matches_expm():
@@ -412,6 +474,27 @@ def test_chebyshev_propagator_matches_expm():
         assert np.linalg.norm(_complex(g_re[j], g_im[j]) - sla.expm(t * a_mat) @ v) < 1e-12
     (re, im), _ = ex.run_chebyshev(2j, v.real, v.imag)
     assert np.linalg.norm(_complex(re, im) - sla.expm(2j * a_mat) @ v) < 1e-12
+    # The precise chain (ROADMAP item 10) over float32 storage, the JAX
+    # test's cases (tests/test_exponentiator.py::
+    # test_chebyshev_propagator_precise_df64): 1e-12 relative against expm
+    # and within 2e-12 of the JAX package's word-pair chain.
+    from lanczos_tpu import DIAOperator as JaxDIA
+    from lanczos_tpu import Exponentiator as JaxExponentiator
+
+    diags = [np.full(n, -1.0, np.float32)] * 2
+    ex32 = tl.Exponentiator(tl.DIAOperator.from_diagonals([-1, 1], diags, n, device="cpu"))
+    ex_j = JaxExponentiator(JaxDIA.from_diagonals([-1, 1], diags, n), dtype=np.float32)
+    rng = np.random.default_rng(2)
+    w = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    w /= np.linalg.norm(w)
+    for a in (3j, 25j, -0.5):
+        truth = sla.expm(a * a_mat) @ w
+        (re, im), terms = ex32.run_chebyshev(a, w.real, w.imag, lo=-2.0, hi=2.0, precise=True)
+        (re_j, im_j), terms_j = ex_j.run_chebyshev(a, w.real, w.imag, lo=-2.0, hi=2.0, precise=True)
+        assert isinstance(re, np.ndarray) and re.dtype == np.float64 and terms == terms_j
+        out = re + 1j * im
+        assert np.linalg.norm(out - truth) / np.linalg.norm(truth) < 1e-12, a
+        assert np.abs(out - (np.asarray(re_j) + 1j * np.asarray(im_j))).max() < 2e-12, a
 
 
 def test_chebyshev_heat_kernel_ive_fallback():

@@ -20,6 +20,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_jax_release import release_jax_executables  # noqa: E402,F401
+
 import lanczos_tpu_torch as tl  # noqa: E402
 from lanczos_tpu_torch import convert  # noqa: E402
 from lanczos_tpu_torch.ops import cheby  # noqa: E402
@@ -152,8 +154,30 @@ def test_from_interval_validation_and_scalar_maps():
         ChebyshevFilterOperator.from_interval(op, 8, -1.0, 1.0, 5.0)
     with pytest.raises(ValueError):
         ChebyshevFilterOperator.from_interval(op, 1, -1.0, 1.0, 0.1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ChebyshevFilterOperator.from_interval(op, 8, -1.0, 1.0, 0.1).matvec_df(None, None)
+    # The float64 chain (ROADMAP item 10): float32 DIA entries against the
+    # JAX package's double-float matvec_df, joined in float64, at 1e-13 of
+    # max |y|; the word-pair adapter gives the same pair.
+    import jax.numpy as jnp
+
+    from lanczos_tpu import DIAOperator as JaxDIA
+    from lanczos_tpu.ops.filters import ChebyshevFilterOperator as JaxFilter
+
+    rng = np.random.default_rng(5)
+    m = 300
+    data = rng.uniform(-0.4, 0.4, (3, m)).astype(np.float32)
+    jf = JaxFilter.from_interval(JaxDIA.from_diagonals((-1, 0, 1), list(data), m), 17, -2.0, 2.0, 0.3)
+    f64 = ChebyshevFilterOperator.from_interval(tl.DIAOperator.from_diagonals((-1, 0, 1), data, m, device="cpu"), 17,
+                                                -2.0, 2.0, 0.3)
+    assert (f64.c, f64.e) == (float(jf.c), float(jf.e))
+    x = rng.standard_normal(m)
+    x_hi = x.astype(np.float32)
+    x_lo = (x - x_hi.astype(np.float64)).astype(np.float32)
+    yh, yl = jf.matvec_df(jnp.asarray(x_hi), jnp.asarray(x_lo))
+    y_df = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
+    y = f64.matvec_f64(torch.from_numpy(x_hi.astype(np.float64) + x_lo.astype(np.float64)))
+    assert y.dtype == torch.float64 and _rel(y, y_df) <= 1e-13
+    th, tl_ = f64.matvec_df(torch.from_numpy(x_hi), torch.from_numpy(x_lo))
+    assert _rel(th.double() + tl_.double(), y_df) <= 1e-13
 
     f = ChebyshevFilterOperator.from_interval(op, 7, -1.0, 1.0, 1e-6)
     xs = np.linspace(-0.999, 0.999, 11)
@@ -403,6 +427,48 @@ def test_filtered_lanczos_configurations(case):
 # ---- (f) warnings and refusals --------------------------------------------
 
 
+def _check_precise_solve(tmp_path):
+    """``precise=True`` with ``refine_vectors`` (ROADMAP item 10) on the JAX
+    tests' n = 1000 chain (tests/test_filtered.py::
+    test_filtered_precise_reference_grade_values and
+    ::test_precise_refined_vectors_meet_reference_bar): the values within
+    1e-12 of the analytic ones and 2e-12 of the JAX package's, the refined
+    host float64 vectors at its residual and elementwise bars; without
+    refinement the vectors stay the engine's; and a checkpointed precise
+    solve resumes to the same values."""
+    from lanczos_tpu import DIAOperator as JaxDIA
+    from lanczos_tpu import filtered_lanczos as jax_filtered
+
+    n = 1000
+    diags = [np.full(n, -1.0, np.float32)] * 2
+    exact = _chain_exact(n, 3)
+    vals_j, _vj, _ij = jax_filtered(JaxDIA.from_diagonals([-1, 1], diags, n), num_eigs=3, lo=-2.0, hi=2.0,
+                                    precise=True)
+    op = tl.DIAOperator.from_diagonals([-1, 1], diags, n, device="cpu")
+    vals, vecs, info = tl.filtered_lanczos(op, num_eigs=3, lo=-2.0, hi=2.0, precise=True)
+    assert np.max(np.abs(vals - exact)) < 1e-12 and np.max(np.abs(vals - np.asarray(vals_j))) < 2e-12
+    assert {"rr_values", "rr_values_refined", "inverse_map_values", "refine_sweeps"} <= set(info)
+    assert isinstance(vecs, np.ndarray) and vecs.dtype == np.float64 and info["refine_sweeps"] >= 1
+    a = np.zeros((n, n))
+    i = np.arange(n - 1)
+    a[i, i + 1] = a[i + 1, i] = -1.0
+    for k in range(3):
+        assert np.linalg.norm(a @ vecs[k] - vals[k] * vecs[k]) < 1e-10
+        exact_vec = np.sin((k + 1) * np.pi * np.arange(1, n + 1) / (n + 1))
+        exact_vec /= np.linalg.norm(exact_vec)
+        g = np.sign(np.dot(exact_vec, vecs[k]))
+        assert np.abs(vecs[k] * g - exact_vec).max() < abs(exact[k]) * 1e-12 * 10  # the reference's bar
+    _v0, vecs0, info0 = tl.filtered_lanczos(op, num_eigs=3, lo=-2.0, hi=2.0, precise=True, refine_vectors=False)
+    assert vecs0.dtype == torch.float32 and "refine_sweeps" not in info0 and "rr_values" in info0
+    ckpt = tmp_path / "precise.npz"
+    first, _v1, _i1 = tl.filtered_lanczos(op, num_eigs=3, lo=-2.0, hi=2.0, mu=info0["mu"], precise=True,
+                                          refine_vectors=False, checkpoint_path=ckpt)
+    again, _v2, _i2 = tl.filtered_lanczos(op, num_eigs=3, lo=-2.0, hi=2.0, mu=info0["mu"], precise=True,
+                                          refine_vectors=False, checkpoint_path=ckpt)
+    np.testing.assert_array_equal(again, first)
+    assert np.max(np.abs(first - exact)) < 1e-12
+
+
 def test_filtered_lanczos_warnings_and_refusals(tmp_path):
     a = _dense_spd(300, 11)
     w = np.linalg.eigvalsh(a)
@@ -426,9 +492,7 @@ def test_filtered_lanczos_warnings_and_refusals(tmp_path):
     assert info["filter_degree"] * np.arccosh(1 + 2 * 0.04 / (4 - 0.04)) <= 41
     assert abs(vals[0] - _chain_exact(512, 1)[0]) < 0.04
 
-    for kwargs, item in (({"precise": True}, "item 10"), ({"refine_vectors": True}, "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            tl.filtered_lanczos(chain, num_eigs=1, lo=-2.0, hi=2.0, **kwargs)
+    _check_precise_solve(tmp_path)
     # checkpoint_path (ROADMAP item 12, ported): the round state is saved
     # after each deflation round, and a second call resumes from it with
     # the checks after the saved round, running no new round.
@@ -551,6 +615,32 @@ def test_checkpointed_run_resumes_after_one_round(tmp_path):
     np.testing.assert_allclose(vals, np.linalg.eigvalsh(a)[:3], rtol=1e-11)
     assert resumed.iteration_counts == whole.iteration_counts and len(whole.iteration_counts) > 1
     np.testing.assert_allclose(np.abs(np.sum(vecs.numpy() * vecs_whole.numpy(), axis=1)), 1.0, atol=1e-10)
+    _check_checkpointed_pv_thick(tmp_path)
+
+
+def _check_checkpointed_pv_thick(tmp_path):
+    """``CheckpointedRun`` over the precise thick engine (the JAX package's
+    tests/test_checkpoint.py::test_checkpointed_run_precise_vectors_thick):
+    the n = 256 float32 chain at 1e-10, and a second run from the finished
+    file returns the saved values without a restart."""
+    from lanczos_tpu_torch.utils import checkpoint as tck
+
+    n = 256
+
+    def engine():
+        op = tl.DIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, device="cpu")
+        eng = tl.LambdaLanczos(op, num_eigs=2, dtype=np.float32, mode="fused")
+        eng.precise_vectors, eng.restart_policy, eng.max_iteration = True, "thick", 40
+        eng.max_restarts, eng.eps, eng.eigenvalue_offset = 64, 1e-12, -4.0
+        return eng
+
+    path = tmp_path / "pv.npz"
+    first = engine()
+    vals1, _ = tck.CheckpointedRun(first, path).run()
+    assert path.exists()
+    vals2, _ = tck.CheckpointedRun(engine(), path).run()
+    np.testing.assert_allclose(np.sort(np.asarray(vals1)), _chain_exact(n, 2), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(np.sort(np.asarray(vals2)), np.sort(np.asarray(vals1)), rtol=0, atol=1e-12)
 
 
 # ---- on the card ------------------------------------------------------------

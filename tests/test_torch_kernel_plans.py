@@ -1,7 +1,7 @@
-"""Launch plans of kernels K4 (block CGS pass), K5 (Chebyshev chain), K6
-(the convergence check), E2a and E2b (block-MGS pass and its one-chunk
+"""Launch plans of kernels K1, K2 and K1x (BSR matvec), K4 (block CGS pass),
+K5 (Chebyshev chain), K6 (the convergence check), E2a and E2b (block-MGS pass and its one-chunk
 case) and E1's VPU form of the PyTorch port, held on the CPU: the plans
-live in Python (``ops/cgs.py`` ``block_plan``, ``ops/cheby.py`` ``plan``,
+live in Python (``ops/spmv.py`` ``plan``, ``ops/cgs.py`` ``block_plan``, ``ops/cheby.py`` ``plan``,
 ``ops/sturm_check.py`` ``plan``, ``experiments/_cgs_variants.py``
 ``mgs_plan``, ``experiments/spmv_bench.py`` ``vpu_plan``) and the CUDA
 entry points take and check what they say.  The K5 tests model the
@@ -18,7 +18,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from lanczos_tpu_torch.experiments import _cgs_variants as cv  # noqa: E402
 from lanczos_tpu_torch.experiments import spmv_bench  # noqa: E402
-from lanczos_tpu_torch.ops import cgs, cheby, sturm_check  # noqa: E402
+from lanczos_tpu_torch.ops import cgs, cheby, spmv, sturm_check  # noqa: E402
 
 H100_SMS = 132
 
@@ -235,6 +235,19 @@ def test_e2a_plan_forced_routes():
         cv.mgs_plan(1 << 22, 8, H100_SMS, route="smem")
     with pytest.raises(ValueError, match="route"):
         cv.mgs_plan(4096, 4, H100_SMS, route="registers")
+    # K1, K2 and K1x (``ops/spmv.py`` ``plan``): a float64 x halves the
+    # tiles of a gathered piece; at the main path's tiles both fit the
+    # default 48 KB, while at bk = 8192 the float64 piece needs the opt-in
+    # and the float32 one does not; a piece is at least one tile, so bk =
+    # 16384 in float64 passes what a CTA can hold.
+    assert spmv.plan(128, 3, 128, 4) == {"s_piece": 3, "smem": 512 + 3 * 128 * 4, "opt_in": False}
+    assert spmv.plan(128, 8, 128, 8) == {"s_piece": 8, "smem": 1024 + 8 * 128 * 8, "opt_in": False}
+    assert spmv.plan(16, 300, 16, 8)["s_piece"] == 256 and spmv.plan(16, 300, 16, 4)["s_piece"] == 300
+    f64, f32 = spmv.plan(128, 2, 8192, 8), spmv.plan(128, 2, 8192, 4)
+    assert (f64["s_piece"], f64["opt_in"], f32["s_piece"], f32["opt_in"]) == (1, True, 1, False)
+    assert f64["smem"] == 1024 + 65536 and f32["smem"] == 512 + 32768
+    with pytest.raises(ValueError, match="shared memory"):
+        spmv.plan(128, 1, 1 << 15, 8)
 
 
 def test_k6_plan_spreads_a_root_over_one_cluster():

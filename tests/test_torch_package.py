@@ -12,6 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_jax_release import release_jax_executables  # noqa: E402,F401
+
 import lanczos_tpu_torch as tl  # noqa: E402
 from lanczos_tpu_torch import _build  # noqa: E402
 from lanczos_tpu_torch.ops import cgs, cheby, spmv, sturm_check  # noqa: E402
@@ -35,7 +37,8 @@ def test_import_pulls_in_no_jax():
         "import lanczos_tpu_torch.solvers.exponentiator, lanczos_tpu_torch.solvers.cheby_expm;"
         "from lanczos_tpu_torch import Exponentiator;"
         "import lanczos_tpu_torch.utils.checkpoint, lanczos_tpu_torch.ops.sturm_check, lanczos_tpu_torch.utils.stats;"
-        "from lanczos_tpu_torch import COOOperator, CSROperator, SumOperator, ScaledOperator;"
+        "from lanczos_tpu_torch import COOOperator, CSROperator, SumOperator, ScaledOperator, DenseDFOperator;"
+        "import lanczos_tpu_torch.core.df64;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lanczos_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -94,22 +97,85 @@ def test_cpu_paths_launch_no_kernel():
     assert sturm_check.sturm_check.launches == k6  # the fused engine's checks took the plain version
 
 
+def _pv_chain(pkg, n, nb=None):
+    """The JAX pv tests' DIA problems in either package (float32 storage):
+    the -1 chain, or with ``nb`` its block-diagonal copies of the nb-site
+    chain (every eigenvalue of multiplicity n/nb); the analytic values."""
+    off = np.ones(n - 1, np.float32)
+    if nb is not None:
+        off[nb - 1 :: nb] = 0.0
+    diags = [np.concatenate([[0.0], -off]).astype(np.float32), np.concatenate([-off, [0.0]]).astype(np.float32)]
+    kw = {"device": "cpu"} if pkg is tl else {}
+    op = pkg.DIAOperator.from_diagonals([-1, 1], diags, n, **kw)
+    m = n if nb is None else nb
+    return op, np.sort(-2.0 * np.cos(np.pi * np.arange(1, m + 1) / (m + 1)))
+
+
 @pytest.mark.parametrize(
     "setting",
     [
         {"precise_vectors": True},
-        {"precise_vectors": True, "block_size": 2},
+        {"precise_vectors": True, "block_size": 3, "restart_policy": "thick"},
         {"precise_vectors": True, "restart_policy": "thick"},
     ],
 )
 def test_unported_options_raise(setting):
-    # The precise-vector engines wait for ROADMAP item 10; the block and
-    # thick engines themselves are ported.
-    eng = tl.LambdaLanczos(np.eye(4) * 2.0, device="cpu")
-    for name, value in setting.items():
-        setattr(eng, name, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run()
+    # The precise-vector engines (ROADMAP item 10, ported): the fused,
+    # block-thick and thick engines over a float64 basis against the JAX
+    # package's double-float engines on the JAX tests' problems
+    # (tests/test_lanczos.py::test_precise_vectors_reference_grade_f32,
+    # tests/test_precise_thick.py::test_pv_block_thick_degenerate and
+    # ::test_pv_thick_matches_pv_plain_on_chain), each at the JAX bar
+    # against the analytic values and within 2e-12 (1e-10 restarted) of
+    # the JAX values; the JAX guards stay.
+    pytest.importorskip("jax")
+    import lanczos_tpu
+
+    from lanczos_tpu.utils.random import fixed_seed_initializer as jax_seeded
+
+    block = setting.get("block_size", 1) > 1
+    thick = setting.get("restart_policy") == "thick"
+    if block:  # three copies of the multiplicity-4 lowest value
+        n, nb, num_eigs, eps, bar, agree = 512, 128, 3, 1e-12, 1e-10, 1e-10
+        extra = {"eigenvalue_offset": -4.0, "max_iteration": 96, "max_restarts": 32}
+    elif thick:
+        n, nb, num_eigs, eps, bar, agree = 256, None, 2, 1e-13, 1e-11, 1e-10
+        extra = {"eigenvalue_offset": -4.0, "max_iteration": 40}
+    else:  # runs to space exhaustion
+        n, nb, num_eigs, eps, bar, agree = 256, None, 2, 1e-13, 1e-12, 2e-12
+        extra = {}
+    found = []
+    for pkg, seeded in ((lanczos_tpu, jax_seeded), (tl, tl.fixed_seed_initializer)):
+        op, exact = _pv_chain(pkg, n, nb)
+        kw = {"device": "cpu"} if pkg is tl else {}
+        eng = pkg.LambdaLanczos(op, find_maximum=False, num_eigs=num_eigs, dtype=np.float32, mode="fused", **kw)
+        for name, value in {**setting, **extra}.items():
+            setattr(eng, name, value)
+        eng.eps = eps
+        if block:
+            rng = np.random.default_rng(3)  # distinct start rows, the same in both packages
+            eng.init_vector = lambda n_, rng=rng: rng.uniform(-1.0, 1.0, n_).astype(np.float32)
+        else:
+            eng.init_vector = seeded(np.float32, seed=7)
+        vals, vecs = eng.run()
+        found.append(np.sort(np.asarray(vals, np.float64)))
+        truth = np.full(num_eigs, exact[0]) if block else exact[:num_eigs]
+        assert np.max(np.abs(found[-1] - truth)) < bar, (pkg.__name__, found[-1] - truth)
+        assert eng.stats.unconverged_rounds == 0
+    assert vecs.dtype == torch.float32 and vecs.shape == (num_eigs, n)  # the storage dtype, as in JAX
+    assert np.max(np.abs(found[1] - found[0])) < agree
+    if not (block or thick):
+        # The JAX guards: hybrid mode and the plain block engine refuse,
+        # complex storage is refused.
+        a = np.eye(8, dtype=np.float32)
+        for kwargs, attrs, error in (({"mode": "hybrid"}, {}, ValueError), ({}, {"block_size": 2}, ValueError),
+                                     ({"dtype": np.complex64}, {}, TypeError)):
+            eng = tl.LambdaLanczos(a.astype(kwargs.get("dtype", np.float32)), device="cpu", **kwargs)
+            eng.precise_vectors = True
+            for name, value in attrs.items():
+                setattr(eng, name, value)
+            with pytest.raises(error):
+                eng.run()
 
 
 def test_tridiagonal_native_backend_solves():

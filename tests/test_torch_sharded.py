@@ -23,6 +23,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_jax_release import release_jax_executables  # noqa: E402,F401
+
 import torch_sharded_world as world_script  # noqa: E402
 
 from lanczos_tpu_torch.ops import spmv  # noqa: E402
@@ -295,11 +297,35 @@ def test_seed_broadcast_and_second_initialization(world2):
 
 
 def test_unsupported_engines_raise(world2):
+    # The thick, block and filtered engines over sharded operators wait for
+    # ROADMAP item 13, precise or not; precise_vectors in the fused engine
+    # (item 10) runs on two ranks as in one process: the values within
+    # 1e-12 of the single-process solve and of the float32 entries'
+    # spectrum, float32 eigenvectors, the slabs' float64 product at 1e-13.
     _refs, outs = world2
-    for name in ("thick", "block", "filtered"):
+    for name in ("thick", "block", "filtered", "precise_thick"):
         assert "item 13" in str(_same_on_every_rank(outs, f"refused.{name}")), name
-    for name in ("precise", "matvec_df"):
-        assert "item 10" in str(_same_on_every_rank(outs, f"refused.{name}")), name
+    import lanczos_tpu_torch as tl
+
+    rows, cols, vals, n, bm, bk = world_script.pv_problem()
+    op = tl.BSROperator.from_coo(rows, cols, vals, n, bm=bm, bk=bk, dtype=torch.float32, device="cpu")
+    eng = tl.LambdaLanczos(op, find_maximum=False, num_eigs=2)
+    eng.precise_vectors = True
+    eng.eps = 1e-12
+    eng.init_vector = tl.fixed_seed_initializer(np.float32, seed=world_script.PV_SEED)
+    one, one_vecs = eng.run()
+    dense = np.zeros((n, n))
+    np.add.at(dense, (rows, cols), vals.astype(np.float32).astype(np.float64))
+    truth = np.linalg.eigvalsh(dense)[:2]
+    two = _same_on_every_rank(outs, "pv.vals")
+    assert np.max(np.abs(np.sort(two) - truth)) < 1e-12 and np.max(np.abs(np.sort(two) - np.sort(one))) < 1e-12
+    vecs = _same_on_every_rank(outs, "pv.vecs")
+    assert vecs.dtype == np.float32 and vecs.shape == (2, n) == tuple(one_vecs.shape)
+    np.testing.assert_allclose(np.abs(np.sum(vecs.astype(np.float64) * one_vecs.double().numpy(), axis=1)), 1.0,
+                               atol=1e-6)
+    y = _same_on_every_rank(outs, "pv.y64")
+    want = dense @ world_script.pattern_x(n)
+    np.testing.assert_allclose(y, want, rtol=0, atol=1e-13 * np.abs(want).max())
 
 
 def test_mp_demo_two_ranks():
@@ -308,8 +334,9 @@ def test_mp_demo_two_ranks():
     for r in results:
         assert r["world_size"] == 2 and r["backend"] == "gloo"
         assert r["stencil_err"] < 1e-11, r
-        assert "item 10" in r["pv_thick"]
-    keys = ("stencil_val", "stencil_vec_sum", "iteration_counts")
+        assert "item 13" in r["pv_thick"]
+        assert r["pv_err"] < 1e-12 and r["pv_vec_dtype"] == "torch.float32", r
+    keys = ("stencil_val", "stencil_vec_sum", "iteration_counts", "pv_vals", "pv_iteration_counts")
     assert {k: results[0][k] for k in keys} == {k: results[1][k] for k in keys}  # the same bits
 
 

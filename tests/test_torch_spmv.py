@@ -9,6 +9,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_jax_release import release_jax_executables  # noqa: E402,F401
+
 from lanczos_tpu_torch import BSROperator as TorchBSR  # noqa: E402
 from lanczos_tpu_torch.convert import bsr_operator_from_arrays  # noqa: E402
 from lanczos_tpu_torch.ops import spmv  # noqa: E402
@@ -151,6 +153,46 @@ def test_kernel_matches_plain_on_cuda(cuda, dtype, r, bm, s, bk, n):
     assert spmv.bsr_matvec.launches == before + 1
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol * float(want.abs().max()))
+    if dtype == torch.float32:
+        _check_k1x_on_cuda(cuda, blocks, col_blocks, torch.randn(n, generator=g, dtype=torch.float64), n)
+        if r == 3:  # a tile width whose float64 x piece needs the shared-memory opt-in, the float32 one not
+            assert spmv.plan(128, 1, 8192, 8)["opt_in"] and not spmv.plan(128, 1, 8192, 4)["opt_in"]
+            wide = torch.randn((64, 128, 1, 8192), generator=g)
+            _check_k1x_on_cuda(cuda, wide, torch.zeros((64, 1), dtype=torch.int32),
+                               torch.randn(8192, generator=g, dtype=torch.float64), 8192)
+
+
+def _check_k1x_on_cuda(cuda, blocks, col_blocks, x64, n):
+    """K1x (float32 rmsk tiles, float64 x) and its rsmk twin against their
+    plain versions at 1e-13 of max |y|, each repeating bit for bit, with
+    their own launch counts, and the launch plan as the library makes it."""
+    import ctypes
+
+    from lanczos_tpu_torch import _build
+
+    r, bm, s, bk = blocks.shape
+    want = spmv.bsr_matvec(blocks, col_blocks, x64, n_out=n)  # CPU: plain version, float64 accumulation
+    assert want.dtype == torch.float64
+    before = spmv.bsr_matvec_f32x64.launches
+    args = (blocks.to(cuda), col_blocks.to(cuda), x64.to(cuda))
+    got, again = (spmv.bsr_matvec(*args, n_out=n) for _ in range(2))
+    torch.cuda.synchronize()
+    assert spmv.bsr_matvec_f32x64.launches == before + 2 and got.dtype == torch.float64
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-13 * float(want.abs().max()))
+    rsmk = blocks.permute(0, 2, 1, 3).contiguous()  # the same tiles in the canonical layout
+    xp = torch.nn.functional.pad(x64, (0, r * bm - n))
+    want_r = spmv.bsr_matvec_rsmk(rsmk, col_blocks, xp)
+    before_r, before_k2 = spmv.bsr_matvec_rsmk_f32x64.launches, spmv.bsr_matvec_rsmk.launches
+    got_r, again_r = (spmv.bsr_matvec_rsmk(rsmk.to(cuda), col_blocks.to(cuda), xp.to(cuda)) for _ in range(2))
+    torch.cuda.synchronize()
+    assert spmv.bsr_matvec_rsmk_f32x64.launches == before_r + 2 and spmv.bsr_matvec_rsmk.launches == before_k2
+    assert torch.equal(got_r, again_r)
+    torch.testing.assert_close(got_r.cpu(), want_r, rtol=0, atol=1e-13 * float(want_r.abs().max()))
+    info = (ctypes.c_int * 4)()
+    _build.check(_build.library().lt_bsr_spmv_info(bm, s, bk, 8, info), "lt_bsr_spmv_info")
+    p = spmv.plan(bm, s, bk, 8)
+    assert (p["s_piece"], p["smem"], p["opt_in"], info[3]) == (info[0], info[1], bool(info[2]), 0)
 
 
 @pytest.mark.gpu
@@ -176,8 +218,9 @@ def _chain_with_potential(n, seed):
     return rows[perm], cols[perm], vals[perm]
 
 
-def _operator_pair(kind, n):
-    """The same operator in both packages (float64, the port on the CPU)."""
+def _operator_pair(kind, n, dtype=np.float64):
+    """The same operator in both packages (values in ``dtype``, the port on
+    the CPU)."""
     import jax.numpy as jnp
     import lanczos_tpu as lj
     import scipy.sparse as sp
@@ -186,6 +229,7 @@ def _operator_pair(kind, n):
     from lanczos_tpu_torch import convert
 
     rows, cols, vals = _chain_with_potential(n, seed=n)
+    vals = vals.astype(dtype)
     coo_j = lj.COOOperator.from_arrays(rows, cols, vals, n)
     coo_t = convert.coo_operator_from_arrays(rows, cols, vals, n, device="cpu")
     mat = sp.coo_matrix((vals, (rows, cols)), shape=(n, n))
@@ -194,7 +238,7 @@ def _operator_pair(kind, n):
         return coo_j, coo_t, mat.toarray()
     if kind == "csr":
         return csr_j, csr_t, mat.toarray()
-    diag = np.random.default_rng(1).uniform(0.0, 2.0, n)
+    diag = np.random.default_rng(1).uniform(0.0, 2.0, n).astype(dtype)
     dia_j = lj.DIAOperator.from_diagonals([0], [jnp.asarray(diag)], n)
     dia_t = convert.dia_operator_from_arrays([0], diag[None], n, device="cpu")
     if kind == "sum":
@@ -209,9 +253,11 @@ def test_sparse_operators_match_jax(kinds):
     (over CSR) against the JAX package's in float64: the matvec at 1e-12
     relative, both solves of the three lowest pairs, the Gershgorin bound
     of the branch, and (COO, CSR) the dense form and the BSR packing;
-    ``vector_to_string`` gives the JAX package's string; ``matvec_df``
-    raises, naming ROADMAP item 10.  Two operators an item: the file's
-    item count fixes its place in pytest-xdist's loadfile queue."""
+    ``vector_to_string`` gives the JAX package's string; with float32
+    values, ``matvec_f64`` and the ``matvec_df`` adapter against the JAX
+    package's double-float ``matvec_df`` (joined in float64) at 1e-13 of
+    max |y|.  Two operators an item: the file's item count fixes its place
+    in pytest-xdist's loadfile queue."""
     for kind in kinds:
         _check_operator_against_jax(kind)
 
@@ -246,8 +292,23 @@ def _check_operator_against_jax(kind):
         np.testing.assert_allclose(bsr.matvec(torch.from_numpy(x)).numpy(), y_j, rtol=1e-12,
                                    atol=1e-12 * np.abs(y_j).max())
         assert op_t.to_bsr(bm=16, bk=16, dtype=torch.float32).dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 10"):
-        op_t.matvec_df(torch.from_numpy(x), torch.zeros(n, dtype=torch.float64))
+    # The precise tier (ROADMAP item 10): the float64 product of float32
+    # entries against the JAX package's double-float product.
+    torch.testing.assert_close(op_t.matvec_f64(torch.from_numpy(x)), op_t.matvec(torch.from_numpy(x)), rtol=0, atol=0)
+    op_j32, op_t32, _ = _operator_pair(kind, n, np.float32)
+    assert op_t32.dtype == torch.float32
+    x_hi = x.astype(np.float32)
+    x_lo = (x - x_hi.astype(np.float64)).astype(np.float32)
+    yh, yl = op_j32.matvec_df(jnp.asarray(x_hi), jnp.asarray(x_lo))
+    y_df = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
+    x_join = torch.from_numpy(x_hi.astype(np.float64) + x_lo.astype(np.float64))
+    y64 = op_t32.matvec_f64(x_join)
+    assert y64.dtype == torch.float64
+    bar = 1e-13 * np.abs(y_df).max()
+    np.testing.assert_allclose(y64.numpy(), y_df, rtol=0, atol=bar)
+    th, tl_ = op_t32.matvec_df(torch.from_numpy(x_hi), torch.from_numpy(x_lo))
+    assert th.dtype == tl_.dtype == torch.float32
+    np.testing.assert_allclose(th.double().numpy() + tl_.double().numpy(), y_df, rtol=0, atol=bar)
 
     v0 = np.random.default_rng(7).uniform(-1.0, 1.0, n)
     found = []

@@ -12,6 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_jax_release import release_jax_executables  # noqa: E402,F401
+
 import lanczos_tpu_torch as tl  # noqa: E402
 from lanczos_tpu_torch.ops import cgs, spmv  # noqa: E402
 

@@ -7,6 +7,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from torch_jax_release import release_jax_executables  # noqa: E402,F401
+
 from lanczos_tpu_torch.core import tridiagonal as ttri  # noqa: E402
 
 

@@ -66,6 +66,17 @@ def dia_problem():
     return list(DIA_OFFSETS), [rng.standard_normal(DIA_N) for _ in DIA_OFFSETS], DIA_N
 
 
+def pv_problem():
+    """The precise solve's problem: the chain with a seeded potential, its
+    values in float32 (rows, cols, vals, n, bm, bk)."""
+    n = SOLVE_N
+    pot = np.random.default_rng(4).uniform(0.0, 1.0, n)
+    return (*_chain(n, pot), n, 8, 8)
+
+
+PV_SEED = 5  # the precise solve's start vector (float32 draws)
+
+
 def dense_problem():
     rng = np.random.default_rng(1)
     a = rng.standard_normal((64, 64))
@@ -162,10 +173,11 @@ def _api_checks(mesh, out):
     out["noop.world"] = np.array(pmesh.make_mesh().size)
 
     ops = solve_ops(mesh)
-    for name, attr, value in (("thick", "restart_policy", "thick"), ("block", "block_size", 2),
-                              ("precise", "precise_vectors", True)):
+    for name, attrs in (("thick", {"restart_policy": "thick"}), ("block", {"block_size": 2}),
+                        ("precise_thick", {"precise_vectors": True, "restart_policy": "thick"})):
         eng2 = tl.LambdaLanczos(ops["bsr"], num_eigs=2)
-        setattr(eng2, attr, value)
+        for attr, value in attrs.items():
+            setattr(eng2, attr, value)
         try:
             eng2.run()
         except NotImplementedError as e:
@@ -174,10 +186,22 @@ def _api_checks(mesh, out):
         tl.filtered_lanczos(ops["dia"], degree=32, mu=0.05, lo=-2.0, hi=2.0)
     except NotImplementedError as e:
         out["refused.filtered"] = np.array(str(e))
-    try:
-        ops["bsr"].matvec_df(None, None)
-    except NotImplementedError as e:
-        out["refused.matvec_df"] = np.array(str(e))
+    # precise_vectors (ROADMAP item 10) on float32 slabs: the fused engine
+    # over a float64 slab basis and the sharded float64 product.
+    from lanczos_tpu_torch.parallel.sharded import ShardedBSROperator
+
+    rows, cols, vals, n, bm, bk = pv_problem()
+    pv_op = ShardedBSROperator.from_coo(rows, cols, vals, n, mesh, bm=bm, bk=bk, dtype=torch.float32)
+    eng = tl.LambdaLanczos(pv_op, find_maximum=False, num_eigs=2)
+    eng.precise_vectors = True
+    eng.eps = 1e-12
+    eng.init_vector = tl.fixed_seed_initializer(np.float32, seed=PV_SEED)
+    vals_pv, vecs_pv = eng.run()
+    out["pv.vals"] = np.asarray(vals_pv)
+    out["pv.vecs"] = vecs_pv.numpy()
+    out["pv.iters"] = np.array(eng.iteration_counts)
+    x = torch.from_numpy(pattern_x(n))
+    out["pv.y64"] = pv_op.gather(pv_op.matvec_f64(pv_op.scatter(x))).numpy()
 
 
 def main(argv) -> int:
