@@ -118,6 +118,21 @@ EXPM_PRECISE_N = 2**20  # bench.py sec_expm_evolve_precise and sec_expm_cheby
 EVOLVE_PRECISE_BAR, CHEBY_PRECISE_BAR = 1e-10, 1e-12
 # NVIDIA H100 SXM data sheet: HBM rate and float32 rate outside the tensor
 # cores (the kernels use plain FMAs).
+# Complex Hermitian input (ROADMAP item 11): K1's, K1x's and K3's complex
+# instances against their plain versions, relative to max |y| (complex64 at
+# K1's float32 bar, complex128 at its float64 one, K1x's at K1X_TOL).
+K1C_TOL = {"complex64": 1e-5, "complex128": 1e-12, "complex64x128": K1X_TOL}
+K3C_TOL = {"complex64": 1e-5, "complex128": 1e-12}
+HERM_MAIN_BAR, HERM_RES_BAR, HERM_OVERLAP_BAR = 1e-5, 1e-3, 1e-4  # main_path's bars; 1 - |<U v, v'>|
+HOF_ALPHA = 0.25  # Harper-Hofstadter flux per plaquette, q = 4
+HOF_L, HOF_L_PRECISE = 64, 256  # lattice sides of the facade's complex64 and complex128 solves
+HOF_C64_BAR, HOF_C128_BAR, HOF_SIGMA_BAR = 1e-5, 1e-11, 1e-10
+HOF_SIGMA = -1.85  # inside the spectrum, in the gap between its first two bands
+# The complex64 solves' tolerance: at 1e-6 the fused engine's float32 check
+# stalls on the lowest band's clustered Ritz values (2540 iterations in a
+# round, 85 s on the H100, against 128-284 at 1e-5), with the same values.
+HOF_C64_TOL = 1e-5
+HERM_EVOLVE_BAR, HERM_CHEBY_BAR, HERM_PRECISE_BAR = EVOLVE_ANGLE_BAR, CHEBY_ANGLE_BAR, 1e-12
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12  # float64 outside the tensor cores (the same data sheet)
@@ -154,9 +169,13 @@ def bound(bytes_moved: float, flops: float, flops_per_s: float = F32_FLOPS) -> t
 
 
 def rel_err(got, want) -> tuple[float, float]:
-    """(max abs error, max abs error / max |want|)."""
-    err = float((got.double() - want.double()).abs().max())
-    return err, err / max(float(want.double().abs().max()), 1e-300)
+    """(max abs error, max abs error / max |want|), in float64 (complex128
+    for complex tensors)."""
+    import torch
+
+    wide = torch.complex128 if got.is_complex() or want.is_complex() else torch.float64
+    err = float((got.to(wide) - want.to(wide)).abs().max())
+    return err, err / max(float(want.to(wide).abs().max()), 1e-300)
 
 
 def phase_environment(torch) -> None:
@@ -1402,7 +1421,7 @@ def phase_main_path(torch, np, dev):
     device_ms = (time.perf_counter() - t0) / 20 * 1e3
     emit({"phase": "iteration_rates", "n": n, "rows": 128, "iterations_per_s": rates, "host_check_ms_k128_f32": check_ms,
           "device_check_ms_k128_f32": device_ms})
-    return launches, k1, k3, op, ref, eng.iteration_counts, k3_seq
+    return launches, k1, k3, op, ref, eng.iteration_counts, k3_seq, (evecs, wall)
 
 
 def phase_operators(torch, np, dev, ref):
@@ -2822,6 +2841,433 @@ def phase_expm_precise(torch, np, dev):
           "cheby_angle": cheby_angle, "cheby_bar": CHEBY_PRECISE_BAR})
 
 
+# ---- complex Hermitian input: K1, K1x and K3 complex, engines, facade -------
+
+
+def check_k1c(torch, np, blocks, col_blocks, x, n, label, *, timing=False, f32_blocks=None):
+    """One complex instance of K1 (complex64 or complex128 tiles against x
+    of their dtype) or K1x (complex64 tiles against a complex128 x) on
+    ``rmsk`` tiles: against the plain version at K1C_TOL of max |y|, a
+    bit-for-bit repeat, its launch count by dtype, and the launch plan
+    against the library's; with ``timing`` its time beside the bound
+    (complex multiply-adds: 8 real operations a stored value at the rate of
+    the accumulator's type), the plain version, a read stream of the tiles,
+    K1 float32 on ``f32_blocks`` (the same pattern) and the complex
+    ``torch.sparse_bsr_tensor`` product, or null with its error where
+    PyTorch refuses it."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from lanczos_tpu_torch import _build
+    from lanczos_tpu_torch.ops import spmv
+
+    r, bm, s, bk = blocks.shape
+    n_pad = r * bm
+    wide = x.dtype != blocks.dtype
+    name = "complex64x128" if wide else str(blocks.dtype).replace("torch.", "")
+    counter = (lambda: spmv.bsr_matvec_c64x128.launches) if wide else (
+        lambda: spmv.bsr_matvec.launches_by_dtype[blocks.dtype])
+
+    def kernel():
+        return spmv.bsr_matvec(blocks, col_blocks, x, n_out=n)
+
+    def plain():
+        return spmv.bsr_matvec_reference(blocks, col_blocks, F.pad(x, (0, n_pad - x.shape[0])), layout="rmsk")[:n]
+
+    before = counter()
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    if counter() != before + 2 or got.dtype != x.dtype:
+        raise AssertionError(f"K1 {name} {label}: {counter() - before} launches, output {got.dtype}")
+    repeat = bool(torch.equal(got, again))
+    err, rel = rel_err(got, plain())
+    item = x.element_size()
+    info = (ctypes.c_int * 4)()
+    _build.check(_build.library().lt_bsr_spmv_info(bm, s, bk, item, info), "lt_bsr_spmv_info")
+    plan = spmv.plan(bm, s, bk, item)
+    out = {"phase": "k1c", "kernel": name, "case": label, "shape": [r, bm, s, bk], "n": n, "max_abs_err": err,
+           "max_rel_err": rel, "tol": K1C_TOL[name], "bitwise_repeat": repeat, "plan": plan,
+           "library_plan": {"s_piece": info[0], "smem": info[1], "opt_in": bool(info[2])}}
+    if (plan["s_piece"], plan["smem"], plan["opt_in"]) != (info[0], info[1], bool(info[2])):
+        raise AssertionError(f"K1 {name} {label}: the Python plan {plan} is not the kernel's {out['library_plan']}")
+    if not (rel <= K1C_TOL[name] and repeat):
+        raise AssertionError(f"K1 {name} {label}: {out}")
+    if timing:
+        tiles = blocks.numel() * blocks.element_size()
+        bytes_moved = tiles + col_blocks.numel() * 4 + (x.numel() + n) * item
+        rate = F32_FLOPS if x.dtype == torch.complex64 else F64_FLOPS
+        bound_ms, bound_by = bound(bytes_moved, 8 * blocks.numel(), rate)
+        ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
+        stream_ms = cuda_ms(torch, lambda: torch.sum(torch.view_as_real(blocks)))
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gbps=bytes_moved / ms / 1e6,
+                   stream_bound_ms=stream_ms * bytes_moved / tiles, fraction_of_bound=bound_ms / ms)
+        if f32_blocks is not None:
+            x32 = torch.randn(n, device=blocks.device)
+            out["f32_kernel_ms"] = cuda_ms(torch, lambda: spmv.bsr_matvec(f32_blocks, col_blocks, x32, n_out=n))
+        try:
+            values = blocks.permute(0, 2, 1, 3).reshape(r * s, bm, bk).to(x.dtype)
+            crow = torch.arange(0, r * s + 1, s, dtype=torch.int64, device=blocks.device)
+            a = torch.sparse_bsr_tensor(crow, col_blocks.reshape(-1).to(torch.int64), values, size=(n_pad, n_pad))
+            xp = F.pad(x, (0, n_pad - x.shape[0]))
+            out["library_max_rel_err"] = rel_err((a @ xp)[:n], got)[1]
+            out["library_ms"] = cuda_ms(torch, lambda: a @ xp)
+            del a, values
+        except (RuntimeError, NotImplementedError, TypeError) as exc:  # PyTorch may refuse complex BSR on CUDA
+            out["library_ms"], out["library_error"] = None, str(exc).splitlines()[0][:200]
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_k1c(torch, np, dev):
+    """The three complex instances (K1 complex64 and complex128, K1x
+    complex64 x complex128) against their plain versions on seeded tiles:
+    small, ragged, S*bk past one x piece, and bk = 8192, where the complex
+    x pieces need the shared-memory opt-in that the float32 one does not."""
+    from lanczos_tpu_torch.ops import spmv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for label, (r, bm, s, bk, n) in {
+        "small": (4, 8, 3, 8, 30),
+        "ragged": (37, 16, 5, 16, 37 * 16 - 5),
+        "wide_s": (9, 16, 400, 16, 144),
+        "smem_boundary_bk8192": (64, 128, 1, 8192, 64 * 128),
+    }.items():
+        for tile, xt in ((torch.complex64, torch.complex64), (torch.complex128, torch.complex128),
+                         (torch.complex64, torch.complex128)):
+            blocks, cb = _random_bsr(torch, dev, r, bm, s, bk, tile, gen)
+            x = torch.randn(n, generator=gen, device=dev, dtype=xt)
+            out = check_k1c(torch, np, blocks, cb, x, n, label)
+            if label.startswith("smem") and not (out["plan"]["opt_in"] and not spmv.plan(bm, s, bk, 4)["opt_in"]):
+                raise AssertionError(f"K1 complex {label}: not past the float32 plan's boundary: {out['plan']}")
+            del blocks, cb, x
+        torch.cuda.empty_cache()
+
+
+def check_k3c(torch, basis, v, k, *, timing=False):
+    """K3's complex instance: against the plain version (conjugated
+    coefficients) at K3C_TOL, twice bit for bit, counted by dtype; with
+    ``timing`` beside the bound (k live rows read twice, 8 real operations
+    a value a sweep), the plain version, the read stream of the rows (twice
+    for the two sweeps) and two ``torch.mv`` with the conjugate."""
+    from lanczos_tpu_torch.ops import cgs
+
+    name = str(basis.dtype).replace("torch.", "")
+    want = cgs.cgs_pass_reference(v, basis, k)
+    before = cgs.cgs_pass.launches_by_dtype[basis.dtype]
+    got = cgs.cgs_pass(v.clone(), basis, k)
+    again = cgs.cgs_pass(v.clone(), basis, k)
+    torch.cuda.synchronize()
+    if cgs.cgs_pass.launches_by_dtype[basis.dtype] != before + 2:
+        raise AssertionError(f"K3 {name} k={k}: launches by dtype {dict(cgs.cgs_pass.launches_by_dtype)}")
+    err, rel = rel_err(got, want)
+    repeat = bool(torch.equal(got, again))
+    out = {"phase": "k3c", "kernel": name, "basis": list(basis.shape), "k": k, "max_abs_err": err, "max_rel_err": rel,
+           "tol": K3C_TOL[name], "bitwise_repeat": repeat}
+    if not (rel <= K3C_TOL[name] and repeat):
+        raise AssertionError(f"K3 {name}: {out}")
+    if timing:
+        work = v.clone()
+        rows = basis[:k]
+        n, item = basis.shape[1], basis.element_size()
+        ms = cuda_ms(torch, lambda: cgs.cgs_pass(work, basis, k))
+        plain_ms = cuda_ms(torch, lambda: cgs.cgs_pass_reference(v, basis, k))
+        library_ms = cuda_ms(torch, lambda: v - torch.mv(rows.T, torch.mv(rows.conj(), v)))  # two torch.mv
+        stream_ms = cuda_ms(torch, lambda: torch.sum(torch.view_as_real(rows)))
+        rate = F32_FLOPS if basis.dtype == torch.complex64 else F64_FLOPS
+        bound_ms, bound_by = bound((k + 2) * n * item, 16 * k * n, rate)
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   two_read_stream_ms=2 * stream_ms, gbps=2 * k * n * item / ms / 1e6,
+                   fraction_of_bound=bound_ms / ms)
+    emit(out)
+    return out
+
+
+def phase_k3c(torch, dev):
+    """K3 complex64 and complex128 on a (257, 2**20) basis at k = 128
+    (timed) and k = 1, 64, 257, and on a ragged (129, 70001) one."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    timed = {}
+    for dtype in (torch.complex64, torch.complex128):
+        basis = _random_basis(torch, dev, 257, MAIN_N, dtype, gen)
+        v = torch.randn(MAIN_N, generator=gen, device=dev, dtype=dtype)
+        for k in (1, 64, 128, 257):
+            out = check_k3c(torch, basis, v, k, timing=k == 128)
+            if k == 128:
+                timed[dtype] = out
+        del basis, v
+        basis = _random_basis(torch, dev, 129, 70001, dtype, gen)
+        v = torch.randn(70001, generator=gen, device=dev, dtype=dtype)
+        for k in (1, 64, 129):
+            check_k3c(torch, basis, v, k)
+        del basis, v
+        torch.cuda.empty_cache()
+    return timed
+
+
+def _gauge_chain(np):
+    """The main path's chain with a gauge phase on every hop: H' = U H U^H,
+    U = diag(exp(i phi)), hop (j, j+1) times exp(i theta_j), theta_j uniform
+    [0, 2 pi) from default_rng(1).  Returns the COO triplets (complex128)
+    and phi of the STORED complex64 entries (their phases), with the
+    float64 magnitudes of the stored hops (1 to ~1e-8): the stored operator
+    is exactly U' R U'^H for the real chain R with those hops."""
+    n = MAIN_N
+    rows, cols, vals = _main_path_coo(np)
+    theta = np.random.default_rng(1).uniform(0.0, 2.0 * np.pi, n - 1)
+    vals = vals.astype(np.complex128)
+    vals[: n - 1] *= np.exp(1j * theta)  # (j, j+1)
+    vals[n - 1 : 2 * (n - 1)] *= np.exp(-1j * theta)  # (j+1, j)
+    stored = vals[: n - 1].astype(np.complex64).astype(np.complex128)
+    theta_s = np.angle(-stored)
+    phi = np.concatenate([[0.0], -np.cumsum(theta_s)])
+    return rows, cols, vals, phi, np.abs(stored)
+
+
+def _launch_counts(torch):
+    """Zero the launch counts of K1 (by dtype), K1x (both forms) and K3
+    (by dtype)."""
+    from lanczos_tpu_torch.ops import cgs, spmv
+
+    spmv.bsr_matvec.launches = spmv.bsr_matvec_f32x64.launches = spmv.bsr_matvec_c64x128.launches = 0
+    spmv.bsr_matvec.launches_by_dtype.clear()
+    cgs.cgs_pass.launches = 0
+    cgs.cgs_pass.launches_by_dtype.clear()
+
+
+def _read_counts():
+    from lanczos_tpu_torch.ops import cgs, spmv
+
+    return {"k1_by_dtype": {str(k).replace("torch.", ""): v for k, v in spmv.bsr_matvec.launches_by_dtype.items()},
+            "k1x_f32x64": spmv.bsr_matvec_f32x64.launches, "k1x_c64x128": spmv.bsr_matvec_c64x128.launches,
+            "k3_by_dtype": {str(k).replace("torch.", ""): v for k, v in cgs.cgs_pass.launches_by_dtype.items()}}
+
+
+def phase_hermitian_main_path(torch, np, dev, op_real, ref, real_evecs, main_wall, main_iters):
+    """The main path's problem with a gauge phase on every hop, stored as a
+    complex64 BSR of the main path's pattern (R = 8192, S = 3, bm = bk =
+    128), solved by ``LambdaLanczos(op, num_eigs=3, eps=1e-6).run()``
+    through the fused engine: K1 and K3 complex64, K6 on real buffers.  Its
+    spectrum is the real main path's, so ``ref`` (phase main_path's scipy
+    values) is the reference; each vector against U times the real one.
+    Then K1's and K1x's complex instances are timed on its tiles."""
+    import lanczos_tpu_torch as tl
+
+    n = MAIN_N
+    rows, cols, vals, phi, _mags = _gauge_chain(np)
+    t0 = time.perf_counter()
+    op = tl.BSROperator.from_coo(rows, cols, vals, n, bm=128, bk=128, dtype=torch.complex64, device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    if not torch.equal(op.col_blocks, op_real.col_blocks):
+        raise AssertionError("the complex operator's tile pattern is not the main path's")
+    eng = tl.LambdaLanczos(op, num_eigs=3, find_maximum=False)
+    eng.eps = 1e-6
+    eng.init_vector = tl.fixed_seed_initializer(torch.complex64, seed=SEED)
+    eng.stop_when_full = True
+    if eng._resolve_mode() != "fused":
+        raise AssertionError("mode='auto' did not resolve to the fused engine")
+    _launch_counts(torch)
+    with counting_checks() as checks:
+        t0 = time.perf_counter()
+        evals, evecs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _read_counts()
+    counts["k6"] = checks["k6_launches"]
+    check_stats(checks)
+    if not (counts["k1_by_dtype"].get("complex64", 0) > 0 and counts["k3_by_dtype"].get("complex64", 0) > 0
+            and set(counts["k1_by_dtype"]) == {"complex64"} and set(counts["k3_by_dtype"]) == {"complex64"}):
+        raise AssertionError(f"the complex main path did not run K1 and K3 complex64 alone: {counts}")
+    rel = np.abs(np.asarray(evals) - ref) / np.abs(ref)
+    residuals = eng.residuals(evals, evecs)
+    u = torch.exp(1j * torch.as_tensor(phi, device=dev)).to(torch.complex64)
+    overlaps = [float(abs(torch.vdot(u * real_evecs[j].to(torch.complex64), evecs[j]))) for j in range(3)]
+    if not (evecs.dtype == torch.complex64 and evecs.shape == (3, n) and bool(torch.isfinite(evecs).all())):
+        raise AssertionError(f"misshapen or non-finite eigenvectors {evecs.dtype} {tuple(evecs.shape)}")
+    if not (np.all(rel <= HERM_MAIN_BAR) and max(residuals) <= HERM_RES_BAR
+            and min(overlaps) >= 1 - HERM_OVERLAP_BAR):
+        raise AssertionError(f"complex main path: rel {rel}, residuals {residuals}, overlaps {overlaps}")
+    iters = sum(eng.iteration_counts)
+    emit({"phase": "hermitian_main_path", "n": n, "dtype": "complex64", "tiles": list(op.blocks.shape),
+          "tile_gb": op.blocks.numel() * 8 / 1e9, "pack_s": pack_s, "eigenvalues": list(map(float, evals)),
+          "scipy_eigsh_real": list(map(float, ref)), "max_rel_err": float(rel.max()), "residuals": residuals,
+          "overlaps_with_U_v_real": overlaps, "iteration_counts": eng.iteration_counts, "wall_s": wall,
+          "iterations_per_s": iters / wall, "launches": counts, "checks": checks,
+          "real_main_path": {"iteration_counts": main_iters, "wall_s": main_wall}})
+
+    # K1's and K1x's complex instances on these tiles, beside K1 float32 on
+    # the real main path's tiles of the same pattern.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    timed = {}
+    x = torch.randn(n, generator=gen, device=dev, dtype=torch.complex64)
+    timed["complex64"] = check_k1c(torch, np, op.blocks, op.col_blocks, x, n, "hermitian_main_path", timing=True,
+                                   f32_blocks=op_real.blocks)
+    x = torch.randn(n, generator=gen, device=dev, dtype=torch.complex128)
+    timed["complex64x128"] = check_k1c(torch, np, op.blocks, op.col_blocks, x, n, "hermitian_main_path", timing=True,
+                                       f32_blocks=op_real.blocks)
+    blocks128 = op.blocks.to(torch.complex128)
+    timed["complex128"] = check_k1c(torch, np, blocks128, op.col_blocks, x, n, "hermitian_main_path_c128",
+                                    timing=True, f32_blocks=op_real.blocks)
+    del blocks128, x
+    torch.cuda.empty_cache()
+    return op, counts, timed
+
+
+def _hofstadter_coo(np, L, alpha=HOF_ALPHA):
+    """The Harper-Hofstadter square lattice, L x L, periodic, Landau gauge,
+    t = 1, sites x + L*y: H[(x+1, y), (x, y)] = -1 and H[(x, y+1), (x, y)] =
+    -exp(i 2 pi alpha x), with their conjugates."""
+    x, y = np.meshgrid(np.arange(L), np.arange(L), indexing="ij")
+    x, y = x.ravel(), y.ravel()
+    s = x + L * y
+    sx = (x + 1) % L + L * y
+    sy = x + L * ((y + 1) % L)
+    hx = np.full(s.shape, -1.0 + 0j)
+    hy = -np.exp(2j * np.pi * alpha * x)
+    return (np.concatenate([sx, s, sy, s]), np.concatenate([s, sx, s, sy]),
+            np.concatenate([hx, hx.conj(), hy, hy.conj()]))
+
+
+def _harper_levels(np, L, q=4):
+    """Every level of the L x L lattice at flux 1/q by Harper's reduction:
+    for k_y = 2 pi m / L and k_x = 2 pi j / L (j < L/q), the q x q Bloch
+    matrix with -2 cos(k_y + 2 pi x / q) on its diagonal, -1 between
+    neighbours and the twist exp(i k_x q) on its wrap."""
+    out = []
+    for m in range(L):
+        ky = 2 * np.pi * m / L
+        for j in range(L // q):
+            kx = 2 * np.pi * j / L
+            mat = np.diag(-2.0 * np.cos(ky + 2 * np.pi * np.arange(q) / q)).astype(np.complex128)
+            mat += np.diag(-np.ones(q - 1), 1) + np.diag(-np.ones(q - 1), -1)
+            mat[q - 1, 0] += -np.exp(-1j * kx * q)
+            mat[0, q - 1] += -np.exp(1j * kx * q)
+            out.append(np.linalg.eigvalsh(mat))
+    return np.sort(np.concatenate(out))
+
+
+def phase_hermitian_facade(torch, np, dev):
+    """``eigsh`` on the Harper-Hofstadter lattice (flux 1/4), held to
+    Harper's reduction: k = 6 'SA' and 'BE' at L = 64 in complex64 (tol
+    1e-5: K1 and K3 complex64), k = 6 'SA' with tol = 0 at L = 256 (the
+    complex128 route over complex64 tiles: K1x complex and K3 complex128),
+    and k = 2 nearest sigma = -1.85 (R4: shift-invert with the complex
+    MINRES over complex128 tiles, K1 complex128)."""
+    import lanczos_tpu_torch as tl
+
+    out = {"phase": "hermitian_facade", "alpha": HOF_ALPHA}
+    launches = {}
+
+    def run(label, fn, want, bar):
+        _launch_counts(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        rel = float(np.max(np.abs(np.asarray(w) - want) / np.abs(want)))
+        out[label] = {"eigenvalues": list(map(float, w)), "harper": list(map(float, want)), "max_rel_err": rel,
+                      "bar": bar, "wall_s": wall, "launches": counts}
+        launches[label] = counts
+        emit({"phase": "hermitian_facade_case", "case": label, **out[label]})
+        if not rel <= bar:
+            raise AssertionError(f"hermitian_facade {label}: {out[label]}")
+
+    for L in (HOF_L, HOF_L_PRECISE):
+        rows, cols, vals = _hofstadter_coo(np, L)
+        ref = _harper_levels(np, L)
+        op = tl.BSROperator.from_coo(rows, cols, vals, L * L, dtype=torch.complex64, device=dev)
+        if L == HOF_L:
+            run(f"SA_L{L}_complex64", lambda: tl.eigsh(op, k=6, which="SA", tol=HOF_C64_TOL,
+                                                       return_eigenvectors=False), ref[:6], HOF_C64_BAR)
+            run(f"BE_L{L}_complex64", lambda: tl.eigsh(op, k=6, which="BE", tol=HOF_C64_TOL,
+                                                       return_eigenvectors=False),
+                np.concatenate([ref[:3], ref[-3:]]), HOF_C64_BAR)
+            op128 = tl.BSROperator.from_coo(rows, cols, vals, L * L, dtype=torch.complex128, device=dev)
+            near = np.sort(ref[np.argsort(np.abs(ref - HOF_SIGMA))[:2]])
+            run(f"sigma_L{L}_complex128", lambda: tl.eigsh(op128, k=2, sigma=HOF_SIGMA, return_eigenvectors=False),
+                near, HOF_SIGMA_BAR)
+            del op128
+        else:
+            run(f"SA_L{L}_tol0", lambda: tl.eigsh(op, k=6, which="SA", tol=0, return_eigenvectors=False),
+                ref[:6], HOF_C128_BAR)
+        del op
+        torch.cuda.empty_cache()
+    c64 = launches[f"SA_L{HOF_L}_complex64"]
+    tight = launches[f"SA_L{HOF_L_PRECISE}_tol0"]
+    sig = launches[f"sigma_L{HOF_L}_complex128"]
+    if not (c64["k1_by_dtype"].get("complex64", 0) > 0 and c64["k3_by_dtype"].get("complex64", 0) > 0
+            and tight["k1x_c64x128"] > 0 and tight["k3_by_dtype"].get("complex128", 0) > 0
+            and sig["k1_by_dtype"].get("complex128", 0) > 0):
+        raise AssertionError(f"hermitian_facade: the complex kernels were not launched: {launches}")
+    emit(out)
+    return {"k1_c128": sig["k1_by_dtype"]["complex128"], "k1x_c64x128": tight["k1x_c64x128"],
+            "k3_c128": tight["k3_by_dtype"]["complex128"]}
+
+
+def phase_expm_hermitian(torch, np, dev, op):
+    """The Exponentiator on hermitian_main_path's complex64 operator, from
+    phase expm_precise's default_rng(7) state psi: ``evolve`` 100 steps of
+    0.05i at krylov_dim 16, ``run_chebyshev(5i)`` and ``evolve(precise=True)``
+    10 steps, each against U times the real chain's own evolution of U^H
+    psi (the float64 Chebyshev chain of the real chain whose hops are the
+    stored entries' magnitudes, so that U R U^H is the stored operator)."""
+    import lanczos_tpu_torch as tl
+
+    n = MAIN_N
+    rows, cols, vals, phi, mags = _gauge_chain(np)
+    real_vals = vals.real.astype(np.float32).astype(np.float64)  # the potential as stored
+    real_vals[: n - 1] = -mags
+    real_vals[n - 1 : 2 * (n - 1)] = -mags
+    op_r = tl.BSROperator.from_coo(rows, cols, real_vals, n, dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(7)
+    psi = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    psi /= np.linalg.norm(psi)
+    u = np.exp(1j * phi)
+    w = u.conj() * psi
+
+    def truth(a):
+        (re, im), _ = tl.Exponentiator(op_r).run_chebyshev(a, w.real, w.imag, precise=True)
+        t = u * (re + 1j * im)
+        return t / np.linalg.norm(t)
+
+    def angle(tn, re, im):
+        o = np.asarray(re.cpu() if hasattr(re, "cpu") else re, np.float64) + 1j * np.asarray(
+            im.cpu() if hasattr(im, "cpu") else im, np.float64)
+        on = o / np.linalg.norm(o)
+        ip = np.vdot(tn, on)
+        return float(np.linalg.norm(on - (ip / abs(ip)) * tn))
+
+    t5, t05 = truth(5.0j), truth(0.5j)
+    del op_r
+    ex = tl.Exponentiator(op)
+    res = {}
+    for label, fn, tn, bar in (
+        ("evolve_100x0.05i", lambda: ex.evolve(0.05j, psi.real, psi.imag, 100, krylov_dim=16), t5, HERM_EVOLVE_BAR),
+        ("chebyshev_5i", lambda: ex.run_chebyshev(5.0j, psi.real, psi.imag)[0], t5, HERM_CHEBY_BAR),
+        ("evolve_precise_10x0.05i", lambda: ex.evolve(0.05j, psi.real, psi.imag, 10, krylov_dim=16, precise=True),
+         t05, HERM_PRECISE_BAR),
+    ):
+        _launch_counts(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        re, im = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        a = angle(tn, re, im)
+        res[label] = {"angle": a, "bar": bar, "wall_s": wall, "launches": _read_counts()}
+        if not a <= bar:
+            raise AssertionError(f"expm_hermitian {label}: angle {a:.3e} above {bar:.0e}")
+    terms = ex.run_chebyshev(5.0j, psi.real, psi.imag)[1]
+    res["evolve_100x0.05i"]["ms_per_step"] = res["evolve_100x0.05i"]["wall_s"] / 100 * 1e3
+    res["evolve_precise_10x0.05i"]["ms_per_step"] = res["evolve_precise_10x0.05i"]["wall_s"] / 10 * 1e3
+    res["chebyshev_5i"].update(terms=terms, ms_per_term=res["chebyshev_5i"]["wall_s"] / terms * 1e3)
+    emit({"phase": "expm_hermitian", "n": n, "storage": "complex64", **res})
+
+
 def main() -> int:
     import torch
 
@@ -2854,13 +3300,20 @@ def main() -> int:
     timed("expm_zoo", phase_expm_zoo, torch, np, dev)
     timed("expm_chain", phase_expm_chain, torch, np, dev)
     timed("small_solves", phase_small_solves, torch, np, dev)
-    launches, k1, k3, op, ref, main_iters, k3_seq = timed("main_path", phase_main_path, torch, np, dev)
+    launches, k1, k3, op, ref, main_iters, k3_seq, main_evecs = timed("main_path", phase_main_path, torch, np, dev)
     pv_main = timed("pv_main_path", phase_pv_main_path, torch, np, dev, op)
     timed("thick_scalar", phase_thick_scalar, torch, np, op, ref)
     timed("operators", phase_operators, torch, np, dev, ref)
     timed("expm_bsr", phase_expm_bsr, torch, np, dev, op)
     timed("expm_small", phase_expm_small, torch, np, dev)
-    del op
+    herm_op, herm_counts, k1c = timed("hermitian_main_path", phase_hermitian_main_path, torch, np, dev, op, ref,
+                                      *main_evecs, main_iters)
+    timed("expm_hermitian", phase_expm_hermitian, torch, np, dev, herm_op)
+    del op, herm_op, main_evecs
+    torch.cuda.empty_cache()
+    timed("k1c", phase_k1c, torch, np, dev)
+    k3c = timed("k3c", phase_k3c, torch, dev)
+    facade = timed("hermitian_facade", phase_hermitian_facade, torch, np, dev)
     torch.cuda.empty_cache()
     timed("k3_path", phase_k3_path, torch, dev, k3_seq)
     sharded_launches, sharded_op, sharded_pv_out = timed("sharded_main_path", phase_sharded_main_path, torch, np, dev,
@@ -2934,6 +3387,20 @@ def main() -> int:
         {**entry("bsr_matvec_rsmk_f32x64", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1X_REPLACES,
                  sharded_pv_out["launches"], sharded_pv_out["k1x_rsmk"]),
          "f32_kernel_ms": sharded_pv_out["k1x_rsmk"]["f32_kernel_ms"]},
+        {**entry("bsr_matvec_c64", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES,
+                 herm_counts["k1_by_dtype"]["complex64"], k1c["complex64"]),
+         "f32_kernel_ms": k1c["complex64"]["f32_kernel_ms"], "library_error": k1c["complex64"].get("library_error")},
+        {**entry("bsr_matvec_c128", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, facade["k1_c128"],
+                 k1c["complex128"]),
+         "f32_kernel_ms": k1c["complex128"]["f32_kernel_ms"], "library_error": k1c["complex128"].get("library_error")},
+        {**entry("bsr_matvec_c64x128", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1X_REPLACES, facade["k1x_c64x128"],
+                 k1c["complex64x128"]),
+         "f32_kernel_ms": k1c["complex64x128"]["f32_kernel_ms"],
+         "library_error": k1c["complex64x128"].get("library_error")},
+        {**entry("cgs_pass_c64", "lanczos_tpu_torch/csrc/cgs.cu", K3_REPLACES, herm_counts["k3_by_dtype"]["complex64"],
+                 k3c[torch.complex64]), "two_read_stream_ms": k3c[torch.complex64]["two_read_stream_ms"]},
+        {**entry("cgs_pass_c128", "lanczos_tpu_torch/csrc/cgs.cu", K3_REPLACES, facade["k3_c128"],
+                 k3c[torch.complex128]), "two_read_stream_ms": k3c[torch.complex128]["two_read_stream_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,7 +9,10 @@ rsmk layout for the sharded operators (K2), the classical Gram-Schmidt pass
 (K3), its block form (K4), the Chebyshev filter's recurrence chain (K5) and
 the fused engine's convergence check (K6), and K1x, the BSR matvec of
 float32 tiles against a float64 vector for the precise paths — are hand-written CUDA in
-``csrc/``, built with ``nvcc`` at first use on the card.  ``filtered_lanczos`` is the Chebyshev-filtered solve and
+``csrc/``, built with ``nvcc`` at first use on the card.  Complex Hermitian
+operators run natively (K1, K1x and K3 have complex64 and complex128
+instances), and ``eigsh``, ``expm_multiply`` and ``minres`` are the
+scipy-style facade.  ``filtered_lanczos`` is the Chebyshev-filtered solve and
 ``Exponentiator`` the exponentiation engine;
 ``lanczos_tpu_torch.parallel`` holds the row-partitioned operators over
 ``torch.distributed``, and ``lanczos_tpu_torch.experiments`` the kernel
@@ -28,6 +31,7 @@ from .diagnostics import (
     OverflowGuardWarning,
 )
 from .ops.filters import ChebyshevFilterOperator
+from .ops.hermitian_split import HermitianSplitOperator
 from .ops.operators import (
     BSROperator,
     COOOperator,
@@ -38,12 +42,16 @@ from .ops.operators import (
     FunctionOperator,
     LinearOperator,
     ScaledOperator,
+    ShiftInvertOperator,
     ShiftSquaredOperator,
     SumOperator,
     as_operator,
 )
+from .scipy_compat import eigsh, expm_multiply
+from .solvers.exponentiator import ExponentiatorConfig
 from .solvers.filtered import filtered_lanczos
 from .solvers.lanczos import EigenPairManager, LanczosConfig, LanczosResult
+from .solvers.minres import minres
 from .utils.random import fixed_seed_initializer, random_initializer
 from .utils.stats import RunStats
 
@@ -61,12 +69,18 @@ __all__ = [
     "SumOperator",
     "ScaledOperator",
     "ShiftSquaredOperator",
+    "ShiftInvertOperator",
+    "HermitianSplitOperator",
     "ChebyshevFilterOperator",
     "as_operator",
     "EigenPairManager",
     "LanczosConfig",
     "LanczosResult",
+    "ExponentiatorConfig",
+    "minres",
     "filtered_lanczos",
+    "eigsh",
+    "expm_multiply",
     "RunStats",
     "random_initializer",
     "fixed_seed_initializer",

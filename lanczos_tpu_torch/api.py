@@ -27,7 +27,11 @@ every rank.
 (exp(a*A) v, iteration_count), with the grid, split-complex, multi-step,
 Chebyshev and Taylor forms of the JAX package (its api.py:346-607).  ``a``
 and the outputs are native complex where the JAX package takes split
-words; a complex input to a real operator goes through ``run_split``.
+words; a complex input to a real operator goes through ``run_split``.  A
+complex Hermitian operator (complex entries, or a ``HermitianSplitOperator``
+of real and imaginary parts) takes and returns complex n-states in every
+method, as the JAX package's methods do on its real embedding; here the
+builds run natively on the complex operator.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from .core import linalg
 from .core.tridiagonal import unconverged_total
 from .core.types import default_exponentiator_eps, default_lanczos_eps, machine_eps, to_torch_dtype
 from .diagnostics import BudgetExhaustedWarning
+from .ops.hermitian_split import HermitianSplitOperator
 from .ops.operators import LinearOperator, as_operator
 from .parallel.sharded import ShardedOperator, refuse_sharded
 from .solvers import block_lanczos, block_thick, cheby_expm, lanczos_fused, thick_restart
@@ -299,15 +304,24 @@ class Exponentiator:
         self.initial_buffer_size: int = 16  # Krylov buffer start capacity
         self.mode = mode  # 'hybrid' (a host solve every iteration) | 'fused' (a host read per stage)
 
-    def _config(self) -> _expm.ExponentiatorConfig:
+    def _config(self, matrix_size=None) -> _expm.ExponentiatorConfig:
         return _expm.ExponentiatorConfig(
-            matrix_size=self.matrix_size,
+            matrix_size=self.matrix_size if matrix_size is None else matrix_size,
             max_iteration=self.max_iteration,
             eps=self.eps,
             full_orthogonalize=self.full_orthogonalize,
             tridiag_backend=self.tridiag_backend,
             initial_buffer_size=self.initial_buffer_size,
         )
+
+    def _herm(self):
+        """The native complex operator when the operator is complex
+        Hermitian (complex entries, or a ``HermitianSplitOperator``'s
+        ``complex_operator``), else None."""
+        op = self.operator
+        if isinstance(op, HermitianSplitOperator):
+            return op.complex_operator()
+        return op if self.dtype.is_complex else None
 
     def _vector(self, x, what: str):
         """``x`` in the operator's dtype on its device; a complex ``x`` for a
@@ -323,8 +337,6 @@ class Exponentiator:
     def _real_parts(self, v_re, v_im, what: str):
         """The real and imaginary words of a state for a real operator; a
         missing ``v_im`` is zero."""
-        if self.dtype.is_complex:
-            raise TypeError(f"{what} takes the real and imaginary parts of a state for a real operator")
         v_re = self._vector(v_re, what)
         return v_re, torch.zeros_like(v_re) if v_im is None else self._vector(v_im, what)
 
@@ -336,15 +348,23 @@ class Exponentiator:
         build's iteration count."""
         if self.mode not in ("hybrid", "fused"):
             raise ValueError(f"mode must be 'hybrid' or 'fused', got {self.mode!r}")
-        v = self._vector(input_vector, "run")
+        op, cop = self.operator, self._herm()
+        if cop is not None:
+            op, v, cfg = cop, _expm.complex_state(cop, input_vector), self._config(cop.n)
+        else:
+            v, cfg = self._vector(input_vector, "run"), self._config()
         if self.mode == "fused":
-            return _expm_fused.krylov_expm_apply_fused(self.operator, a, v, self._config())
-        return _expm.krylov_expm_apply(self.operator, a, v, self._config())
+            return _expm_fused.krylov_expm_apply_fused(op, a, v, cfg)
+        return _expm.krylov_expm_apply(op, a, v, cfg)
 
     def run_grid(self, a_list, input_vector):
         """exp(a_i*A) @ input for a grid of scalars from ONE Krylov build
         (time enters only through the host coefficients); returns
         ``(outputs (num, n), iteration_count)``."""
+        cop = self._herm()
+        if cop is not None:
+            return _expm.krylov_expm_apply_grid(cop, list(a_list), _expm.complex_state(cop, input_vector),
+                                                self._config(cop.n))
         v = self._vector(input_vector, "run_grid")
         return _expm.krylov_expm_apply_grid(self.operator, list(a_list), v, self._config())
 
@@ -352,7 +372,14 @@ class Exponentiator:
         """exp(a*A) (v_re + i v_im) for a REAL operator: one real Krylov
         build per part, complex coefficients on the host.  Returns
         ``((out_re, out_im), (iters_re, iters_im))``; each count is what
-        :meth:`run` takes on that part alone."""
+        :meth:`run` takes on that part alone.  A complex Hermitian operator
+        takes the complex n-state ``v_re + i v_im`` in one complex build and
+        returns ``((out_re, out_im), iteration_count)``, as the JAX
+        package's one embedded build does."""
+        cop = self._herm()
+        if cop is not None:
+            out, itern = _expm.krylov_expm_apply(cop, a, _expm.complex_state(cop, v_re, v_im), self._config(cop.n))
+            return (out.real, out.imag), itern
         v_re, v_im = self._real_parts(v_re, v_im, "run_split")
         return _expm.krylov_expm_apply_split(self.operator, a, v_re, v_im, self._config())
 
@@ -360,14 +387,22 @@ class Exponentiator:
         """``steps`` applications of exp(a*A) to (v_re + i v_im) with no host
         wait between steps: a fixed ``krylov_dim`` build per part with full
         reorthogonalization (K3 on CUDA) and the small exponential on the
-        device.  Real operator only; ``renormalize`` cancels norm drift in
+        device.  ``renormalize`` cancels norm drift in
         unitary evolution.  Returns ``(re, im)``.  ``precise=True`` carries
         the state, the build (over ``matvec_f64``) and the small exponential
         in float64 and returns host float64 ``(re, im)`` arrays, as the JAX
-        package does; a float64 host state enters at full precision."""
+        package does; a float64 host state enters at full precision.  A
+        complex Hermitian operator evolves the complex n-state ``v_re + i
+        v_im`` with one complex build per step (``krylov_dim`` at least 16
+        when precise, as in the JAX package)."""
+        cop = self._herm()
+        if cop is not None:
+            if precise:
+                return _expm.evolve_hermitian_split_precise(cop, v_re, v_im, a, int(steps), max(int(krylov_dim), 16),
+                                                            renormalize=renormalize)
+            return _expm.evolve_hermitian_split(cop, v_re, v_im, a, int(steps), int(krylov_dim),
+                                                renormalize=renormalize)
         if precise:
-            if self.dtype.is_complex:
-                raise TypeError("evolve takes the real and imaginary parts of a state for a real operator")
             re, im = _expm.evolve_split_precise(self.operator, v_re, v_im, a, int(steps), int(krylov_dim),
                                                 renormalize=renormalize)
             return re.cpu().numpy(), im.cpu().numpy()
@@ -378,10 +413,15 @@ class Exponentiator:
     def run_chebyshev(self, a, v_re, v_im=None, *, lo=None, hi=None, tol: float = 1e-16, precise: bool = False):
         """exp(a*A) (v_re + i v_im) by the Chebyshev propagator: ONE matvec
         chain of ~|a|*e terms for the whole evolution, no Krylov basis.
-        Real operator; ``lo``/``hi`` default to +-Gershgorin and MUST
+        ``lo``/``hi`` default to +-Gershgorin and MUST
         enclose the spectrum.  Returns ``((out_re, out_im), n_terms)``.
         ``precise=True`` runs the chain in float64 over ``matvec_f64``
-        (host float64 in and out, as in the JAX package)."""
+        (host float64 in and out, as in the JAX package).  A complex
+        Hermitian operator takes the complex chain on the complex n-state."""
+        if self._herm() is not None:
+            return cheby_expm.chebyshev_expm_apply_hermitian(
+                self.operator, a, v_re, np.zeros(len(v_re)) if v_im is None else v_im, lo=lo, hi=hi, tol=tol,
+                precise=precise)
         if precise:
             return cheby_expm.chebyshev_expm_apply_split_precise(self.operator, a, v_re, v_im, lo=lo, hi=hi, tol=tol)
         v_re, v_im = self._real_parts(v_re, v_im, "run_chebyshev")
@@ -389,7 +429,12 @@ class Exponentiator:
 
     def run_chebyshev_grid(self, a_list, v_re, v_im=None, *, lo=None, hi=None, tol: float = 1e-16):
         """exp(a_j*A) (v_re + i v_im) for every a_j from ONE Chebyshev chain;
-        returns ``((out_re (num, n), out_im (num, n)), n_terms)``."""
+        returns ``((out_re (num, n), out_im (num, n)), n_terms)``; complex
+        n-states for a complex Hermitian operator."""
+        if self._herm() is not None:
+            return cheby_expm.chebyshev_expm_grid_hermitian(
+                self.operator, list(a_list), v_re, np.zeros(len(v_re)) if v_im is None else v_im, lo=lo, hi=hi,
+                tol=tol)
         v_re, v_im = self._real_parts(v_re, v_im, "run_chebyshev_grid")
         return cheby_expm.chebyshev_expm_grid_split(self.operator, list(a_list), v_re, v_im, lo=lo, hi=hi, tol=tol)
 
@@ -398,14 +443,23 @@ class Exponentiator:
         one host read, then the device-resident build of ``mode='fused'``
         on each row, so each row's iteration count and output are those of
         ``run`` on it.  A zero row returns zeros with 1 iteration.  Returns
-        ``(outputs (B, n), iterations (B,))``."""
-        v = self._vector(input_batch, "run_batch")
-        if v.dim() != 2 or v.shape[1] != self.matrix_size:
-            raise ValueError(f"run_batch takes a (B, {self.matrix_size}) batch, got shape {tuple(v.shape)}")
-        return _expm_fused.krylov_expm_apply_batch(self.operator, a, v, self._config())
+        ``(outputs (B, n), iterations (B,))``; complex (B, n) rows for a
+        complex Hermitian operator."""
+        op, cop = self.operator, self._herm()
+        if cop is not None:
+            op, v, cfg = cop, _expm.complex_state(cop, input_batch), self._config(cop.n)
+        else:
+            v, cfg = self._vector(input_batch, "run_batch"), self._config()
+        if v.dim() != 2 or v.shape[1] != cfg.matrix_size:
+            raise ValueError(f"run_batch takes a (B, {cfg.matrix_size}) batch, got shape {tuple(v.shape)}")
+        return _expm_fused.krylov_expm_apply_batch(op, a, v, cfg)
 
     def taylor_run(self, a, input_vector):
         """``(output, term_count)``: the Taylor-series fallback
-        (exponentiator.hpp:175-210)."""
+        (exponentiator.hpp:175-210); complex n-states for a complex
+        Hermitian operator."""
+        cop = self._herm()
+        if cop is not None:
+            return _expm.taylor_expm_apply(cop, a, _expm.complex_state(cop, input_vector), self._config(cop.n))
         v = self._vector(input_vector, "taylor_run")
         return _expm.taylor_expm_apply(self.operator, a, v, self._config())

@@ -11,7 +11,17 @@ import numpy as np
 import torch
 
 from .ops.filters import ChebyshevFilterOperator
-from .ops.operators import BSROperator, COOOperator, CSROperator, DenseOperator, DIAOperator, resolve_device
+from .ops.hermitian_split import HermitianSplitOperator
+from .ops.operators import (
+    BSROperator,
+    COOOperator,
+    CSROperator,
+    DenseDFOperator,
+    DenseOperator,
+    DIAOperator,
+    ShiftInvertOperator,
+    resolve_device,
+)
 from .parallel.sharded import ShardedBSROperator, ShardedDIAOperator
 from .solvers.lanczos import LanczosConfig
 
@@ -22,6 +32,8 @@ __all__ = [
     "dense_operator_from_array",
     "dia_operator_from_arrays",
     "chebyshev_filter_from_arrays",
+    "hermitian_split_from_arrays",
+    "shift_invert_from",
     "sharded_bsr_operator_from_arrays",
     "sharded_dia_operator_from_arrays",
     "config_from_dict",
@@ -77,6 +89,41 @@ def chebyshev_filter_from_arrays(offsets, data, n: int, c, e, degree: int, side:
     and ``use_fused`` as plain values (``float(fop.c)``)."""
     op = dia_operator_from_arrays(offsets, data, n, device=device)
     return ChebyshevFilterOperator(op, float(c), float(e), int(degree), side=int(side), use_fused=bool(use_fused))
+
+
+def _part(kind: str, arrays, device):
+    """One part of a carried split operator: ``kind`` names the JAX
+    operator class and ``arrays`` its arrays (as the matching
+    ``*_from_arrays`` function takes them, the dense ones the matrix)."""
+    if kind == "dense":
+        return dense_operator_from_array(arrays[0], device=device)
+    if kind == "dense_df":
+        return DenseDFOperator.from_f64(np.array(arrays[0], np.float64), device=device)
+    if kind == "bsr":
+        return bsr_operator_from_arrays(*arrays, device=device)
+    if kind == "dia":
+        return dia_operator_from_arrays(*arrays, device=device)
+    raise ValueError(f"kind must be 'dense', 'dense_df', 'bsr' or 'dia', got {kind!r}")
+
+
+def hermitian_split_from_arrays(kind: str, real_arrays, imag_arrays=None, device=None) -> HermitianSplitOperator:
+    """A :class:`~lanczos_tpu_torch.ops.hermitian_split.HermitianSplitOperator`
+    from the arrays of a ``lanczos_tpu`` HermitianSplitOperator's parts:
+    ``kind`` is the parts' operator class ('dense' and 'dense_df' take
+    ``(matrix,)``, the float64 matrix of a DenseDFOperator for the latter;
+    'bsr' ``(blocks, col_blocks, n, layout)``; 'dia' ``(offsets, data,
+    n)``), ``real_arrays`` those of ``op_r`` and ``imag_arrays`` those of
+    ``op_i`` (None for a real symmetric operator)."""
+    op_i = None if imag_arrays is None else _part(kind, imag_arrays, device)
+    return HermitianSplitOperator(_part(kind, real_arrays, device), op_i)
+
+
+def shift_invert_from(operator, sigma, inner_tol: float = 1e-8, inner_maxiter: int = 500) -> ShiftInvertOperator:
+    """A :class:`~lanczos_tpu_torch.ops.operators.ShiftInvertOperator` over
+    a port operator (carried with the functions above) from the values of
+    a ``lanczos_tpu`` ShiftInvertOperator: ``float(op.sigma)``,
+    ``op.inner_tol`` and ``op.inner_maxiter``."""
+    return ShiftInvertOperator(operator, float(sigma), float(inner_tol), int(inner_maxiter))
 
 
 def sharded_bsr_operator_from_arrays(blocks, col_blocks, n: int, mesh, comm: str = "gather") -> ShardedBSROperator:

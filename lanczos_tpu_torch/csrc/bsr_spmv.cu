@@ -9,6 +9,15 @@
 // a stored value, still bounds it; x's gathered pieces double in bytes
 // (bk * 8 a tile column), so a piece holds half the tiles it does in f32.
 //
+// The complex instances (complex64 and complex128 tiles against a vector of
+// their own type, and K1x's complex64 tiles against a complex128 vector)
+// are the same body over lt::cfloat / lt::cdouble: a stored value is one
+// 8- or 16-byte word pair, a product four real FMAs in a fixed order
+// (common.cuh cx::fma), so a 16-byte tile vector holds two complex64 or one
+// complex128 value.  The JAX package serves complex tiles through its
+// einsum path (no Pallas kernel); a complex Hermitian solve on the TPU runs
+// K1 over the real 2n embedding's parts instead.
+//
 // K1 replaces the Pallas TPU kernel lanczos_tpu/ops/pallas_spmv.py
 // bsr_matvec_pallas_t (kernel _spmv_kernel_t): per row block, gather the S
 // input segments x[col_blocks[r, s]] of width bk, then contract the
@@ -61,8 +70,9 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // T is the tile type, X the type of x, y and the accumulator: X = T for
-// K1 and K2, and float tiles against double vectors for K1x (each tile
-// value converted exactly, every product and sum a DFMA on the CUDA cores).
+// K1 and K2, and float (complex64) tiles against double (complex128)
+// vectors for K1x (each tile value converted exactly, every product and sum
+// a DFMA on the CUDA cores).
 template <typename T, typename X, bool RSMK>
 __global__ void __launch_bounds__(kThreads)
     bsr_spmv_kernel(const T* __restrict__ blocks, const int* __restrict__ col_blocks,
@@ -250,11 +260,40 @@ int lt_bsr_spmv_rsmk_f32x64(const float* blocks, const int* col_blocks, const do
                                            static_cast<cudaStream_t>(stream)));
 }
 
-// The plan of a launch with x values of x_bytes bytes: out = {s_piece,
+// The complex instances: complex64 and complex128 tiles against a vector of
+// their own type (K1), and complex64 tiles against a complex128 vector with
+// complex128 accumulation (K1x); the rmsk layout only (the rsmk form, K2,
+// serves the sharded operators, which take real tiles).
+int lt_bsr_spmv_c64(const lt::cfloat* blocks, const int* col_blocks, const lt::cfloat* x, lt::cfloat* y, int R,
+                    int bm, int S, int bk, long long n_x, long long n_out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<lt::cfloat, lt::cfloat, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                     static_cast<cudaStream_t>(stream)));
+}
+
+int lt_bsr_spmv_c128(const lt::cdouble* blocks, const int* col_blocks, const lt::cdouble* x, lt::cdouble* y,
+                     int R, int bm, int S, int bk, long long n_x, long long n_out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<lt::cdouble, lt::cdouble, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                       static_cast<cudaStream_t>(stream)));
+}
+
+int lt_bsr_spmv_c64x128(const lt::cfloat* blocks, const int* col_blocks, const lt::cdouble* x, lt::cdouble* y,
+                        int R, int bm, int S, int bk, long long n_x, long long n_out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<lt::cfloat, lt::cdouble, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                      static_cast<cudaStream_t>(stream)));
+}
+
+// The plan of a launch with x values of x_bytes bytes (4, 8 or 16: float,
+// double or complex64, complex128): out = {s_piece,
 // dynamic shared bytes, whether it opts in past 48 KB, static shared bytes
 // of the f32x64 rmsk kernel}.
 int lt_bsr_spmv_info(int bm, int S, int bk, int x_bytes, int* out) {
-  if (bm <= 0 || S <= 0 || bk <= 0 || (x_bytes != 4 && x_bytes != 8)) return int(cudaErrorInvalidValue);
+  if (bm <= 0 || S <= 0 || bk <= 0 || (x_bytes != 4 && x_bytes != 8 && x_bytes != 16)) return int(cudaErrorInvalidValue);
   const Plan p = plan(bm, S, bk, size_t(x_bytes));
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, bsr_spmv_kernel<float, double, false>);

@@ -45,6 +45,13 @@
 //   * no atomics: partial sums are reduced in a fixed order by a second
 //     launch, and the update's order is fixed, so the result is the same
 //     from run to run.
+//
+// Complex bases (complex64, complex128) run the same three launches over
+// lt::cfloat / lt::cdouble: the coefficients conjugate the basis, c_j =
+// sum_n conj(B_jn) v_n (lt::fma_conj), the update is v -= sum_j c_j B_j
+// (cx::fma), each a fixed sequence of four real FMAs per value, so the
+// visiting orders above still change no bit and a run repeats bit for
+// bit.  A tile is the same 8 KB: 1024 complex64 or 512 complex128 values.
 #include "common.cuh"
 
 namespace {
@@ -93,7 +100,7 @@ __global__ void __launch_bounds__(kThreads)
         lt::load_seg<T, kThreads, kUnroll>(basis + int64_t(j0 + q) * n, tile_base, n, vec_ok, br,
                                            j0 + q >= keep);
 #pragma unroll
-        for (int e = 0; e < E; ++e) s[q] = fma(A(br[e]), A(vr[e]), s[q]);
+        for (int e = 0; e < E; ++e) s[q] = lt::fma_conj(A(br[e]), A(vr[e]), s[q]);
       }
     }
 #pragma unroll
@@ -176,8 +183,9 @@ cudaError_t cgs_pass(const T* basis, T* v, typename lt::Acc<T>::type* scratch, i
 extern "C" {
 
 // One pass.  `scratch` holds `scratch_len` values of the basis's type, at
-// least k * (ceil(n / tile) + 1) with a tile of 2048 float32 or 1024
-// float64 values (ops/cgs.py TILE_BYTES); a shorter one is refused.  `keep`
+// least k * (ceil(n / tile) + 1) with a tile of 8 KB: 2048 float32, 1024
+// float64 or complex64, 512 complex128 values (ops/cgs.py TILE_BYTES); a
+// shorter one is refused.  `keep`
 // is the number of first rows the projection leaves in L2 for the update.
 // `device` is the CUDA ordinal the tensors and `stream` belong to (made
 // current here if it is not: this library has its own runtime).
@@ -195,14 +203,34 @@ int lt_cgs_pass_f64(const double* basis, double* v, double* scratch, long long s
   return int(cgs_pass<double>(basis, v, scratch, scratch_len, n, k, keep, static_cast<cudaStream_t>(stream)));
 }
 
-// Resident CTAs per SM of the projection kernel (f64 selects the double
-// one): the wrapper sizes the projection's wave of tiles with it
-// (ops/cgs.py l2_keep_rows).
-int lt_cgs_project_occupancy(int f64, int device, int* out) {
+// The complex instances: conjugated coefficients, complex scratch.
+int lt_cgs_pass_c64(const lt::cfloat* basis, lt::cfloat* v, lt::cfloat* scratch, long long scratch_len, long long n,
+                    int k, int keep, int device, void* stream) {
   cudaError_t e = lt::make_current(device);
   if (e != cudaSuccess) return int(e);
-  return int(f64 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, cgs_project_kernel<double>, kThreads, 0)
-                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, cgs_project_kernel<float>, kThreads, 0));
+  return int(cgs_pass<lt::cfloat>(basis, v, scratch, scratch_len, n, k, keep, static_cast<cudaStream_t>(stream)));
+}
+
+int lt_cgs_pass_c128(const lt::cdouble* basis, lt::cdouble* v, lt::cdouble* scratch, long long scratch_len,
+                     long long n, int k, int keep, int device, void* stream) {
+  cudaError_t e = lt::make_current(device);
+  if (e != cudaSuccess) return int(e);
+  return int(cgs_pass<lt::cdouble>(basis, v, scratch, scratch_len, n, k, keep, static_cast<cudaStream_t>(stream)));
+}
+
+// Resident CTAs per SM of the projection kernel for the basis type `code`
+// (0 float, 1 double, 2 complex64, 3 complex128): the wrapper sizes the
+// projection's wave of tiles with it (ops/cgs.py l2_keep_rows).
+int lt_cgs_project_occupancy(int code, int device, int* out) {
+  cudaError_t e = lt::make_current(device);
+  if (e != cudaSuccess) return int(e);
+  switch (code) {
+    case 0: return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, cgs_project_kernel<float>, kThreads, 0));
+    case 1: return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, cgs_project_kernel<double>, kThreads, 0));
+    case 2: return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, cgs_project_kernel<lt::cfloat>, kThreads, 0));
+    case 3: return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, cgs_project_kernel<lt::cdouble>, kThreads, 0));
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

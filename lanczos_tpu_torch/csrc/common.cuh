@@ -7,8 +7,76 @@
 
 namespace lt {
 
+// Complex values: two words, re then im, the storage of torch.complex64
+// and torch.complex128, so a tensor is read where it lies.  The type and its
+// arithmetic live in their own namespace, where argument-dependent lookup
+// finds them from the kernels' unqualified fma() calls, and no name of lt
+// hides the real fma() overloads.
+namespace cx {
+
+template <typename R>
+struct alignas(2 * sizeof(R)) Cplx {
+  R re, im;
+  Cplx() = default;  // trivial, so arrays of it may be __shared__
+  __host__ __device__ constexpr Cplx(R r) : re(r), im(R(0)) {}
+  __host__ __device__ constexpr Cplx(R r, R i) : re(r), im(i) {}
+  template <typename S>
+  __host__ __device__ explicit constexpr Cplx(const Cplx<S>& o) : re(R(o.re)), im(R(o.im)) {}
+};
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+template <typename R>
+__host__ __device__ __forceinline__ Cplx<R> operator-(Cplx<R> a) {
+  return Cplx<R>(-a.re, -a.im);
+}
+
+template <typename R>
+__host__ __device__ __forceinline__ Cplx<R>& operator+=(Cplx<R>& a, Cplx<R> b) {
+  a.re += b.re;
+  a.im += b.im;
+  return a;
+}
+
+// a * b + c: four real FMAs in a fixed order (CUDA cores, no tensor cores).
+template <typename R>
+__device__ __forceinline__ Cplx<R> fma(Cplx<R> a, Cplx<R> b, Cplx<R> c) {
+  R re = fma_rn(a.re, b.re, c.re);
+  re = fma_rn(-a.im, b.im, re);
+  R im = fma_rn(a.re, b.im, c.im);
+  im = fma_rn(a.im, b.re, im);
+  return Cplx<R>(re, im);
+}
+
+// conj(a) * b + c, in the same fixed order.
+template <typename R>
+__device__ __forceinline__ Cplx<R> fma_conj(Cplx<R> a, Cplx<R> b, Cplx<R> c) {
+  R re = fma_rn(a.re, b.re, c.re);
+  re = fma_rn(a.im, b.im, re);
+  R im = fma_rn(a.re, b.im, c.im);
+  im = fma_rn(-a.im, b.re, im);
+  return Cplx<R>(re, im);
+}
+
+}  // namespace cx
+
+using cfloat = cx::Cplx<float>;
+using cdouble = cx::Cplx<double>;
+
+// conj(a) * b + c: a plain FMA for real types (the inner products'
+// projections conjugate their first argument).
+template <typename T>
+__device__ __forceinline__ T fma_conj(T a, T b, T c) {
+  return fma(a, b, c);
+}
+template <typename R>
+__device__ __forceinline__ cx::Cplx<R> fma_conj(cx::Cplx<R> a, cx::Cplx<R> b, cx::Cplx<R> c) {
+  return cx::fma_conj(a, b, c);
+}
+
 // Accumulator type: f32 tiles accumulate in f32 (the Pallas kernels'
-// preferred_element_type), f64 in f64.
+// preferred_element_type), f64 in f64, complex in its own type.
 template <typename T>
 struct Acc;
 template <>
@@ -18,6 +86,14 @@ struct Acc<float> {
 template <>
 struct Acc<double> {
   using type = double;
+};
+template <>
+struct Acc<cfloat> {
+  using type = cfloat;
+};
+template <>
+struct Acc<cdouble> {
+  using type = cdouble;
 };
 
 // One 16-byte vector of T: the widest load a thread can issue.
@@ -33,12 +109,47 @@ struct Vec<double> {
   using type = double2;
   static constexpr int n = 2;
 };
+template <>
+struct Vec<cfloat> {
+  using type = float4;
+  static constexpr int n = 2;
+};
+template <>
+struct Vec<cdouble> {
+  using type = double2;
+  static constexpr int n = 1;
+};
+
+// The next lanes' value, o lanes down; a complex value moves as its two words.
+template <typename A>
+__device__ __forceinline__ A shfl_down(A v, int o) {
+  return __shfl_down_sync(0xffffffffu, v, o);
+}
+template <typename R>
+__device__ __forceinline__ cx::Cplx<R> shfl_down(cx::Cplx<R> v, int o) {
+  return cx::Cplx<R>(__shfl_down_sync(0xffffffffu, v.re, o), __shfl_down_sync(0xffffffffu, v.im, o));
+}
 
 template <typename A>
 __device__ __forceinline__ A warp_sum(A v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += shfl_down(v, o);
   return v;
+}
+
+// One value read evict-first (ld.global.cs); a complex value is one 8- or
+// 16-byte load of its two words.
+template <typename T>
+__device__ __forceinline__ T ldcs(const T* p) {
+  return __ldcs(p);
+}
+__device__ __forceinline__ cfloat ldcs(const cfloat* p) {
+  const float2 t = __ldcs(reinterpret_cast<const float2*>(p));
+  return cfloat(t.x, t.y);
+}
+__device__ __forceinline__ cdouble ldcs(const cdouble* p) {
+  const double2 t = __ldcs(reinterpret_cast<const double2*>(p));
+  return cdouble(t.x, t.y);
 }
 
 inline bool aligned16(const void* p) {
@@ -87,7 +198,7 @@ __device__ __forceinline__ void load_seg(const T* __restrict__ row, int64_t base
       }
     } else {
 #pragma unroll
-      for (int c = 0; c < VN; ++c) out[u * VN + c] = e0 + c < n ? (stream ? __ldcs(row + e0 + c) : row[e0 + c]) : T(0);
+      for (int c = 0; c < VN; ++c) out[u * VN + c] = e0 + c < n ? (stream ? ldcs(row + e0 + c) : row[e0 + c]) : T(0);
     }
   }
 }

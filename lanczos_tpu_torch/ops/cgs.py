@@ -6,11 +6,14 @@ One pass is classical GS over rows [0, k): every coefficient is measured
 against the incoming vector, v <- v - B[:k]^T (B[:k] v) — the semantics of
 the Pallas kernels (pallas_cgs.py:32-38) and of the JAX package's CPU path.
 The block pass does the same for each row of a (b, n) block, reading the
-basis once for all b rows.
+basis once for all b rows.  A complex basis conjugates the coefficients,
+v <- v - B[:k]^T (conj(B[:k]) v): K3 has complex64 and complex128
+instances for the complex Hermitian solves; K4 takes real bases only.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -32,8 +35,17 @@ __all__ = [
 
 _DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K3 for complex and bfloat16 bases"
 _BLOCK_DTYPE_ITEM = "ROADMAP.md, 'TPU kernels to port': K4 for complex and bfloat16 bases"
-# K3's n-tile (csrc/cgs.cu): 256 threads of two 16-byte vectors each.
+# K3's n-tile (csrc/cgs.cu): 256 threads of two 16-byte vectors each
+# (2048 float32, 1024 float64 or complex64, 512 complex128 values).
 TILE_BYTES = 256 * 2 * 16
+# K3's entry point in csrc/cgs.cu and the basis-type code of
+# lt_cgs_project_occupancy, by basis dtype.
+_K3_ENTRY = {
+    torch.float32: ("lt_cgs_pass_f32", 0),
+    torch.float64: ("lt_cgs_pass_f64", 1),
+    torch.complex64: ("lt_cgs_pass_c64", 2),
+    torch.complex128: ("lt_cgs_pass_c128", 3),
+}
 # The share of the card's L2 that the rows the projection reads last may
 # hold for the update (l2_keep_rows).
 L2_KEEP_FRACTION = 0.6
@@ -83,10 +95,12 @@ def _k3_entry(index: int) -> dict:
         props = torch.cuda.get_device_properties(index)
         per_sm = ctypes.c_int(0)
         entry = {}
-        for dtype, f64, fn in ((torch.float32, 0, lib.lt_cgs_pass_f32), (torch.float64, 1, lib.lt_cgs_pass_f64)):
-            _build.check(lib.lt_cgs_project_occupancy(f64, index, ctypes.byref(per_sm)), "cgs_pass (K3) occupancy")
-            entry[dtype] = (fn, functools.partial(l2_keep_rows, itemsize=8 if f64 else 4, l2_bytes=props.L2_cache_size,
-                                                  resident_ctas=per_sm.value * props.multi_processor_count))
+        for dtype, (name, code) in _K3_ENTRY.items():
+            _build.check(lib.lt_cgs_project_occupancy(code, index, ctypes.byref(per_sm)), "cgs_pass (K3) occupancy")
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            entry[dtype] = (getattr(lib, name), functools.partial(
+                l2_keep_rows, itemsize=itemsize, l2_bytes=props.L2_cache_size,
+                resident_ctas=per_sm.value * props.multi_processor_count))
         _K3_LAUNCH[index] = entry
     return entry
 
@@ -101,12 +115,14 @@ def kept_rows(n: int, dtype, device) -> int:
 def cgs_pass(v, basis, k: int):
     """K3: one classical GS pass of ``v`` against rows [0, k) of ``basis``.
 
-    On CUDA tensors this launches ``csrc/cgs.cu`` (float32 or float64; other
-    dtypes raise), overwrites ``v`` with the result and returns it — the JAX
-    kernel aliases ``v`` to its output the same way (pallas_cgs.py:226) —
-    and counts the launch in ``cgs_pass.launches``.  ``k == 0`` launches
-    nothing.  On CPU tensors it returns :func:`cgs_pass_reference`.
-    Callers use the return value.
+    On CUDA tensors this launches ``csrc/cgs.cu`` (float32, float64,
+    complex64 or complex128, the complex ones with conjugated coefficients;
+    bfloat16 raises), overwrites ``v`` with the result and returns it — the
+    JAX kernel aliases ``v`` to its output the same way (pallas_cgs.py:226)
+    — and counts the launch in ``cgs_pass.launches`` and, by dtype, in
+    ``cgs_pass.launches_by_dtype``.  ``k == 0`` launches nothing.  On CPU
+    tensors it returns :func:`cgs_pass_reference`.  Callers use the return
+    value.
 
     The launch path is short, since at small k the host's part is most of
     a call: the foreign functions are resolved once per device, the stream
@@ -121,8 +137,9 @@ def cgs_pass(v, basis, k: int):
         return cgs_pass_reference(v, basis, k)
     if v.device.type != "cuda":
         raise ValueError(f"cgs_pass runs on CPU or CUDA tensors, got {v.device}")
-    if basis.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(f"K3 takes float32/float64 bases on CUDA, got {basis.dtype}; see {_DTYPE_ITEM}")
+    if basis.dtype not in _K3_ENTRY:
+        raise NotImplementedError(
+            f"K3 takes float32/float64/complex64/complex128 bases on CUDA, got {basis.dtype}; see {_DTYPE_ITEM}")
     if v.dtype != basis.dtype:
         raise TypeError(f"v dtype {v.dtype} differs from the basis dtype {basis.dtype}")
     if basis.device != v.device:
@@ -140,10 +157,15 @@ def cgs_pass(v, basis, k: int):
     if err:
         _build.check(err, "cgs_pass (K3)")
     cgs_pass.launches += 1
+    _K3_BY_DTYPE[basis.dtype] += 1
     return v
 
 
+# The counter object itself is shared, so a stand-in that records calls on
+# the module attribute (as chip_smoke.py's recorders do) leaves it counting.
+_K3_BY_DTYPE = collections.Counter()
 cgs_pass.launches = 0
+cgs_pass.launches_by_dtype = _K3_BY_DTYPE
 
 
 class BlockPlan(NamedTuple):

@@ -2,8 +2,11 @@
 reference's pluggable ``mv_mul`` closure (lambda_lanczos.hpp:120-126) as a
 small protocol — ``n``, ``dtype``, ``device`` and ``matvec(x) -> A @ x`` on
 tensors of that device, plus ``matvec_rows`` for a (b, n) block of row
-vectors (the block engines).  The JAX package's ``ShiftInvertOperator``
-waits for ROADMAP item 11.
+vectors (the block engines).  :class:`ShiftInvertOperator` applies
+``(A - sigma I)^{-1}`` by an inner MINRES solve (shift-invert ``eigsh``).
+Complex Hermitian operators are native (complex64/complex128 entries);
+``ops.hermitian_split`` keeps the JAX package's real 2n embedding as an
+API and converts it to one of them.
 
 The precise paths (``precise_vectors``, ``filtered_lanczos(precise=True)``,
 the precise exponentiator) take ``matvec_f64(x)``: A x computed in float64
@@ -44,6 +47,7 @@ __all__ = [
     "SumOperator",
     "ScaledOperator",
     "ShiftSquaredOperator",
+    "ShiftInvertOperator",
     "DenseDFOperator",
     "Float64View",
     "float64_view",
@@ -610,6 +614,45 @@ class ShiftSquaredOperator(LinearOperator):
     def matvec_f64(self, x):
         w = self.base.matvec_f64(x) - self.sigma * x
         return self.base.matvec_f64(w) - self.sigma * w
+
+
+class ShiftInvertOperator(LinearOperator):
+    """``(A - sigma I)^{-1}`` applied matrix-free by an inner MINRES solve
+    (port of ``lanczos_tpu.ops.operators.ShiftInvertOperator``).
+
+    The shift-invert transform behind ``eigsh(sigma=...)``: its eigenvalues
+    are ``1 / (lambda_i - sigma)``, so the eigenvalues of A nearest
+    ``sigma`` become the extremal, well-separated ones.  No factorization:
+    each matvec is one :func:`~lanczos_tpu_torch.solvers.minres.minres`
+    solve (indefinite-safe) to ``inner_tol`` within ``inner_maxiter``
+    iterations.  The outer solve's accuracy floor is the inner residual:
+    keep ``inner_tol`` ~100x below the outer ``eps``.  A real or complex
+    Hermitian ``op``.
+    """
+
+    def __init__(self, op, sigma, inner_tol: float = 1e-8, inner_maxiter: int = 500):
+        self.op = op
+        self.sigma = float(sigma)
+        self.inner_tol = float(inner_tol)
+        self.inner_maxiter = int(inner_maxiter)
+
+    @property
+    def n(self):
+        return self.op.n
+
+    @property
+    def dtype(self):
+        return self.op.dtype
+
+    @property
+    def device(self):
+        return self.op.device
+
+    def matvec(self, x):
+        from ..solvers.minres import minres  # late import: the solvers import this module
+
+        y, _relres, _iters = minres(self.op, x, shift=self.sigma, tol=self.inner_tol, maxiter=self.inner_maxiter)
+        return y
 
 
 class Float64View(LinearOperator):

@@ -22,9 +22,17 @@ float64 (the precise paths' ``matvec_f64``): kernel K1x,
 tensors, each with its own launch count; the plain version accumulates in
 float64 on the CPU.  The tiles are read as they are stored: no float64 copy
 of them is made.
+
+Complex tiles (complex Hermitian operators, natively: no real embedding)
+take K1's complex64 and complex128 instances, :func:`bsr_matvec` with its
+launches counted by dtype in ``bsr_matvec.launches_by_dtype``; complex64
+tiles against a complex128 ``x`` take K1x's complex instance,
+:func:`bsr_matvec_c64x128`.  The rsmk form (K2) takes real tiles only.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +43,7 @@ __all__ = [
     "bsr_matvec",
     "bsr_matvec_rsmk",
     "bsr_matvec_f32x64",
+    "bsr_matvec_c64x128",
     "bsr_matvec_rsmk_f32x64",
     "bsr_matvec_reference",
     "plan",
@@ -72,9 +81,12 @@ def bsr_matvec(blocks, col_blocks, x, n_out: int | None = None):
 
     ``x`` may be shorter than R*bm (the unpadded vector): entries past its
     end read as zero, as the JAX package's zero padding does.  On CUDA
-    tensors this launches ``csrc/bsr_spmv.cu`` (float32 or float64; other
-    dtypes raise) and counts the launch in ``bsr_matvec.launches``; on CPU
-    tensors it runs :func:`bsr_matvec_reference`.
+    tensors this launches ``csrc/bsr_spmv.cu`` (float32, float64, complex64
+    or complex128 tiles; bfloat16 raises) and counts the launch in
+    ``bsr_matvec.launches`` and, by tile dtype, in
+    ``bsr_matvec.launches_by_dtype``; float32 (complex64) tiles against a
+    float64 (complex128) ``x`` go to K1x.  On CPU tensors it runs
+    :func:`bsr_matvec_reference`.
     """
     r, bm, s, bk = blocks.shape
     n_pad = r * bm
@@ -86,24 +98,37 @@ def bsr_matvec(blocks, col_blocks, x, n_out: int | None = None):
         return bsr_matvec_reference(blocks, col_blocks, xp, layout="rmsk")[:n_out]
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matvec runs on CPU or CUDA tensors, got {x.device}")
-    if blocks.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(f"K1 takes float32/float64 tiles on CUDA, got {blocks.dtype}; see {_DTYPE_ITEM}")
-    if blocks.dtype == torch.float32 and x.dtype == torch.float64:
-        return bsr_matvec_f32x64(blocks, col_blocks, x, n_out)
+    if blocks.dtype not in _K1_ENTRY:
+        raise NotImplementedError(
+            f"K1 takes float32/float64/complex64/complex128 tiles on CUDA, got {blocks.dtype}; see {_DTYPE_ITEM}")
+    if (blocks.dtype, x.dtype) in _WIDENING:
+        return _WIDENING[blocks.dtype, x.dtype](blocks, col_blocks, x, n_out)
     _check_cuda_args(blocks, col_blocks, x, (r, s), "bsr_matvec")
-    lib = _build.library()
-    fn = lib.lt_bsr_spmv_f32 if blocks.dtype == torch.float32 else lib.lt_bsr_spmv_f64
+    fn = getattr(_build.library(), _K1_ENTRY[blocks.dtype])
     y = _launch(fn, blocks, col_blocks, x, n_out, (r, bm, s, bk), "bsr_matvec (K1)")
     bsr_matvec.launches += 1
+    _K1_BY_DTYPE[blocks.dtype] += 1
     return y
 
 
+_K1_BY_DTYPE = collections.Counter()  # shared with the attribute below, as ops/cgs.py's
 bsr_matvec.launches = 0
+bsr_matvec.launches_by_dtype = _K1_BY_DTYPE
+
+# K1's entry point in csrc/bsr_spmv.cu by tile dtype (x of the same dtype).
+_K1_ENTRY = {
+    torch.float32: "lt_bsr_spmv_f32",
+    torch.float64: "lt_bsr_spmv_f64",
+    torch.complex64: "lt_bsr_spmv_c64",
+    torch.complex128: "lt_bsr_spmv_c128",
+}
+# (tile dtype, x dtype) pairs of K1x: the precise paths' wider product.
+_WIDE_X = {(torch.float32, torch.float64), (torch.complex64, torch.complex128)}
 
 
 def _check_cuda_args(blocks, col_blocks, x, cb_shape, what: str) -> None:
     """The CUDA launch's conditions on its arguments, for K1, K2 and K1x."""
-    if x.dtype != blocks.dtype and not (blocks.dtype == torch.float32 and x.dtype == torch.float64):
+    if x.dtype != blocks.dtype and (blocks.dtype, x.dtype) not in _WIDE_X:
         raise TypeError(f"x dtype {x.dtype} differs from the tile dtype {blocks.dtype}")
     if col_blocks.dtype != torch.int32 or col_blocks.shape != cb_shape:
         raise TypeError(f"col_blocks must be int32 of shape {cb_shape}, got {col_blocks.dtype} {tuple(col_blocks.shape)}")
@@ -123,31 +148,54 @@ def _launch(fn, blocks, col_blocks, x, n_out: int, dims, what: str):
     return y
 
 
-def bsr_matvec_f32x64(blocks, col_blocks, x, n_out: int | None = None):
-    """K1x: y = A x in float64 for float32 ``rmsk`` tiles and a float64
-    ``x`` (the precise paths' product); the arguments of :func:`bsr_matvec`,
-    which routes such calls here.  Counts its launches in
-    ``bsr_matvec_f32x64.launches``; CPU tensors take the plain version."""
+def _k1x(counter, entry: str, tiles, xtype, blocks, col_blocks, x, n_out):
+    """One K1x call (``tiles`` rmsk tiles against an ``xtype`` x, the
+    accumulation in ``xtype``): the plain version on CPU tensors, else the
+    ``entry`` launch, counted on ``counter``."""
+    what = counter.__name__
     r, bm, s, bk = blocks.shape
     n_pad = r * bm
     n_out = n_pad if n_out is None else int(n_out)
     if x.ndim != 1 or x.shape[0] > n_pad or not 0 <= n_out <= n_pad:
         raise ValueError(f"x of shape {tuple(x.shape)} / n_out={n_out} do not fit {n_pad} padded rows")
-    if blocks.dtype != torch.float32 or x.dtype != torch.float64:
-        raise TypeError(f"K1x takes float32 tiles and a float64 x, got {blocks.dtype} and {x.dtype}")
+    if blocks.dtype != tiles or x.dtype != xtype:
+        raise TypeError(f"{what} takes {tiles} tiles and a {xtype} x, got {blocks.dtype} and {x.dtype}")
     if x.device.type == "cpu":
         xp = F.pad(x, (0, n_pad - x.shape[0])) if x.shape[0] != n_pad else x
         return bsr_matvec_reference(blocks, col_blocks, xp, layout="rmsk")[:n_out]
     if x.device.type != "cuda":
-        raise ValueError(f"bsr_matvec_f32x64 runs on CPU or CUDA tensors, got {x.device}")
-    _check_cuda_args(blocks, col_blocks, x, (r, s), "bsr_matvec_f32x64")
-    y = _launch(_build.library().lt_bsr_spmv_f32x64, blocks, col_blocks, x, n_out, (r, bm, s, bk),
-                "bsr_matvec_f32x64 (K1x)")
-    bsr_matvec_f32x64.launches += 1
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, got {x.device}")
+    _check_cuda_args(blocks, col_blocks, x, (r, s), what)
+    y = _launch(getattr(_build.library(), entry), blocks, col_blocks, x, n_out, (r, bm, s, bk), f"{what} (K1x)")
+    counter.launches += 1
     return y
 
 
+def bsr_matvec_f32x64(blocks, col_blocks, x, n_out: int | None = None):
+    """K1x: y = A x in float64 for float32 ``rmsk`` tiles and a float64
+    ``x`` (the precise paths' product); the arguments of :func:`bsr_matvec`,
+    which routes such calls here.  Counts its launches in
+    ``bsr_matvec_f32x64.launches``; CPU tensors take the plain version."""
+    return _k1x(bsr_matvec_f32x64, "lt_bsr_spmv_f32x64", torch.float32, torch.float64, blocks, col_blocks, x, n_out)
+
+
 bsr_matvec_f32x64.launches = 0
+
+
+def bsr_matvec_c64x128(blocks, col_blocks, x, n_out: int | None = None):
+    """K1x's complex instance: y = A x in complex128 for complex64 ``rmsk``
+    tiles and a complex128 ``x`` (the precise product of a complex64
+    operator, ``float64_view(op).matvec``); the arguments of
+    :func:`bsr_matvec`, which routes such calls here.  Counts its launches
+    in ``bsr_matvec_c64x128.launches``; CPU tensors take the plain
+    version."""
+    return _k1x(bsr_matvec_c64x128, "lt_bsr_spmv_c64x128", torch.complex64, torch.complex128, blocks, col_blocks, x,
+                n_out)
+
+
+bsr_matvec_c64x128.launches = 0
+
+_WIDENING = {(torch.float32, torch.float64): bsr_matvec_f32x64, (torch.complex64, torch.complex128): bsr_matvec_c64x128}
 
 
 def bsr_matvec_rsmk(blocks, col_blocks, x, n_out: int | None = None, *, col_bound: int | None = None):
@@ -224,8 +272,8 @@ def plan(bm: int, s: int, bk: int, x_itemsize: int) -> dict:
     tiles per gathered x piece (``s_piece``, those that fit 32 KB of x
     values, at least one), the dynamic shared bytes (row accumulators in
     x's type, then one piece) and whether they pass the default 48 KB, so
-    that the kernel opts in to more (``opt_in``).  float64 x halves the
-    piece of float32's."""
+    that the kernel opts in to more (``opt_in``).  float64 (complex64) x
+    halves the piece of float32's, complex128 x quarters it."""
     acc = -(-bm * x_itemsize // 16) * 16
     s_piece = min(max(X_PIECE_BYTES // (bk * x_itemsize), 1), s)
     smem = acc + s_piece * bk * x_itemsize

@@ -22,8 +22,16 @@ like cosh); the defaults are +-Gershgorin, which always do.
 ``precise=True`` (:func:`chebyshev_expm_apply_split_precise`) runs the
 same chain in float64 over the operator's ``matvec_f64``, the state taken
 in float64 from the start: the JAX package's word-pair chain
-(``_cheby_chain_df``) with float64 in place of the pairs.  The complex
-Hermitian variants wait for ROADMAP item 11 and raise, naming it.
+(``_cheby_chain_df``) with float64 in place of the pairs.
+
+A complex Hermitian operator (native, or a
+:class:`~lanczos_tpu_torch.ops.hermitian_split.HermitianSplitOperator`)
+takes the complex chain (:func:`chebyshev_expm_apply_hermitian`,
+:func:`chebyshev_expm_grid_hermitian`): T_k(x) psi is complex, the matvec
+is the complex operator's (kernel K1's complex instances over a complex
+BSR operator), and the coefficients multiply it as complex scalars, where
+the JAX package runs the real chain on the 2n embedding and recombines the
+halves.  Its precise form runs in complex128 over ``matvec_f64``.
 """
 
 from __future__ import annotations
@@ -31,10 +39,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.types import real_dtype
 from ..ops.operators import as_operator, float64_view
 from ..utils import estimate
-from .exponentiator import HERMITIAN_ITEM as _HERMITIAN_ITEM
-from .exponentiator import precise_state
+from .exponentiator import complex_operator, complex_state, precise_state
 
 __all__ = [
     "chebyshev_expm_coeffs",
@@ -208,14 +216,61 @@ def chebyshev_expm_apply_split_precise(op, a, v_re, v_im, *, lo=None, hi=None, t
     return (re.cpu().numpy(), im.cpu().numpy()), int(coef.shape[0])
 
 
-def chebyshev_expm_apply_hermitian(split_op, a, psi_re, psi_im, *, lo=None, hi=None, tol: float = 1e-16,
+def _cheby_chain_complex(op, c: float, e: float, coef, v):
+    """acc = sum_k coef_k T_k(x) v for a complex operator and state:
+    ``coef`` (host complex128) rounded to the state's dtype, the chain in
+    the state's dtype."""
+    xmv = _mapped_matvec(op, c, e, real_dtype(v.dtype))
+    cs = np.asarray(coef, np.complex64 if v.dtype == torch.complex64 else np.complex128).tolist()
+    acc = cs[0] * v
+    if len(cs) == 1:
+        return acc
+    p, q = v, xmv(v)
+    acc = acc + cs[1] * q
+    for ck in cs[2:]:
+        p, q = q, 2.0 * xmv(q) - p
+        acc = acc + ck * q
+    return acc
+
+
+def chebyshev_expm_apply_hermitian(op, a, psi_re, psi_im, *, lo=None, hi=None, tol: float = 1e-16,
                                    precise: bool = False):
-    """The chain over a complex Hermitian operator's real embedding: not
-    ported."""
-    raise NotImplementedError(f"the Chebyshev chain for complex Hermitian operators is not ported; see {_HERMITIAN_ITEM}")
+    """exp(a*H) psi for a complex Hermitian H (a complex operator or a
+    ``HermitianSplitOperator``) and the complex n-state ``psi_re + i
+    psi_im``, by the complex chain.  The window defaults to +-Gershgorin of
+    ``op`` as given (the power bound of the embedding for a split operator,
+    as in the JAX package).  Returns ``((out_re, out_im), n_terms)``;
+    ``precise=True`` runs in complex128 over ``matvec_f64`` from a float64
+    state and returns host float64 arrays."""
+    c, e = _window(op, lo, hi)
+    coef = chebyshev_expm_coeffs(a, c, e, tol=tol)
+    cop = complex_operator(op)
+    if precise:
+        psi = torch.complex(precise_state(psi_re, cop.device), precise_state(psi_im, cop.device))
+        out = _cheby_chain_complex(float64_view(cop), c, e, coef, psi)
+        return (out.real.cpu().numpy(), out.imag.cpu().numpy()), int(coef.shape[0])
+    out = _cheby_chain_complex(cop, c, e, coef, complex_state(cop, psi_re, psi_im))
+    return (out.real, out.imag), int(coef.shape[0])
 
 
-def chebyshev_expm_grid_hermitian(split_op, a_list, psi_re, psi_im, *, lo=None, hi=None, tol: float = 1e-16):
-    """The grid chain over a complex Hermitian operator's real embedding:
-    not ported."""
-    raise NotImplementedError(f"the Chebyshev chain for complex Hermitian operators is not ported; see {_HERMITIAN_ITEM}")
+def chebyshev_expm_grid_hermitian(op, a_list, psi_re, psi_im, *, lo=None, hi=None, tol: float = 1e-16):
+    """The grid form of :func:`chebyshev_expm_apply_hermitian`: every a_j
+    from one complex chain, set by the largest |a_j * e|.  Returns
+    ``((out_re (num, n), out_im (num, n)), n_terms)``."""
+    c, e = _window(op, lo, hi)
+    per = [chebyshev_expm_coeffs(a, c, e, tol=tol) for a in a_list]
+    K = max(2, max(p.shape[0] for p in per))
+    coef = np.zeros((len(per), K), np.complex128)
+    for j, p in enumerate(per):
+        coef[j, : p.shape[0]] = p
+    cop = complex_operator(op)
+    v = complex_state(cop, psi_re, psi_im)
+    ct = torch.from_numpy(coef).to(v.device, v.dtype)
+    xmv = _mapped_matvec(cop, c, e, real_dtype(v.dtype))
+    acc = torch.outer(ct[:, 0], v)
+    p, q = v, xmv(v)
+    acc = acc + torch.outer(ct[:, 1], q)
+    for k in range(2, K):
+        p, q = q, 2.0 * xmv(q) - p
+        acc = acc + torch.outer(ct[:, k], q)
+    return (acc.real, acc.imag), int(K)

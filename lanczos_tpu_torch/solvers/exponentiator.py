@@ -31,7 +31,16 @@ stages of iterations and replays the stop test on the host, is
 evolution with the state, the Krylov build (over the operator's
 ``matvec_f64``, CGS2 in float64: kernel K3 on the card) and the small
 exponential in float64 and complex128, where the JAX module carries every
-one of them as word pairs.  Its Hermitian twin waits for ROADMAP item 11.
+one of them as word pairs.
+
+A complex Hermitian operator (native complex entries, or the JAX package's
+:class:`~lanczos_tpu_torch.ops.hermitian_split.HermitianSplitOperator`,
+through its ``complex_operator``) is built natively: one complex Krylov
+basis per step (:func:`evolve_complex`, kernel K3's complex instances for
+the full reorthogonalization on the card), where the JAX package builds a
+real basis of the 2n embedding and recombines its halves
+(``evolve_hermitian_split``); :func:`evolve_hermitian_split_precise` is
+the same in complex128 over ``matvec_f64``.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 
 from ..core import linalg, tridiagonal
 from ..core.types import machine_eps, real_dtype
+from ..ops.hermitian_split import HermitianSplitOperator
 from ..ops.operators import float64_view
 
 __all__ = [
@@ -53,11 +63,13 @@ __all__ = [
     "taylor_expm_apply",
     "evolve_split",
     "evolve_split_precise",
+    "evolve_complex",
+    "evolve_hermitian_split",
     "evolve_hermitian_split_precise",
     "precise_state",
+    "complex_operator",
+    "complex_state",
 ]
-
-HERMITIAN_ITEM = "ROADMAP.md, 'Modules to port', item 11: complex Hermitian input and the scipy facade"
 
 
 @dataclasses.dataclass
@@ -430,8 +442,76 @@ def evolve_split_precise(op, v_re, v_im, a, steps: int, krylov_dim: int = 16, *,
                         int(krylov_dim), full_orth=True, renormalize=renormalize)
 
 
-def evolve_hermitian_split_precise(split_op, psi_re, psi_im, a, steps: int, krylov_dim: int = 16, *,
+def complex_operator(op):
+    """The native complex operator of a complex Hermitian ``op``: a
+    ``HermitianSplitOperator``'s :meth:`complex_operator`, or ``op`` itself
+    when its dtype is complex; a real operator raises ``TypeError``."""
+    if isinstance(op, HermitianSplitOperator):
+        return op.complex_operator()
+    if not op.dtype.is_complex:
+        raise TypeError(f"a complex Hermitian operator is needed here, got a real {op.dtype} one")
+    return op
+
+
+def complex_state(cop, v_re, v_im=None):
+    """The complex n-state ``v_re + i v_im`` in ``cop``'s dtype on its
+    device; ``v_re`` alone may be the complex state itself."""
+    def tensor(x):
+        return (x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))).to(cop.device)
+
+    re = tensor(v_re)
+    if v_im is None:
+        return re.to(cop.dtype)
+    rdt = real_dtype(cop.dtype)
+    return torch.complex(re.to(rdt), tensor(v_im).to(rdt))
+
+
+def evolve_complex(op, psi, a, steps: int, krylov_dim: int = 12, *, full_orth: bool = True,
+                   renormalize: bool = False):
+    """``steps`` applications of exp(a*H) to the complex state ``psi`` for
+    a complex Hermitian operator, with no host wait between steps: a fixed
+    ``krylov_dim`` complex Lanczos build per step (full
+    reorthogonalization: kernel K3's complex instance on CUDA), exp(a T) e1
+    of its real tridiagonal in complex128 on the device, and the complex
+    recombination.  ``renormalize`` divides by the norm after every step.
+    Returns the complex state."""
+    a = complex(a)
+    m = int(krylov_dim)
+    flags = []
+    for _ in range(int(steps)):
+        u, al, be, n0 = _krylov_build_fixed(op, psi, m, full_orth)
+        t = (torch.diag(al) + torch.diag(be[: m - 1], 1) + torch.diag(be[: m - 1], -1)).to(torch.complex128)
+        cols, too_large = _expm_first_columns(a * t[None])
+        flags.append(too_large)
+        psi = (cols[0].to(u.dtype) @ u) * n0
+        if renormalize:
+            psi = psi / linalg.norm(psi)
+    if flags and bool(torch.stack(flags).any()):
+        raise OverflowError(
+            f"evolve: |a| * ||T||_1 exceeded {_EXPM_THETA} * 2**{_EXPM_MAX_SQUARINGS} in a step; "
+            "use a smaller time step"
+        )
+    return psi
+
+
+def evolve_hermitian_split(op, psi_re, psi_im, a, steps: int, krylov_dim: int = 12, *, full_orth: bool = True,
+                           renormalize: bool = False):
+    """``steps`` applications of exp(a*H) to the complex n-state ``psi_re +
+    i psi_im`` of a complex Hermitian ``op`` (a ``HermitianSplitOperator``
+    or a complex operator): :func:`evolve_complex` on its complex operator.
+    Returns ``(out_re, out_im)`` on the device."""
+    cop = complex_operator(op)
+    out = evolve_complex(cop, complex_state(cop, psi_re, psi_im), a, steps, krylov_dim, full_orth=full_orth,
+                         renormalize=renormalize)
+    return out.real, out.imag
+
+
+def evolve_hermitian_split_precise(op, psi_re, psi_im, a, steps: int, krylov_dim: int = 16, *,
                                    renormalize: bool = False):
-    """The precise evolution of a complex Hermitian operator's real
-    embedding: not ported."""
-    raise NotImplementedError(f"the precise evolution of complex Hermitian operators is not ported; see {HERMITIAN_ITEM}")
+    """:func:`evolve_hermitian_split` at float64 grade: the state from
+    float64 host words, the build over ``matvec_f64`` and the small
+    exponential in complex128.  Returns host float64 ``(re, im)``."""
+    cop = complex_operator(op)
+    psi = torch.complex(precise_state(psi_re, cop.device), precise_state(psi_im, cop.device))
+    out = evolve_complex(float64_view(cop), psi, a, steps, krylov_dim, full_orth=True, renormalize=renormalize)
+    return out.real.cpu().numpy(), out.imag.cpu().numpy()

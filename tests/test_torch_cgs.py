@@ -105,6 +105,38 @@ def test_kernel_matches_plain_on_cuda(cuda, dtype, k, n):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
     if k == KS[-1]:
         _kernel_around_kept_rows(cuda, dtype, n, tol)
+    _complex_case(cuda, torch.complex64 if dtype == torch.float32 else torch.complex128, k, n, tol)
+
+
+def _complex_problem(k, cap, n, dtype, seed):
+    """:func:`_problem` for a complex basis: orthonormal complex live rows
+    and a complex vector with large components in their span."""
+    rng = np.random.default_rng(seed)
+    basis = np.zeros((cap, n), dtype)
+    if k:
+        basis[:k] = np.linalg.qr(rng.standard_normal((n, k)) + 1j * rng.standard_normal((n, k)))[0].T
+    v = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(dtype)
+    if k:
+        v = v + (10.0 - 5.0j) * basis[: min(k, 4)].sum(axis=0)
+    return basis, v
+
+
+def _complex_case(cuda, dtype, k, n, tol):
+    """K3's complex instance of the same case (complex64 beside float32,
+    complex128 beside float64): conjugated coefficients against the plain
+    version, in place, twice bit for bit, counted by dtype."""
+    np_dtype = np.complex64 if dtype == torch.complex64 else np.complex128
+    basis, v = _complex_problem(k, 129, n, np_dtype, seed=k + n + 1)
+    want = cgs.cgs_pass_reference(torch.from_numpy(v), torch.from_numpy(basis), k)
+    before = cgs.cgs_pass.launches_by_dtype[dtype]
+    bd = torch.from_numpy(basis).to(cuda)
+    vd = torch.from_numpy(v).to(cuda)
+    got = cgs.cgs_pass(vd, bd, k)
+    again = cgs.cgs_pass(torch.from_numpy(v).to(cuda), bd, k)
+    torch.cuda.synchronize()
+    assert cgs.cgs_pass.launches_by_dtype[dtype] == before + (2 if k else 0)
+    assert got.data_ptr() == vd.data_ptr() and torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
 
 
 def _kernel_around_kept_rows(cuda, dtype, n, tol):

@@ -289,16 +289,15 @@ class _Slab(ShardedOperator):
     ("batch_shape", ValueError, "(B, 4)"),
 ])
 def test_refusals_name_their_item(call, error, item):
+    if item == "item 11":
+        # ROADMAP item 11 landed: these three ids, refusals until then, run
+        # the complex Hermitian paths they named.
+        _hermitian_path_runs(call)
+        return
     ex = tl.Exponentiator(np.eye(4), device="cpu")
     v = np.ones(4)
     with pytest.raises(error, match=item.replace("(", r"\(").replace(")", r"\)")):
-        if call == "evolve_hermitian_precise":
-            _expm.evolve_hermitian_split_precise(None, v, v * 0, 1j, 2)
-        elif call == "chebyshev_hermitian_precise":
-            cheby_expm.chebyshev_expm_apply_hermitian(None, 1j, v, v, precise=True)
-        elif call == "chebyshev_hermitian":
-            cheby_expm.chebyshev_expm_apply_hermitian(None, 1j, v, v)
-        elif call == "sharded":
+        if call == "sharded":
             tl.Exponentiator(_Slab())
         elif call == "complex_input":
             ex.run(1.0, v + 1j)
@@ -306,6 +305,33 @@ def test_refusals_name_their_item(call, error, item):
             ex.run_batch(1.0, np.ones((2, 4)) + 1j)
         else:
             ex.run_batch(1.0, np.ones(4))
+
+
+def _hermitian_path_runs(call):
+    """The precise evolution and the (precise) Chebyshev chain of a complex
+    Hermitian operator given as its split parts, against scipy's expm at
+    the reference's overlap bar; float64 host arrays from the precise
+    paths."""
+    from lanczos_tpu_torch.ops.hermitian_split import HermitianSplitOperator
+
+    rng = np.random.default_rng(41)
+    c = rng.standard_normal((12, 12)) + 1j * rng.standard_normal((12, 12))
+    h = 0.2 * (c + c.conj().T)
+    op = HermitianSplitOperator(tl.DenseOperator(h.real.copy(), device="cpu"),
+                                tl.DenseOperator(h.imag.copy(), device="cpu"))
+    psi = _state(12, 42)
+    if call == "evolve_hermitian_precise":
+        re, im = _expm.evolve_hermitian_split_precise(op, psi.real, psi.imag, 0.1j, 10)
+        truth = sla.expm(1j * h) @ psi
+    else:
+        (re, im), terms = cheby_expm.chebyshev_expm_apply_hermitian(op, 2j, psi.real, psi.imag,
+                                                                    precise=call.endswith("precise"))
+        truth = sla.expm(2j * h) @ psi
+        assert terms > 2
+    if call.endswith("precise"):
+        assert isinstance(re, np.ndarray) and re.dtype == np.float64
+    assert _overlap_err(truth, _complex(re, im)) < EPS_REF
+    assert np.linalg.norm(_complex(re, im) - truth) <= 1e-12 * np.linalg.norm(truth)
 
 
 def test_default_device_is_the_card():

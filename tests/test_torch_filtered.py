@@ -469,20 +469,29 @@ def _check_precise_solve(tmp_path):
     assert np.max(np.abs(first - exact)) < 1e-12
 
 
-def test_filtered_lanczos_warnings_and_refusals(tmp_path):
+def test_filtered_lanczos_warnings_and_refusals(tmp_path, monkeypatch):
     a = _dense_spd(300, 11)
     w = np.linalg.eigvalsh(a)
     op = tl.DenseOperator(a, device="cpu")
     # mu far below the w0-w1 spacing: the second target lies outside the
     # band and is flagged (the JAX package's contract: warn, do not fail),
-    # with vals[0] still exact.
-    with warnings.catch_warnings(record=True) as caught:
+    # with vals[0] still exact.  The start vectors are seeded (the B-space
+    # engine's through configure, the edge estimate's fresh draw through the
+    # generator it asks for), so the solve is the same on every run.
+    seeded = lambda eng: setattr(eng, "init_vector", fixed_seed_initializer(eng.dtype, seed=0))  # noqa: E731
+    with warnings.catch_warnings(record=True) as caught, monkeypatch.context() as m:
         warnings.simplefilter("always")
-        vals, _, info = tl.filtered_lanczos(op, num_eigs=2, degree=80, mu=5e-4 * (w[-1] - w[0]))
+        m.setattr("lanczos_tpu_torch.utils.random._fresh_rng", lambda: np.random.default_rng(0))
+        vals, _, info = tl.filtered_lanczos(op, num_eigs=2, degree=80, mu=5e-4 * (w[-1] - w[0]), configure=seeded)
     assert any(issubclass(c.category, tl.BandCoverageWarning) and "OUTSIDE the amplified mu-band" in str(c.message)
                for c in caught)
     assert all(issubclass(c.category, tl.LanczosWarning) for c in caught)  # AccuracyWarning rides along
-    assert abs(vals[0] - w[0]) < 1e-6 and info["residuals"][1] > 1.0
+    # The JAX contract: an O(1) residual for the target outside the band.
+    # An in-band pair's residual is ~1e-6 here, and the out-of-band one
+    # came out 0.5-0.9 on unseeded starts (the old bar of 1.0 missed them)
+    # and 2.2-10 over seeds 0-19 of this start, so 0.25 separates the two
+    # kinds by five orders of magnitude on either side.
+    assert abs(vals[0] - w[0]) < 1e-6 and info["residuals"][1] > 0.25
     lo, hi = info["interval"]
     assert w[0] - 1e-6 <= lo <= w[0] + 1.0 and hi >= w[-1]  # edge estimate, safe far bound
 

@@ -261,3 +261,20 @@ def test_fused_on_cuda_runs_the_kernels(cuda, dtype):
     exact = np.linalg.eigvalsh(a)[:2]
     np.testing.assert_allclose(vals_, exact, rtol=1e-5 if dtype == torch.float32 else 1e-11)
     assert max(eng.residuals(vals_, vecs)) < (1e-3 if dtype == torch.float32 else 1e-8)
+    # The same chain with a gauge phase on every hop (U H U^H, the same
+    # spectrum) as a complex operator: K1 and K3 complex, K6 on real alpha
+    # and beta, a complex start vector.
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    phase = np.exp(1j * np.random.default_rng(1).uniform(0.0, 2 * np.pi, n - 1))
+    cvals = vals.astype(np.complex128)
+    cvals[: n - 1] *= phase
+    cvals[n - 1 : 2 * (n - 1)] *= phase.conj()
+    cop = tl.BSROperator.from_coo(rows, cols, cvals, n, bm=32, bk=32, dtype=ctype, device=cuda)
+    eng = tl.LambdaLanczos(cop, num_eigs=2)
+    eng.eps = 1e-6 if dtype == torch.float32 else 1e-12
+    k1, k3 = spmv.bsr_matvec.launches_by_dtype[ctype], cgs.cgs_pass.launches_by_dtype[ctype]
+    cv, cvecs = eng.run()
+    assert spmv.bsr_matvec.launches_by_dtype[ctype] > k1 and cgs.cgs_pass.launches_by_dtype[ctype] > k3
+    assert cvecs.dtype == ctype
+    np.testing.assert_allclose(cv, exact, rtol=1e-5 if dtype == torch.float32 else 1e-11)
+    assert max(eng.residuals(cv, cvecs)) < (1e-3 if dtype == torch.float32 else 1e-8)

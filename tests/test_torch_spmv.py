@@ -160,6 +160,22 @@ def test_kernel_matches_plain_on_cuda(cuda, dtype, r, bm, s, bk, n):
             wide = torch.randn((64, 128, 1, 8192), generator=g)
             _check_k1x_on_cuda(cuda, wide, torch.zeros((64, 1), dtype=torch.int32),
                                torch.randn(8192, generator=g, dtype=torch.float64), 8192)
+    # The complex instances on the same pattern: complex64 (and K1x's
+    # complex64 tiles against a complex128 x) beside float32, complex128
+    # beside float64.
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    cblocks = torch.randn((r, bm, s, bk), generator=g, dtype=ctype)
+    pairs = [(ctype, tol)] + ([(torch.complex128, 1e-13)] if ctype == torch.complex64 else [])
+    for xtype, ctol in pairs:
+        cx = torch.randn(n, generator=g, dtype=xtype)
+        want = spmv.bsr_matvec(cblocks, col_blocks, cx, n_out=n)  # CPU: plain version
+        counter = spmv.bsr_matvec_c64x128 if xtype != ctype else spmv.bsr_matvec
+        before = counter.launches
+        args = (cblocks.to(cuda), col_blocks.to(cuda), cx.to(cuda))
+        got, again = (spmv.bsr_matvec(*args, n_out=n) for _ in range(2))
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2 and got.dtype == xtype and torch.equal(got, again)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=ctol * float(want.abs().max()))
 
 
 def _check_k1x_on_cuda(cuda, blocks, col_blocks, x64, n):
@@ -197,9 +213,10 @@ def _check_k1x_on_cuda(cuda, blocks, col_blocks, x64, n):
 
 @pytest.mark.gpu
 def test_kernel_refuses_unsupported_dtype_on_cuda(cuda):
+    # bfloat16 tiles only: K1 has complex instances; the heading is quoted.
     blocks = torch.zeros((1, 8, 1, 8), dtype=torch.bfloat16, device=cuda)
     cb = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="K1 for complex and bfloat16 tiles"):
         spmv.bsr_matvec(blocks, cb, torch.zeros(8, dtype=torch.bfloat16, device=cuda))
 
 

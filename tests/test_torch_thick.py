@@ -143,3 +143,15 @@ def test_thick_fused_on_cuda_runs_the_kernels(cuda):
     vals, _ = eng.run()
     assert spmv.bsr_matvec.launches > k1 and cgs.cgs_pass.launches > k3
     np.testing.assert_allclose(vals, _chain_exact(n, 2), rtol=1e-8)
+    # The chain with a gauge phase on every hop (the same spectrum) as a
+    # complex128 operator: the thick engine over K1 and K3 complex.
+    phase = -np.exp(1j * np.random.default_rng(1).uniform(0.0, 2 * np.pi, n - 1))
+    cop = tl.BSROperator.from_coo(np.r_[i, i + 1], np.r_[i + 1, i], np.r_[phase, phase.conj()], n, bm=64, bk=64,
+                                  dtype=torch.complex128, device=cuda)
+    eng = _thick(tl.LambdaLanczos(cop, num_eigs=2), max_iteration=96, eps=1e-10, eigenvalue_offset=-4.0,
+                 max_restarts=64)
+    k1, k3 = spmv.bsr_matvec.launches_by_dtype[torch.complex128], cgs.cgs_pass.launches_by_dtype[torch.complex128]
+    vals, _ = eng.run()
+    assert spmv.bsr_matvec.launches_by_dtype[torch.complex128] > k1
+    assert cgs.cgs_pass.launches_by_dtype[torch.complex128] > k3
+    np.testing.assert_allclose(vals, _chain_exact(n, 2), rtol=1e-8)
