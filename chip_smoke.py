@@ -34,7 +34,15 @@ one-rank NCCL operator (K1x's rsmk form), ``pv_thick`` and
 n = 2**20 degenerate chain (K3, K4 in float64), ``precise_filter`` the
 precise filtered solve with refined vectors and ``expm_precise`` the
 precise evolution and Chebyshev chain at n = 2**20; phase ``k1x`` holds
-K1x and its twin against their plain versions and scipy.  The launch counts are set to 0 just before each path and read
+K1x and its twin against their plain versions and scipy.  ROADMAP item 13:
+phases ``k2c`` and ``k4c`` hold K2's and K4's complex instances against
+their plain versions and time them, ``block_hermitian`` runs the block
+thick engine on complex input (K4 complex64 and complex128), and
+``sharded_engines`` runs, in the one-rank NCCL world of
+``sharded_main_path``, the thick, block-thick, checkpointed, complex
+(K2 complex) and precise thick solves over the main path's sharded
+operator, and ``filtered_lanczos`` and the Exponentiator over a sharded
+DIA chain.  The launch counts are set to 0 just before each path and read
 just after it.
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero and prints no result.  The last two lines are the kernel table and
@@ -455,15 +463,27 @@ def phase_k6(torch, np, dev):
         raise AssertionError(f"K6 timed case: max abs error {max_abs_err}")
     ms = cuda_ms(torch, kernel)
     ms_per_call = cuda_ms_per_call(torch, kernel, calls=20, reps=5)  # back to back: the host's launch path hidden
+    # One PyTorch kernel before and after K6's launches tells a window that
+    # traced nothing (no CUPTI tracing on the machine: the device time is not
+    # measured and the CUDA-event times above stand alone) from one that
+    # traced the card and missed K6 (a failure).
+    marker = torch.zeros(1, device=dev)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        marker.add_(1)
         for _ in range(10):
             kernel()
+        marker.add_(1)
         torch.cuda.synchronize()
-    k6_events = [e for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and "sturm_check_kernel" in e.name]
-    if len(k6_events) != 10:
-        raise AssertionError(f"the profiler saw {len(k6_events)} K6 launches of 10")
-    device_ms = statistics.median((e.time_range.end - e.time_range.start) / 1e3 for e in k6_events)
+    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    k6_events = [e for e in device_events if "sturm_check_kernel" in e.name]
+    device_ms_reason = None
+    if not device_events:
+        device_ms, device_ms_reason = None, "the profiler recorded no CUDA kernel event (no CUPTI tracing)"
+    elif len(k6_events) != 10:
+        raise AssertionError(f"the profiler saw {len(k6_events)} K6 launches of 10 among {len(device_events)} "
+                             "CUDA events")
+    else:
+        device_ms = statistics.median((e.time_range.end - e.time_range.start) / 1e3 for e in k6_events)
     with_limit_ms = cuda_ms(torch, lambda: tridiagonal.extremal_eigenvalues_device(alpha, beta, size, nroot, False))
     plain_ms = cuda_ms(torch, lambda: tridiagonal.extremal_eigenvalues_reference(alpha, beta, size, nroot, False),
                        reps=5, warmup=1)
@@ -493,6 +513,7 @@ def phase_k6(torch, np, dev):
     out = {"phase": "k6", "cases": cases, "routes": dict(routes), "max_abs_err_all": worst, "checks": checks,
            "timed": {"size": size, "nroot": nroot, "dtype": "float32", "rounds": rounds, "points": 15},
            "max_abs_err": max_abs_err, "ms": ms, "ms_per_call": ms_per_call, "device_ms": device_ms,
+           "device_ms_reason": device_ms_reason, "profiled_cuda_events": len(device_events),
            "with_limit_ms": with_limit_ms, "plain_ms": plain_ms,
            "plain_host_cpu_ms": statistics.median(host), "device_check_ms": statistics.median(full),
            "flops": flops, "bytes": bytes_moved, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -562,10 +583,10 @@ def recording_k3(cgs):
     real = cgs.cgs_pass
     seq = []
 
-    def recorder(v, basis, k):
+    def recorder(v, basis, k, reduce=None):
         if int(k) > 0 and v.device.type == "cuda":
             seq.append((basis.shape[0], basis.shape[1], int(k), str(basis.dtype)))
-        return real(v, basis, k)
+        return real(v, basis, k, reduce)
 
     recorder.launches = real.launches
     cgs.cgs_pass = recorder
@@ -761,7 +782,8 @@ def _k4_info(torch, dev, b, dtype, plan):
     from lanczos_tpu_torch import _build
 
     out = (ctypes.c_int * 8)()
-    err = _build.library().lt_cgs_block_info(int(dtype == torch.float64), b, plan.cols, plan.stages, dev.index, out)
+    code = {torch.float32: 0, torch.float64: 1, torch.complex64: 2, torch.complex128: 3}[dtype]
+    err = _build.library().lt_cgs_block_info(code, b, plan.cols, plan.stages, dev.index, out)
     _build.check(err, "lt_cgs_block_info")
     keys = ("project_registers", "project_local_bytes", "update_registers", "update_local_bytes",
             "project_smem_bytes", "update_smem_bytes", "project_ctas_per_sm", "update_ctas_per_sm")
@@ -1609,12 +1631,13 @@ def phase_k2(torch, dev, op):
     return main
 
 
-def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref):
+def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref, thick, herm, chain):
     """The main path's problem over a ShardedBSROperator in a one-rank NCCL
     process group: the fused engine on the rank's slab (the whole vector),
     the all-gather and the all-reduces over NCCL, the local SpMV on K2;
     then, in the same group, with ``precise_vectors`` (:func:`sharded_pv`,
-    its own line and seconds)."""
+    its own line and seconds), and every other engine over row slabs
+    (:func:`sharded_engines`, its own lines and seconds)."""
     import datetime
     import socket
 
@@ -1684,6 +1707,9 @@ def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref):
         t0 = time.perf_counter()
         pv = sharded_pv(torch, np, op, pv_ref)
         pv["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pv["engines"] = sharded_engines(torch, np, mesh, op, ref, thick, herm, pv_ref, chain)
+        pv["engines_seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     return launches, op, pv
@@ -1723,6 +1749,7 @@ def phase_thick_scalar(torch, np, op, ref):
           "eigenvalues": list(map(float, evals)), "max_rel_err": float(rel.max()), "residuals": residuals,
           "iteration_counts": eng.iteration_counts, "wall_s": wall,
           "iterations_per_s": sum(eng.iteration_counts) / wall, "launches": launches, "checks": checks})
+    return {"iteration_counts": eng.iteration_counts, "eigenvalues": np.asarray(evals), "wall_s": wall}
 
 
 def phase_block_thick_flagship(torch, np, dev, n):
@@ -2223,6 +2250,14 @@ def phase_expm_chain(torch, np, dev):
         raise AssertionError(f"Chebyshev chain: angle {cheby_angle:.3e}, grid angles {grid_angles}")
     if not (g_re.shape == (10, n) and bool(torch.isfinite(g_re).all() and torch.isfinite(g_im).all())):
         raise AssertionError("Chebyshev grid: misshapen or non-finite output")
+    # The states phase sharded_engines holds its one-rank ShardedDIAOperator
+    # to: 100 steps of exp(0.05i H) and the chain for exp(5i H).
+    t0 = time.perf_counter()
+    evolve_state = _to_np(np, *ex.evolve(0.05j, v_re, v_im, 100))
+    evolve_100_s = time.perf_counter() - t0  # the host copy waits for the device
+    states = {"evolve_100x0.05i": evolve_state,
+              "chebyshev_5i": _to_np(np, *ex.run_chebyshev(5j, v_re, v_im, lo=-2.0, hi=2.0)[0])}
+    states_s = time.perf_counter() - t0
     emit({"phase": "expm_chain", "n": n, "dtype": "float32", "k_mode": k_mode, "a_step": str(a_step), "steps": steps,
           "krylov_dim": 12, "evolve_s": evolve_s, "evolve_ms_per_step": evolve_s / steps * 1e3,
           "evolve_angle": evolve_angle, "evolve_k3_launches": k3, "evolve_host_waits": waits,
@@ -2230,8 +2265,9 @@ def phase_expm_chain(torch, np, dev):
           "cheby_cold_s": cheby_s[0], "cheby_warm_s": cheby_s[1], "cheby_terms": terms, "cheby_angle": cheby_angle,
           "grid_s": grid_s,
           "grid_terms": grid_terms, "grid_angles": grid_angles,
-          "bars": {"evolve": EVOLVE_ANGLE_BAR, "chebyshev": CHEBY_ANGLE_BAR}})
-    return {"k3": k3}
+          "bars": {"evolve": EVOLVE_ANGLE_BAR, "chebyshev": CHEBY_ANGLE_BAR}, "sharded_reference_states_s": states_s,
+          "evolve_100x0.05i_s": evolve_100_s})
+    return {"k3": k3, "states": states, "v0": v0, "evolve_100_s": evolve_100_s}
 
 
 def host_waits(torch, fn):
@@ -3026,22 +3062,31 @@ def _gauge_chain(np):
 
 
 def _launch_counts(torch):
-    """Zero the launch counts of K1 (by dtype), K1x (both forms) and K3
-    (by dtype)."""
+    """Zero the launch counts of K1 and K2 (by dtype), K1x (every form)
+    and K3 and K4 (by dtype)."""
     from lanczos_tpu_torch.ops import cgs, spmv
 
-    spmv.bsr_matvec.launches = spmv.bsr_matvec_f32x64.launches = spmv.bsr_matvec_c64x128.launches = 0
-    spmv.bsr_matvec.launches_by_dtype.clear()
-    cgs.cgs_pass.launches = 0
-    cgs.cgs_pass.launches_by_dtype.clear()
+    for fn in (spmv.bsr_matvec, spmv.bsr_matvec_f32x64, spmv.bsr_matvec_c64x128, spmv.bsr_matvec_rsmk,
+               spmv.bsr_matvec_rsmk_f32x64, spmv.bsr_matvec_rsmk_c64x128, cgs.cgs_pass, cgs.cgs_pass_block):
+        fn.launches = 0
+    for by_dtype in (spmv.bsr_matvec.launches_by_dtype, spmv.bsr_matvec_rsmk.launches_by_dtype,
+                     cgs.cgs_pass.launches_by_dtype, cgs.cgs_pass_block.launches_by_dtype):
+        by_dtype.clear()
 
 
 def _read_counts():
     from lanczos_tpu_torch.ops import cgs, spmv
 
-    return {"k1_by_dtype": {str(k).replace("torch.", ""): v for k, v in spmv.bsr_matvec.launches_by_dtype.items()},
+    def named(counter):
+        return {str(k).replace("torch.", ""): v for k, v in counter.items()}
+
+    return {"k1_by_dtype": named(spmv.bsr_matvec.launches_by_dtype),
             "k1x_f32x64": spmv.bsr_matvec_f32x64.launches, "k1x_c64x128": spmv.bsr_matvec_c64x128.launches,
-            "k3_by_dtype": {str(k).replace("torch.", ""): v for k, v in cgs.cgs_pass.launches_by_dtype.items()}}
+            "k2_by_dtype": named(spmv.bsr_matvec_rsmk.launches_by_dtype),
+            "k1x_rsmk_f32x64": spmv.bsr_matvec_rsmk_f32x64.launches,
+            "k1x_rsmk_c64x128": spmv.bsr_matvec_rsmk_c64x128.launches,
+            "k3_by_dtype": named(cgs.cgs_pass.launches_by_dtype),
+            "k4_by_dtype": named(cgs.cgs_pass_block.launches_by_dtype)}
 
 
 def phase_hermitian_main_path(torch, np, dev, op_real, ref, real_evecs, main_wall, main_iters):
@@ -3090,6 +3135,7 @@ def phase_hermitian_main_path(torch, np, dev, op_real, ref, real_evecs, main_wal
             and min(overlaps) >= 1 - HERM_OVERLAP_BAR):
         raise AssertionError(f"complex main path: rel {rel}, residuals {residuals}, overlaps {overlaps}")
     iters = sum(eng.iteration_counts)
+    counts["iteration_counts"] = eng.iteration_counts
     emit({"phase": "hermitian_main_path", "n": n, "dtype": "complex64", "tiles": list(op.blocks.shape),
           "tile_gb": op.blocks.numel() * 8 / 1e9, "pack_s": pack_s, "eigenvalues": list(map(float, evals)),
           "scipy_eigsh_real": list(map(float, ref)), "max_rel_err": float(rel.max()), "residuals": residuals,
@@ -3268,6 +3314,534 @@ def phase_expm_hermitian(torch, np, dev, op):
     emit({"phase": "expm_hermitian", "n": n, "storage": "complex64", **res})
 
 
+# ---- ROADMAP item 13: K2 and K4 complex, the engines over row slabs ------
+
+
+def check_k2c(torch, np, blocks, col_blocks, x, n_out, label, *, timing=False, k1_blocks=None):
+    """One complex instance of K2 (complex64 or complex128 rsmk tiles
+    against an x table of their dtype) or of K1x-rsmk (complex64 tiles
+    against a complex128 table): against the plain version at K1C_TOL of
+    max |y|, a bit-for-bit repeat, its launch count by dtype; with
+    ``timing`` its time beside the bound (8 real operations a stored
+    value), the plain version, a read stream of the tiles, K1 on
+    ``k1_blocks`` (the same tiles in rmsk) and ``torch.sparse_bsr_tensor``
+    over the rsmk tiles as they lie."""
+    from lanczos_tpu_torch.ops import spmv
+
+    r, s, bm, bk = blocks.shape
+    c_rows = x.numel() // bk
+    wide = x.dtype != blocks.dtype
+    name = "complex64x128" if wide else str(blocks.dtype).replace("torch.", "")
+    counter = (lambda: spmv.bsr_matvec_rsmk_c64x128.launches) if wide else (
+        lambda: spmv.bsr_matvec_rsmk.launches_by_dtype[blocks.dtype])
+
+    def kernel():
+        return spmv.bsr_matvec_rsmk(blocks, col_blocks, x, n_out=n_out, col_bound=c_rows)
+
+    def plain():
+        return spmv.bsr_matvec_reference(blocks, col_blocks, x, layout="rsmk")[:n_out]
+
+    before = counter()
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    if counter() != before + 2 or got.dtype != x.dtype:
+        raise AssertionError(f"K2 {name} {label}: {counter() - before} launches, output {got.dtype}")
+    repeat = bool(torch.equal(got, again))
+    err, rel = rel_err(got, plain())
+    out = {"phase": "k2c", "kernel": name, "case": label, "shape": [r, s, bm, bk], "x_rows": c_rows, "n_out": n_out,
+           "max_abs_err": err, "max_rel_err": rel, "tol": K1C_TOL[name], "bitwise_repeat": repeat,
+           "plan": spmv.plan(bm, s, bk, x.element_size())}
+    if not (rel <= K1C_TOL[name] and repeat):
+        raise AssertionError(f"K2 {name} {label}: {out}")
+    if timing:
+        item = x.element_size()
+        tiles = blocks.numel() * blocks.element_size()
+        bytes_moved = tiles + col_blocks.numel() * 4 + (x.numel() + n_out) * item
+        rate = F32_FLOPS if x.dtype == torch.complex64 else F64_FLOPS
+        bound_ms, bound_by = bound(bytes_moved, 8 * blocks.numel(), rate)
+        ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
+        stream_ms = cuda_ms(torch, lambda: torch.sum(torch.view_as_real(blocks)))
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, gbps=bytes_moved / ms / 1e6,
+                   stream_bound_ms=stream_ms * bytes_moved / tiles, fraction_of_bound=bound_ms / ms)
+        if k1_blocks is not None:
+            xk = x[: k1_blocks.shape[0] * k1_blocks.shape[1]]
+            out["k1_same_tiles_ms"] = cuda_ms(torch, lambda: spmv.bsr_matvec(k1_blocks, col_blocks, xk, n_out=n_out))
+        try:
+            crow = torch.arange(0, r * s + 1, s, dtype=torch.int64, device=blocks.device)
+            a = torch.sparse_bsr_tensor(crow, col_blocks.reshape(-1).to(torch.int64),
+                                        blocks.view(-1, bm, bk).to(x.dtype), size=(r * bm, c_rows * bk))
+            out["library_max_rel_err"] = rel_err((a @ x)[:n_out], got)[1]
+            out["library_ms"] = cuda_ms(torch, lambda: a @ x)
+            del a
+        except (RuntimeError, NotImplementedError, TypeError) as exc:  # PyTorch may refuse complex BSR on CUDA
+            out["library_ms"], out["library_error"] = None, str(exc).splitlines()[0][:200]
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_k2c(torch, np, dev, herm_op):
+    """K2's complex instances (complex64, complex128, and K1x-rsmk's
+    complex64 x complex128) against their plain versions on seeded tiles:
+    small, ragged, a footprint-shaped payload and bk = 8192 (past the
+    float32 plan's shared-memory boundary); then each timed on the complex
+    main path's tiles (``herm_op``, phase hermitian_main_path's operator)
+    in rsmk, beside K1 on the same tiles in rmsk."""
+    from lanczos_tpu_torch.ops import spmv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    for label, (r, s, bm, bk, c_rows) in {
+        "small": (4, 3, 8, 8, 4), "ragged": (37, 5, 16, 16, 40), "payload": (64, 3, 16, 16, 7),
+        "smem_boundary_bk8192": (64, 1, 128, 8192, 2),
+    }.items():
+        for tile, xt in ((torch.complex64, torch.complex64), (torch.complex128, torch.complex128),
+                         (torch.complex64, torch.complex128)):
+            blocks = torch.randn((r, s, bm, bk), generator=gen, device=dev, dtype=tile)
+            cb = torch.randint(0, c_rows, (r, s), generator=gen, device=dev, dtype=torch.int32)
+            x = torch.randn(c_rows * bk, generator=gen, device=dev, dtype=xt)
+            out = check_k2c(torch, np, blocks, cb, x, r * bm - 3, label)
+            if label.startswith("smem") and not (out["plan"]["smem"] > spmv.plan(bm, s, bk, 4)["smem"]):
+                raise AssertionError(f"K2 complex {label}: the complex plan is not past the float32 one: {out['plan']}")
+            del blocks, cb, x
+    rsmk = herm_op.blocks.permute(0, 2, 1, 3).contiguous()  # (R, S, bm, bk)
+    timed = {}
+    x = torch.randn(herm_op.n_padded, generator=gen, device=dev, dtype=torch.complex64)
+    timed["complex64"] = check_k2c(torch, np, rsmk, herm_op.col_blocks, x, herm_op.n, "hermitian_main_path",
+                                   timing=True, k1_blocks=herm_op.blocks)
+    x = x.to(torch.complex128)
+    timed["complex64x128"] = check_k2c(torch, np, rsmk, herm_op.col_blocks, x, herm_op.n, "hermitian_main_path",
+                                       timing=True, k1_blocks=herm_op.blocks)
+    del rsmk
+    torch.cuda.empty_cache()
+    rsmk128 = herm_op.blocks.permute(0, 2, 1, 3).to(torch.complex128).contiguous()
+    timed["complex128"] = check_k2c(torch, np, rsmk128, herm_op.col_blocks, x, herm_op.n, "hermitian_main_path_c128",
+                                    timing=True)
+    del rsmk128, x
+    torch.cuda.empty_cache()
+    return timed
+
+
+def check_k4c(torch, basis, vblk, k, *, timing=False):
+    """K4's complex instance: against the plain version (conjugated
+    coefficients) at K3C_TOL, twice bit for bit, counted by dtype; with
+    ``timing`` beside the bound (the k live rows and the block read once,
+    the block written once; 16 real operations per basis value and block
+    row), the plain version, two conjugated ``torch.matmul`` and the
+    two-read stream of the rows."""
+    from lanczos_tpu_torch.ops import cgs
+
+    name = str(basis.dtype).replace("torch.", "")
+    b, n = vblk.shape
+    want = cgs.cgs_pass_block_reference(vblk, basis, k)
+    before = cgs.cgs_pass_block.launches_by_dtype[basis.dtype]
+    got = cgs.cgs_pass_block(vblk.clone(), basis, k)
+    again = cgs.cgs_pass_block(vblk.clone(), basis, k)
+    torch.cuda.synchronize()
+    if cgs.cgs_pass_block.launches_by_dtype[basis.dtype] != before + 2:
+        raise AssertionError(f"K4 {name} k={k}: launches by dtype {dict(cgs.cgs_pass_block.launches_by_dtype)}")
+    err, rel = rel_err(got, want)
+    repeat = bool(torch.equal(got, again))
+    out = {"phase": "k4c", "kernel": name, "basis": list(basis.shape), "b": b, "k": k, "max_abs_err": err,
+           "max_rel_err": rel, "tol": K3C_TOL[name], "bitwise_repeat": repeat}
+    if not (rel <= K3C_TOL[name] and repeat):
+        raise AssertionError(f"K4 {name}: {out}")
+    if timing:
+        work = vblk.clone()
+        rows = basis[:k]
+        item = basis.element_size()
+        sms = torch.cuda.get_device_properties(basis.device).multi_processor_count
+        ms = cuda_ms(torch, lambda: cgs.cgs_pass_block(work, basis, k))
+        plain_ms = cuda_ms(torch, lambda: cgs.cgs_pass_block_reference(vblk, basis, k))
+        library_ms = cuda_ms(torch, lambda: vblk - torch.matmul(torch.matmul(rows.conj(), vblk.T).T, rows))
+        stream_ms = cuda_ms(torch, lambda: torch.sum(torch.view_as_real(rows)))
+        rate = F32_FLOPS if basis.dtype == torch.complex64 else F64_FLOPS
+        bound_ms, bound_by = bound(k * n * item + 2 * b * n * item, 16 * k * b * n, rate)
+        plan = cgs.block_plan(n, b, item, sms)
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   two_read_stream_ms=2 * stream_ms, gbps=2 * k * n * item / ms / 1e6,
+                   fraction_of_bound=bound_ms / ms, fraction_of_stream=2 * stream_ms / ms, plan=plan._asdict(),
+                   **_k4_info(torch, basis.device, b, basis.dtype, plan))
+    emit(out)
+    return out
+
+
+def phase_k4c(torch, dev):
+    """K4 complex64 and complex128 on the flagship's (258, 2**22) buffer at
+    b = 3, k = 24, 96 and 255 (timed), every width bucket at a few k, and
+    a ragged (129, 70001) basis."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    timed = {}
+    for dtype in (torch.complex64, torch.complex128):
+        basis = _random_basis(torch, dev, 258, K4_N, dtype, gen)
+        for k in (24, 96, 255):
+            vblk = torch.randn((3, K4_N), generator=gen, device=dev, dtype=dtype)
+            timed[(dtype, k)] = check_k4c(torch, basis, vblk, k, timing=True)
+        for b in (1, 2, 4, 5, 16):
+            vblk = torch.randn((b, K4_N), generator=gen, device=dev, dtype=dtype)
+            for k in (1, 9, 258):
+                check_k4c(torch, basis, vblk, k)
+        del basis, vblk
+        torch.cuda.empty_cache()
+        basis = _random_basis(torch, dev, 129, 70001, dtype, gen)
+        for b in (3, 16):
+            vblk = torch.randn((b, 70001), generator=gen, device=dev, dtype=dtype)
+            for k in (1, 7, 129):
+                check_k4c(torch, basis, vblk, k)
+        del basis, vblk
+        torch.cuda.empty_cache()
+    return timed
+
+
+# The split pass's bars against the plain version given the same reduce,
+# relative to the output's largest entry, by dtype.
+SPLIT_TOL = {"float32": 1e-5, "float64": 1e-12, **K3C_TOL}
+
+
+def phase_split_passes(torch, dev):
+    """K3 and K4 in the split form that every engine runs over rows split
+    across more than one rank (projection, an all-reduce of the
+    coefficients between the wrapper's two calls, update): here with the
+    reduce an identity (the bits of the whole pass) and a halving (the
+    plain version given the same reduce), in every dtype, K3 at
+    (177, 2**20) with k = 176 (the main path's deepest pass) and K4 at
+    (256, 2**20) with b = 3 and k = 255; both forms timed, since the card's
+    machine has one H100 and runs no world of more than one rank."""
+    from lanczos_tpu_torch.ops import cgs
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    rows = []
+    for name, fn, plain, cap, k, shape in (("k3", cgs.cgs_pass, cgs.cgs_pass_reference, 177, 176, (MAIN_N,)),
+                                           ("k4", cgs.cgs_pass_block, cgs.cgs_pass_block_reference, 256, 255,
+                                            (3, MAIN_N))):
+        for dtype in (torch.float32, torch.float64, torch.complex64, torch.complex128):
+            label = str(dtype).replace("torch.", "")
+            basis = _random_basis(torch, dev, cap, MAIN_N, dtype, gen)
+            v = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+            before = fn.launches_by_dtype[dtype]
+            whole = fn(v.clone(), basis, k)
+            same = fn(v.clone(), basis, k, lambda c: c)
+            halved = fn(v.clone(), basis, k, lambda c: c.mul_(0.5))
+            torch.cuda.synchronize()
+            if fn.launches_by_dtype[dtype] != before + 3:
+                raise AssertionError(f"split {name} {label}: launches by dtype {dict(fn.launches_by_dtype)}")
+            err, rel = rel_err(halved, plain(v, basis, k, lambda c: c * 0.5))
+            out = {"phase": "split_passes", "kernel": name, "dtype": label, "basis": [cap, MAIN_N],
+                   "block": list(shape), "k": k, "identity_bits_equal": bool(torch.equal(same, whole)),
+                   "max_abs_err": err, "max_rel_err": rel, "tol": SPLIT_TOL[label]}
+            if not (out["identity_bits_equal"] and rel <= SPLIT_TOL[label]):
+                raise AssertionError(f"split {name} {label}: {out}")
+            work = v.clone()
+            out["whole_ms"] = cuda_ms(torch, lambda: fn(work, basis, k))
+            out["split_ms"] = cuda_ms(torch, lambda: fn(work, basis, k, lambda c: c))
+            out["split_over_whole"] = out["split_ms"] / out["whole_ms"]
+            emit(out)
+            rows.append(out)
+            del basis, v, work, whole, same, halved
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_block_hermitian(torch, np, dev, herm_op, ref):
+    """The block-thick engine on complex input on the card: b = 3, a
+    128-row basis, on hermitian_main_path's gauge-phased complex64 operator
+    (K1 and K4 complex64), the values within HERM_MAIN_BAR of main_path's
+    scipy values; then the L = 64 Harper-Hofstadter lattice in complex128
+    (K1 and K4 complex128) against Harper's reduction."""
+    import lanczos_tpu_torch as tl
+
+    out = {"phase": "block_hermitian"}
+    eng = tl.LambdaLanczos(herm_op, num_eigs=3, find_maximum=False)
+    eng.block_size, eng.restart_policy, eng.max_iteration = 3, "thick", 128
+    eng.eps, eng.stop_when_full, eng.max_restarts = 1e-6, True, 32
+    rng = np.random.default_rng(SEED)  # distinct start rows, the same every run
+    eng.init_vector = lambda n_: (rng.uniform(-1.0, 1.0, n_) + 1j * rng.uniform(-1.0, 1.0, n_)).astype(np.complex64)
+    _launch_counts(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evals, evecs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    rel = np.abs(np.sort(np.asarray(evals)) - ref) / np.abs(ref)
+    residuals = eng.residuals(evals, evecs)
+    if not (counts["k4_by_dtype"].get("complex64", 0) > 0 and counts["k1_by_dtype"].get("complex64", 0) > 0
+            and set(counts["k4_by_dtype"]) == {"complex64"}):
+        raise AssertionError(f"block_hermitian: K4 and K1 complex64 expected, launches {counts}")
+    if not (evecs.dtype == torch.complex64 and evecs.shape == (3, herm_op.n) and np.all(rel <= HERM_MAIN_BAR)
+            and max(residuals) <= HERM_RES_BAR):
+        raise AssertionError(f"block_hermitian: eigenvalues {evals} vs {ref} ({rel}), residuals {residuals}")
+    out["main_path_complex64"] = {"n": herm_op.n, "block_size": 3, "max_iteration": 128,
+                                  "eigenvalues": list(map(float, evals)), "max_rel_err": float(rel.max()),
+                                  "bar": HERM_MAIN_BAR, "residuals": residuals,
+                                  "iteration_counts": eng.iteration_counts, "wall_s": wall, "launches": counts}
+    rows, cols, vals = _hofstadter_coo(np, HOF_L)
+    harper = _harper_levels(np, HOF_L)
+    op128 = tl.BSROperator.from_coo(rows, cols, vals, HOF_L * HOF_L, dtype=torch.complex128, device=dev)
+    eng = tl.LambdaLanczos(op128, num_eigs=3, find_maximum=False)
+    eng.block_size, eng.restart_policy, eng.max_iteration, eng.eps, eng.max_restarts = 3, "thick", 96, 1e-12, 64
+    rng = np.random.default_rng(SEED + 1)
+    eng.init_vector = lambda n_: rng.uniform(-1.0, 1.0, n_) + 1j * rng.uniform(-1.0, 1.0, n_)
+    _launch_counts(torch)
+    t0 = time.perf_counter()
+    evals, _ = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts128 = _read_counts()
+    rel = np.abs(np.sort(np.asarray(evals)) - harper[:3]) / np.abs(harper[:3])
+    if not (counts128["k4_by_dtype"].get("complex128", 0) > 0 and np.all(rel <= HOF_C128_BAR)):
+        raise AssertionError(f"block_hermitian Hofstadter: {evals} vs {harper[:3]} ({rel}), launches {counts128}")
+    out["hofstadter_complex128"] = {"L": HOF_L, "eigenvalues": list(map(float, evals)), "harper": harper[:3].tolist(),
+                                    "max_rel_err": float(rel.max()), "bar": HOF_C128_BAR,
+                                    "iteration_counts": eng.iteration_counts, "wall_s": wall, "launches": counts128}
+    emit(out)
+    return {"k4_c64": counts["k4_by_dtype"]["complex64"], "k4_c128": counts128["k4_by_dtype"]["complex128"]}
+
+
+def _angle(np, truth, out):
+    """The state angle between two complex vectors (each normalized, the
+    global phase taken out)."""
+    t = truth / np.linalg.norm(truth)
+    o = out / np.linalg.norm(out)
+    ip = np.vdot(t, o)
+    return float(np.linalg.norm(o - (ip / abs(ip)) * t))
+
+
+def sharded_engines(torch, np, mesh, op, ref, thick, herm, pv_ref, chain):
+    """Every engine of ROADMAP item 13 over the one-rank NCCL world of
+    phase sharded_main_path.  Over its ShardedBSROperator ``op`` (the main
+    path's problem): thick (against phase thick_scalar's run ``thick``),
+    block thick (b = 3, K4 at world size 1), a CheckpointedRun stopped
+    after its first round and resumed, the complex main path (K2
+    complex64, against phase hermitian_main_path's run ``herm``) with a
+    precise evolution (K1x-rsmk complex64 x complex128) and a complex128
+    run (K2 complex128), and precise thick (K1x-rsmk).  Over a
+    ShardedDIAOperator of the n = 2**20 chain: filtered_lanczos at degree
+    400 (the unfused chain over the sharded matvec), evolve and
+    run_chebyshev against phase expm_chain's unsharded states ``chain``,
+    and the fused run against the hybrid.  Returns K2's complex launches
+    by instance."""
+    import tempfile
+
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.parallel.sharded import ShardedBSROperator, ShardedDIAOperator
+    from lanczos_tpu_torch.solvers import lanczos as tlz
+    from lanczos_tpu_torch.utils import checkpoint
+
+    dev = mesh.device
+    out = {"phase": "sharded_engines", "world_size": mesh.size, "n": op.n}
+
+    def run(label, fn, check):
+        _launch_counts(torch)
+        with counting_checks() as checks:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = _read_counts()
+        counts["k6"] = checks["k6_launches"]
+        rec = {"wall_s": wall, "launches": counts, **check(res, counts)}
+        out[label] = rec
+        emit({"phase": "sharded_engines_case", "case": label, **rec})
+        return res, rec
+
+    def engine(target, **attrs):
+        """The main path's configuration (hermitian_main_path's for a
+        complex operator) with ``attrs`` on top."""
+        if target.dtype == torch.complex64:
+            eng = tl.LambdaLanczos(target, num_eigs=3, find_maximum=False)
+            eng.eps, eng.stop_when_full = 1e-6, True
+            eng.init_vector = tl.fixed_seed_initializer(torch.complex64, seed=SEED)
+        else:
+            eng = _main_path_engine(tl, torch, target)
+        for k, v in attrs.items():
+            setattr(eng, k, v)
+        return eng
+
+    def values(eng, evals, evecs, want, bar, res_bar=1e-3):
+        rel = np.abs(np.sort(np.asarray(evals)) - want) / np.abs(want)
+        residuals = eng.residuals(evals, evecs)
+        if not (evecs.shape == (3, op.n) and np.all(rel <= bar) and max(residuals) <= res_bar):
+            raise AssertionError(f"sharded_engines: eigenvalues {evals} vs {want} ({rel}), residuals {residuals}")
+        return {"eigenvalues": list(map(float, evals)), "max_rel_err": float(rel.max()), "residuals": residuals,
+                "iteration_counts": eng.iteration_counts}
+
+    eng = engine(op, restart_policy="thick", max_iteration=128)
+
+    def thick_check(res, counts):
+        rec = values(eng, *res, ref, 1e-5)
+        if not (counts["k2_by_dtype"].get("float32", 0) > 0 and counts["k1_by_dtype"] == {}):
+            raise AssertionError(f"sharded thick: K2 expected, launches {counts}")
+        rec.update(unsharded_iteration_counts=thick["iteration_counts"], unsharded_wall_s=thick["wall_s"],
+                   max_abs_diff_unsharded=float(np.max(np.abs(np.sort(np.asarray(res[0]))
+                                                              - np.sort(thick["eigenvalues"])))))
+        return rec
+
+    run("thick", eng.run, thick_check)
+
+    eng_b = engine(op, restart_policy="thick", block_size=3, max_iteration=128, max_restarts=32)
+    rng = np.random.default_rng(SEED)
+    eng_b.init_vector = lambda n_: rng.uniform(-1.0, 1.0, n_).astype(np.float32)
+
+    def block_check(res, counts):
+        rec = values(eng_b, *res, ref, 1e-5)
+        if not (counts["k4_by_dtype"].get("float32", 0) > 0 and counts["k2_by_dtype"].get("float32", 0) > 0):
+            raise AssertionError(f"sharded block thick: K4 and K2 expected, launches {counts}")
+        return rec
+
+    run("block_thick", eng_b.run, block_check)
+
+    def ck_engine():
+        return engine(op, num_eigs_per_iteration=1)
+
+    class Interrupt(Exception):
+        pass
+
+    driver = tlz.deflation_driver
+
+    def one_round(*args, after_round, **kwargs):
+        def save_then_stop(manager, counts, finished):
+            after_round(manager, counts, finished)
+            raise Interrupt
+        return driver(*args, after_round=save_then_stop, **kwargs)
+
+    whole = ck_engine()
+    vals_whole, _ = whole.run()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/sharded.npz"
+        tlz.deflation_driver = one_round
+        try:
+            checkpoint.CheckpointedRun(ck_engine(), path).run()
+            raise AssertionError("the interrupted sharded run was not interrupted")
+        except Interrupt:
+            pass
+        finally:
+            tlz.deflation_driver = driver
+        saved, saved_counts = checkpoint.load_state(path, sharded=op)
+        resumed = ck_engine()
+
+        def ck_check(res, counts):
+            if not (len(saved) == 1 and saved_counts == whole.iteration_counts[:1]
+                    and resumed.iteration_counts == whole.iteration_counts
+                    and np.array_equal(np.asarray(res[0]), np.asarray(vals_whole))):
+                raise AssertionError(f"sharded checkpoint: saved {len(saved)} / {saved_counts}, resumed "
+                                     f"{resumed.iteration_counts} {res[0]} against {whole.iteration_counts} {vals_whole}")
+            return {**values(resumed, *res, ref, 1e-5), "whole_iteration_counts": whole.iteration_counts,
+                    "saved_counts": saved_counts}
+
+        run("checkpoint_resumed", lambda: checkpoint.CheckpointedRun(resumed, path).run(), ck_check)
+
+    rows, cols, cvals, phi, _mags = _gauge_chain(np)
+    cop = ShardedBSROperator.from_coo(rows, cols, cvals, op.n, mesh, bm=128, bk=128, dtype=torch.complex64)
+    eng_c = engine(cop)
+
+    def complex_check(res, counts):
+        rec = values(eng_c, *res, ref, HERM_MAIN_BAR, HERM_RES_BAR)
+        if not (set(counts["k2_by_dtype"]) == {"complex64"} and set(counts["k3_by_dtype"]) == {"complex64"}):
+            raise AssertionError(f"sharded complex main path: K2 and K3 complex64 alone expected, launches {counts}")
+        rec["unsharded_iteration_counts"] = herm["iteration_counts"]
+        return rec
+
+    run("complex_main_path", eng_c.run, complex_check)
+    psi = np.random.default_rng(7).standard_normal(op.n) + 1j * np.random.default_rng(8).standard_normal(op.n)
+    psi /= np.linalg.norm(psi)
+    one = tl.Exponentiator(tl.BSROperator.from_coo(rows, cols, cvals, op.n, dtype=torch.complex64, device=dev))
+
+    def precise_check(res, counts):
+        want = one.evolve(0.05j, psi.real, psi.imag, 4, krylov_dim=16, precise=True)
+        a = _angle(np, want[0] + 1j * want[1], res[0] + 1j * res[1])
+        if not (counts["k1x_rsmk_c64x128"] > 0 and a <= HERM_PRECISE_BAR):
+            raise AssertionError(f"sharded precise complex evolve: angle {a}, launches {counts}")
+        return {"steps": 4, "angle_to_unsharded": a, "bar": HERM_PRECISE_BAR}
+
+    ex_c = tl.Exponentiator(cop)
+    run("complex_evolve_precise", lambda: ex_c.evolve(0.05j, psi.real, psi.imag, 4, krylov_dim=16, precise=True),
+        precise_check)
+    c128 = ShardedBSROperator(cop.blocks.to(torch.complex128), cop.col_blocks, cop.n, mesh)
+    del cop, eng_c, ex_c, one
+    torch.cuda.empty_cache()
+
+    def c128_check(res, counts):
+        # the same entries (the complex64 values, exact in complex128) on one device
+        one128 = tl.BSROperator.from_coo(rows, cols, cvals.astype(np.complex64), op.n, dtype=torch.complex128,
+                                         device=dev)
+        want, it = tl.Exponentiator(one128).run(-0.5j, psi)
+        a = _angle(np, want.cpu().numpy(), res[0].cpu().numpy())
+        if not (counts["k2_by_dtype"].get("complex128", 0) > 0 and a <= 1e-12 and res[1] == it):
+            raise AssertionError(f"sharded complex128 run: angle {a}, iterations {res[1]} vs {it}, launches {counts}")
+        return {"iterations": res[1], "angle_to_unsharded": a}
+
+    run("complex128_run", lambda: tl.Exponentiator(c128).run(-0.5j, psi), c128_check)
+    del c128
+    torch.cuda.empty_cache()
+
+    eng_p = engine(op, precise_vectors=True, restart_policy="thick", max_iteration=128, eps=1e-11, max_restarts=64)
+
+    def pv_check(res, counts):
+        err = np.abs(np.sort(np.asarray(res[0])) - pv_ref)
+        if not (counts["k1x_rsmk_f32x64"] > 0 and counts["k2_by_dtype"] == {} and np.all(err <= PV_THICK_BAR)):
+            raise AssertionError(f"sharded pv thick: errors {err}, launches {counts}")
+        return {"eigenvalues": list(map(float, res[0])), "abs_errs": err.tolist(), "bar": PV_THICK_BAR,
+                "iteration_counts": eng_p.iteration_counts}
+
+    run("pv_thick", eng_p.run, pv_check)
+
+    n = EXPM_CHAIN_N
+    dia = ShardedDIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, mesh)
+    exact = np.array([-2.0 * np.cos((k + 1) * np.pi / (n + 1)) for k in range(3)])
+    f_rng = np.random.default_rng(SEED)
+
+    def cfg(eng_f):
+        eng_f.max_restarts, eng_f.max_iteration = 2, 48
+        eng_f.init_vector = lambda n_: f_rng.uniform(-1.0, 1.0, n_).astype(np.float32)
+
+    def filtered_check(res, counts):
+        vals, vecs, info = res
+        errs = np.abs(np.sort(np.asarray(vals)) - exact)
+        if not (vecs.shape == (3, n) and np.all(errs <= 2e-6) and counts["k3_by_dtype"].get("float32", 0) > 0):
+            raise AssertionError(f"sharded filtered: {vals} vs {exact} ({errs}), launches {counts}")
+        return {"degree": info["filter_degree"], "mu": info["mu"], "eigenvalues": list(map(float, vals)),
+                "abs_errs": errs.tolist(), "residuals": info["residuals"], "iteration_counts": info["iteration_counts"],
+                "matvecs": info["matvecs"]}
+
+    run("filtered_degree400", lambda: tl.filtered_lanczos(dia, num_eigs=3, degree=CHEBY_DEGREE, mu=1e-5, lo=-2.0,
+                                                          hi=2.0, configure=cfg), filtered_check)
+    ex = tl.Exponentiator(dia)
+    v_re = torch.from_numpy(chain["v0"]).to(dev)
+    v_im = torch.zeros_like(v_re)
+
+    def state_check(key, bar):
+        def check(res, counts):
+            a = _angle(np, chain["states"][key], _to_np(np, *(res[0] if key.startswith("cheb") else res)))
+            if not a <= bar:
+                raise AssertionError(f"sharded {key}: angle {a} to the unsharded state above {bar}")
+            rec = {"angle_to_unsharded": a, "bar": bar}
+            if key.startswith("evolve"):
+                rec["unsharded_wall_s"] = chain["evolve_100_s"]  # phase expm_chain, one device
+            return rec
+        return check
+
+    run("evolve_100x0.05i", lambda: ex.evolve(0.05j, v_re, v_im, 100),
+        state_check("evolve_100x0.05i", EVOLVE_ANGLE_BAR))
+    run("chebyshev_5i", lambda: ex.run_chebyshev(5j, v_re, v_im, lo=-2.0, hi=2.0),
+        state_check("chebyshev_5i", CHEBY_ANGLE_BAR))
+    w = torch.as_tensor(np.random.default_rng(SEED + 22).standard_normal(n), dtype=torch.float32, device=dev)
+    hybrid, it_h = ex.run(-0.5, w)
+    ex.mode = "fused"
+
+    def fused_check(res, counts):
+        rel = float(torch.linalg.vector_norm((res[0] - hybrid).double()) / torch.linalg.vector_norm(hybrid.double()))
+        if not (rel <= EXPM_MODE_TOL["float32"] and res[1] == it_h):
+            raise AssertionError(f"sharded fused run: {rel} against the hybrid, iterations {res[1]} vs {it_h}")
+        return {"iterations": res[1], "hybrid_iterations": it_h, "rel_err_to_hybrid": rel}
+
+    run("expm_fused_vs_hybrid", lambda: ex.run(-0.5, w), fused_check)
+    emit(out)
+    return {"k2_c64": out["complex_main_path"]["launches"]["k2_by_dtype"]["complex64"],
+            "k2_c128": out["complex128_run"]["launches"]["k2_by_dtype"]["complex128"],
+            "k2_c64x128": out["complex_evolve_precise"]["launches"]["k1x_rsmk_c64x128"]}
+
+
 def main() -> int:
     import torch
 
@@ -3298,27 +3872,33 @@ def main() -> int:
     e3_launches, e3 = timed("e3", phase_e3, torch, dev)
     e1_launches, e1 = timed("e1", phase_e1, torch, dev)
     timed("expm_zoo", phase_expm_zoo, torch, np, dev)
-    timed("expm_chain", phase_expm_chain, torch, np, dev)
+    chain = timed("expm_chain", phase_expm_chain, torch, np, dev)
     timed("small_solves", phase_small_solves, torch, np, dev)
     launches, k1, k3, op, ref, main_iters, k3_seq, main_evecs = timed("main_path", phase_main_path, torch, np, dev)
     pv_main = timed("pv_main_path", phase_pv_main_path, torch, np, dev, op)
-    timed("thick_scalar", phase_thick_scalar, torch, np, op, ref)
+    thick = timed("thick_scalar", phase_thick_scalar, torch, np, op, ref)
     timed("operators", phase_operators, torch, np, dev, ref)
     timed("expm_bsr", phase_expm_bsr, torch, np, dev, op)
     timed("expm_small", phase_expm_small, torch, np, dev)
     herm_op, herm_counts, k1c = timed("hermitian_main_path", phase_hermitian_main_path, torch, np, dev, op, ref,
                                       *main_evecs, main_iters)
     timed("expm_hermitian", phase_expm_hermitian, torch, np, dev, herm_op)
+    block_herm = timed("block_hermitian", phase_block_hermitian, torch, np, dev, herm_op, ref)
+    k2c = timed("k2c", phase_k2c, torch, np, dev, herm_op)
     del op, herm_op, main_evecs
     torch.cuda.empty_cache()
     timed("k1c", phase_k1c, torch, np, dev)
     k3c = timed("k3c", phase_k3c, torch, dev)
+    k4c = timed("k4c", phase_k4c, torch, dev)
+    timed("split_passes", phase_split_passes, torch, dev)
     facade = timed("hermitian_facade", phase_hermitian_facade, torch, np, dev)
     torch.cuda.empty_cache()
     timed("k3_path", phase_k3_path, torch, dev, k3_seq)
     sharded_launches, sharded_op, sharded_pv_out = timed("sharded_main_path", phase_sharded_main_path, torch, np, dev,
-                                                         ref, main_iters, pv_main["ref32"])
+                                                         ref, main_iters, pv_main["ref32"], thick, herm_counts, chain)
     seconds["sharded_pv"] = sharded_pv_out["seconds"]  # inside sharded_main_path's seconds
+    seconds["sharded_engines"] = sharded_pv_out["engines_seconds"]  # the same
+    sharded_eng = sharded_pv_out["engines"]
     k2 = timed("k2", phase_k2, torch, dev, sharded_op)
     del sharded_op
     torch.cuda.empty_cache()
@@ -3364,7 +3944,15 @@ def main() -> int:
     # sharded precise main path's (its rsmk form), its times those of the
     # main path's tiles in each layout, with K1 (K2) on the same tiles and a
     # float32 x beside them (f32_kernel_ms); its library call is the BSR
-    # tensor product over a float64 copy of the tiles.
+    # tensor product over a float64 copy of the tiles.  K2's complex
+    # instances count their launches in phase sharded_engines (complex64:
+    # the complex main path over the one-rank sharded operator; complex64 x
+    # complex128: its precise evolution; complex128: a complex128 run of the
+    # Exponentiator), their times phase k2c's on the complex main path's
+    # tiles in rsmk; K4's count theirs in phase block_hermitian (complex64:
+    # the complex main path, block thick; complex128: the Hofstadter
+    # lattice), their times phase k4c's at b = 3, k = 255 (with k = 24 and
+    # 96 beside them).
     emit({"kernels": [
         entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
         entry("bsr_matvec_rsmk", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K2_REPLACES, sharded_launches["k2"], k2),
@@ -3401,6 +3989,16 @@ def main() -> int:
                  k3c[torch.complex64]), "two_read_stream_ms": k3c[torch.complex64]["two_read_stream_ms"]},
         {**entry("cgs_pass_c128", "lanczos_tpu_torch/csrc/cgs.cu", K3_REPLACES, facade["k3_c128"],
                  k3c[torch.complex128]), "two_read_stream_ms": k3c[torch.complex128]["two_read_stream_ms"]},
+        *({**entry(f"bsr_matvec_rsmk_{short}", "lanczos_tpu_torch/csrc/bsr_spmv.cu",
+                   K2_REPLACES if short != "c64x128" else K1X_REPLACES, sharded_eng[f"k2_{short}"], k2c[name]),
+           "stream_bound_ms": k2c[name]["stream_bound_ms"], "k1_same_tiles_ms": k2c[name].get("k1_same_tiles_ms"),
+           "library_error": k2c[name].get("library_error")}
+          for short, name in (("c64", "complex64"), ("c128", "complex128"), ("c64x128", "complex64x128"))),
+        *({**entry(f"cgs_pass_block_{short}", "lanczos_tpu_torch/csrc/cgs_block.cu", K4_REPLACES,
+                   block_herm[f"k4_{short}"], k4c[(dtype, 255)]),
+           "two_read_stream_ms": k4c[(dtype, 255)]["two_read_stream_ms"],
+           "ms_k24_k96": [k4c[(dtype, 24)]["ms"], k4c[(dtype, 96)]["ms"]]}
+          for short, dtype in (("c64", torch.complex64), ("c128", torch.complex128))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

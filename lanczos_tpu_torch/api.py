@@ -17,10 +17,10 @@ select the thick, block and block-thick engines as the JAX package does
 (its api.py:152-219).
 
 A row-partitioned operator (:mod:`lanczos_tpu_torch.parallel.sharded`) is
-solved by every rank of its process group together, in the hybrid or the
-fused engine: each rank runs the same solve on its slab, ``matrix_size``
-is the global n, and the eigenvectors come back gathered to length n on
-every rank.
+solved by every rank of its process group together, in every engine
+(hybrid, fused, thick, block, block-thick, precise or not): each rank runs
+the same solve on its slab, ``matrix_size`` is the global n, and the
+eigenvectors come back gathered to length n on every rank.
 
 ``Exponentiator`` <-> the reference class of the same name
 (include/lambda_lanczos/exponentiator.hpp): ``run(a, v)`` returns
@@ -48,7 +48,7 @@ from .core.types import default_exponentiator_eps, default_lanczos_eps, machine_
 from .diagnostics import BudgetExhaustedWarning
 from .ops.hermitian_split import HermitianSplitOperator
 from .ops.operators import LinearOperator, as_operator
-from .parallel.sharded import ShardedOperator, refuse_sharded
+from .parallel.sharded import ShardedOperator
 from .solvers import block_lanczos, block_thick, cheby_expm, lanczos_fused, thick_restart
 from .solvers import exponentiator as _expm
 from .solvers import exponentiator_fused as _expm_fused
@@ -164,7 +164,6 @@ class LambdaLanczos:
                 "has no precise path)"
             )
         if self.block_size > 1:
-            refuse_sharded(op, "block_size > 1")
             b = int(self.block_size)
             if self.restart_policy == "thick":
                 return (
@@ -179,7 +178,6 @@ class LambdaLanczos:
             )
         fused = self._resolve_mode() == "fused"
         if self.restart_policy == "thick":
-            refuse_sharded(op, "restart_policy='thick'")
             engine = thick_restart.thick_lanczos_iteration_fused if fused else thick_restart.thick_lanczos_iteration
             return lambda v0, nroot, defl, mask: engine(op, v0, nroot, defl, mask, cfg), 1, False
         engine = lanczos_fused.lanczos_iteration_fused if fused else _lanczos.lanczos_iteration
@@ -288,12 +286,15 @@ class Exponentiator:
     device, or an array or callable put on ``device`` (default: the CUDA
     card).  Vectors may be tensors on any device or numpy arrays; they are
     moved to the operator's device and dtype, and results are tensors
-    there.  A row-partitioned operator raises.
+    there.  A row-partitioned operator is run by every rank of its group
+    together: each method takes global states, runs on this rank's slabs
+    (every reduction through the group) and returns global results on
+    every rank.
     """
 
     def __init__(self, mv_mul, matrix_size=None, *, dtype=None, mode: str = "hybrid", device=None):
         self.operator, self.matrix_size, self.dtype = _coerce_operator(mv_mul, matrix_size, dtype, device)
-        refuse_sharded(self.operator, "Exponentiator")
+        self._sharded = self.operator if isinstance(self.operator, ShardedOperator) else None
 
         # Public tunables (reference exponentiator.hpp:41-71), the names and
         # defaults of lanczos_tpu.Exponentiator.
@@ -323,7 +324,16 @@ class Exponentiator:
             return op.complex_operator()
         return op if self.dtype.is_complex else None
 
-    def _vector(self, x, what: str):
+    def _slab(self, x):
+        """A global state (or (B, n) batch) as this rank's slab(s) for a
+        row-partitioned operator; as it is otherwise.  Host arrays become
+        tensors on the operator's device in their own dtype."""
+        if self._sharded is None:
+            return x
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+        return linalg.slab(t.to(self.operator.device), self._sharded.n_local, self._sharded.group)
+
+    def _typed(self, x, what: str):
         """``x`` in the operator's dtype on its device; a complex ``x`` for a
         real operator raises (its imaginary part would be dropped)."""
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
@@ -334,11 +344,21 @@ class Exponentiator:
             )
         return t.to(device=self.operator.device, dtype=self.dtype)
 
+    def _vector(self, x, what: str):
+        """:meth:`_typed`, as this rank's slab for a row-partitioned
+        operator."""
+        return self._slab(self._typed(x, what))
+
     def _real_parts(self, v_re, v_im, what: str):
         """The real and imaginary words of a state for a real operator; a
         missing ``v_im`` is zero."""
         v_re = self._vector(v_re, what)
         return v_re, torch.zeros_like(v_re) if v_im is None else self._vector(v_im, what)
+
+    def _precise(self, v):
+        """A real state word in float64 at full precision, as a slab for a
+        row-partitioned operator."""
+        return self._slab(_expm.precise_state(v, self.operator.device))
 
     def run(self, a, input_vector):
         """``(output, iteration_count)`` = exp(a*A) @ input
@@ -350,12 +370,14 @@ class Exponentiator:
             raise ValueError(f"mode must be 'hybrid' or 'fused', got {self.mode!r}")
         op, cop = self.operator, self._herm()
         if cop is not None:
-            op, v, cfg = cop, _expm.complex_state(cop, input_vector), self._config(cop.n)
+            op, v, cfg = cop, self._slab(_expm.complex_state(cop, input_vector)), self._config(cop.n)
         else:
             v, cfg = self._vector(input_vector, "run"), self._config()
         if self.mode == "fused":
-            return _expm_fused.krylov_expm_apply_fused(op, a, v, cfg)
-        return _expm.krylov_expm_apply(op, a, v, cfg)
+            out, itern = _expm_fused.krylov_expm_apply_fused(op, a, v, cfg)
+        else:
+            out, itern = _expm.krylov_expm_apply(op, a, v, cfg)
+        return linalg.gather_rows(out, self.operator), itern
 
     def run_grid(self, a_list, input_vector):
         """exp(a_i*A) @ input for a grid of scalars from ONE Krylov build
@@ -363,10 +385,13 @@ class Exponentiator:
         ``(outputs (num, n), iteration_count)``."""
         cop = self._herm()
         if cop is not None:
-            return _expm.krylov_expm_apply_grid(cop, list(a_list), _expm.complex_state(cop, input_vector),
-                                                self._config(cop.n))
-        v = self._vector(input_vector, "run_grid")
-        return _expm.krylov_expm_apply_grid(self.operator, list(a_list), v, self._config())
+            outs, itern = _expm.krylov_expm_apply_grid(cop, list(a_list),
+                                                       self._slab(_expm.complex_state(cop, input_vector)),
+                                                       self._config(cop.n))
+        else:
+            v = self._vector(input_vector, "run_grid")
+            outs, itern = _expm.krylov_expm_apply_grid(self.operator, list(a_list), v, self._config())
+        return linalg.gather_rows(outs, self.operator), itern
 
     def run_split(self, a, v_re, v_im):
         """exp(a*A) (v_re + i v_im) for a REAL operator: one real Krylov
@@ -378,10 +403,13 @@ class Exponentiator:
         package's one embedded build does."""
         cop = self._herm()
         if cop is not None:
-            out, itern = _expm.krylov_expm_apply(cop, a, _expm.complex_state(cop, v_re, v_im), self._config(cop.n))
+            out, itern = _expm.krylov_expm_apply(cop, a, self._slab(_expm.complex_state(cop, v_re, v_im)),
+                                                 self._config(cop.n))
+            out = linalg.gather_rows(out, self.operator)
             return (out.real, out.imag), itern
         v_re, v_im = self._real_parts(v_re, v_im, "run_split")
-        return _expm.krylov_expm_apply_split(self.operator, a, v_re, v_im, self._config())
+        (out_re, out_im), iters = _expm.krylov_expm_apply_split(self.operator, a, v_re, v_im, self._config())
+        return tuple(linalg.gather_rows(t, self.operator) for t in (out_re, out_im)), iters
 
     def evolve(self, a, v_re, v_im, steps, krylov_dim: int = 12, renormalize: bool = False, precise: bool = False):
         """``steps`` applications of exp(a*A) to (v_re + i v_im) with no host
@@ -398,17 +426,20 @@ class Exponentiator:
         cop = self._herm()
         if cop is not None:
             if precise:
-                return _expm.evolve_hermitian_split_precise(cop, v_re, v_im, a, int(steps), max(int(krylov_dim), 16),
+                return _expm.evolve_hermitian_split_precise(cop, self._precise(v_re), self._precise(v_im), a,
+                                                            int(steps), max(int(krylov_dim), 16),
                                                             renormalize=renormalize)
-            return _expm.evolve_hermitian_split(cop, v_re, v_im, a, int(steps), int(krylov_dim),
-                                                renormalize=renormalize)
+            re, im = _expm.evolve_hermitian_split(cop, self._slab(v_re), self._slab(v_im), a, int(steps),
+                                                  int(krylov_dim), renormalize=renormalize)
+            return tuple(linalg.gather_rows(t, self.operator) for t in (re, im))
         if precise:
-            re, im = _expm.evolve_split_precise(self.operator, v_re, v_im, a, int(steps), int(krylov_dim),
-                                                renormalize=renormalize)
-            return re.cpu().numpy(), im.cpu().numpy()
+            re, im = _expm.evolve_split_precise(self.operator, self._precise(v_re), self._precise(v_im), a,
+                                                int(steps), int(krylov_dim), renormalize=renormalize)
+            return tuple(linalg.gather_rows(t, self.operator).cpu().numpy() for t in (re, im))
         v_re, v_im = self._real_parts(v_re, v_im, "evolve")
-        return _expm.evolve_split(self.operator, v_re, v_im, a, int(steps), int(krylov_dim), full_orth=True,
-                                  renormalize=renormalize)
+        re, im = _expm.evolve_split(self.operator, v_re, v_im, a, int(steps), int(krylov_dim), full_orth=True,
+                                    renormalize=renormalize)
+        return tuple(linalg.gather_rows(t, self.operator) for t in (re, im))
 
     def run_chebyshev(self, a, v_re, v_im=None, *, lo=None, hi=None, tol: float = 1e-16, precise: bool = False):
         """exp(a*A) (v_re + i v_im) by the Chebyshev propagator: ONE matvec
@@ -419,24 +450,35 @@ class Exponentiator:
         (host float64 in and out, as in the JAX package).  A complex
         Hermitian operator takes the complex chain on the complex n-state."""
         if self._herm() is not None:
-            return cheby_expm.chebyshev_expm_apply_hermitian(
-                self.operator, a, v_re, np.zeros(len(v_re)) if v_im is None else v_im, lo=lo, hi=hi, tol=tol,
-                precise=precise)
+            state = self._precise if precise else self._slab
+            (out_re, out_im), terms = cheby_expm.chebyshev_expm_apply_hermitian(
+                self.operator, a, state(v_re), state(np.zeros(len(v_re)) if v_im is None else v_im), lo=lo, hi=hi,
+                tol=tol, precise=precise)
+            if not precise:
+                out_re, out_im = (linalg.gather_rows(t, self.operator) for t in (out_re, out_im))
+            return (out_re, out_im), terms
         if precise:
-            return cheby_expm.chebyshev_expm_apply_split_precise(self.operator, a, v_re, v_im, lo=lo, hi=hi, tol=tol)
+            return cheby_expm.chebyshev_expm_apply_split_precise(
+                self.operator, a, self._precise(v_re), None if v_im is None else self._precise(v_im), lo=lo, hi=hi,
+                tol=tol)
         v_re, v_im = self._real_parts(v_re, v_im, "run_chebyshev")
-        return cheby_expm.chebyshev_expm_apply_split(self.operator, a, v_re, v_im, lo=lo, hi=hi, tol=tol)
+        (out_re, out_im), terms = cheby_expm.chebyshev_expm_apply_split(self.operator, a, v_re, v_im, lo=lo, hi=hi,
+                                                                        tol=tol)
+        return tuple(linalg.gather_rows(t, self.operator) for t in (out_re, out_im)), terms
 
     def run_chebyshev_grid(self, a_list, v_re, v_im=None, *, lo=None, hi=None, tol: float = 1e-16):
         """exp(a_j*A) (v_re + i v_im) for every a_j from ONE Chebyshev chain;
         returns ``((out_re (num, n), out_im (num, n)), n_terms)``; complex
         n-states for a complex Hermitian operator."""
         if self._herm() is not None:
-            return cheby_expm.chebyshev_expm_grid_hermitian(
-                self.operator, list(a_list), v_re, np.zeros(len(v_re)) if v_im is None else v_im, lo=lo, hi=hi,
-                tol=tol)
-        v_re, v_im = self._real_parts(v_re, v_im, "run_chebyshev_grid")
-        return cheby_expm.chebyshev_expm_grid_split(self.operator, list(a_list), v_re, v_im, lo=lo, hi=hi, tol=tol)
+            (out_re, out_im), terms = cheby_expm.chebyshev_expm_grid_hermitian(
+                self.operator, list(a_list), self._slab(v_re), self._slab(np.zeros(len(v_re)) if v_im is None else v_im),
+                lo=lo, hi=hi, tol=tol)
+        else:
+            v_re, v_im = self._real_parts(v_re, v_im, "run_chebyshev_grid")
+            (out_re, out_im), terms = cheby_expm.chebyshev_expm_grid_split(self.operator, list(a_list), v_re, v_im,
+                                                                           lo=lo, hi=hi, tol=tol)
+        return tuple(linalg.gather_rows(t, self.operator) for t in (out_re, out_im)), terms
 
     def run_batch(self, a, input_batch):
         """exp(a*A) applied to each row of a (B, n) batch: the row norms in
@@ -449,10 +491,11 @@ class Exponentiator:
         if cop is not None:
             op, v, cfg = cop, _expm.complex_state(cop, input_batch), self._config(cop.n)
         else:
-            v, cfg = self._vector(input_batch, "run_batch"), self._config()
+            v, cfg = self._typed(input_batch, "run_batch"), self._config()
         if v.dim() != 2 or v.shape[1] != cfg.matrix_size:
             raise ValueError(f"run_batch takes a (B, {cfg.matrix_size}) batch, got shape {tuple(v.shape)}")
-        return _expm_fused.krylov_expm_apply_batch(op, a, v, cfg)
+        outs, iters = _expm_fused.krylov_expm_apply_batch(op, a, self._slab(v), cfg)
+        return linalg.gather_rows(outs, self.operator), iters
 
     def taylor_run(self, a, input_vector):
         """``(output, term_count)``: the Taylor-series fallback
@@ -460,6 +503,9 @@ class Exponentiator:
         Hermitian operator."""
         cop = self._herm()
         if cop is not None:
-            return _expm.taylor_expm_apply(cop, a, _expm.complex_state(cop, input_vector), self._config(cop.n))
-        v = self._vector(input_vector, "taylor_run")
-        return _expm.taylor_expm_apply(self.operator, a, v, self._config())
+            out, terms = _expm.taylor_expm_apply(cop, a, self._slab(_expm.complex_state(cop, input_vector)),
+                                                 self._config(cop.n))
+        else:
+            out, terms = _expm.taylor_expm_apply(self.operator, a, self._vector(input_vector, "taylor_run"),
+                                                 self._config())
+        return linalg.gather_rows(out, self.operator), terms

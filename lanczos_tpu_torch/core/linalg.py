@@ -19,10 +19,18 @@ attribute; ``None`` for an operator on one device).  With a group the
 vectors are this rank's slabs, and each partial sum is all-reduced over the
 group before it is used, so every rank holds the same, bit-identical
 scalars and coefficients and takes the same branches.  The engines pass
-``getattr(op, "group", None)`` at each call site.
+``getattr(op, "group", None)`` at each call site.  :func:`slab` cuts
+global rows (a random draw every rank makes from one seed) into this
+rank's slab, and :func:`gather_rows` gathers slab rows back to an
+operator's global n; :func:`splits` says whether a group has more than one rank (a one-rank
+group reduces nothing and runs K3 and K4 as an operator on one device
+does; above one rank K3 and K4 run each pass as projection, all-reduce of
+the coefficients and update).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed as dist
@@ -42,15 +50,63 @@ __all__ = [
     "orthogonalize_bcgs_dyn",
     "orthogonalize_bcgs_dyn_coeffs",
     "block_inner_f64",
+    "splits",
+    "pass_reduce",
+    "slab",
+    "gather_rows",
 ]
+
+
+def splits(group) -> bool:
+    """Whether ``group`` spreads the rows over more than one rank (a
+    one-rank group runs every kernel as an operator on one device does)."""
+    return group is not None and dist.get_world_size(group) > 1
+
+
+def slab(x, width: int, group=None):
+    """This rank's slab of the global rows ``x`` (..., n): the ``width``
+    columns from ``rank * width``, zero past n (the padding), as the sharded
+    operators' ``scatter`` cuts a vector; ``x`` itself without a group.
+    Every rank draws the same global rows from one seed and keeps its slab,
+    so a sharded solve draws what the one-process solve draws."""
+    if group is None:
+        return x
+    lo = dist.get_rank(group) * width
+    out = x.new_zeros((*x.shape[:-1], width))
+    hi = min(lo + width, x.shape[-1])
+    if hi > lo:
+        out[..., : hi - lo] = x[..., lo:hi]
+    return out
+
+
+def gather_rows(x, op):
+    """The global rows of ``op`` (its ``n`` columns) from every rank's slabs
+    ``x`` (..., width) when ``op`` is row-partitioned or wraps such an
+    operator (its ``group``): one all-gather; ``x`` itself otherwise."""
+    group = getattr(op, "group", None)
+    if group is None:
+        return x
+    n = op.n
+    size = dist.get_world_size(group)
+    rows = x.reshape(-1, x.shape[-1]).contiguous()
+    out = x.new_empty((size * rows.shape[0], rows.shape[1]))
+    dist.all_gather_into_tensor(out, rows, group=group)
+    full = out.view(size, rows.shape[0], rows.shape[1]).transpose(0, 1).reshape(rows.shape[0], -1)
+    return full[:, :n].reshape(*x.shape[:-1], n)
 
 
 def reduce_sum(t, group=None):
     """``t`` summed over the ranks of ``group``, in place (an all-reduce);
-    with no group, ``t`` as it is."""
-    if group is not None:
+    with no group or a one-rank group, ``t`` as it is."""
+    if splits(group):
         dist.all_reduce(t, group=group)
     return t
+
+
+def pass_reduce(group):
+    """The ``reduce`` of a kernel pass (:mod:`lanczos_tpu_torch.ops.cgs`)
+    over ``group``: None unless it spreads the rows over several ranks."""
+    return functools.partial(reduce_sum, group=group) if splits(group) else None
 
 
 def inner_prod(v, w, group=None):
@@ -110,21 +166,14 @@ def orthogonalize_bcgs_dyn(v, basis, k: int, passes: int = 2, group=None):
     on CUDA tensors, which overwrites ``v``; on CPU tensors it is the plain
     pass.  ``k`` is a Python int.
 
-    Over a group of more than one rank the coefficients are partial sums, so
-    a pass is the projection product, the all-reduce, then the update, in
-    plain PyTorch: the JAX package turns its Pallas pass off on more than one
-    device for the same reason (lanczos_tpu/ops/pallas_cgs.py:64-70).  A
-    group of one rank runs K3 as above.
+    Over a group of more than one rank the coefficients are partial sums:
+    K3 projects, the coefficients are all-reduced, and K3 updates from the
+    sums (the JAX package turns its Pallas pass off on more than one device
+    instead, lanczos_tpu/ops/pallas_cgs.py:64-70).
     """
-    if group is not None and dist.get_world_size(group) > 1:
-        if k == 0:
-            return v
-        rows = basis[:k]
-        for _ in range(passes):
-            v = v - reduce_sum(typed_conj(rows) @ v, group) @ rows
-        return v
+    reduce = pass_reduce(group)
     for _ in range(passes):
-        v = _cgs.cgs_pass(v, basis, k)
+        v = _cgs.cgs_pass(v, basis, k, reduce)
     return v
 
 

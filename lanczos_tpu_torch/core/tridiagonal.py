@@ -12,7 +12,9 @@ tiny next to the n-dimensional matvec):
 * ``native`` — the implicit-shift QL sweep of the port's C++ library
   (:mod:`lanczos_tpu_torch.native`, built with ``g++`` at first use);
 * ``bisect`` — the same library's Sturm bisection eigenvalues with
-  backward-recurrence eigenvectors refined by inverse iteration;
+  backward-recurrence eigenvectors refined by inverse iteration, then
+  repaired where they fail (:func:`_repair_bisect_vectors`, fault R8 of
+  the reference: clustered or badly conditioned eigenvectors);
 * ``lapack`` — scipy's ``eigh_tridiagonal`` (LAPACK stev/steqr);
 * ``numpy``  — densify + ``numpy.linalg.eigh``.
 
@@ -37,6 +39,7 @@ eigenvector, eigenvalues ascending (tridiagonal_impl.hpp:177-179, :340).
 from __future__ import annotations
 
 import numpy as np
+import scipy.linalg as sla
 import torch
 
 from ..native import host_kernels
@@ -117,7 +120,7 @@ def eigh_tridiagonal_host(alpha, beta, *, eigvals_only: bool = False, backend: s
         # Sturm-count eigenvalues and backward-recurrence eigenvectors
         # (tridiagonal_impl.hpp:93-134); _eigh_bisect_np is its plain version.
         vals, vecs = host_kernels.tridiagonal_eigh_bisect(alpha, beta, 0, m)
-        return (vals,) if eigvals_only else (vals, vecs)
+        return (vals,) if eigvals_only else (vals, _repair_bisect_vectors(alpha, beta, vals, vecs))
     if backend == "lapack":
         from scipy.linalg import eigh_tridiagonal as _stev
 
@@ -167,7 +170,69 @@ def _eigh_bisect_np(alpha, beta):
         _inverse_iter_np(alpha, beta, lam, _inverse_iter_np(alpha, beta, lam, _eigvec_backward_np(alpha, beta, lam)))
         for lam in vals
     ])
-    return vals, vecs
+    return vals, _repair_bisect_vectors(alpha, beta, vals, vecs)
+
+
+# LAPACK dstein's cluster tolerance (its ORTOL), relative to ||T||_1.
+CLUSTER_TOL = 1e-3
+# A bisection eigenvector is kept when its residual is at most this times
+# ||T||_1 sqrt(m); a repaired one lands near eps ||T||_1.
+RESIDUAL_TOL = 1e-14
+_REPAIR_ROUNDS = 3  # inverse iterations from a fresh start
+
+
+def _repair_bisect_vectors(alpha, beta, vals, vecs):
+    """The ``bisect`` eigenvectors made right (fault R8 of the reference,
+    ROADMAP.md queue 3), given eigenvalues from Sturm bisection, which are
+    accurate.
+
+    The backward recurrence gives garbage for an eigenvector whose last
+    component is tiny (isolated eigenvalues too: overlaps of 1e-33 with
+    the true vector on a seeded m = 128 case), which one inverse iteration
+    cannot recover, and two near-equal eigenvalues get the same vector.
+    So, as LAPACK's dstein does: the eigenvalues are grouped where
+    consecutive gaps fall below ``CLUSTER_TOL * ||T||_1``; every member of
+    a group of two or more, and every vector whose residual exceeds
+    ``RESIDUAL_TOL * ||T||_1 * sqrt(m)``, is recomputed by
+    ``_REPAIR_ROUNDS`` inverse iterations from a seeded random start, each
+    preceded by modified Gram-Schmidt against the group's earlier members.
+    Then every vector passes classical Gram-Schmidt twice against the
+    vectors before it (m^3 work on the host: orthogonality to rounding,
+    each residual moved by about its own size).  Returns the rows."""
+    m = vals.shape[0]
+    if m < 2:
+        return vecs
+    vecs = np.array(vecs, dtype=np.float64)
+    ab = np.abs(beta)
+    t_norm = float(np.max(np.abs(alpha) + np.concatenate([[0.0], ab]) + np.concatenate([ab, [0.0]])))
+    tv = vecs * alpha[None, :]
+    tv[:, :-1] += vecs[:, 1:] * beta[None, :]
+    tv[:, 1:] += vecs[:, :-1] * beta[None, :]
+    bad = np.linalg.norm(tv - vals[:, None] * vecs, axis=1) > RESIDUAL_TOL * t_norm * np.sqrt(m)
+    t = np.diag(alpha) + np.diag(beta, 1) + np.diag(beta, -1)
+    shift = np.finfo(np.float64).eps * t_norm  # keeps T - lambda I off exact singularity
+    start = 0
+    for i in range(1, m + 1):
+        if i < m and vals[i] - vals[i - 1] < CLUSTER_TOL * t_norm:
+            continue
+        for j in range(start, i):
+            if i - start == 1 and not bad[j]:
+                continue
+            lu = sla.lu_factor(t - (vals[j] + shift) * np.eye(m), check_finite=False)
+            v = np.random.default_rng(j).uniform(-1.0, 1.0, m)
+            for _ in range(_REPAIR_ROUNDS):
+                for u in vecs[start:j]:
+                    v -= (u @ v) * u
+                v = sla.lu_solve(lu, v / np.linalg.norm(v), check_finite=False)
+            for u in vecs[start:j]:
+                v -= (u @ v) * u
+            vecs[j] = v / np.linalg.norm(v)
+        start = i
+    for j in range(1, m):
+        v = vecs[j] - (vecs[:j] @ vecs[j]) @ vecs[:j]
+        v = v - (vecs[:j] @ v) @ vecs[:j]
+        vecs[j] = v / np.linalg.norm(v)
+    return vecs
 
 
 def _eigvec_backward_np(alpha, beta, lam):

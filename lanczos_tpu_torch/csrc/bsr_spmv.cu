@@ -16,7 +16,8 @@
 // (common.cuh cx::fma), so a 16-byte tile vector holds two complex64 or one
 // complex128 value.  The JAX package serves complex tiles through its
 // einsum path (no Pallas kernel); a complex Hermitian solve on the TPU runs
-// K1 over the real 2n embedding's parts instead.
+// K1 over the real 2n embedding's parts instead.  K2 has the same three
+// complex instances in its rsmk form, for complex row-partitioned operators.
 //
 // K1 replaces the Pallas TPU kernel lanczos_tpu/ops/pallas_spmv.py
 // bsr_matvec_pallas_t (kernel _spmv_kernel_t): per row block, gather the S
@@ -262,8 +263,7 @@ int lt_bsr_spmv_rsmk_f32x64(const float* blocks, const int* col_blocks, const do
 
 // The complex instances: complex64 and complex128 tiles against a vector of
 // their own type (K1), and complex64 tiles against a complex128 vector with
-// complex128 accumulation (K1x); the rmsk layout only (the rsmk form, K2,
-// serves the sharded operators, which take real tiles).
+// complex128 accumulation (K1x); the rsmk forms (K2) follow below.
 int lt_bsr_spmv_c64(const lt::cfloat* blocks, const int* col_blocks, const lt::cfloat* x, lt::cfloat* y, int R,
                     int bm, int S, int bk, long long n_x, long long n_out, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
@@ -286,6 +286,36 @@ int lt_bsr_spmv_c64x128(const lt::cfloat* blocks, const int* col_blocks, const l
   if (e != cudaSuccess) return int(e);
   return int(bsr_spmv<lt::cfloat, lt::cdouble, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
                                                       static_cast<cudaStream_t>(stream)));
+}
+
+// K2's complex instances, the local product of a complex sharded operator:
+// complex64 and complex128 (R, S, bm, bk) tiles against a table of their own
+// type, and complex64 tiles against a complex128 table (K1x-rsmk's complex
+// form, the precise product of a complex sharded operator).
+int lt_bsr_spmv_rsmk_c64(const lt::cfloat* blocks, const int* col_blocks, const lt::cfloat* x, lt::cfloat* y,
+                         int R, int bm, int S, int bk, long long n_x, long long n_out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<lt::cfloat, lt::cfloat, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                    static_cast<cudaStream_t>(stream)));
+}
+
+int lt_bsr_spmv_rsmk_c128(const lt::cdouble* blocks, const int* col_blocks, const lt::cdouble* x,
+                          lt::cdouble* y, int R, int bm, int S, int bk, long long n_x, long long n_out, int device,
+                          void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<lt::cdouble, lt::cdouble, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                      static_cast<cudaStream_t>(stream)));
+}
+
+int lt_bsr_spmv_rsmk_c64x128(const lt::cfloat* blocks, const int* col_blocks, const lt::cdouble* x,
+                             lt::cdouble* y, int R, int bm, int S, int bk, long long n_x, long long n_out,
+                             int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<lt::cfloat, lt::cdouble, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                     static_cast<cudaStream_t>(stream)));
 }
 
 // The plan of a launch with x values of x_bytes bytes (4, 8 or 16: float,

@@ -46,6 +46,11 @@
 //     launch, and the update's order is fixed, so the result is the same
 //     from run to run.
 //
+// Over rows split across ranks each rank's coefficients are partial sums:
+// the caller runs launches 1-2 (phases = 1), sums c over the ranks in the
+// scratch (an all-reduce) and then launch 3 (phases = 2) on the summed c.
+// phases = 3 is the whole pass.
+//
 // Complex bases (complex64, complex128) run the same three launches over
 // lt::cfloat / lt::cdouble: the coefficients conjugate the basis, c_j =
 // sum_n conj(B_jn) v_n (lt::fma_conj), the update is v -= sum_j c_j B_j
@@ -155,27 +160,33 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // `scratch` holds scratch_len accumulator values: the (k, n_tiles) partial
-// sums, then the k coefficients.
+// sums, then the k coefficients.  `phases`: 1 the projection and the
+// reduction into the coefficients, 2 the update from them, 3 both.
 template <typename T>
 cudaError_t cgs_pass(const T* basis, T* v, typename lt::Acc<T>::type* scratch, int64_t scratch_len, int64_t n,
-                     int k, int keep, cudaStream_t stream) {
+                     int k, int keep, int phases, cudaStream_t stream) {
   using A = typename lt::Acc<T>::type;
   constexpr int VN = lt::Vec<T>::n;
-  if (n <= 0 || k < 0 || keep < 0) return cudaErrorInvalidValue;
+  if (n <= 0 || k < 0 || keep < 0 || phases < 1 || phases > 3) return cudaErrorInvalidValue;
   if (k == 0) return cudaSuccess;
   const int64_t n_tiles = num_tiles<T>(n);
   if (n_tiles > INT32_MAX || scratch_len < int64_t(k) * (n_tiles + 1)) return cudaErrorInvalidValue;
   A* part = scratch;
   A* c = scratch + int64_t(k) * n_tiles;
   const bool vec_ok = n % VN == 0 && lt::aligned16(basis) && lt::aligned16(v);
-  cgs_project_kernel<T><<<unsigned(n_tiles), kThreads, 0, stream>>>(basis, v, part, n, k, keep, n_tiles, vec_ok);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  lt::reduce_rows_kernel<A, kThreads><<<k, kThreads, 0, stream>>>(part, c, n_tiles);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  cgs_update_kernel<T><<<unsigned(n_tiles), kThreads, 0, stream>>>(basis, v, c, n, k, vec_ok);
-  return cudaGetLastError();
+  if (phases & 1) {
+    cgs_project_kernel<T><<<unsigned(n_tiles), kThreads, 0, stream>>>(basis, v, part, n, k, keep, n_tiles, vec_ok);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    lt::reduce_rows_kernel<A, kThreads><<<k, kThreads, 0, stream>>>(part, c, n_tiles);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (phases & 2) {
+    cgs_update_kernel<T><<<unsigned(n_tiles), kThreads, 0, stream>>>(basis, v, c, n, k, vec_ok);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -187,35 +198,40 @@ extern "C" {
 // float64 or complex64, 512 complex128 values (ops/cgs.py TILE_BYTES); a
 // shorter one is refused.  `keep`
 // is the number of first rows the projection leaves in L2 for the update.
+// `phases` (1, 2 or 3) selects the launches, as cgs_pass above: the
+// coefficients are scratch[k * ceil(n / tile) :][: k] between them.
 // `device` is the CUDA ordinal the tensors and `stream` belong to (made
 // current here if it is not: this library has its own runtime).
 int lt_cgs_pass_f32(const float* basis, float* v, float* scratch, long long scratch_len, long long n, int k,
-                    int keep, int device, void* stream) {
+                    int keep, int phases, int device, void* stream) {
   cudaError_t e = lt::make_current(device);
   if (e != cudaSuccess) return int(e);
-  return int(cgs_pass<float>(basis, v, scratch, scratch_len, n, k, keep, static_cast<cudaStream_t>(stream)));
+  return int(cgs_pass<float>(basis, v, scratch, scratch_len, n, k, keep, phases, static_cast<cudaStream_t>(stream)));
 }
 
 int lt_cgs_pass_f64(const double* basis, double* v, double* scratch, long long scratch_len, long long n, int k,
-                    int keep, int device, void* stream) {
+                    int keep, int phases, int device, void* stream) {
   cudaError_t e = lt::make_current(device);
   if (e != cudaSuccess) return int(e);
-  return int(cgs_pass<double>(basis, v, scratch, scratch_len, n, k, keep, static_cast<cudaStream_t>(stream)));
+  return int(
+      cgs_pass<double>(basis, v, scratch, scratch_len, n, k, keep, phases, static_cast<cudaStream_t>(stream)));
 }
 
 // The complex instances: conjugated coefficients, complex scratch.
 int lt_cgs_pass_c64(const lt::cfloat* basis, lt::cfloat* v, lt::cfloat* scratch, long long scratch_len, long long n,
-                    int k, int keep, int device, void* stream) {
+                    int k, int keep, int phases, int device, void* stream) {
   cudaError_t e = lt::make_current(device);
   if (e != cudaSuccess) return int(e);
-  return int(cgs_pass<lt::cfloat>(basis, v, scratch, scratch_len, n, k, keep, static_cast<cudaStream_t>(stream)));
+  return int(
+      cgs_pass<lt::cfloat>(basis, v, scratch, scratch_len, n, k, keep, phases, static_cast<cudaStream_t>(stream)));
 }
 
 int lt_cgs_pass_c128(const lt::cdouble* basis, lt::cdouble* v, lt::cdouble* scratch, long long scratch_len,
-                     long long n, int k, int keep, int device, void* stream) {
+                     long long n, int k, int keep, int phases, int device, void* stream) {
   cudaError_t e = lt::make_current(device);
   if (e != cudaSuccess) return int(e);
-  return int(cgs_pass<lt::cdouble>(basis, v, scratch, scratch_len, n, k, keep, static_cast<cudaStream_t>(stream)));
+  return int(
+      cgs_pass<lt::cdouble>(basis, v, scratch, scratch_len, n, k, keep, phases, static_cast<cudaStream_t>(stream)));
 }
 
 // Resident CTAs per SM of the projection kernel for the basis type `code`

@@ -13,6 +13,9 @@
 //   2. lt::reduce_rows_kernel: C[j, q] = sum_cta part[j*b + q, cta], in a
 //      fixed order (no atomics: the same bits on every run);
 //   3. update_kernel: V[q, range] -= sum_j C[j, q] B[j, range], in place.
+// Over rows split across ranks C is a partial sum on each rank: the caller
+// runs launches 1-2 (phases = 1), all-reduces C and runs launch 3 (phases =
+// 2) on the sum; phases = 3 is the whole pass.
 //
 // What bounds it on the H100: bytes.  A pass reads the k live basis rows
 // twice (2 k n values: once to project, once to update; at the flagship's
@@ -44,6 +47,16 @@
 //     run in the buckets 8 and 16 with the spare vectors masked.
 // Plain FMAs in the storage precision (f32 or f64), no tensor cores, no
 // TF32, no atomics.
+//
+// Complex bases (complex64, complex128) run the same kernels over
+// lt::cfloat / lt::cdouble: the coefficients conjugate the basis,
+// C[j, q] = sum_n conj(B[j, n]) V[q, n] (lt::fma_conj), the update is
+// V[q] -= sum_j C[j, q] B[j] (cx::fma), each four real FMAs per value in a
+// fixed order, as in K3's complex instances (cgs.cu), so a run repeats bit
+// for bit.  A 16-byte vector holds two complex64 or one complex128 value,
+// so the slice of V a thread keeps costs the registers it does in f32 or
+// f64 for the same bytes.  The real instances' arithmetic is unchanged
+// (fma_conj is fma for real types).
 #include "common.cuh"
 #include "ring.cuh"
 
@@ -229,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
           for (int q = 0; q < B; ++q) {
 #pragma unroll
-            for (int c = 0; c < VN; ++c) acc[q] = fma(A(xx[c]), A(vr[q][i][c]), acc[q]);
+            for (int c = 0; c < VN; ++c) acc[q] = lt::fma_conj(A(xx[c]), A(vr[q][i][c]), acc[q]);
           }
         }
       }
@@ -384,7 +397,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 
 template <typename T, int B>
 cudaError_t launch(const T* basis, T* v, typename lt::Acc<T>::type* part, typename lt::Acc<T>::type* c,
-                   int64_t n, int k, int b, int cols, int stages, cudaStream_t stream) {
+                   int64_t n, int k, int b, int cols, int stages, int phases, cudaStream_t stream) {
   cudaError_t e = check_plan<T, B>(cols, stages);
   if (e != cudaSuccess) return e;
   const int64_t grid = (n + cols - 1) / cols;
@@ -396,30 +409,35 @@ cudaError_t launch(const T* basis, T* v, typename lt::Acc<T>::type* part, typena
   const size_t smem_u = smem_bytes<T>(cols, stages, size_t(kCoefBytes));
   if ((e = allow_smem(project_kernel<T, B>, smem_p)) != cudaSuccess) return e;
   if ((e = allow_smem(update_kernel<T, B>, smem_u)) != cudaSuccess) return e;
-  project_kernel<T, B><<<unsigned(grid), kThreads, smem_p, stream>>>(basis, v, part, n, k, b, cols, stages,
-                                                                     vec_ok);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  lt::reduce_rows_kernel<typename lt::Acc<T>::type, 256><<<unsigned(k * b), 256, 0, stream>>>(part, c, grid);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  update_kernel<T, B><<<unsigned(grid), kThreads, smem_u, stream>>>(basis, v, c, n, k, b, cols, stages, vec_ok);
-  return cudaGetLastError();
+  if (phases & 1) {
+    project_kernel<T, B><<<unsigned(grid), kThreads, smem_p, stream>>>(basis, v, part, n, k, b, cols, stages,
+                                                                       vec_ok);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    lt::reduce_rows_kernel<typename lt::Acc<T>::type, 256><<<unsigned(k * b), 256, 0, stream>>>(part, c, grid);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  if (phases & 2) {
+    update_kernel<T, B><<<unsigned(grid), kThreads, smem_u, stream>>>(basis, v, c, n, k, b, cols, stages, vec_ok);
+    return cudaGetLastError();
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t cgs_pass_block(const T* basis, T* v, typename lt::Acc<T>::type* part,
                            typename lt::Acc<T>::type* c, int64_t n, int k, int b, int cols, int stages,
-                           cudaStream_t stream) {
-  if (n <= 0 || k < 0 || b < 1 || b > kMaxB) return cudaErrorInvalidValue;
+                           int phases, cudaStream_t stream) {
+  if (n <= 0 || k < 0 || b < 1 || b > kMaxB || phases < 1 || phases > 3) return cudaErrorInvalidValue;
   if (k == 0) return cudaSuccess;
   switch (b) {
-    case 1: return launch<T, 1>(basis, v, part, c, n, k, b, cols, stages, stream);
-    case 2: return launch<T, 2>(basis, v, part, c, n, k, b, cols, stages, stream);
-    case 3: return launch<T, 3>(basis, v, part, c, n, k, b, cols, stages, stream);
-    case 4: return launch<T, 4>(basis, v, part, c, n, k, b, cols, stages, stream);
+    case 1: return launch<T, 1>(basis, v, part, c, n, k, b, cols, stages, phases, stream);
+    case 2: return launch<T, 2>(basis, v, part, c, n, k, b, cols, stages, phases, stream);
+    case 3: return launch<T, 3>(basis, v, part, c, n, k, b, cols, stages, phases, stream);
+    case 4: return launch<T, 4>(basis, v, part, c, n, k, b, cols, stages, phases, stream);
     default: break;
   }
-  if (b <= 8) return launch<T, 8>(basis, v, part, c, n, k, b, cols, stages, stream);
-  return launch<T, 16>(basis, v, part, c, n, k, b, cols, stages, stream);
+  if (b <= 8) return launch<T, 8>(basis, v, part, c, n, k, b, cols, stages, phases, stream);
+  return launch<T, 16>(basis, v, part, c, n, k, b, cols, stages, phases, stream);
 }
 
 // What the compiler and the occupancy calculator make of one width:
@@ -470,29 +488,56 @@ extern "C" {
 
 // One pass.  `cols` (the column range per CTA) and `stages` (ring depth)
 // come from the wrapper's plan (ops/cgs.py block_plan); `part` holds
-// (k*b, ceil(n / cols)) partial sums.  `device` is the CUDA ordinal the
-// tensors and `stream` belong to (made current here: this library has its
-// own runtime).
+// (k*b, ceil(n / cols)) partial sums and `c` the (k, b) coefficients;
+// `phases` (1, 2 or 3) selects the launches, as cgs_pass_block above.
+// `device` is the CUDA ordinal the tensors and `stream` belong to (made
+// current here: this library has its own runtime).
 int lt_cgs_block_pass_f32(const float* basis, float* v, float* part, float* c, long long n, int k, int b,
-                          int cols, int stages, int device, void* stream) {
+                          int cols, int stages, int phases, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(cgs_pass_block<float>(basis, v, part, c, n, k, b, cols, stages, static_cast<cudaStream_t>(stream)));
+  return int(cgs_pass_block<float>(basis, v, part, c, n, k, b, cols, stages, phases,
+                                   static_cast<cudaStream_t>(stream)));
 }
 
 int lt_cgs_block_pass_f64(const double* basis, double* v, double* part, double* c, long long n, int k, int b,
-                          int cols, int stages, int device, void* stream) {
+                          int cols, int stages, int phases, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(cgs_pass_block<double>(basis, v, part, c, n, k, b, cols, stages, static_cast<cudaStream_t>(stream)));
+  return int(cgs_pass_block<double>(basis, v, part, c, n, k, b, cols, stages, phases,
+                                    static_cast<cudaStream_t>(stream)));
+}
+
+// The complex instances: conjugated coefficients, complex partial sums.
+int lt_cgs_block_pass_c64(const lt::cfloat* basis, lt::cfloat* v, lt::cfloat* part, lt::cfloat* c, long long n,
+                          int k, int b, int cols, int stages, int phases, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(cgs_pass_block<lt::cfloat>(basis, v, part, c, n, k, b, cols, stages, phases,
+                                        static_cast<cudaStream_t>(stream)));
+}
+
+int lt_cgs_block_pass_c128(const lt::cdouble* basis, lt::cdouble* v, lt::cdouble* part, lt::cdouble* c,
+                           long long n, int k, int b, int cols, int stages, int phases, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(cgs_pass_block<lt::cdouble>(basis, v, part, c, n, k, b, cols, stages, phases,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // Registers, spills, shared memory and resident CTAs per SM of the width-b
-// kernels at a plan (see info above); f64 selects the double kernels.
-int lt_cgs_block_info(int f64, int b, int cols, int stages, int device, int* out) {
+// kernels at a plan (see info above); `code` selects the basis type: 0
+// float, 1 double, 2 complex64, 3 complex128.
+int lt_cgs_block_info(int code, int b, int cols, int stages, int device, int* out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return int(e);
-  return int(f64 ? info_any<double>(b, cols, stages, out) : info_any<float>(b, cols, stages, out));
+  switch (code) {
+    case 0: return int(info_any<float>(b, cols, stages, out));
+    case 1: return int(info_any<double>(b, cols, stages, out));
+    case 2: return int(info_any<lt::cfloat>(b, cols, stages, out));
+    case 3: return int(info_any<lt::cdouble>(b, cols, stages, out));
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

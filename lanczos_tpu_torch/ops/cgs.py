@@ -7,8 +7,15 @@ against the incoming vector, v <- v - B[:k]^T (B[:k] v) — the semantics of
 the Pallas kernels (pallas_cgs.py:32-38) and of the JAX package's CPU path.
 The block pass does the same for each row of a (b, n) block, reading the
 basis once for all b rows.  A complex basis conjugates the coefficients,
-v <- v - B[:k]^T (conj(B[:k]) v): K3 has complex64 and complex128
-instances for the complex Hermitian solves; K4 takes real bases only.
+v <- v - B[:k]^T (conj(B[:k]) v): K3 and K4 have complex64 and complex128
+instances for the complex Hermitian solves.
+
+Over rows split across ranks (a row-partitioned operator's slabs) each
+rank's coefficients are partial sums.  Every pass then takes ``reduce``, a
+function that sums the coefficients over the ranks in place (an
+all-reduce): the kernel runs its projection and reduction into the
+coefficients, returns, and runs its update from the summed coefficients,
+so the kernels run at every world size.
 """
 
 from __future__ import annotations
@@ -56,15 +63,32 @@ BLOCK_CONSUMERS = 256
 BLOCK_CTAS_PER_SM = 2
 BLOCK_MIN_STAGES, BLOCK_MAX_STAGES = 2, 8
 BLOCK_RING_BYTES = 32 * 1024  # basis bytes a CTA's ring holds (stages * cols * itemsize), at most
+# K4's entry point in csrc/cgs_block.cu and the basis-type code of
+# lt_cgs_block_info, by basis dtype.
+_K4_ENTRY = {
+    torch.float32: ("lt_cgs_block_pass_f32", 0),
+    torch.float64: ("lt_cgs_block_pass_f64", 1),
+    torch.complex64: ("lt_cgs_block_pass_c64", 2),
+    torch.complex128: ("lt_cgs_block_pass_c128", 3),
+}
 
 
-def cgs_pass_reference(v, basis, k: int):
+# Which of a pass's launches to run (csrc/cgs.cu, csrc/cgs_block.cu):
+# the projection and its reduction into the coefficients, the update from
+# them, or both.
+_PROJECT, _UPDATE, _WHOLE = 1, 2, 3
+
+
+def cgs_pass_reference(v, basis, k: int, reduce=None):
     """Plain PyTorch pass: ``v - B[:k]^T (B[:k] v)`` (conjugated
-    coefficients for complex bases); returns a new tensor."""
+    coefficients for complex bases), with ``reduce`` applied to the
+    coefficients first when given; returns a new tensor."""
     if k <= 0:
         return v
     rows = basis[:k]
     c = rows.conj() @ v if rows.is_complex() else rows @ v
+    if reduce is not None:
+        c = reduce(c)
     return v - c @ rows
 
 
@@ -112,7 +136,7 @@ def kept_rows(n: int, dtype, device) -> int:
     return _k3_entry(torch.cuda.current_device() if device.index is None else device.index)[dtype][1](n)
 
 
-def cgs_pass(v, basis, k: int):
+def cgs_pass(v, basis, k: int, reduce=None):
     """K3: one classical GS pass of ``v`` against rows [0, k) of ``basis``.
 
     On CUDA tensors this launches ``csrc/cgs.cu`` (float32, float64,
@@ -122,7 +146,9 @@ def cgs_pass(v, basis, k: int):
     — and counts the launch in ``cgs_pass.launches`` and, by dtype, in
     ``cgs_pass.launches_by_dtype``.  ``k == 0`` launches nothing.  On CPU
     tensors it returns :func:`cgs_pass_reference`.  Callers use the return
-    value.
+    value.  With ``reduce`` (the module's note) the pass is the projection,
+    ``reduce`` of the k coefficients in the scratch, then the update: one
+    launch counted.
 
     The launch path is short, since at small k the host's part is most of
     a call: the foreign functions are resolved once per device, the stream
@@ -134,7 +160,7 @@ def cgs_pass(v, basis, k: int):
     if v.shape != (n,) or not 0 <= k <= cap:
         raise ValueError(f"v of shape {tuple(v.shape)} / k={k} do not fit a basis of shape {(cap, n)}")
     if v.device.type == "cpu":
-        return cgs_pass_reference(v, basis, k)
+        return cgs_pass_reference(v, basis, k, reduce)
     if v.device.type != "cuda":
         raise ValueError(f"cgs_pass runs on CPU or CUDA tensors, got {v.device}")
     if basis.dtype not in _K3_ENTRY:
@@ -152,10 +178,14 @@ def cgs_pass(v, basis, k: int):
     fn, keep = _k3_entry(idx)[basis.dtype]
     n_tiles = -(-n // (TILE_BYTES // basis.element_size()))
     scratch = torch.empty(k * (n_tiles + 1), dtype=basis.dtype, device=v.device)
-    err = fn(basis.data_ptr(), v.data_ptr(), scratch.data_ptr(), scratch.numel(), n, k, keep(n), idx,
-             torch._C._cuda_getCurrentRawStream(idx))
-    if err:
-        _build.check(err, "cgs_pass (K3)")
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    for phases in (_WHOLE,) if reduce is None else (_PROJECT, _UPDATE):
+        if phases == _UPDATE:
+            reduce(scratch[k * n_tiles :])
+        err = fn(basis.data_ptr(), v.data_ptr(), scratch.data_ptr(), scratch.numel(), n, k, keep(n), phases, idx,
+                 stream)
+        if err:
+            _build.check(err, "cgs_pass (K3)")
     cgs_pass.launches += 1
     _K3_BY_DTYPE[basis.dtype] += 1
     return v
@@ -215,40 +245,47 @@ def _num_sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def cgs_pass_block_reference(vblk, basis, k: int):
+def cgs_pass_block_reference(vblk, basis, k: int, reduce=None):
     """Plain PyTorch block pass: ``V - (B[:k] V^H)^T B[:k]`` for a (b, n)
-    block ``V`` (conjugated coefficients for complex bases); returns a new
-    tensor."""
+    block ``V`` (conjugated coefficients for complex bases), with
+    ``reduce`` applied to the (k, b) coefficients first when given; returns
+    a new tensor."""
     if k <= 0:
         return vblk
     rows = basis[:k]
     c = (rows.conj() if rows.is_complex() else rows) @ vblk.T  # (k, b)
+    if reduce is not None:
+        c = reduce(c)
     return vblk - c.T @ rows
 
 
-def cgs_pass_block(vblk, basis, k: int):
+def cgs_pass_block(vblk, basis, k: int, reduce=None):
     """K4: one classical GS pass of every row of the (b, n) block ``vblk``
     against rows [0, k) of ``basis``.
 
-    On CUDA tensors this launches ``csrc/cgs_block.cu`` (float32 or float64,
-    1 <= b <= 16; other dtypes raise) cut by :func:`block_plan`, overwrites
-    ``vblk`` with the result
-    and returns it — the JAX kernel aliases the block to its output the same
-    way (pallas_cgs.py:190) — and counts the launch in
-    ``cgs_pass_block.launches``.  ``k == 0`` launches nothing.  On CPU
-    tensors it returns :func:`cgs_pass_block_reference`.  Callers use the
-    return value.
+    On CUDA tensors this launches ``csrc/cgs_block.cu`` (float32, float64,
+    complex64 or complex128, the complex ones with conjugated coefficients;
+    1 <= b <= 16; bfloat16 raises) cut by :func:`block_plan`, overwrites
+    ``vblk`` with the result and returns it — the JAX kernel aliases the
+    block to its output the same way (pallas_cgs.py:190) — and counts the
+    launch in ``cgs_pass_block.launches`` and, by dtype, in
+    ``cgs_pass_block.launches_by_dtype``.  ``k == 0`` launches nothing.  On
+    CPU tensors it returns :func:`cgs_pass_block_reference`.  Callers use
+    the return value.  With ``reduce`` (the module's note) the pass is the
+    projection, ``reduce`` of the (k, b) coefficients, then the update: one
+    launch counted.
     """
     k = int(k)
     cap, n = basis.shape
     if vblk.ndim != 2 or vblk.shape[1] != n or not 0 <= k <= cap:
         raise ValueError(f"block of shape {tuple(vblk.shape)} / k={k} do not fit a basis of shape {(cap, n)}")
     if vblk.device.type == "cpu":
-        return cgs_pass_block_reference(vblk, basis, k)
+        return cgs_pass_block_reference(vblk, basis, k, reduce)
     if vblk.device.type != "cuda":
         raise ValueError(f"cgs_pass_block runs on CPU or CUDA tensors, got {vblk.device}")
-    if basis.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(f"K4 takes float32/float64 bases on CUDA, got {basis.dtype}; see {_BLOCK_DTYPE_ITEM}")
+    if basis.dtype not in _K4_ENTRY:
+        raise NotImplementedError(
+            f"K4 takes float32/float64/complex64/complex128 bases on CUDA, got {basis.dtype}; see {_BLOCK_DTYPE_ITEM}")
     b = vblk.shape[0]
     if not 1 <= b <= MAX_BLOCK:
         raise ValueError(f"K4 takes blocks of 1 to {MAX_BLOCK} rows, got {b}")
@@ -263,14 +300,20 @@ def cgs_pass_block(vblk, basis, k: int):
     lib = _build.library()
     plan = block_plan(n, b, basis.element_size(), _num_sms(vblk.device))
     part = torch.empty((k * b, plan.grid), dtype=basis.dtype, device=vblk.device)
-    c = torch.empty(k * b, dtype=basis.dtype, device=vblk.device)
-    fn = lib.lt_cgs_block_pass_f32 if basis.dtype == torch.float32 else lib.lt_cgs_block_pass_f64
+    c = torch.empty((k, b), dtype=basis.dtype, device=vblk.device)
+    fn = getattr(lib, _K4_ENTRY[basis.dtype][0])
     stream = torch.cuda.current_stream(vblk.device).cuda_stream
-    err = fn(basis.data_ptr(), vblk.data_ptr(), part.data_ptr(), c.data_ptr(), n, k, b, plan.cols, plan.stages,
-             vblk.device.index, stream)
-    _build.check(err, "cgs_pass_block (K4)")
+    for phases in (_WHOLE,) if reduce is None else (_PROJECT, _UPDATE):
+        if phases == _UPDATE:
+            reduce(c)
+        err = fn(basis.data_ptr(), vblk.data_ptr(), part.data_ptr(), c.data_ptr(), n, k, b, plan.cols, plan.stages,
+                 phases, vblk.device.index, stream)
+        _build.check(err, "cgs_pass_block (K4)")
     cgs_pass_block.launches += 1
+    _K4_BY_DTYPE[basis.dtype] += 1
     return vblk
 
 
+_K4_BY_DTYPE = collections.Counter()
 cgs_pass_block.launches = 0
+cgs_pass_block.launches_by_dtype = _K4_BY_DTYPE

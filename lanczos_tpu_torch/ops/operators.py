@@ -98,6 +98,12 @@ class LinearOperator:
     def matvec(self, x):
         raise NotImplementedError
 
+    def abs_row_sums(self):
+        """``sum_j |a_ij|`` of every row this process holds, the
+        Gershgorin sums (``utils.estimate.gershgorin_bound``); None when
+        the entries are not stored."""
+        return None
+
     def matvec_rows(self, x):
         """``A`` applied to every row of a (b, n) block: one matvec per row
         (the JAX package's ``vmap(op.matvec)``); operators with a batched
@@ -171,6 +177,9 @@ class DenseOperator(LinearOperator):
     @property
     def device(self):
         return self.a.device
+
+    def abs_row_sums(self):
+        return self.a.abs().sum(dim=1)
 
     def matvec(self, x):
         return self.a @ x
@@ -279,6 +288,11 @@ class COOOperator(LinearOperator):
     def device(self):
         return self.vals.device
 
+    def abs_row_sums(self):
+        # In the values' dtype, as the JAX package's segment sum, in the
+        # operator's own row order (fixed).
+        return _segment_sum(self._vals_sorted.abs(), self._offsets)
+
     def matvec(self, x):
         return _segment_sum(self._vals_sorted * x[self._cols_sorted], self._offsets)
 
@@ -337,6 +351,9 @@ class CSROperator(LinearOperator):
     @property
     def device(self):
         return self.data.device
+
+    def abs_row_sums(self):
+        return _segment_sum(self.data.abs(), self.indptr)
 
     def matvec(self, x):
         return _segment_sum(self.data * x[self.indices], self.indptr)
@@ -418,10 +435,25 @@ class BSROperator(LinearOperator):
         blocks, col_blocks = _pack_bsr(rows, cols, vals, int(n), bm, bk, np_dtype)
         return cls(torch.from_numpy(blocks).to(device), torch.from_numpy(col_blocks).to(device), int(n))
 
+    def abs_row_sums(self):
+        # The rmsk tiles (R, bm, S, bk) over (S, bk); padding tiles are zero.
+        return self.blocks.abs().sum(dim=(2, 3)).reshape(-1)[: self.n]
+
     def matvec(self, x):
         return spmv.bsr_matvec(self.blocks, self.col_blocks, x, n_out=self.n)
 
     matvec_f64 = matvec  # a float64 x takes K1x (float32 tiles) or K1 (float64 tiles)
+
+
+def dia_abs_row_sums(data, dtype):
+    """|row sums| of DIA ``data`` (one row per stored diagonal, entries off
+    the matrix zero), accumulated in float64.  A bound must never
+    underestimate: float32 data keeps the JAX package's few-ulp inflation
+    of the float64 sum."""
+    total = torch.zeros(data.shape[1], dtype=torch.float64, device=data.device)
+    for row in data:
+        total = total + row.abs().to(torch.float64)
+    return total * (1.0 + 8.0 * float(torch.finfo(torch.float64).eps)) if dtype == torch.float32 else total
 
 
 class DIAOperator(LinearOperator):
@@ -483,6 +515,9 @@ class DIAOperator(LinearOperator):
     @property
     def device(self):
         return self.data.device
+
+    def abs_row_sums(self):
+        return dia_abs_row_sums(self.data, self.dtype)
 
     def matvec(self, x):
         n = self.n
@@ -598,6 +633,12 @@ class ShiftSquaredOperator(LinearOperator):
     @property
     def n(self):
         return self.base.n
+
+    @property
+    def group(self):
+        """A row-partitioned base's process group (None otherwise): the
+        engines reduce over it, as for the base itself."""
+        return getattr(self.base, "group", None)
 
     @property
     def dtype(self):

@@ -27,7 +27,10 @@ Complex tiles (complex Hermitian operators, natively: no real embedding)
 take K1's complex64 and complex128 instances, :func:`bsr_matvec` with its
 launches counted by dtype in ``bsr_matvec.launches_by_dtype``; complex64
 tiles against a complex128 ``x`` take K1x's complex instance,
-:func:`bsr_matvec_c64x128`.  The rsmk form (K2) takes real tiles only.
+:func:`bsr_matvec_c64x128`.  The rsmk form (K2) has the same instances for
+complex row-partitioned operators: :func:`bsr_matvec_rsmk` counts its
+launches by dtype in ``bsr_matvec_rsmk.launches_by_dtype``, and complex64
+tiles against a complex128 table go to :func:`bsr_matvec_rsmk_c64x128`.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ __all__ = [
     "bsr_matvec_f32x64",
     "bsr_matvec_c64x128",
     "bsr_matvec_rsmk_f32x64",
+    "bsr_matvec_rsmk_c64x128",
     "bsr_matvec_reference",
     "plan",
 ]
@@ -209,9 +213,12 @@ def bsr_matvec_rsmk(blocks, col_blocks, x, n_out: int | None = None, *, col_boun
     largest entry when the caller knows it (the sharded operators compute it
     when they pack), else it is read from ``col_blocks``, which waits for the
     device.  On CUDA tensors this launches ``csrc/bsr_spmv.cu`` in its
-    ``rsmk`` form (float32 or float64; other dtypes raise) and counts the
-    launch in ``bsr_matvec_rsmk.launches``; on CPU tensors it runs
-    :func:`bsr_matvec_reference`.
+    ``rsmk`` form (float32, float64, complex64 or complex128 tiles;
+    bfloat16 raises) and counts the launch in ``bsr_matvec_rsmk.launches``
+    and, by tile dtype, in ``bsr_matvec_rsmk.launches_by_dtype``; float32
+    (complex64) tiles against a float64 (complex128) table go to K1x-rsmk,
+    counted by :func:`bsr_matvec_rsmk_f32x64` (:func:`bsr_matvec_rsmk_c64x128`).
+    On CPU tensors it runs :func:`bsr_matvec_reference`.
     """
     if blocks.ndim != 4:
         raise ValueError(f"blocks of shape {tuple(blocks.shape)} are not (R, S, bm, bk) tiles")
@@ -231,22 +238,36 @@ def bsr_matvec_rsmk(blocks, col_blocks, x, n_out: int | None = None, *, col_boun
         return bsr_matvec_reference(blocks, col_blocks, x, layout="rsmk")[:n_out]
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matvec_rsmk runs on CPU or CUDA tensors, got {x.device}")
-    if blocks.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(f"K2 takes float32/float64 tiles on CUDA, got {blocks.dtype}; see {_RSMK_DTYPE_ITEM}")
+    if blocks.dtype not in _K2_ENTRY:
+        raise NotImplementedError(
+            f"K2 takes float32/float64/complex64/complex128 tiles on CUDA, got {blocks.dtype}; see {_RSMK_DTYPE_ITEM}")
     _check_cuda_args(blocks, col_blocks, x, (r, s), "bsr_matvec_rsmk")
-    if blocks.dtype == torch.float32 and x.dtype == torch.float64:
-        y = _launch(_build.library().lt_bsr_spmv_rsmk_f32x64, blocks, col_blocks, x, n_out, (r, bm, s, bk),
-                    "bsr_matvec_rsmk_f32x64 (K1x, rsmk)")
-        bsr_matvec_rsmk_f32x64.launches += 1
-        return y
     lib = _build.library()
-    fn = lib.lt_bsr_spmv_rsmk_f32 if blocks.dtype == torch.float32 else lib.lt_bsr_spmv_rsmk_f64
-    y = _launch(fn, blocks, col_blocks, x, n_out, (r, bm, s, bk), "bsr_matvec_rsmk (K2)")
+    if (blocks.dtype, x.dtype) in _WIDE_X:
+        counter = bsr_matvec_rsmk_f32x64 if blocks.dtype == torch.float32 else bsr_matvec_rsmk_c64x128
+        y = _launch(getattr(lib, _K2X_ENTRY[blocks.dtype]), blocks, col_blocks, x, n_out, (r, bm, s, bk),
+                    f"{counter.__name__} (K1x, rsmk)")
+        counter.launches += 1
+        return y
+    y = _launch(getattr(lib, _K2_ENTRY[blocks.dtype]), blocks, col_blocks, x, n_out, (r, bm, s, bk),
+                "bsr_matvec_rsmk (K2)")
     bsr_matvec_rsmk.launches += 1
+    _K2_BY_DTYPE[blocks.dtype] += 1
     return y
 
 
+_K2_BY_DTYPE = collections.Counter()
 bsr_matvec_rsmk.launches = 0
+bsr_matvec_rsmk.launches_by_dtype = _K2_BY_DTYPE
+# K2's entry point by tile dtype (x of the same dtype), and K1x-rsmk's by
+# tile dtype (the wider x).
+_K2_ENTRY = {
+    torch.float32: "lt_bsr_spmv_rsmk_f32",
+    torch.float64: "lt_bsr_spmv_rsmk_f64",
+    torch.complex64: "lt_bsr_spmv_rsmk_c64",
+    torch.complex128: "lt_bsr_spmv_rsmk_c128",
+}
+_K2X_ENTRY = {torch.float32: "lt_bsr_spmv_rsmk_f32x64", torch.complex64: "lt_bsr_spmv_rsmk_c64x128"}
 
 
 def bsr_matvec_rsmk_f32x64(blocks, col_blocks, x, n_out: int | None = None, *, col_bound: int | None = None):
@@ -260,6 +281,19 @@ def bsr_matvec_rsmk_f32x64(blocks, col_blocks, x, n_out: int | None = None, *, c
 
 
 bsr_matvec_rsmk_f32x64.launches = 0
+
+
+def bsr_matvec_rsmk_c64x128(blocks, col_blocks, x, n_out: int | None = None, *, col_bound: int | None = None):
+    """K1x-rsmk's complex instance (K2's body with complex64 tiles and a
+    complex128 ``x``), the precise product of a complex sharded operator:
+    the arguments of :func:`bsr_matvec_rsmk`, which routes such calls here
+    and counts them in ``bsr_matvec_rsmk_c64x128.launches``."""
+    if blocks.dtype != torch.complex64 or x.dtype != torch.complex128:
+        raise TypeError(f"K1x takes complex64 tiles and a complex128 x, got {blocks.dtype} and {x.dtype}")
+    return bsr_matvec_rsmk(blocks, col_blocks, x, n_out, col_bound=col_bound)
+
+
+bsr_matvec_rsmk_c64x128.launches = 0
 
 # csrc/bsr_spmv.cu's launch constants.
 X_PIECE_BYTES = 32 * 1024

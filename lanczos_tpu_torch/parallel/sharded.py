@@ -28,9 +28,13 @@ on CUDA tensors, for every tile group, and its plain version on the CPU.
 ``matvec_df``) runs the same schedule on a float64 slab: the same
 collectives carry float64 words, and the local products are float64 (K1x's
 rsmk form for float32 tiles on CUDA; the DIA and dense slabs convert their
-entries).  The fused engine's ``precise_vectors`` runs on it; the thick,
-block and filtered engines over a sharded operator, precise or not, raise
-(ROADMAP item 13).
+entries).  Every engine runs on these slabs (hybrid, fused, thick, block,
+block-thick, filtered, the Exponentiator, precise or not).
+
+Complex entries (complex64, complex128) take the same schedules: the
+gathers, ring and footprint exchanges and DIA halos carry complex slabs
+(``torch.distributed`` moves a complex tensor as its real view), and the
+local product is K2's complex instance on CUDA.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import torch.distributed as dist
 
 from ..core.types import to_numpy_dtype
 from ..ops import spmv
-from ..ops.operators import DenseOperator, DIAOperator, LinearOperator, _pack_bsr
+from ..ops.operators import DenseOperator, DIAOperator, LinearOperator, _pack_bsr, dia_abs_row_sums
 from .mesh import RowMesh, all_gather, gather_vector, shard_vector
 
 __all__ = [
@@ -50,12 +54,8 @@ __all__ = [
     "ShardedDIAOperator",
     "ShardedDenseOperator",
     "shard_operator",
-    "refuse_sharded",
+    "sharded_base",
 ]
-
-_ENGINE_ITEM = ("ROADMAP.md, 'Modules to port', item 13: the thick, block, filtered and exponentiator "
-                "engines over sharded operators, precise or not")
-
 
 class ShardedOperator(LinearOperator):
     """A row-partitioned operator: ``n`` global rows, padded to
@@ -93,16 +93,26 @@ class ShardedOperator(LinearOperator):
         schedule with float64 words and float64 local products."""
         return self.matvec(x)  # each subclass's matvec computes in x's dtype
 
+    def _real_rows(self, sums):
+        """``sums`` over this rank's slab cut to the rows below n (the
+        padding dropped)."""
+        return sums[: max(min(self.n - self.mesh.rank * self.n_local, self.n_local), 0)]
+
     def _check_slab(self, x):
         if x.shape != (self.n_local,):
             raise ValueError(f"matvec takes this rank's slab of {self.n_local} rows, got shape {tuple(x.shape)}")
 
 
-def refuse_sharded(op, what: str) -> None:
-    """Raise ``NotImplementedError`` when ``op`` is row-partitioned: the
-    engine ``what`` is ported for operators on one device only."""
-    if isinstance(op, ShardedOperator):
-        raise NotImplementedError(f"{what} over a sharded operator is not ported; see {_ENGINE_ITEM}")
+def sharded_base(op):
+    """The row-partitioned operator that ``op`` is, or wraps through the
+    ``base`` (float64 views, shift-squared and scaled operators) or ``op``
+    (Chebyshev filters, shift-invert) of its wrappers; None when there is
+    none.  The engines find the process group as ``op.group``; the draws
+    that must be cut into slabs and the results that must be gathered use
+    this operator's ``scatter``, ``gather`` and ``n_local``."""
+    while op is not None and not isinstance(op, ShardedOperator):
+        op = getattr(op, "base", None) if hasattr(op, "base") else getattr(op, "op", None)
+    return op
 
 
 def _exchange(mesh: RowMesh, sends, recvs):
@@ -311,6 +321,10 @@ class ShardedBSROperator(ShardedOperator):
         tiles, cbg, bound = group
         return spmv.bsr_matvec_rsmk(tiles, cbg, xtab, col_bound=bound)
 
+    def abs_row_sums(self):
+        # The rsmk tiles (R, S, bm, bk) over (S, bk), this rank's real rows.
+        return self._real_rows(self.blocks.abs().sum(dim=(1, 3)).reshape(-1))
+
     def matvec(self, x):
         """``A x`` on slabs: this rank's rows of A times the global x, from
         this rank's slab ``x`` of ``n_local`` rows."""
@@ -383,6 +397,9 @@ class ShardedDIAOperator(ShardedOperator):
     def halo(self) -> int:
         return max((abs(o) for o in self.offsets), default=0)
 
+    def abs_row_sums(self):
+        return dia_abs_row_sums(self.data, self.dtype)
+
     def matvec(self, x):
         self._check_slab(x)
         w, nl, rank = self.halo, self.n_local, self.mesh.rank
@@ -426,6 +443,9 @@ class ShardedDenseOperator(ShardedOperator):
     @property
     def dtype(self):
         return self.a.dtype
+
+    def abs_row_sums(self):
+        return self._real_rows(self.a.abs().sum(dim=1))
 
     def matvec(self, x):
         self._check_slab(x)

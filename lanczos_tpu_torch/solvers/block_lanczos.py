@@ -19,15 +19,22 @@ rank collapse (diag(R) ~ 0) is the block form of the beta breakdown
 buffer, so each row's reorthogonalization is kernel K3 on a CUDA device
 (``linalg.orthogonalize_bcgs_dyn``), as the JAX package runs its scalar
 pass per row.
+
+Over a row-partitioned operator the rows are this rank's slabs: the
+reductions go through ``op.group``, the tall-skinny QR is a TSQR (each
+rank's local QR, then one QR of the gathered b x b factors), and the
+repair draws are the one-process draws' slabs (``linalg.slab``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core import linalg
 from ..core.types import machine_eps, real_dtype
+from ..utils.random import _fresh_rng
 from .lanczos import LanczosConfig, LanczosResult, _host_dtype, _rotate, _unit_rows, deflation_driver
 
 __all__ = ["block_lanczos_iteration", "block_lanczos_run"]
@@ -37,7 +44,7 @@ def _host(t, dtype):
     return np.asarray(t.cpu().numpy(), dtype)
 
 
-def _orthonormalize_block(rows, defl, defl_mask, basis, live_rows: int):
+def _orthonormalize_block(rows, defl, defl_mask, basis, live_rows: int, group=None):
     """Orthonormalize the b rows against the deflated eigenvectors, the
     first ``live_rows`` basis rows and each other; a row with no surviving
     component becomes zero (never arbitrary).  Returns the (b, n) block and
@@ -56,11 +63,11 @@ def _orthonormalize_block(rows, defl, defl_mask, basis, live_rows: int):
     for j in range(b):
         # A copy: on a CUDA device the K3 pass below overwrites its input.
         v = rows[j].clone()
-        v = linalg.orthogonalize_cgs2(v, defl, defl_mask)
-        v = linalg.orthogonalize_bcgs_dyn(v, basis, live_rows)
+        v = linalg.orthogonalize_cgs2(v, defl, defl_mask, group=group)
+        v = linalg.orthogonalize_bcgs_dyn(v, basis, live_rows, group=group)
         for u in out:
-            v = v - linalg.inner_prod(u, v) * u
-        nrm = linalg.norm(v).to(rdtype)
+            v = v - linalg.inner_prod(u, v, group) * u
+        nrm = linalg.norm(v, group).to(rdtype)
         live = nrm > tol
         out.append(torch.where(live, v / nrm.clamp_min(tiny), torch.zeros_like(v)))
         norms.append(torch.where(live, nrm, torch.zeros_like(nrm)))
@@ -75,26 +82,45 @@ def _block_step(op, basis, defl, defl_mask, u_k, u_km1, b_km1, k: int, offset: f
     u_k/u_km1: (b, n) current/previous blocks; b_km1: (b, b) previous R.
     """
     b = u_k.shape[0]
+    group = getattr(op, "group", None)
     w = op.matvec_rows(u_k) + offset * u_k
     # Block overlap A_k[i, j] = <u_i, w_j> (Hermitian up to rounding).
-    a_k = linalg.typed_conj(u_k) @ w.T
+    a_k = linalg.reduce_sum(linalg.typed_conj(u_k) @ w.T, group)
     w = w - a_k.T @ u_k
     w = w - b_km1.conj() @ u_km1  # B_{k-1}^H as rows
 
     # Full reorthogonalization: deflated eigenvectors, then the live basis rows.
     w = torch.stack([
-        linalg.orthogonalize_bcgs_dyn(linalg.orthogonalize_cgs2(w[j], defl, defl_mask, passes=passes), basis, k * b, passes=passes)
+        linalg.orthogonalize_bcgs_dyn(linalg.orthogonalize_cgs2(w[j], defl, defl_mask, passes=passes, group=group),
+                                      basis, k * b, passes=passes, group=group)
         for j in range(b)
     ])
 
     # Tall-skinny QR: W^T = Q R with Q (n, b) orthonormal columns.
-    q, r = torch.linalg.qr(w.T, mode="reduced")
+    q, r = _tsqr(w.T, group)
     basis[k * b : (k + 1) * b] = u_k
 
     # Safety orthonormalization: QR's arbitrary null-space columns become
     # zero rows; the live-row norms are the rank signal.
-    u_next, live_norms = _orthonormalize_block(q.T.contiguous(), defl, defl_mask, basis, (k + 1) * b)
+    u_next, live_norms = _orthonormalize_block(q.T.contiguous(), defl, defl_mask, basis, (k + 1) * b, group)
     return u_next, a_k, r, live_norms
+
+
+def _tsqr(x, group=None):
+    """The reduced QR of the (rows, b) matrix ``x``; over a group of more
+    than one rank ``x`` is this rank's slab of rows and the QR a TSQR: the
+    local QR, an all-gather of the (b, b) factors, one QR of their stack
+    (the same on every rank) and the local Q times this rank's block of
+    it."""
+    q, r = torch.linalg.qr(x, mode="reduced")
+    if not linalg.splits(group):
+        return q, r
+    b = r.shape[0]
+    stacked = r.new_empty((dist.get_world_size(group) * b, b))
+    dist.all_gather_into_tensor(stacked, r.contiguous(), group=group)
+    q2, r2 = torch.linalg.qr(stacked, mode="reduced")
+    rank = dist.get_rank(group)
+    return q @ q2[rank * b : (rank + 1) * b], r2
 
 
 def _band_matrix(a_blocks, b_blocks, dtype=np.complex128):
@@ -112,23 +138,24 @@ def _band_matrix(a_blocks, b_blocks, dtype=np.complex128):
     return t
 
 
-def _fresh_rows(rng, b: int, n: int, like):
+def _fresh_rows(rng, b: int, n: int, like, group=None):
     """A (b, n) uniform [-1, 1] block from the host ``rng`` (real and
-    imaginary parts for complex types), on ``like``'s device."""
+    imaginary parts for complex types), on ``like``'s device; over a group,
+    this rank's slab of it (``like``'s width)."""
     fresh = rng.uniform(-1, 1, (b, n))
     if like.is_complex():
         fresh = fresh + 1j * rng.uniform(-1, 1, (b, n))
-    return torch.as_tensor(fresh, device=like.device).to(like.dtype)
+    return linalg.slab(torch.as_tensor(fresh, device=like.device).to(like.dtype), like.shape[-1], group)
 
 
-def _repair_block(u_next, defl, defl_mask, basis, live_rows: int, fresh, deficient):
+def _repair_block(u_next, defl, defl_mask, basis, live_rows: int, fresh, deficient, group=None):
     """Replace the dead rows (host bool mask ``deficient``) of a block with
     fresh random directions and orthonormalize again.  The replacements carry
     zero band coupling — a restart inside the block, the block form of the
     reference's deflated random restarts (lambda_lanczos.hpp:231-234)."""
     mask = torch.as_tensor(deficient, device=u_next.device)[:, None]
     mixed = torch.where(mask, fresh.to(u_next.dtype), u_next)
-    return _orthonormalize_block(mixed, defl, defl_mask, basis, live_rows)
+    return _orthonormalize_block(mixed, defl, defl_mask, basis, live_rows, group)
 
 
 def block_lanczos_iteration(op, v0_block, nroot: int, defl, defl_mask, cfg: LanczosConfig, block_size: int, rng=None):
@@ -139,19 +166,20 @@ def block_lanczos_iteration(op, v0_block, nroot: int, defl, defl_mask, cfg: Lanc
     b = int(block_size)
     max_blocks = max(min(cfg.max_iteration, -(-n // b)), 1)
     host_dtype = _host_dtype(dtype)
-    # Fresh entropy by default: a fixed seed would replay the same repair
-    # directions every deflated restart.
-    rng = rng if rng is not None else np.random.default_rng()
+    group = getattr(op, "group", None)
+    # Fresh entropy by default (the same on every rank): a fixed seed would
+    # replay the same repair directions every deflated restart.
+    rng = rng if rng is not None else _fresh_rng()
 
-    basis = torch.zeros((max_blocks * b, n), dtype=dtype, device=v0_block.device)
+    basis = torch.zeros((max_blocks * b, v0_block.shape[1]), dtype=dtype, device=v0_block.device)
 
     # Orthonormalize the start block against the accepted pairs; repair a
     # rank deficiency (a fixed-seed initializer gives identical rows) with
     # independent random directions.
-    u_k, live = _orthonormalize_block(v0_block, defl, defl_mask, basis, 0)
+    u_k, live = _orthonormalize_block(v0_block, defl, defl_mask, basis, 0, group)
     dead = live.cpu().numpy() < 0.5
     if np.any(dead):
-        u_k, live = _repair_block(u_k, defl, defl_mask, basis, 0, _fresh_rows(rng, b, n, u_k), dead)
+        u_k, live = _repair_block(u_k, defl, defl_mask, basis, 0, _fresh_rows(rng, b, n, u_k, group), dead, group)
 
     u_km1 = torch.zeros_like(u_k)
     b_km1 = torch.zeros((b, b), dtype=dtype, device=u_k.device)
@@ -181,7 +209,7 @@ def block_lanczos_iteration(op, v0_block, nroot: int, defl, defl_mask, cfg: Lanc
             # Krylov direction exhausted but space remains: repair the block
             # with fresh random directions (zero B coupling).
             u_next, live2 = _repair_block(
-                u_next, defl, defl_mask, basis, (k + 1) * b, _fresh_rows(rng, b, n, u_next), deficient
+                u_next, defl, defl_mask, basis, (k + 1) * b, _fresh_rows(rng, b, n, u_next, group), deficient, group
             )
             r_k = torch.where(torch.as_tensor(deficient, device=r_k.device)[:, None], torch.zeros_like(r_k), r_k)
             if np.all(live2.cpu().numpy() < 0.5):
@@ -207,8 +235,8 @@ def block_lanczos_iteration(op, v0_block, nroot: int, defl, defl_mask, cfg: Lanc
     if cfg.eigenvalue_offset:
         w_rows = w_rows + offset * v_rows
     vc = linalg.typed_conj(v_rows)
-    t_small = _host(vc @ w_rows.T, host_dtype)
-    s_small = _host(vc @ v_rows.T, host_dtype)
+    t_small = _host(linalg.reduce_sum(vc @ w_rows.T, group), host_dtype)
+    s_small = _host(linalg.reduce_sum(vc @ v_rows.T, group), host_dtype)
     t_small = (t_small + t_small.conj().T) / 2
     s_small = (s_small + s_small.conj().T) / 2
 
@@ -223,7 +251,7 @@ def block_lanczos_iteration(op, v0_block, nroot: int, defl, defl_mask, cfg: Lanc
     n_kept = coeff.shape[1]
     num_out = min(nroot, n_kept)
     sel = [n_kept - 1 - i for i in range(num_out)] if cfg.find_maximum else list(range(num_out))
-    eigvecs = _unit_rows(_rotate(coeff[:, sel].T, v_rows))
+    eigvecs = _unit_rows(_rotate(coeff[:, sel].T, v_rows), group)
 
     eigenvalues = [float(w_all[s]) - cfg.eigenvalue_offset for s in sel]
     converged = itern < max_blocks or max_blocks * b >= n

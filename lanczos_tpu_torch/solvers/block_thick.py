@@ -47,6 +47,13 @@ nonsymmetric band, ``orthogonalize_block_cgs2_df(df)_coeffs`` and the
 word-pair rotation) is not carried over: it makes up for a float32 basis
 orthonormal only to 2^-24, and a float64 basis is orthonormal to float64's
 rounding.
+
+Over a row-partitioned operator the block rows are this rank's slabs and
+every reduction goes through ``op.group``.  At world size 1 the basis pass
+is K4 as on one device; above it each pass is K4's projection, one
+all-reduce of the coefficients and K4's update (:func:`_bcgs_block`), as
+``linalg.orthogonalize_bcgs_dyn`` does for K3.  The repair draws are the
+global block's slabs (``linalg.slab``), the same on every rank.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import torch
 from ..core import linalg
 from ..core.types import is_complex_dtype, machine_eps, real_dtype
 from ..ops import cgs
+from ..utils.random import _fresh_rng
 from .block_lanczos import _orthonormalize_block, _repair_block
 from .lanczos import LanczosConfig, _host_dtype, _rotate, deflation_driver
 from .lanczos_fused import _add_reorth, precise_iteration
@@ -70,9 +78,10 @@ def _block_matvec(op, u_rows, offset: float):
     return op.matvec_rows(u_rows) + offset * u_rows
 
 
-def _fresh_block(rng, b: int, n: int, dtype, device):
+def _fresh_block(rng, b: int, n: int, dtype, device, width: int | None = None, group=None):
     """A (b, n) uniform [-1, 1] block drawn on the device from a generator
-    seeded by the host ``rng`` (no host-sized upload per repair)."""
+    seeded by the host ``rng`` (no host-sized upload per repair); over a
+    group, this rank's ``width``-column slab of it."""
     gen = torch.Generator(device=device).manual_seed(int(rng.integers(0, 2**31 - 1)))
     rdtype = real_dtype(dtype)
 
@@ -81,11 +90,13 @@ def _fresh_block(rng, b: int, n: int, dtype, device):
 
     if is_complex_dtype(dtype):
         re = draw()
-        return torch.complex(re, draw()).to(dtype)
-    return draw().to(dtype)
+        out = torch.complex(re, draw()).to(dtype)
+    else:
+        out = draw().to(dtype)
+    return linalg.slab(out, n if width is None else width, group)
 
 
-def _block_cgs(w, rows, row_mask, passes: int = 1):
+def _block_cgs(w, rows, row_mask, passes: int = 1, group=None):
     """Classical GS passes of the (b, n) block ``w`` against the masked
     ``rows`` (the deflation slot): each pass reads ``rows`` once for all b
     vectors, as two matrix products."""
@@ -93,23 +104,26 @@ def _block_cgs(w, rows, row_mask, passes: int = 1):
         return w
     rc = linalg.typed_conj(rows)
     for _ in range(passes):
-        c = (rc @ w.T) * row_mask.to(w.dtype)[:, None]
+        c = linalg.reduce_sum(rc @ w.T, group) * row_mask.to(w.dtype)[:, None]
         w = w - c.T @ rows
     return w
 
 
-def _bcgs_block(w, basis, live: int, passes: int = 1):
+def _bcgs_block(w, basis, live: int, passes: int = 1, group=None):
     """Classical GS passes of the (b, n) block ``w`` against rows
     [0, live) of ``basis``: kernel K4 on a CUDA device (in place on ``w``),
     its plain version on the CPU, which reads only the live rows where the
     JAX package's CPU path masks the whole buffer (the same result up to
-    summation order)."""
+    summation order).  Over a group of more than one rank each pass is K4's
+    projection of this rank's slab, one all-reduce of the coefficients and
+    K4's update from the sums."""
+    reduce = linalg.pass_reduce(group)
     for _ in range(passes):
-        w = cgs.cgs_pass_block(w, basis, live)
+        w = cgs.cgs_pass_block(w, basis, live, reduce)
     return w
 
 
-def _mgs_block(w, breakdown_eps: float, precise: bool = False):
+def _mgs_block(w, breakdown_eps: float, precise: bool = False, group=None):
     """In-block sequential MGS: returns ``(u_next, r, r64, live)`` with
     ``w = r^T u_next`` (r upper triangular, the B_k band coupling) and
     per-row ``live`` flags.
@@ -136,18 +150,18 @@ def _mgs_block(w, breakdown_eps: float, precise: bool = False):
         col64 = []
         for i in range(j):
             if precise:
-                c64 = linalg.inner_prod_f64(outs[i], wj)
+                c64 = linalg.inner_prod_f64(outs[i], wj, group)
                 c = c64.to(dtype)
                 col64.append(c64)
             else:
-                c = linalg.inner_prod(outs[i], wj).to(dtype)
+                c = linalg.inner_prod(outs[i], wj, group).to(dtype)
             wj = wj - c * outs[i]
             col.append(c)
         if precise:
-            nrm64 = torch.sqrt(linalg.inner_prod_f64(wj, wj).real)
+            nrm64 = torch.sqrt(linalg.inner_prod_f64(wj, wj, group).real)
             nrm = nrm64.to(rdtype)
         else:
-            nrm = linalg.norm(wj).to(rdtype)
+            nrm = linalg.norm(wj, group).to(rdtype)
         live_j = nrm > breakdown_eps
         outs.append(torch.where(live_j, wj / nrm.clamp_min(tiny), torch.zeros_like(wj)))
         col.append(torch.where(live_j, nrm.to(dtype), zero))
@@ -209,26 +223,27 @@ def _fused_block_stage(op, st: _BlockState, defl, defl_mask, offset: float, k_li
     b = st.b
     rdtype = real_dtype(st.u_buf.dtype)
     breakdown_eps = machine_eps(rdtype) * 10.0
+    group = getattr(op, "group", None)
     k0 = st.k
     k_lim = min(int(k_limit), st.cap_b)
     for k in range(k0, k_lim):
         u_k = st.u_buf[k * b : (k + 1) * b]
         w = _block_matvec(op, u_k, offset)
         if precise:
-            a64 = linalg.block_inner_f64(u_k, w)
+            a64 = linalg.block_inner_f64(u_k, w, group)
             a_k = a64.to(w.dtype)
             st.a_buf[k] = a64
         else:
-            a_k = linalg.typed_conj(u_k) @ w.T
+            a_k = linalg.reduce_sum(linalg.typed_conj(u_k) @ w.T, group)
             st.a_buf[k] = a_k
         w = w - a_k.T @ u_k
         if k >= 1:
             w = w - st.r_buf[k - 1].conj() @ st.u_buf[(k - 1) * b : k * b]
         # Deflation slot (accepted pairs + kept Ritz vectors), then the live
         # basis rows: the reference's order (lambda_lanczos.hpp:259-260).
-        w = _block_cgs(w, defl, defl_mask, passes=passes)
-        w = _bcgs_block(w.contiguous(), st.u_buf, (k + 1) * b, passes=passes)
-        u_next, r_k, r64_k, _live = _mgs_block(w, breakdown_eps, precise)
+        w = _block_cgs(w, defl, defl_mask, passes=passes, group=group)
+        w = _bcgs_block(w.contiguous(), st.u_buf, (k + 1) * b, passes=passes, group=group)
+        u_next, r_k, r64_k, _live = _mgs_block(w, breakdown_eps, precise, group)
         st.u_buf[(k + 1) * b : (k + 2) * b] = u_next
         st.r_buf[k] = r_k
         if precise:
@@ -249,7 +264,7 @@ def _fused_block_stage(op, st: _BlockState, defl, defl_mask, offset: float, k_li
         st.k = k_lim
 
 
-def _repair_candidates(u_buf, defl, defl_mask, fresh, dead, live_rows_incl: int):
+def _repair_candidates(u_buf, defl, defl_mask, fresh, dead, live_rows_incl: int, group=None):
     """Replace the dead rows (host bool mask ``dead``) of the candidate
     block, the last b of the first ``live_rows_incl`` rows of ``u_buf``, by
     fresh directions orthonormal to the deflation slot, every basis row up
@@ -264,11 +279,11 @@ def _repair_candidates(u_buf, defl, defl_mask, fresh, dead, live_rows_incl: int)
     outs = []
     revived = []
     for j in range(b):
-        v = linalg.orthogonalize_cgs2(fresh[j].clone(), defl, defl_mask)
-        v = linalg.orthogonalize_bcgs_dyn(v, u_buf, live_rows_incl)
+        v = linalg.orthogonalize_cgs2(fresh[j].clone(), defl, defl_mask, group=group)
+        v = linalg.orthogonalize_bcgs_dyn(v, u_buf, live_rows_incl, group=group)
         for u in outs:
-            v = v - linalg.inner_prod(u, v) * u
-        nrm = linalg.norm(v).to(rdtype)
+            v = v - linalg.inner_prod(u, v, group) * u
+        nrm = linalg.norm(v, group).to(rdtype)
         ok = (nrm > tol) & bool(dead[j])
         outs.append(torch.where(ok, v / nrm.clamp_min(tiny), torch.zeros_like(v)))
         revived.append(ok)
@@ -290,8 +305,9 @@ def _rotate_two(q_y, y_rows, q_u, u_buf):
 def _coupling_block(op, y_rows, u0, offset: float, precise: bool):
     """S = Y^H (A + offset) U_0, the (l, b) arrowhead couplings, on the host
     (one block matvec per restart; float64 dots when ``precise``)."""
+    group = getattr(op, "group", None)
     au = _block_matvec(op, u0, offset)
-    s = linalg.block_inner_f64(y_rows, au) if precise else linalg.typed_conj(y_rows) @ au.T
+    s = linalg.block_inner_f64(y_rows, au, group) if precise else linalg.reduce_sum(linalg.typed_conj(y_rows) @ au.T, group)
     return s.cpu().numpy()
 
 
@@ -315,9 +331,11 @@ def block_thick_iteration_fused(op, v0_block, nroot: int, defl, defl_mask, cfg: 
     if n - nd_live < 4 * b:
         return thick_lanczos_iteration_fused(op, v0_block[0], nroot, defl, defl_mask, cfg)
     host_c = _host_dtype(dtype)
-    # Fresh entropy by default: a fixed seed would replay the same repair
-    # directions every deflation round.
-    rng = rng if rng is not None else np.random.default_rng()
+    group = getattr(op, "group", None)
+    width = v0_block.shape[1]  # n, or this rank's slab
+    # Fresh entropy by default (the same on every rank): a fixed seed would
+    # replay the same repair directions every deflation round.
+    rng = rng if rng is not None else _fresh_rng()
     precise = bool(cfg.precise_reductions) and real_dtype(dtype) == torch.float32 and not is_complex_dtype(dtype)
     passes = max(int(cfg.reorth_passes), 1)
     offset = float(cfg.eigenvalue_offset)
@@ -331,18 +349,19 @@ def block_thick_iteration_fused(op, v0_block, nroot: int, defl, defl_mask, cfg: 
 
     # Deflation slot = accepted pairs + kept Ritz vectors (cycles >= 1); the
     # engine passes the live rows [0, nd + l_cur) of one buffer.
-    defl_big = torch.zeros((nd + l_keep, n), dtype=dtype, device=dev)
+    defl_big = torch.zeros((nd + l_keep, width), dtype=dtype, device=dev)
     defl_big[:nd] = defl
     mask_big = torch.ones(nd + l_keep, dtype=defl_mask.dtype, device=dev)
     mask_big[:nd] = defl_mask
 
     # Start block: orthonormal against the accepted pairs; identical rows
     # (fixed-seed initializers) are repaired with fresh random directions.
-    zero_basis = torch.zeros((b, n), dtype=dtype, device=dev)
-    u0, live = _orthonormalize_block(v0_block, defl, defl_mask, zero_basis, 0)
+    zero_basis = torch.zeros((b, width), dtype=dtype, device=dev)
+    u0, live = _orthonormalize_block(v0_block, defl, defl_mask, zero_basis, 0, group)
     dead0 = live.cpu().numpy() < 0.5
     if np.any(dead0):
-        u0, _ = _repair_block(u0, defl, defl_mask, zero_basis, 0, _fresh_block(rng, b, n, dtype, dev), dead0)
+        u0, _ = _repair_block(u0, defl, defl_mask, zero_basis, 0, _fresh_block(rng, b, n, dtype, dev, width, group),
+                              dead0, group)
 
     theta_kept = np.zeros(0, dtype=np.float64)
     y_rows = defl_big[nd:]
@@ -409,7 +428,8 @@ def block_thick_iteration_fused(op, v0_block, nroot: int, defl, defl_mask, cfg: 
                 # Partial collapse: repair the dead rows with fresh random
                 # directions (zero band coupling) and resume the same build.
                 block, revived = _repair_candidates(
-                    st.u_buf, defl_v, mask_v, _fresh_block(rng, b, n, dtype, dev), dead, (kb_done + 1) * b
+                    st.u_buf, defl_v, mask_v, _fresh_block(rng, b, n, dtype, dev, width, group), dead,
+                    (kb_done + 1) * b, group,
                 )
                 if not bool(np.all(revived[dead])):
                     # Not everything revivable: the explored space is
@@ -500,7 +520,7 @@ def block_thick_iteration_fused(op, v0_block, nroot: int, defl, defl_mask, cfg: 
         ritz = _rotate_two(q_y, y_rows, q_u, st.u_buf)
 
         if last_cycle:
-            norms = torch.sqrt(torch.sum(ritz.abs() ** 2, dim=1, keepdim=True))
+            norms = torch.sqrt(linalg.reduce_sum(torch.sum(ritz.abs() ** 2, dim=1, keepdim=True), group))
             eigvecs = ritz / norms.clamp_min(torch.finfo(real_dtype(dtype)).tiny)
             eigenvalues = [float(theta_all[s]) - cfg.eigenvalue_offset for s in sel]
             return eigenvalues, eigvecs, total_steps, converged or m_tot >= n

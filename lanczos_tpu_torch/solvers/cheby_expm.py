@@ -32,6 +32,10 @@ is the complex operator's (kernel K1's complex instances over a complex
 BSR operator), and the coefficients multiply it as complex scalars, where
 the JAX package runs the real chain on the 2n embedding and recombines the
 halves.  Its precise form runs in complex128 over ``matvec_f64``.
+
+The chain has no reduction, so over a row-partitioned operator it runs on
+the slabs as it is (the window's Gershgorin bound is one all-reduce); the
+precise forms gather the host results to the global n.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import linalg
 from ..core.types import real_dtype
 from ..ops.operators import as_operator, float64_view
 from ..utils import estimate
@@ -213,7 +218,7 @@ def chebyshev_expm_apply_split_precise(op, a, v_re, v_im, *, lo=None, hi=None, t
     vr = precise_state(v_re, op.device)
     vi = torch.zeros_like(vr) if v_im is None else precise_state(v_im, op.device)
     re, im = _cheby_chain(float64_view(op), c, e, coef.real.tolist(), coef.imag.tolist(), vr, vi)
-    return (re.cpu().numpy(), im.cpu().numpy()), int(coef.shape[0])
+    return tuple(linalg.gather_rows(t, op).cpu().numpy() for t in (re, im)), int(coef.shape[0])
 
 
 def _cheby_chain_complex(op, c: float, e: float, coef, v):
@@ -248,7 +253,7 @@ def chebyshev_expm_apply_hermitian(op, a, psi_re, psi_im, *, lo=None, hi=None, t
     if precise:
         psi = torch.complex(precise_state(psi_re, cop.device), precise_state(psi_im, cop.device))
         out = _cheby_chain_complex(float64_view(cop), c, e, coef, psi)
-        return (out.real.cpu().numpy(), out.imag.cpu().numpy()), int(coef.shape[0])
+        return tuple(linalg.gather_rows(t, cop).cpu().numpy() for t in (out.real, out.imag)), int(coef.shape[0])
     out = _cheby_chain_complex(cop, c, e, coef, complex_state(cop, psi_re, psi_im))
     return (out.real, out.imag), int(coef.shape[0])
 

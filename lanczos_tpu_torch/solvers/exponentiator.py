@@ -41,6 +41,12 @@ the full reorthogonalization on the card), where the JAX package builds a
 real basis of the 2n embedding and recombines its halves
 (``evolve_hermitian_split``); :func:`evolve_hermitian_split_precise` is
 the same in complex128 over ``matvec_f64``.
+
+Over a row-partitioned operator every state and basis row is this rank's
+slab and every reduction (the coefficients, the norms, the basis passes)
+goes through ``op.group``; ``api.Exponentiator`` scatters the global
+states and gathers the results, and the functions that return host
+arrays gather before they do (``linalg.gather_rows``).
 """
 
 from __future__ import annotations
@@ -99,21 +105,21 @@ def _expm_step(op, u_buf, k: int, beta_prev, full_orth: bool = False):
     by default, no reorthogonalization.  Writes the normalized u_k into row
     k of ``u_buf`` in place and returns ``(alpha_k, beta_k)``, 0-d real
     tensors on the device (beta_k unnormalized)."""
-    return _expm_update(u_buf, k, op.matvec(u_buf[k - 1]), beta_prev, full_orth)
+    return _expm_update(u_buf, k, op.matvec(u_buf[k - 1]), beta_prev, full_orth, getattr(op, "group", None))
 
 
-def _expm_update(u_buf, k: int, au, beta_prev, full_orth: bool = False):
+def _expm_update(u_buf, k: int, au, beta_prev, full_orth: bool = False, group=None):
     """:func:`_expm_step` after its matvec, given ``au`` = A u_{k-1}."""
     rdtype = real_dtype(u_buf.dtype)
     u_prev = u_buf[k - 1]
     u_pp = u_buf[max(k - 2, 0)]
-    alpha = linalg.inner_prod(u_prev, au).real.to(rdtype)
+    alpha = linalg.inner_prod(u_prev, au, group).real.to(rdtype)
     w = au - alpha * u_prev
     if k >= 2:
         w = w - beta_prev * u_pp
     if full_orth:  # exponentiator.hpp:120-122; K3 on CUDA
-        w = linalg.orthogonalize_bcgs_dyn(w, u_buf, k)
-    beta = linalg.norm(w).to(rdtype)
+        w = linalg.orthogonalize_bcgs_dyn(w, u_buf, k, group=group)
+    beta = linalg.norm(w, group).to(rdtype)
     u_buf[k] = w / torch.clamp(beta, min=torch.finfo(rdtype).tiny)
     return alpha, beta
 
@@ -178,11 +184,11 @@ def _grid_build(op, a_list, v, cfg: ExponentiatorConfig):
     a_host = [a if any_imag else a.real for a in a_list]
     a_check = a_host[int(np.argmax([abs(a) for a in a_list]))]
 
-    input_norm = linalg.norm(v)
+    input_norm = linalg.norm(v, getattr(op, "group", None))
     if float(input_norm) == 0.0:
         return None
     cap = min(max(cfg.initial_buffer_size, 2), max_iter + 1)
-    u_buf = torch.zeros((cap, n), dtype=dtype, device=v.device)
+    u_buf = torch.zeros((cap, v.shape[0]), dtype=dtype, device=v.device)
     u_buf[0] = v / input_norm
 
     alphas: list[float] = []
@@ -193,7 +199,7 @@ def _grid_build(op, a_list, v, cfg: ExponentiatorConfig):
     beta_prev = None
     for k in range(1, max_iter + 1):
         if k >= u_buf.shape[0]:
-            grown = torch.zeros((min(4 * u_buf.shape[0], max_iter + 1), n), dtype=dtype, device=v.device)
+            grown = torch.zeros((min(4 * u_buf.shape[0], max_iter + 1), v.shape[0]), dtype=dtype, device=v.device)
             grown[: u_buf.shape[0]] = u_buf
             u_buf = grown
         alpha_k, beta_prev = _expm_step(op, u_buf, k, beta_prev, full_orth=cfg.full_orthogonalize)
@@ -260,7 +266,7 @@ def krylov_expm_apply_split(op, a, v_re, v_im, cfg: ExponentiatorConfig):
     tiny = torch.finfo(v_re.dtype).tiny
     parts = []
     for v in (v_re, v_im):
-        if float(linalg.norm(v)) < tiny * 10:
+        if float(linalg.norm(v, getattr(op, "group", None))) < tiny * 10:
             parts.append((torch.zeros_like(v), torch.zeros_like(v), 1))
             continue
         u_buf, coeff, input_norm, itern = _grid_build(op, [a], v, cfg)
@@ -300,6 +306,7 @@ def _taylor_terms(op, a: complex, v, cfg: ExponentiatorConfig):
     """``(terms, phase)`` with ``terms[k] = (|a|^k / k!) A^k v`` and
     ``phase = a/|a|``; one host read of each term's norm."""
     cfg = cfg.resolved(v.dtype)
+    group = getattr(op, "group", None)
     mag = abs(a)
     phase = a / mag  # unit complex; exactly +-1 for real a
     terms = [v]
@@ -307,7 +314,7 @@ def _taylor_terms(op, a: complex, v, cfg: ExponentiatorConfig):
     while True:
         t = op.matvec(terms[-1]) * (mag / k)
         terms.append(t)
-        tn = float(linalg.norm(t))
+        tn = float(linalg.norm(t, group))
         if not np.isfinite(tn):
             raise OverflowError(
                 f"taylor_expm_apply: term {k} overflowed {v.dtype} storage. The peak intermediate term "
@@ -336,8 +343,9 @@ def _krylov_build_fixed(op, v, m: int, full_orth: bool):
     logic and no host wait."""
     rdtype = real_dtype(v.dtype)
     tiny = torch.finfo(rdtype).tiny
+    group = getattr(op, "group", None)
     n = v.shape[0]
-    norm0 = linalg.norm(v)
+    norm0 = linalg.norm(v, group)
     u_buf = torch.zeros((m + 1, n), dtype=v.dtype, device=v.device)
     u_buf[0] = v / torch.clamp(norm0, min=tiny)
     alpha = torch.zeros(m, dtype=rdtype, device=v.device)
@@ -345,13 +353,13 @@ def _krylov_build_fixed(op, v, m: int, full_orth: bool):
     for k in range(m):
         u_prev = u_buf[k]
         au = op.matvec(u_prev)
-        a_k = linalg.inner_prod(u_prev, au).real.to(rdtype)
+        a_k = linalg.inner_prod(u_prev, au, group).real.to(rdtype)
         w = au - a_k * u_prev
         if k >= 1:
             w = w - beta[k - 1] * u_buf[k - 1]
         if full_orth:  # K3 on CUDA
-            w = linalg.orthogonalize_bcgs_dyn(w, u_buf, k + 1)
-        b_k = linalg.norm(w).to(rdtype)
+            w = linalg.orthogonalize_bcgs_dyn(w, u_buf, k + 1, group=group)
+        b_k = linalg.norm(w, group).to(rdtype)
         u_buf[k + 1] = w / torch.clamp(b_k, min=tiny)
         alpha[k] = a_k
         beta[k] = b_k
@@ -411,7 +419,7 @@ def evolve_split(op, v_re, v_im, a, steps: int, krylov_dim: int = 12, *, full_or
         (pr, pi), (qr, qi) = outs  # exp(aA) vr = pr + i pi, exp(aA) vi = qr + i qi
         vr, vi = pr - qi, pi + qr
         if renormalize:
-            nrm = torch.sqrt(torch.sum(vr * vr) + torch.sum(vi * vi))
+            nrm = torch.sqrt(linalg.reduce_sum(torch.sum(vr * vr) + torch.sum(vi * vi), getattr(op, "group", None)))
             vr, vi = vr / nrm, vi / nrm
     if flags and bool(torch.stack(flags).any()):
         raise OverflowError(
@@ -454,14 +462,16 @@ def complex_operator(op):
 
 
 def complex_state(cop, v_re, v_im=None):
-    """The complex n-state ``v_re + i v_im`` in ``cop``'s dtype on its
-    device; ``v_re`` alone may be the complex state itself."""
+    """The complex n-state ``v_re + i v_im`` in ``cop``'s complex dtype on
+    its device (complex128 for a float64 operator that an Exponentiator of
+    complex dtype runs, as the JAX package's complex vectors through a real
+    operator); ``v_re`` alone may be the complex state itself."""
     def tensor(x):
         return (x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))).to(cop.device)
 
     re = tensor(v_re)
     if v_im is None:
-        return re.to(cop.dtype)
+        return re.to(torch.promote_types(cop.dtype, torch.complex64))
     rdt = real_dtype(cop.dtype)
     return torch.complex(re.to(rdt), tensor(v_im).to(rdt))
 
@@ -485,7 +495,7 @@ def evolve_complex(op, psi, a, steps: int, krylov_dim: int = 12, *, full_orth: b
         flags.append(too_large)
         psi = (cols[0].to(u.dtype) @ u) * n0
         if renormalize:
-            psi = psi / linalg.norm(psi)
+            psi = psi / linalg.norm(psi, getattr(op, "group", None))
     if flags and bool(torch.stack(flags).any()):
         raise OverflowError(
             f"evolve: |a| * ||T||_1 exceeded {_EXPM_THETA} * 2**{_EXPM_MAX_SQUARINGS} in a step; "
@@ -514,4 +524,4 @@ def evolve_hermitian_split_precise(op, psi_re, psi_im, a, steps: int, krylov_dim
     cop = complex_operator(op)
     psi = torch.complex(precise_state(psi_re, cop.device), precise_state(psi_im, cop.device))
     out = evolve_complex(float64_view(cop), psi, a, steps, krylov_dim, full_orth=True, renormalize=renormalize)
-    return out.real.cpu().numpy(), out.imag.cpu().numpy()
+    return tuple(linalg.gather_rows(t, cop).cpu().numpy() for t in (out.real, out.imag))

@@ -62,7 +62,8 @@ def _build(op, s: _BuildState, m_target: int, full_orth: bool) -> None:
     matvec each, and K3 when ``full_orth``."""
     for k in range(s.queued + 1, m_target + 1):
         beta_prev = s.beta[k - 2] if k >= 2 else None
-        s.alpha[k - 1], s.beta[k - 1] = _expm_update(s.u_buf, k, op.matvec(s.u_buf[k - 1]), beta_prev, full_orth)
+        s.alpha[k - 1], s.beta[k - 1] = _expm_update(s.u_buf, k, op.matvec(s.u_buf[k - 1]), beta_prev, full_orth,
+                                                     getattr(op, "group", None))
     s.queued = m_target
 
 
@@ -137,7 +138,7 @@ def krylov_expm_apply_fused(op, a, v, cfg: ExponentiatorConfig):
     iteration_count)``, the count of the hybrid build.  A zero input returns
     zeros and 0 iterations."""
     cfg, max_iter, a_host = _setup(a, v.dtype, cfg)
-    input_norm = linalg.norm(v)
+    input_norm = linalg.norm(v, getattr(op, "group", None))
     if float(input_norm) == 0.0:
         return torch.zeros_like(v), 0
     return _apply(op, v, input_norm, a_host, cfg, max_iter)
@@ -152,7 +153,7 @@ def krylov_expm_apply_batch(op, a, v_batch, cfg: ExponentiatorConfig):
     comes back NaN.  Returns ``(out (B, n), iterations (B,))``."""
     dtype = v_batch.dtype
     cfg, max_iter, a_host = _setup(a, dtype, cfg)
-    norms = [linalg.norm(row) for row in v_batch]
+    norms = [linalg.norm(row, getattr(op, "group", None)) for row in v_batch]
     tiny = torch.finfo(real_dtype(dtype)).tiny
     out_dtype = torch.promote_types(dtype, torch.complex64) if isinstance(a_host, complex) else dtype
     out = torch.zeros(v_batch.shape, dtype=out_dtype, device=v_batch.device)

@@ -21,6 +21,16 @@ filter-subspace sweeps on a steeper filter, block orthonormalization and a
 Rayleigh-Ritz, all float64 products of ``matvec_f64``.
 ``checkpoint_path=`` saves the round state after every deflation round and
 resumes from it, in the format of :mod:`lanczos_tpu_torch.utils.checkpoint`.
+
+A row-partitioned operator (its ``ShardedDIAOperator`` or
+``ShardedBSROperator``, or a shift-squared one over it) is solved by every
+rank of its group together: the filter runs its unfused chain over the
+sharded matvec (kernel K5 stays the route of a ``DIAOperator`` on one
+device, as in the JAX package), the B-space engine reduces over the group
+(:class:`_Filter` carries it), the Rayleigh-Ritz grams, the refinement's
+grams and norms and the probe are all-reduced, the probe's start is the
+one-process draw's slab, and the returned vectors are gathered to the
+global n on every rank.
 """
 
 from __future__ import annotations
@@ -41,13 +51,24 @@ from ..diagnostics import (
     OverflowGuardWarning,
 )
 from ..ops.filters import ChebyshevFilterOperator
+from ..core import linalg
 from ..ops.operators import ShiftSquaredOperator, as_operator
-from ..parallel.sharded import refuse_sharded
+from ..parallel.sharded import sharded_base
 from ..utils import checkpoint, estimate
 from ..utils.random import random_initializer
 from . import lanczos as _lanczos
 
 __all__ = ["filtered_lanczos"]
+
+
+class _Filter(ChebyshevFilterOperator):
+    """The filter with its base operator's process group (None on one
+    device), so that the engines' reductions over a row-partitioned base
+    go through it."""
+
+    @property
+    def group(self):
+        return getattr(self.op, "group", None)
 
 
 def _safe_bound(op) -> float:
@@ -99,21 +120,28 @@ def _rayleigh_ritz(op, V, num_eigs: int, find_maximum: bool):
     ``num_eigs`` values (engine order), their unit Ritz vectors in V's dtype
     and the A-space residual norms ||A q - theta q||.
     """
+    group = getattr(op, "group", None)
     wide = torch.complex128 if V.is_complex() else torch.float64
     V64 = V.to(wide)
     AV64 = op.matvec_rows(V).to(wide)
-    S = (V64.conj() @ AV64.T).cpu().numpy()
-    G = (V64.conj() @ V64.T).cpu().numpy()
+    S = _gram(V64, AV64, group)
+    G = _gram(V64, V64, group)
     theta, Y = sla.eigh(0.5 * (S + S.conj().T), 0.5 * (G + G.conj().T))
     order = np.argsort(theta) if not find_maximum else np.argsort(theta)[::-1]
     theta = theta[order][:num_eigs]
     Y = torch.as_tensor(np.ascontiguousarray(Y[:, order][:, :num_eigs]), device=V.device)
     Q = Y.T @ V64
     AQ = Y.T @ AV64
-    norms = torch.linalg.vector_norm(Q, dim=1, keepdim=True)
+    norms = _row_norms(Q, group)[:, None]
     R = AQ / norms - torch.as_tensor(theta, device=V.device)[:, None] * (Q / norms)
-    res = torch.linalg.vector_norm(R, dim=1).tolist()
+    res = _row_norms(R, group).tolist()
     return theta, (Q / norms).to(V.dtype), res
+
+
+def _row_norms(X, group=None):
+    """The Euclidean norm of every row of ``X`` (over the ranks of ``group``
+    for slab rows)."""
+    return torch.sqrt(linalg.reduce_sum(torch.sum(X.abs() ** 2, dim=1), group))
 
 
 def _whiten_coeffs(G):
@@ -130,23 +158,24 @@ def _whiten_coeffs(G):
         return (E / np.sqrt(w)).conj().T
 
 
-def _gram(X, Y):
-    """The host matrix ``X^H Y^T`` of two row blocks (float64 products)."""
-    return (X.conj() @ Y.T).cpu().numpy()
+def _gram(X, Y, group=None):
+    """The host matrix ``X^H Y^T`` of two row blocks (float64 products;
+    summed over the ranks of ``group`` for slab rows)."""
+    return linalg.reduce_sum(X.conj() @ Y.T, group).cpu().numpy()
 
 
-def _rotate_rows(C, X):
+def _rotate_rows(C, X, group=None):
     """Rows ``C @ X`` for host coefficients ``C``, each divided by its norm."""
     Y = torch.as_tensor(np.ascontiguousarray(C), device=X.device).to(X.dtype) @ X
-    return Y / torch.linalg.vector_norm(Y, dim=1, keepdim=True).clamp_min(torch.finfo(torch.float64).tiny)
+    return Y / _row_norms(Y, group)[:, None].clamp_min(torch.finfo(torch.float64).tiny)
 
 
-def _orthonormalize_block(X):
+def _orthonormalize_block(X, group=None):
     """Block orthonormalization by the gram's whitening rows: keeps k
     independent directions through steep filter applies (plain row
     normalization lets the block collapse onto the most amplified one)."""
-    G = _gram(X, X)
-    return _rotate_rows(_whiten_coeffs(0.5 * (G + G.conj().T)), X)
+    G = _gram(X, X, group)
+    return _rotate_rows(_whiten_coeffs(0.5 * (G + G.conj().T)), X, group)
 
 
 def _refine_filter(base_op, lo, hi, mu, find_maximum):
@@ -165,7 +194,7 @@ def _refine_filter(base_op, lo, hi, mu, find_maximum):
     if degree * theta > 40.0:
         degree = max(2, int(40.0 / max(theta, 1e-9)))
     degree = int(degree) + (int(degree) % 2)
-    return ChebyshevFilterOperator.from_interval(base_op, degree, lo, hi, mu, find_maximum=find_maximum)
+    return _Filter.from_interval(base_op, degree, lo, hi, mu, find_maximum=find_maximum)
 
 
 def _refine_vectors(op, fop, vecs, find_maximum, span, *, tol: float | None = None, max_sweeps: int = 8):
@@ -180,6 +209,7 @@ def _refine_vectors(op, fop, vecs, find_maximum, span, *, tol: float | None = No
     filter ``fop`` each followed by a block orthonormalization.  Returns
     ``(theta (k,) float64, X (k, n) float64 tensor, residuals, sweeps)``.
     """
+    group = getattr(op, "group", None)
     X = vecs.to(torch.complex128 if vecs.is_complex() else torch.float64)
     if tol is None:
         tol = 1e-11 * max(float(span), 1.0)
@@ -187,8 +217,8 @@ def _refine_vectors(op, fop, vecs, find_maximum, span, *, tol: float | None = No
     for sweep in range(max_sweeps):
         sweeps = sweep + 1
         AX = op.matvec_rows_f64(X)
-        S = _gram(X, AX)
-        G = _gram(X, X)
+        S = _gram(X, AX, group)
+        G = _gram(X, X, group)
         S = 0.5 * (S + S.conj().T)
         G = 0.5 * (G + G.conj().T)
         try:
@@ -204,14 +234,14 @@ def _refine_vectors(op, fop, vecs, find_maximum, span, *, tol: float | None = No
         if find_maximum:
             order = order[::-1]
         theta = theta_all[order]
-        X = _rotate_rows(Y[:, order].T, X)
+        X = _rotate_rows(Y[:, order].T, X, group)
         AX = op.matvec_rows_f64(X)
-        res = torch.linalg.vector_norm(AX - torch.as_tensor(theta, device=X.device)[:, None] * X, dim=1).tolist()
+        res = _row_norms(AX - torch.as_tensor(theta, device=X.device)[:, None] * X, group).tolist()
         if max(res) <= tol:
             break
         if sweep < max_sweeps - 1:
             for _rep in range(2):
-                X = _orthonormalize_block(fop.matvec_rows_f64(X))
+                X = _orthonormalize_block(fop.matvec_rows_f64(X), group)
     return np.asarray(theta, np.float64), X, res, sweeps
 
 
@@ -221,14 +251,15 @@ def _probe_remaining_band(fop, V, w0, steps: int) -> float:
     not captured, the amplification of the best missed state.  Deflates
     every step (the leakage of captured band directions would regrow by b
     per step and fire falsely)."""
+    group = getattr(fop, "group", None)
     V64 = V.to(torch.complex128 if V.is_complex() else torch.float64)
     w = w0
     r = torch.ones((), dtype=w0.dtype, device=w0.device)
     for _ in range(steps):
         bw = fop.matvec(w)
-        coef = V64.conj() @ bw.to(V64.dtype)
+        coef = linalg.reduce_sum(V64.conj() @ bw.to(V64.dtype), group)
         bw = bw - (coef @ V64).to(bw.dtype)
-        r = torch.linalg.vector_norm(bw)
+        r = linalg.norm(bw, group)
         w = bw / r.clamp_min(1e-30)
     return float(r)
 
@@ -245,10 +276,11 @@ def _missed_copy_probe(fop, V, vals_b, theta_worst, margin, find_maximum, num_ei
     amplification degrades to never firing, the safe direction.
     """
     b_kept = float(np.asarray(vals_b)[: max(num_eigs, 1)].min())
-    n = V.shape[1]
+    n = fop.n
     steps = int(np.ceil(np.log(8.0 * np.sqrt(n)) / np.log(max(b_kept, 1.2))))
     steps = min(max(((steps + 3) // 4) * 4, 4), 32)
-    w0 = torch.as_tensor(random_initializer(V.dtype)(n), device=V.device)
+    # the global draw (the same on every rank), this rank's slab of it
+    w0 = linalg.slab(torch.as_tensor(random_initializer(V.dtype)(n), device=V.device), V.shape[1], fop.group)
     r = _probe_remaining_band(fop, V, w0, steps)
     a_probe = float(np.asarray(fop.invert_value(np.asarray(r, np.float64))))
     if not np.isfinite(a_probe):
@@ -309,6 +341,9 @@ def _filtered_interior(op, num_eigs, *, sigma, degree, mu, lo, hi, guard, residu
         residual_bound=residual_bound, max_extra_rounds=max_extra_rounds, precise=precise,
         refine_vectors=False,  # refined below against the base operator
         checkpoint_path=checkpoint_path, configure=configure)
+    sh = sharded_base(base)
+    if sh is not None:  # the solve returns global rows; the Rayleigh-Ritz runs on slabs
+        vecs = linalg.slab(vecs, sh.n_local, sh.group)
     theta, vecs_out, res = _rayleigh_ritz(base, vecs, num_eigs, False)
     order = np.argsort(np.abs(np.asarray(theta) - sigma))
     theta = np.asarray(theta)[order]
@@ -338,9 +373,11 @@ def _filtered_interior(op, num_eigs, *, sigma, degree, mu, lo, hi, guard, residu
         theta_r, X, res_r, sweeps = _refine_vectors(base, fop_sq, vecs_out, False, hi - lo, max_sweeps=12)
         order_r = np.argsort(np.abs(theta_r - sigma))
         vals = theta_r[order_r]
-        vecs_out = X[torch.as_tensor(order_r.copy(), device=X.device)].cpu().numpy()
+        vecs_out = linalg.gather_rows(X[torch.as_tensor(order_r.copy(), device=X.device)], base).cpu().numpy()
         res = [res_r[i] for i in order_r]
         info["refine_sweeps"] = sweeps
+    if not refine_vectors:
+        vecs_out = linalg.gather_rows(vecs_out, base)
     info["sigma"] = float(sigma)
     info["residuals"] = res
     info["matvecs"] = 2 * int(info["matvecs"])  # each squared application is two base matvecs
@@ -398,7 +435,6 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     """
     from ..api import LambdaLanczos  # late import: api imports the solvers
 
-    refuse_sharded(op, "filtered_lanczos")
     if sigma is not None:
         if find_maximum:
             raise ValueError("sigma (interior targets) and find_maximum are exclusive")
@@ -442,7 +478,8 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     # band is a top cluster in B-space whichever edge is targeted.
     degree = int(degree) + (int(degree) % 2)
 
-    fop = ChebyshevFilterOperator.from_interval(op, degree, lo, hi, mu, find_maximum=find_maximum)
+    fop = _Filter.from_interval(op, degree, lo, hi, mu, find_maximum=find_maximum)
+    sharded = sharded_base(op)
 
     eng = LambdaLanczos(fop, find_maximum=True, num_eigs=num_eigs + max(int(guard), 0))
     # In B-space the band is a separated top cluster: a shallow basis and a
@@ -500,7 +537,7 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
         # manager and three loop scalars; a resumed run replays the checks
         # after the saved round (skip_round) before any new round.
         mgr_l, counts_l, extras_l = checkpoint.load_state(checkpoint_path, eng.dtype, device=fop.device,
-                                                          with_extras=True)
+                                                          with_extras=True, sharded=sharded)
         if mgr_l.num_eigs != capacity or mgr_l.find_maximum != cfg.find_maximum:
             raise ValueError(
                 f"checkpoint at {checkpoint_path} was written for capacity={mgr_l.num_eigs}/"
@@ -522,11 +559,12 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
                 _lanczos.deflation_driver(
                     iterate_one, cfg, eng._init_fn(), eng.dtype, device=fop.device,
                     v0_rows=v0_rows, use_warm_restarts=use_warm, manager=manager, iter_counts=iter_counts,
+                    sharded=sharded,
                 )
             if checkpoint_path is not None:
                 checkpoint.save_state(checkpoint_path, manager, iter_counts,
                                       extra={"round": extra, "prev_worst": prev_worst,
-                                             "stop_when_count": cfg.stop_when_count})
+                                             "stop_when_count": cfg.stop_when_count}, sharded=sharded)
         skip_round = False
         vals_b = np.asarray(manager.eigenvalues())
         V = torch.stack(manager.eigenvectors())
@@ -631,7 +669,7 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
             mu_ref = min(mu_ref, depth_max + max(0.8 * gap_est, 0.3 * depth_max))
         fop_ref = _refine_filter(op, lo, hi, mu_ref, find_maximum)
         theta_r, X, res_r, sweeps = _refine_vectors(op, fop_ref, vecs_out, find_maximum, hi - lo)
-        vecs_out = X.cpu().numpy()
+        vecs_out = linalg.gather_rows(X, op).cpu().numpy()
         info["residuals"] = res_r
         info["refine_sweeps"] = sweeps
         info["rr_values_refined"] = [float(t) for t in theta_r]
@@ -644,4 +682,6 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
         for i in range(len(theta_r)):
             if res_r[i] <= 1e-8 * scale:
                 vals[i] = theta_r[i]
+    else:
+        vecs_out = linalg.gather_rows(vecs_out, op)
     return vals, vecs_out, info

@@ -27,6 +27,12 @@ nonsymmetric relation matrix M with its invariant-subspace selection
 (``_df_rotate``) exist because a float32 basis is orthonormal only to
 2^-24; a float64 basis under two classical passes is orthonormal to
 float64's rounding, so the symmetric arrowhead is exact to that level.
+
+Over a row-partitioned operator (``op.group``) the basis rows are this
+rank's slabs, every reduction (the CGS coefficients, the norms, the
+couplings) is all-reduced over the group, and the projected matrices on
+the host are the same on every rank; the capacities come from the global
+n (``cfg.matrix_size``), the buffer widths from the start vector's.
 """
 
 from __future__ import annotations
@@ -48,11 +54,12 @@ def _project_step(op, basis, defl, defl_mask, nb: int, offset: float):
     (in place) and returns ``(c (nb,), beta)``.  ``c`` sums both passes'
     CGS coefficients: the new column of the projected matrix T."""
     rdtype = real_dtype(basis.dtype)
+    group = getattr(op, "group", None)
     v = basis[nb - 1]
     w = op.matvec(v) + offset * v
-    w = linalg.orthogonalize_cgs2(w, defl, defl_mask)
-    w, c = linalg.orthogonalize_bcgs_dyn_coeffs(w, basis, nb)
-    beta = linalg.norm(w).to(rdtype)
+    w = linalg.orthogonalize_cgs2(w, defl, defl_mask, group=group)
+    w, c = linalg.orthogonalize_bcgs_dyn_coeffs(w, basis, nb, group=group)
+    beta = linalg.norm(w, group).to(rdtype)
     basis[nb] = w / beta.clamp_min(torch.finfo(rdtype).tiny)
     return c, beta
 
@@ -70,9 +77,10 @@ def thick_lanczos_iteration(op, v0, nroot: int, defl, defl_mask, cfg: LanczosCon
     m_max = max(min(cfg.max_iteration, n), 2)
     l_keep = cfg.resolve_thick_keep(nroot + 2, m_max - 2)
     host_c = _host_dtype(dtype)
+    group = getattr(op, "group", None)
 
-    v0 = _prepare_init_vector(v0, defl, defl_mask)
-    basis = torch.zeros((m_max + 1, n), dtype=dtype, device=v0.device)
+    v0 = _prepare_init_vector(v0, defl, defl_mask, group)
+    basis = torch.zeros((m_max + 1, v0.shape[0]), dtype=dtype, device=v0.device)
     basis[0] = v0
     t_host = np.zeros((m_max + 1, m_max + 1), dtype=host_c)
 
@@ -146,7 +154,7 @@ def thick_lanczos_iteration(op, v0, nroot: int, defl, defl_mask, cfg: LanczosCon
     theta, q = np.linalg.eigh(tk)
     num_out = min(nroot, m_val)
     sel = [m_val - 1 - i for i in range(num_out)] if cfg.find_maximum else list(range(num_out))
-    eigvecs = _unit_rows(_rotate(q[:, sel].T, basis))
+    eigvecs = _unit_rows(_rotate(q[:, sel].T, basis), group)
     eigenvalues = [float(theta[s]) - cfg.eigenvalue_offset for s in sel]
     return eigenvalues, eigvecs, total_iters, converged
 
@@ -164,7 +172,7 @@ def lanczos_run_thick(op, cfg: LanczosConfig, init_vector, dtype):
 def _coupling_row(op, y_rows, r, offset: float):
     """s_i = <Y_i, (A + offset) r>: the arrowhead couplings, one matvec."""
     ar = op.matvec(r) + offset * r
-    return linalg.typed_conj(y_rows) @ ar
+    return linalg.reduce_sum(linalg.typed_conj(y_rows) @ ar, getattr(op, "group", None))
 
 
 def _read_build(st: _Build, precise: bool):
@@ -203,15 +211,16 @@ def thick_lanczos_iteration_fused(op, v0, nroot: int, defl, defl_mask, cfg: Lanc
     passes = int(cfg.reorth_passes)
     selective = cfg.reorth_policy == "selective"
     offset = float(cfg.eigenvalue_offset)
+    group = getattr(op, "group", None)
 
     # Deflation slot = accepted pairs + kept Ritz vectors (cycles >= 1); the
     # engine passes the live rows [0, nd + l_cur) of one buffer.
-    defl_big = torch.zeros((nd + l_keep, n), dtype=dtype, device=v0.device)
+    defl_big = torch.zeros((nd + l_keep, v0.shape[0]), dtype=dtype, device=v0.device)
     defl_big[:nd] = defl
     mask_big = torch.ones(nd + l_keep, dtype=defl_mask.dtype, device=v0.device)
     mask_big[:nd] = defl_mask
 
-    v0 = _prepare_init_vector(v0, defl, defl_mask)
+    v0 = _prepare_init_vector(v0, defl, defl_mask, group)
     theta_kept = np.zeros(0, dtype=np.float64)
     y_rows = None  # the kept Ritz vectors, rows of defl_big from cycle 1 on
     s_host = np.zeros(0, dtype=host_c)
@@ -327,7 +336,7 @@ def thick_lanczos_iteration_fused(op, v0, nroot: int, defl, defl_mask, cfg: Lanc
             ritz = ritz + _rotate(q_all[:l_cur, sel].T, y_rows)
 
         if last_cycle:
-            eigvecs = _unit_rows(ritz)
+            eigvecs = _unit_rows(ritz, group)
             eigenvalues = [float(theta_all[s]) - cfg.eigenvalue_offset for s in sel]
             return eigenvalues, eigvecs, total_iters, converged or m_tot >= n
 

@@ -13,7 +13,13 @@ the other: one ``.npz`` with ``format_version`` (1), ``eigenvalues``
 (float64), ``eigenvectors`` (one row per pair, ``(0, 0)`` when empty),
 ``find_maximum``, ``num_eigs``, ``iteration_counts`` (int64) and the
 caller's ``extra_<name>`` fields, written to a temporary file and renamed
-into place.  (The JAX package's ``compile_cache`` is an XLA executable cache
+into place.
+
+A run over a row-partitioned operator writes the same file: every rank
+gathers the eigenvectors to the global n, rank 0 writes, and the group
+waits for it; a load gives every rank its slabs of the global rows.  So a
+file written by a run on some number of ranks resumes on any other, one
+process included.  (The JAX package's ``compile_cache`` is an XLA executable cache
 and has no counterpart here.)
 """
 
@@ -24,6 +30,7 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.types import to_torch_dtype
 from ..ops.operators import resolve_device
@@ -40,16 +47,28 @@ def npz_path(path) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def save_state(path, manager, iteration_counts, *, extra: dict | None = None) -> None:
+def save_state(path, manager, iteration_counts, *, extra: dict | None = None, sharded=None) -> None:
     """Write the deflation state of a run (the EigenPairManager content);
-    the eigenvectors come to the host from whatever device holds them."""
+    the eigenvectors come to the host from whatever device holds them.
+    ``sharded`` is the run's row-partitioned operator, if it is one: the
+    manager holds slabs, every rank of its group calls this, the global
+    rows are gathered, rank 0 writes and the group waits for the file."""
     vals = np.asarray(manager.eigenvalues(), dtype=np.float64)
+    rows = manager.eigenvectors()
+    if sharded is not None:
+        rows = [sharded.gather(v) for v in rows]
     vecs = (
-        np.stack([v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-                  for v in manager.eigenvectors()])
+        np.stack([v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for v in rows])
         if manager.pairs
         else np.zeros((0, 0))
     )
+    if sharded is None or sharded.mesh.rank == 0:
+        _write(path, vals, vecs, manager, iteration_counts, extra)
+    if sharded is not None:
+        dist.barrier(group=sharded.group)
+
+
+def _write(path, vals, vecs, manager, iteration_counts, extra) -> None:
     target = npz_path(path)
     # Atomic write: a crash inside savez must not leave a truncated file
     # that blocks every later resume.
@@ -73,18 +92,21 @@ def save_state(path, manager, iteration_counts, *, extra: dict | None = None) ->
         raise
 
 
-def load_state(path, dtype=None, *, device=None, with_finished: bool = False, with_extras: bool = False):
+def load_state(path, dtype=None, *, device=None, with_finished: bool = False, with_extras: bool = False,
+               sharded=None):
     """Read a checkpoint -> (manager, iteration_counts[, finished][, extras]).
 
     The eigenvectors become tensors of ``dtype`` (default: as stored) on
-    ``device`` (default: the card).  ``finished`` says whether the saved
+    ``device`` (default: the card); with ``sharded`` (a row-partitioned
+    operator) each is this rank's slab of the stored global row, on the
+    operator's device.  ``finished`` says whether the saved
     run had reached the deflation fixed point (False for a file without
     the flag); ``extras`` is every ``extra_*`` field as a dict of numpy
     values (the filtered solve keeps its round state there).
     """
     from ..solvers.lanczos import EigenPairManager
 
-    device = resolve_device(device)
+    device = sharded.device if sharded is not None else resolve_device(device)
     with np.load(npz_path(path)) as z:
         version = int(z["format_version"])
         if version > _FORMAT_VERSION:
@@ -94,6 +116,8 @@ def load_state(path, dtype=None, *, device=None, with_finished: bool = False, wi
         vecs = z["eigenvectors"]
         for i in range(vals.shape[0]):
             v = torch.as_tensor(vecs[i], device=device)
+            if sharded is not None:
+                v = sharded.scatter(v)
             manager.insert([float(vals[i])], [v.to(to_torch_dtype(dtype)) if dtype is not None else v])
         counts = [int(c) for c in z["iteration_counts"]]
         finished = bool(z["extra_finished"]) if "extra_finished" in z else False
@@ -120,24 +144,28 @@ class CheckpointedRun:
         self.path = path
 
     def run(self):
-        from ..parallel.sharded import refuse_sharded
+        from ..parallel.sharded import ShardedOperator
         from ..solvers import lanczos as _lanczos
 
         eng = self.engine
-        refuse_sharded(eng.operator, "CheckpointedRun")
+        sharded = eng.operator if isinstance(eng.operator, ShardedOperator) else None
         dev = eng.operator.device
         cfg = eng._config().resolved(eng.dtype)
 
         if os.path.exists(npz_path(self.path)):
-            manager, iter_counts, finished = load_state(self.path, eng.dtype, device=dev, with_finished=True)
+            manager, iter_counts, finished = load_state(self.path, eng.dtype, device=dev, with_finished=True,
+                                                        sharded=sharded)
             if finished:
                 # The saved run reached the deflation fixed point (it ended
                 # between the last save and run() returning): return the
                 # stored result instead of one more deflated restart.
                 eng._iteration_counts = iter_counts
                 vals = np.asarray(manager.eigenvalues())
+                rows = manager.eigenvectors()
+                if sharded is not None:
+                    rows = [sharded.gather(v) for v in rows]
                 vecs = (
-                    torch.stack(manager.eigenvectors())
+                    torch.stack(rows)
                     if manager.pairs
                     else torch.zeros((0, eng.matrix_size), dtype=eng.dtype, device=dev)
                 )
@@ -151,8 +179,9 @@ class CheckpointedRun:
         result = _lanczos.deflation_driver(
             iterate_one, cfg, eng._init_fn(), eng.dtype, device=dev,
             v0_rows=v0_rows, use_warm_restarts=use_warm,
-            manager=manager, iter_counts=iter_counts,
-            after_round=lambda mgr, counts, fin: save_state(self.path, mgr, counts, extra={"finished": fin}),
+            manager=manager, iter_counts=iter_counts, sharded=sharded,
+            after_round=lambda mgr, counts, fin: save_state(self.path, mgr, counts, extra={"finished": fin},
+                                                            sharded=sharded),
         )
         eng._iteration_counts = result.iteration_counts
         return result.eigenvalues, result.eigenvectors

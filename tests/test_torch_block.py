@@ -351,3 +351,21 @@ def test_block_thick_on_cuda_runs_k4(cuda, dtype):
     tol = 2e-6 if dtype == torch.float32 else 1e-9
     np.testing.assert_allclose(np.sort(vals), exact, rtol=0, atol=tol)
     assert vecs.device.type == "cuda"
+    # The same spectrum as a complex BSR operator (a gauge phase on every
+    # hop): the block-thick engine on complex input, K4's complex instance
+    # (ROADMAP item 13).
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    theta = np.random.default_rng(5).uniform(0.0, 2.0 * np.pi, n - 1)
+    i = np.arange(n - 1)
+    hop = -upper[: n - 1] * np.exp(1j * theta)  # A[i, i+1]; zero across the chains' joints
+    cop = tl.BSROperator.from_coo(np.concatenate([i, i + 1]), np.concatenate([i + 1, i]),
+                                  np.concatenate([hop, hop.conj()]), n, bm=32, bk=32, dtype=cdtype, device=cuda)
+    ceng = tl.LambdaLanczos(cop, num_eigs=3)
+    ceng.block_size, ceng.restart_policy, ceng.eigenvalue_offset = 3, "thick", -4.0
+    ceng.max_iteration, ceng.max_restarts, ceng.eps = 60, 48, eng.eps
+    ceng.init_vector = lambda n_: rng.uniform(-1.0, 1.0, n_) + 1j * rng.uniform(-1.0, 1.0, n_)
+    before = cgs.cgs_pass_block.launches_by_dtype[cdtype]
+    cvals, cvecs = ceng.run()
+    assert cgs.cgs_pass_block.launches_by_dtype[cdtype] > before
+    np.testing.assert_allclose(np.sort(cvals), exact, rtol=0, atol=tol)
+    assert cvecs.dtype == cdtype and max(ceng.residuals(cvals, cvecs)) < 1e3 * tol

@@ -222,6 +222,38 @@ def test_block_kernel_matches_plain_on_cuda(cuda, dtype, b, k, n):
     assert got.data_ptr() == vd.data_ptr()  # in place, like the aliased Pallas output
     tol = 2e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
+    _complex_block_case(cuda, torch.complex64 if dtype == torch.float32 else torch.complex128, b, k, n, tol)
+
+
+def _complex_block_problem(k, b, cap, n, dtype, seed):
+    """:func:`_block_problem` for a complex basis: the complex live rows of
+    :func:`_complex_problem` and a complex block with large components in
+    their span."""
+    basis, _ = _complex_problem(k, cap, n, dtype, seed)
+    rng = np.random.default_rng(seed + 1)
+    v = (rng.standard_normal((b, n)) + 1j * rng.standard_normal((b, n))).astype(dtype)
+    if k:
+        v = v + (10.0 - 5.0j) * (rng.standard_normal((b, min(k, 4))) @ basis[: min(k, 4)]).astype(dtype)
+    return basis, v
+
+
+def _complex_block_case(cuda, dtype, b, k, n, tol):
+    """K4's complex instance of the same case (complex64 beside float32,
+    complex128 beside float64): conjugated coefficients against the plain
+    version, in place, twice bit for bit, counted by dtype."""
+    np_dtype = np.complex64 if dtype == torch.complex64 else np.complex128
+    basis, v = _complex_block_problem(min(k, 129), b, 129, n, np_dtype, seed=k + n + b + 1)
+    want = cgs.cgs_pass_block_reference(torch.from_numpy(v), torch.from_numpy(basis), k)
+    before = cgs.cgs_pass_block.launches_by_dtype[dtype]
+    bd = torch.from_numpy(basis).to(cuda)
+    vd = torch.from_numpy(v).to(cuda)
+    got = cgs.cgs_pass_block(vd, bd, k)
+    again = cgs.cgs_pass_block(torch.from_numpy(v).to(cuda), bd, k)
+    torch.cuda.synchronize()
+    assert cgs.cgs_pass_block.launches_by_dtype[dtype] == before + (2 if k else 0)
+    assert got.data_ptr() == vd.data_ptr() and got.dtype == dtype
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
 
 
 @pytest.mark.gpu
@@ -244,12 +276,86 @@ def test_block_kernel_ring_boundaries_on_cuda(cuda, dtype, b, n):
         torch.cuda.synchronize()
         assert torch.equal(got, again), k
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
+    # the complex instance over the same ring boundaries
+    cdtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    basis, v = _complex_block_problem(258, b, 258, n, np.complex64 if dtype == torch.float32 else np.complex128,
+                                      seed=n + b + 2)
+    bd = torch.from_numpy(basis).to(cuda)
+    for k in (1, plan.stages, plan.stages + 1, 9, 258):
+        want = cgs.cgs_pass_block_reference(torch.from_numpy(v), torch.from_numpy(basis), k)
+        got = cgs.cgs_pass_block(torch.from_numpy(v).to(cuda), bd, k)
+        again = cgs.cgs_pass_block(torch.from_numpy(v).to(cuda), bd, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and got.dtype == cdtype, k
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))
 
 
 @pytest.mark.gpu
 def test_block_kernel_refuses_unsupported_on_cuda(cuda):
-    basis = torch.zeros((4, 8), dtype=torch.complex64, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cgs.cgs_pass_block(torch.zeros((2, 8), dtype=torch.complex64, device=cuda), basis, 1)
+    # complex64 and complex128 run since ROADMAP item 13; bfloat16
+    # still refuses, naming its heading
+    basis = torch.zeros((4, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="K4 for complex and bfloat16 bases"):
+        cgs.cgs_pass_block(torch.zeros((2, 8), dtype=torch.bfloat16, device=cuda), basis, 1)
     with pytest.raises(ValueError):
         cgs.cgs_pass_block(torch.zeros((17, 8), device=cuda), torch.zeros((4, 8), device=cuda), 1)
+
+
+def _split_pass(kernel, v, basis, k, reduce=None):
+    """K3 (``kernel`` "k3": a vector) or K4 ("k4": a block) through its
+    wrapper."""
+    fn = cgs.cgs_pass if kernel == "k3" else cgs.cgs_pass_block
+    return fn(v, basis, k, reduce)
+
+
+@pytest.mark.parametrize("kernel", ["k3", "k4"])
+def test_split_pass_sums_partial_coefficients(kernel):
+    """A pass with ``reduce`` over two column halves (the slabs of two
+    ranks, the other rank's coefficients added by ``reduce``) gives each
+    half of the whole pass, on the plain version."""
+    basis, v = _problem(20, 24, 64, np.float64, seed=5) if kernel == "k3" else \
+        _block_problem(20, 3, 24, 64, np.float64, seed=5)
+    bt, vt = torch.from_numpy(basis), torch.from_numpy(v)
+    whole = _split_pass(kernel, vt, bt, 20)
+    halves = [(bt[:, s], vt[..., s]) for s in (slice(0, 40), slice(40, 64))]
+    for mine, (b_m, v_m) in enumerate(halves):
+        b_o, v_o = halves[1 - mine]
+        other = b_o[:20] @ (v_o if kernel == "k3" else v_o.T)  # the other rank's partial sums
+        got = _split_pass(kernel, v_m.clone(), b_m.contiguous(), 20, lambda c, o=other: c + o)
+        np.testing.assert_allclose(got.numpy(), whole[..., (slice(0, 40), slice(40, 64))[mine]].numpy(),
+                                   rtol=0, atol=1e-12 * np.abs(v).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.complex64, torch.complex128])
+@pytest.mark.parametrize("kernel", ["k3", "k4"])
+@pytest.mark.parametrize("n", [4099, 70001])
+def test_split_pass_matches_plain_on_cuda(cuda, dtype, kernel, n):
+    """The split pass on the card (projection, ``reduce`` of the
+    coefficients in place, update) as the world-size > 1 engines run it:
+    with an identity ``reduce`` the bits of the whole pass; with one that
+    halves the coefficients, the plain version given the same ``reduce``;
+    one launch counted per pass."""
+    make = {np.float32: _problem, np.float64: _problem, np.complex64: _complex_problem,
+            np.complex128: _complex_problem}
+    np_dtype = {torch.float32: np.float32, torch.float64: np.float64, torch.complex64: np.complex64,
+                torch.complex128: np.complex128}[dtype]
+    k = 100
+    if kernel == "k3":
+        basis, v = make[np_dtype](k, 129, n, np_dtype, seed=n + 7)
+        counter = cgs.cgs_pass
+    else:
+        basis, v = (_block_problem if dtype in (torch.float32, torch.float64) else _complex_block_problem)(
+            k, 3, 129, n, np_dtype, seed=n + 7)
+        counter = cgs.cgs_pass_block
+    bd = torch.from_numpy(basis).to(cuda)
+    whole = _split_pass(kernel, torch.from_numpy(v).to(cuda), bd, k)
+    before = counter.launches_by_dtype[dtype]
+    same = _split_pass(kernel, torch.from_numpy(v).to(cuda), bd, k, lambda c: c)
+    halved = _split_pass(kernel, torch.from_numpy(v).to(cuda), bd, k, lambda c: c.mul_(0.5))
+    torch.cuda.synchronize()
+    assert counter.launches_by_dtype[dtype] == before + 2
+    assert torch.equal(same, whole)
+    want = _split_pass(kernel, torch.from_numpy(v), torch.from_numpy(basis), k, lambda c: c * 0.5)
+    tol = 2e-5 if dtype in (torch.float32, torch.complex64) else 1e-12
+    torch.testing.assert_close(halved.cpu(), want, rtol=0, atol=tol * max(float(np.abs(v).max()), 1.0))

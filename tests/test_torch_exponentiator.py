@@ -267,16 +267,48 @@ def test_r7_stop_test_fires_for_a_with_a_real_part(a):
     assert np.linalg.norm(_np(out) - truth) <= 1e-12 * np.linalg.norm(truth)
 
 
-class _Slab(ShardedOperator):
-    """This rank's slab of a row-partitioned operator, without a process
-    group: enough for the refusal."""
+def _sharded_paths_run():
+    """ROADMAP item 13: every method of an Exponentiator over a
+    row-partitioned operator (a one-rank gloo world in this process; the
+    2- and 4-rank worlds are tests/test_torch_sharded.py's) returns the
+    one-device Exponentiator's results within 1e-12, for a real and a
+    complex Hermitian chain, in both modes, precise or not."""
+    import tempfile
 
-    n = n_padded = 8
-    dtype = torch.float64
-    mesh = type("Mesh", (), {"size": 1, "device": torch.device("cpu"), "group": None})()
+    import torch.distributed as dist
 
-    def matvec(self, x):
-        return x
+    from lanczos_tpu_torch.parallel import mesh as pmesh
+    from lanczos_tpu_torch.parallel.sharded import ShardedDIAOperator
+
+    n = 64
+    rng = np.random.default_rng(17)
+    hops = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    w = _state(n, 18)
+    with tempfile.TemporaryDirectory() as tmp:
+        pmesh.initialize_distributed(backend="gloo", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+        try:
+            mesh = pmesh.make_mesh()
+            for diags in ([np.full(n, -1.0)] * 2, [hops, np.roll(np.conj(hops), 1)]):
+                sharded = tl.Exponentiator(ShardedDIAOperator.from_diagonals([1, -1], diags, n, mesh))
+                assert isinstance(sharded.operator, ShardedOperator)
+                one = tl.Exponentiator(tl.DIAOperator.from_diagonals([1, -1], diags, n, device="cpu"))
+                v = w if sharded.dtype.is_complex else w.real
+                for ex in (sharded, one):
+                    ex.got = []
+                    for mode in ("hybrid", "fused"):
+                        ex.mode = mode
+                        ex.got.append(ex.run(-0.5j, v)[0])
+                    ex.got += [ex.run_grid([0.2, -0.3j], v)[0], ex.run_batch(-0.3j, np.stack([v, 0 * v]))[0],
+                               ex.taylor_run(0.2j, v)[0], ex.run_split(-0.4j, w.real, w.imag)[0][1],
+                               ex.evolve(0.05j, w.real, w.imag, 5)[0],
+                               torch.as_tensor(ex.evolve(0.05j, w.real, w.imag, 5, precise=True)[1]),
+                               ex.run_chebyshev(2j, w.real, w.imag)[0][0],
+                               torch.as_tensor(ex.run_chebyshev(2j, w.real, w.imag, precise=True)[0][1]),
+                               ex.run_chebyshev_grid([1j, 2j], w.real, w.imag)[0][0]]
+                for got, want in zip(sharded.got, one.got):
+                    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+        finally:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("call, error, item", [
@@ -294,12 +326,13 @@ def test_refusals_name_their_item(call, error, item):
         # the complex Hermitian paths they named.
         _hermitian_path_runs(call)
         return
+    if item == "item 13":
+        _sharded_paths_run()
+        return
     ex = tl.Exponentiator(np.eye(4), device="cpu")
     v = np.ones(4)
     with pytest.raises(error, match=item.replace("(", r"\(").replace(")", r"\)")):
-        if call == "sharded":
-            tl.Exponentiator(_Slab())
-        elif call == "complex_input":
+        if call == "complex_input":
             ex.run(1.0, v + 1j)
         elif call == "complex_batch":
             ex.run_batch(1.0, np.ones((2, 4)) + 1j)

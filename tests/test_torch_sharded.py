@@ -94,8 +94,9 @@ def _jax_mesh(w):
 
 
 def _jax_refs(w):
-    """The JAX package's results for every check of a world of ``w`` ranks,
-    and the packed arrays the world converts."""
+    """The packed arrays the world of ``w`` ranks converts, and a function
+    that computes the JAX package's results for every check of that world
+    (the shard_map compiles and solves), to call while the world runs."""
     import jax.numpy as jnp
     from lanczos_tpu import LambdaLanczos
     from lanczos_tpu.ops.operators import DenseOperator
@@ -103,7 +104,7 @@ def _jax_refs(w):
     from lanczos_tpu.utils.random import fixed_seed_initializer
 
     mesh = _jax_mesh(w)
-    refs, inputs = {}, {}
+    refs, inputs, matvecs = {}, {}, {}
     for name, (rows, cols, vals, n, bm, bk) in world_script.patterns().items():
         dense = np.zeros((n, n))
         np.add.at(dense, (rows, cols), vals)
@@ -120,60 +121,71 @@ def _jax_refs(w):
             hops = op.footprint[1] if op.footprint is not None else ()
             refs[f"{key}.words"] = sum(send.shape[1] * op.bk for (_h, _b, _c, send) in hops)
             # one matvec (one shard_map compile) per mode the pattern resolves to
-            y_key = f"{name}.{op.comm}.y_jax"
-            if y_key not in refs:
-                refs[y_key] = np.asarray(op.matvec(jnp.asarray(x)))
-            refs[f"{key}.y"] = refs[y_key]
+            matvecs.setdefault(f"{name}.{op.comm}.y_jax", (op, x))
+            matvecs[f"{key}.y"] = (op, x)
             inputs[f"{key}.blocks"] = np.asarray(op.blocks)
             inputs[f"{key}.col_blocks"] = np.asarray(op.col_blocks)
 
     offsets, diags, n = world_script.dia_problem()
-    op = ShardedDIAOperator.from_diagonals(offsets, diags, n, mesh)
-    refs["dia.y"] = np.asarray(op.matvec(jnp.asarray(world_script.pattern_x(n))))
+    dia = ShardedDIAOperator.from_diagonals(offsets, diags, n, mesh)
     dense = np.zeros((n, n))
     for d, diag in zip(offsets, diags):
         i = np.arange(max(0, -d), min(n, n - d))
         dense[i, i + d] = diag[i]
     refs["dia.dense_y"] = dense @ world_script.pattern_x(n)
-    inputs["dia.offsets"] = np.asarray(op.offsets)
-    inputs["dia.data"] = np.asarray(op.data)
+    inputs["dia.offsets"] = np.asarray(dia.offsets)
+    inputs["dia.data"] = np.asarray(dia.data)
 
-    if w == 4:
-        n = world_script.SOLVE_N
-        ops = {
-            "bsr": ShardedBSROperator.from_coo(*world_script._chain(n), n, mesh, dtype=jnp.float64),
-            "dia": ShardedDIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0)] * 2, n, mesh),
-        }
-        for name, op in ops.items():
-            for mode in ("hybrid", "fused"):
-                eng = LambdaLanczos(op, find_maximum=False, mode=mode)
-                eng.eigenvalue_offset = -4.0
-                eng.eps = 1e-12
-                eng.init_vector = fixed_seed_initializer(np.float64, seed=world_script.SOLVE_SEEDS[name])
-                val, _vec = eng.run_one()
-                refs[f"solve.{name}.{mode}.val"] = float(val)
-                refs[f"solve.{name}.{mode}.iters"] = list(eng.iteration_counts)
-    else:
-        eng = LambdaLanczos(shard_operator(DenseOperator(jnp.asarray(world_script.dense_problem())), mesh),
-                            find_maximum=True)
-        eng.init_vector = fixed_seed_initializer(np.float64, seed=42)
-        refs["dense.val"] = float(eng.run_one()[0])
-    return refs, inputs
+    def finish():
+        done = {}
+        for key, (op, x) in matvecs.items():
+            y_key = key if key.endswith("y_jax") else key.rsplit(".", 2)[0] + f".{op.comm}.y_jax"
+            if y_key not in done:
+                done[y_key] = np.asarray(op.matvec(jnp.asarray(x)))
+            refs[key] = done[y_key]
+        refs["dia.y"] = np.asarray(dia.matvec(jnp.asarray(world_script.pattern_x(n))))
+        if w == 4:
+            m = world_script.SOLVE_N
+            ops = {
+                "bsr": ShardedBSROperator.from_coo(*world_script._chain(m), m, mesh, dtype=jnp.float64),
+                "dia": ShardedDIAOperator.from_diagonals([-1, 1], [np.full(m, -1.0)] * 2, m, mesh),
+            }
+            for name, op in ops.items():
+                for mode in ("hybrid", "fused"):
+                    eng = LambdaLanczos(op, find_maximum=False, mode=mode)
+                    eng.eigenvalue_offset = -4.0
+                    eng.eps = 1e-12
+                    eng.init_vector = fixed_seed_initializer(np.float64, seed=world_script.SOLVE_SEEDS[name])
+                    val, _vec = eng.run_one()
+                    refs[f"solve.{name}.{mode}.val"] = float(val)
+                    refs[f"solve.{name}.{mode}.iters"] = list(eng.iteration_counts)
+        else:
+            eng = LambdaLanczos(shard_operator(DenseOperator(jnp.asarray(world_script.dense_problem())), mesh),
+                                find_maximum=True)
+            eng.init_vector = fixed_seed_initializer(np.float64, seed=42)
+            refs["dense.val"] = float(eng.run_one()[0])
+        return refs
+
+    return inputs, finish
 
 
-def _spawn_world(w, tmp: Path, inputs: dict) -> list[dict]:
-    """Run ``tests/torch_sharded_world.py`` as ``w`` gloo ranks; every rank's
-    outputs, in rank order.  All ranks are killed if one fails or the world
-    outlives WORLD_TIMEOUT_S."""
+def _start_world(w, tmp: Path, inputs: dict):
+    """Start ``tests/torch_sharded_world.py`` as ``w`` gloo ranks; returns
+    the processes, for :func:`_join_world`."""
     np.savez(tmp / "inputs.npz", **inputs)
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    procs = [
+    return [
         subprocess.Popen([sys.executable, str(HERE / "torch_sharded_world.py"), str(r), str(w), str(tmp / "rendezvous"),
                           str(tmp / "inputs.npz"), str(tmp / f"out{r}.npz")],
                          env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(w)
     ]
-    deadline = datetime.datetime.now() + datetime.timedelta(seconds=WORLD_TIMEOUT_S)
+
+
+def _join_world(procs, tmp: Path, started) -> list[dict]:
+    """Every rank's outputs, in rank order.  All ranks are killed if one
+    fails or the world outlives WORLD_TIMEOUT_S from ``started``."""
+    deadline = started + datetime.timedelta(seconds=WORLD_TIMEOUT_S)
     errors = []
     try:
         for r, p in enumerate(procs):
@@ -187,15 +199,33 @@ def _spawn_world(w, tmp: Path, inputs: dict) -> list[dict]:
                 p.wait()
     assert not errors, "\n".join(errors)
     outs = []
-    for r in range(w):
+    for r in range(len(procs)):
         with np.load(tmp / f"out{r}.npz") as f:
             outs.append({k: f[k] for k in f.files})
     return outs
 
 
 def _world(w, tmp_path_factory):
-    refs, inputs = _jax_refs(w)
-    return refs, _spawn_world(w, tmp_path_factory.mktemp(f"world{w}"), inputs)
+    """The JAX references and the outputs of a world of ``w`` ranks; the
+    references are computed while the world runs."""
+    inputs, jax_refs = _jax_refs(w)
+    tmp = tmp_path_factory.mktemp(f"world{w}")
+    if w == 2:  # a one-process checkpoint for the world to resume
+        make_dia, _make_bsr = world_script.one_process_ops()
+        n = world_script.CHECKPOINT_N
+        world_script.interrupted_checkpoint(make_dia([-1, 1], [np.full(n, -1.0)] * 2, n, torch.float64),
+                                            str(tmp / "ck_one.npz"))
+    started = datetime.datetime.now()
+    procs = _start_world(w, tmp, inputs)
+    try:
+        refs = jax_refs()
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    refs["tmpdir"] = tmp
+    return refs, _join_world(procs, tmp, started)
 
 
 @pytest.fixture(scope="module")
@@ -206,6 +236,65 @@ def world2(tmp_path_factory):
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
     return _world(4, tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def one_process(tmp_path_factory):
+    """The engine cases of both worlds run by the port in one process on the
+    CPU (the solves each world is held to at 1e-12)."""
+    out = {}
+    make_dia, make_bsr = world_script.one_process_ops()
+    world_script.run_engines(make_dia, make_bsr, out, str(tmp_path_factory.mktemp("one_process")), jax_cases=False)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_engines():
+    """The JAX package's engines on the JAX tests' cases, on one device (its
+    own tests hold its sharded runs to these at 1e-11): once per module."""
+    import jax.numpy as jnp
+    from lanczos_tpu import Exponentiator, LambdaLanczos, filtered_lanczos
+    from lanczos_tpu.ops.operators import DIAOperator
+    from lanczos_tpu.utils.random import fixed_seed_initializer
+
+    refs = {}
+    n = world_script.ENGINE_N
+
+    def chain_dia(m, dtype=np.float64):
+        return DIAOperator.from_diagonals([-1, 1], [np.full(m, -1.0, dtype)] * 2, m)
+
+    def solve(op, num_eigs, **attrs):
+        eng = LambdaLanczos(op, find_maximum=attrs.pop("find_maximum", False), num_eigs=num_eigs,
+                            dtype=attrs.pop("dtype", None), mode=attrs.pop("mode", "auto"))
+        for k, v in attrs.items():
+            setattr(eng, k, v)
+        return np.sort(np.asarray(eng.run()[0]))
+
+    pv = dict(dtype=np.float32, mode="fused", precise_vectors=True, restart_policy="thick", max_iteration=40,
+              max_restarts=64, eps=1e-11, eigenvalue_offset=-4.0, init_vector=fixed_seed_initializer(np.float32, seed=11))
+    # one JAX pv thick solve of the chain serves both of its storage forms
+    refs["pv_thick.dia"] = refs["pv_thick.bsr"] = solve(chain_dia(n, np.float32), 1, **pv)
+    refs["block.dia"] = solve(chain_dia(n), 2, block_size=2, eigenvalue_offset=-4.0,
+                              init_vector=fixed_seed_initializer(np.float64, seed=8))
+    main, off, _dense = world_script.block_thick_problem()
+    init = world_script.advancing_initializer()
+    refs["block_thick.dia"] = solve(
+        DIAOperator.from_diagonals([-1, 0, 1], [off, main, off], world_script.BLOCK_THICK_N), 4, block_size=2,
+        restart_policy="thick", max_iteration=64, eps=1e-11, max_restarts=24, init_vector=lambda k: jnp.asarray(init(k)))
+    upper, lower, _dense = world_script.complex_hops()
+    refs["complex.dia"] = solve(DIAOperator.from_diagonals([1, -1], [upper, lower], world_script.EXPM_N), 1,
+                                find_maximum=True, init_vector=fixed_seed_initializer(np.complex128, seed=5))
+    refs["filtered_precise"] = np.asarray(filtered_lanczos(chain_dia(world_script.FILTER_N, np.float32), num_eigs=2,
+                                                           lo=-2.0, hi=2.0, precise=True)[0])
+    psi = np.zeros(world_script.EXPM_N, complex)
+    psi[world_script.EXPM_N // 2] = 1.0
+    refs["expm.run_complex"] = np.asarray(Exponentiator(chain_dia(world_script.EXPM_N), dtype=np.complex128)
+                                          .run(-1.5j, jnp.asarray(psi))[0])
+    v = world_script.expm_state(world_script.CHEBY_N, 0)
+    ex = Exponentiator(chain_dia(world_script.CHEBY_N, np.float32), dtype=np.float32)
+    (o_re, o_im), _ = ex.run_chebyshev(3j, v.real.astype(np.float32), v.imag.astype(np.float32), lo=-2.0, hi=2.0)
+    refs["expm.cheby_f32"] = np.asarray(o_re, np.float64) + 1j * np.asarray(o_im, np.float64)
+    return refs
 
 
 def _same_on_every_rank(outs, key):
@@ -296,16 +385,125 @@ def test_seed_broadcast_and_second_initialization(world2):
     assert int(_same_on_every_rank(outs, "noop.world")) == 2
 
 
-def test_unsupported_engines_raise(world2):
-    # The thick, block and filtered engines over sharded operators wait for
-    # ROADMAP item 13, precise or not; precise_vectors in the fused engine
-    # (item 10) runs on two ranks as in one process: the values within
+def test_unsupported_engines_raise(world2, world4, one_process, jax_engines):
+    # ROADMAP item 13: the thick, block, block-thick and filtered
+    # engines, precise or not, complex input, checkpoints and every
+    # Exponentiator method run over row-partitioned operators.  On 2 and 4
+    # ranks each returns the port's one-process solve within 1e-12 (float64
+    # values; unit overlaps of the gathered vectors) at its bar against the
+    # exact values; on 2 ranks the JAX tests' own cases also meet those
+    # tests' bars and agree with the JAX engines there.  The fused
+    # engine's precise_vectors on two ranks as before: the values within
     # 1e-12 of the single-process solve and of the float32 entries'
     # spectrum, float32 eigenvectors, the slabs' float64 product at 1e-13.
-    _refs, outs = world2
-    for name in ("thick", "block", "filtered", "precise_thick"):
-        assert "item 13" in str(_same_on_every_rank(outs, f"refused.{name}")), name
+    refs2, outs = world2
+    import scipy.linalg as sla
+
     import lanczos_tpu_torch as tl
+
+    exact = world_script.chain_exact
+    n = world_script.ENGINE_N
+    _pot, _off, small = world_script.small_problem()
+    small32 = small.copy()
+    small32[np.diag_indices_from(small)] = _pot.astype(np.float32)  # the float32 entries the precise engines see
+    w_small, w_small32 = np.linalg.eigvalsh(small), np.linalg.eigvalsh(small32)
+    bars = {  # case: (exact values, bar); the JAX tests' own cases first (the 2-rank world only)
+        "pv_thick.bsr": (exact(n, 1), 1e-9),  # tests/test_sharded.py:364
+        "pv_thick.dia": (exact(n, 1), 1e-9),  # tests/test_precise_thick.py:182
+        "block.dia": (exact(n, 2), 1e-9),  # tests/test_block_lanczos.py:93
+        "block_thick.dia": (np.linalg.eigvalsh(world_script.block_thick_problem()[2])[:4], 1e-10),  # :236
+        "filtered_precise": (exact(world_script.FILTER_N, 2), 1e-11),  # test_sharded.py:398
+        "complex.dia": (np.linalg.eigvalsh(world_script.complex_hops()[2])[-1:], 1e-10),  # test_sharded.py:227
+        "complex.bsr": (np.linalg.eigvalsh(world_script.complex_hops()[2])[-1:], 1e-10),
+        "thick_hybrid.small": (w_small[:2], 1e-10),
+        "thick_fused.small": (w_small[:2], 1e-10),
+        "pv_thick.small": (w_small32[:2], 1e-10),
+        "block.small": (w_small[:2], 1e-10),
+        "block_thick.small": (w_small[:2], 1e-10),
+        "pv_block_thick.small": (w_small32[:2], 1e-10),
+        "complex_block_thick.small": (np.linalg.eigvalsh(world_script.complex_hops(48)[2])[:3], 1e-10),
+        "filtered_precise.small": (exact(world_script.SMALL_FILTER_N, 2), 1e-11),
+    }
+    w_sigma = np.linalg.eigvalsh(np.diag(np.full(world_script.CHEBY_N - 1, -1.0), 1)
+                                 + np.diag(np.full(world_script.CHEBY_N - 1, -1.0), -1))
+    bars["filtered_sigma"] = (np.sort(w_sigma[np.argsort(np.abs(w_sigma - 0.3))[:2]]), 1e-10)
+    for w, (_refs_w, world) in ((2, world2), (4, world4)):
+        for case, (want, bar) in bars.items():
+            key = f"eng.{case}"
+            if w == 4 and case in world_script.JAX_CASES:
+                assert f"{key}.vals" not in world  # the 2-rank world's alone
+                continue
+            got = np.sort(_same_on_every_rank(world, f"{key}.vals"))
+            assert np.max(np.abs(got - want)) < bar, (w, case, got, want)
+            if case in jax_engines:
+                assert np.max(np.abs(got - np.sort(jax_engines[case]))) < 2 * bar, (w, case, jax_engines[case])
+            vecs = _same_on_every_rank(world, f"{key}.vecs")
+            assert vecs.shape[0] == len(want) and np.all(np.isfinite(vecs)), (case, vecs.shape)
+            if case in world_script.JAX_CASES:
+                continue  # held to the JAX test's bar and engine; the 1e-12 check is the small cases'
+            one = np.sort(one_process[f"{key}.vals"])
+            assert np.max(np.abs(got - one)) <= 1e-12, (w, case, got, one)
+            one_vecs = one_process[f"{key}.vecs"]
+            assert vecs.shape == one_vecs.shape, (case, vecs.shape)
+            order, one_order = np.argsort(_same_on_every_rank(world, f"{key}.vals")), np.argsort(one_process[f"{key}.vals"])
+            overlaps = np.abs(np.sum(np.conj(vecs[order]) * one_vecs[one_order], axis=1))
+            assert np.all(overlaps >= 1 - 1e-6), (w, case, overlaps)
+            if f"{key}.res" in world and not case.startswith("filtered"):
+                assert np.max(_same_on_every_rank(world, f"{key}.res")) < 1e-8, (w, case)
+            if f"{key}.iters" in world and "block_thick" not in case:
+                # (the block-thick engines repair dead start rows with fresh
+                # entropy, so their counts may differ at the rounding level)
+                assert list(world[f"{key}.iters"]) == list(one_process[f"{key}.iters"]), (w, case)
+        ck = _same_on_every_rank(world, "eng.filtered_checkpoint.vals")
+        np.testing.assert_allclose(ck[1], ck[0], rtol=0, atol=1e-12)  # resumed from the world's own file
+
+        # The Exponentiator: tests/test_sharded.py:201 and :417 (2 ranks),
+        # then every method against the one-process port at 1e-12 of the
+        # state's scale.
+        if w == 2:
+            cn = world_script.EXPM_N
+            dense = np.diag(np.full(cn - 1, -1.0), 1) + np.diag(np.full(cn - 1, -1.0), -1)
+            psi = np.zeros(cn, complex)
+            psi[cn // 2] = 1.0
+            out = _same_on_every_rank(world, "expm.run_complex")
+            assert abs(np.linalg.norm(out) - 1.0) < 1e-12
+            assert 1.0 - abs(np.vdot(sla.expm(-1.5j * dense) @ psi, out)) < 1e-12
+            np.testing.assert_allclose(out, jax_engines["expm.run_complex"], rtol=0, atol=1e-12)
+            m = world_script.CHEBY_N
+            a = np.diag(np.full(m - 1, -1.0), 1) + np.diag(np.full(m - 1, -1.0), -1)
+            truth = sla.expm(3j * a) @ world_script.expm_state(m, 0)
+            assert np.linalg.norm(_same_on_every_rank(world, "expm.cheby_f32") - truth) < 5e-6
+            assert np.linalg.norm(jax_engines["expm.cheby_f32"] - truth) < 5e-6
+            assert np.linalg.norm(_same_on_every_rank(world, "expm.cheby_precise") - truth) < 1e-12
+        for key in [k for k in one_process if k.startswith("expm.")]:
+            got, want = _same_on_every_rank(world, key), one_process[key]
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-12 * max(np.abs(want).max(), 1.0), err_msg=key)
+
+    # Checkpoints across world sizes: a one-process file resumed on two
+    # ranks, and the two ranks' file resumed in one process, each against
+    # the uninterrupted one-process run.
+    from lanczos_tpu_torch.utils.checkpoint import CheckpointedRun, load_state
+
+    make_dia, _make_bsr = world_script.one_process_ops()
+    cn = world_script.CHECKPOINT_N
+
+    def chain():
+        return make_dia([-1, 1], [np.full(cn, -1.0)] * 2, cn, torch.float64)
+
+    whole = world_script.checkpoint_engine(chain())
+    vals_whole, vecs_whole = whole.run()
+    assert len(whole.iteration_counts) > 1
+    np.testing.assert_allclose(_same_on_every_rank(outs, "ck.from_one.vals"), vals_whole, rtol=0, atol=1e-12)
+    assert list(_same_on_every_rank(outs, "ck.from_one.iters")) == whole.iteration_counts
+    np.testing.assert_allclose(np.abs(np.sum(outs[0]["ck.from_one.vecs"] * vecs_whole.numpy(), axis=1)), 1.0,
+                               atol=1e-10)
+    path = str(refs2["tmpdir"] / "ck_world.npz")
+    manager, counts = load_state(path, device="cpu")
+    assert len(manager) == 1 and counts == whole.iteration_counts[:1]
+    resumed = world_script.checkpoint_engine(chain())
+    vals, _vecs = CheckpointedRun(resumed, path).run()
+    np.testing.assert_allclose(vals, vals_whole, rtol=0, atol=1e-12)
+    assert resumed.iteration_counts == whole.iteration_counts
 
     rows, cols, vals, n, bm, bk = world_script.pv_problem()
     op = tl.BSROperator.from_coo(rows, cols, vals, n, bm=bm, bk=bk, dtype=torch.float32, device="cpu")
@@ -334,9 +532,11 @@ def test_mp_demo_two_ranks():
     for r in results:
         assert r["world_size"] == 2 and r["backend"] == "gloo"
         assert r["stencil_err"] < 1e-11, r
-        assert "item 13" in r["pv_thick"]
         assert r["pv_err"] < 1e-12 and r["pv_vec_dtype"] == "torch.float32", r
-    keys = ("stencil_val", "stencil_vec_sum", "iteration_counts", "pv_vals", "pv_iteration_counts")
+        # the JAX demo's precise thick part: under a 48-row cap, at 1e-12
+        assert r["pv_thick_err"] < 1e-12, r
+    keys = ("stencil_val", "stencil_vec_sum", "iteration_counts", "pv_vals", "pv_iteration_counts",
+            "pv_thick_vals", "pv_thick_iteration_counts")
     assert {k: results[0][k] for k in keys} == {k: results[1][k] for k in keys}  # the same bits
 
 
@@ -380,6 +580,28 @@ def test_k2_kernel_matches_plain(cuda):
             torch.cuda.synchronize()
             err = float((got.double() - want.double()).abs().max() / want.double().abs().max())
             assert err <= tol, (case, dtype, err)
+    # K2's complex instances (ROADMAP item 13) and K1x-rsmk's complex
+    # form: against the plain version, twice bit for bit, counted by dtype.
+    rng = np.random.default_rng(6)
+    for case, (r, s, bm, bk, c_rows) in {**K2_CASES, "odd_bk": (5, 4, 16, 6, 7), "bk8192": (3, 2, 16, 8192, 2)}.items():
+        for tile, xt, tol in ((np.complex64, np.complex64, 1e-5), (np.complex128, np.complex128, 1e-12),
+                              (np.complex64, np.complex128, 1e-13)):
+            blocks = (rng.standard_normal((r, s, bm, bk)) + 1j * rng.standard_normal((r, s, bm, bk))).astype(tile)
+            cb = rng.integers(0, c_rows, (r, s)).astype(np.int32)
+            x = (rng.standard_normal(c_rows * bk) + 1j * rng.standard_normal(c_rows * bk)).astype(xt)
+            bd, cd, xd = (torch.from_numpy(a).to(cuda) for a in (blocks, cb, x))
+            wide = tile != xt
+            count = ((lambda: spmv.bsr_matvec_rsmk_c64x128.launches) if wide else
+                     (lambda: spmv.bsr_matvec_rsmk.launches_by_dtype[bd.dtype]))
+            before = count()
+            got, again = spmv.bsr_matvec_rsmk(bd, cd, xd, n_out=r * bm - 1), spmv.bsr_matvec_rsmk(bd, cd, xd)
+            torch.cuda.synchronize()
+            assert count() == before + 2 and got.dtype == xd.dtype, (case, tile, xt)
+            assert torch.equal(got, again[: r * bm - 1])
+            want = spmv.bsr_matvec_reference(torch.from_numpy(blocks).to(torch.complex128), torch.from_numpy(cb),
+                                             torch.from_numpy(x).to(torch.complex128), layout="rsmk")[: r * bm - 1]
+            err = float((got.cpu().to(torch.complex128) - want).abs().max() / want.abs().max())
+            assert err <= tol, (case, tile, xt, err)
 
 
 @pytest.mark.gpu

@@ -83,6 +83,335 @@ def dense_problem():
     return (a + a.T) / 2
 
 
+# ------------------------------------------------ engines over row slabs
+#
+# Every engine on a small gapped problem (``small_problem``: a few dozen
+# iterations each, thick restarts forced by a 12-row cap), run by both
+# worlds; and the JAX package's own sharded engine tests' cases, run by the
+# 2-rank world only (``JAX_CASES``): tests/test_sharded.py:201 (expm),
+# :227 (complex DIA), :364 (pv thick, BSR), :398 (precise filtered), :417
+# (Chebyshev propagator), tests/test_block_lanczos.py:93 (block),
+# tests/test_block_thick.py:236 (block thick) and
+# tests/test_precise_thick.py:182 (pv thick, DIA).  Those take hundreds of
+# iterations, thousands of small all-reduces, which a 4-rank gloo world
+# on a loaded machine cannot finish inside its timeout.  Each problem is
+# numpy; the parent runs the same cases through the port in one process
+# (and the JAX cases through the JAX engines).
+
+ENGINE_N = 256
+SMALL_N = 128
+EXPM_N = 128
+FILTER_N = 1024
+SMALL_FILTER_N = 256
+CHEBY_N = 512
+BLOCK_THICK_N = 512
+JAX_CASES = ("pv_thick.bsr", "pv_thick.dia", "block.dia", "block_thick.dia", "filtered_precise")
+EXPM_JAX_KEYS = ("expm.run_complex", "expm.run_complex.iters", "expm.cheby_f32", "expm.cheby_precise")
+
+
+def chain_exact(n, k):
+    return np.array([-2.0 * np.cos((j + 1) * np.pi / (n + 1)) for j in range(k)])
+
+
+def small_problem():
+    """The engines' small problem: the n = 128 chain with a potential
+    uniform in [0, 1) from default_rng(4) and two deep sites (-3, -2.5),
+    whose two bound states converge in a few dozen iterations; returns
+    (potential, off-diagonal, dense)."""
+    n = SMALL_N
+    pot = np.random.default_rng(4).uniform(0.0, 1.0, n)
+    pot[[n // 4, 3 * n // 4]] = [-3.0, -2.5]
+    off = np.full(n, -1.0)
+    return pot, off, np.diag(pot) + np.diag(off[: n - 1], 1) + np.diag(off[: n - 1], -1)
+
+
+def complex_hops(n=EXPM_N):
+    """tests/test_sharded.py:227's complex Hermitian chain: A[i, i+1] = t_i,
+    A[i+1, i] = conj(t_i); returns (upper, lower) diagonals and the dense
+    matrix."""
+    rng = np.random.default_rng(12)
+    t = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    upper = np.zeros(n, complex)
+    upper[: n - 1] = t[: n - 1]
+    lower = np.zeros(n, complex)
+    lower[1:] = np.conj(t[: n - 1])
+    i = np.arange(n - 1)
+    dense = np.zeros((n, n), complex)
+    dense[i, i + 1] = t[: n - 1]
+    dense[i + 1, i] = np.conj(t[: n - 1])
+    return upper, lower, dense
+
+
+def block_thick_problem(n=BLOCK_THICK_N):
+    """tests/test_block_thick.py:236's tridiagonal: main linspace(0, 6),
+    off-diagonals -1; (main, off, dense)."""
+    main = np.linspace(0.0, 6.0, n)
+    off = np.full(n, -1.0)
+    return main, off, np.diag(main) + np.diag(off[: n - 1], 1) + np.diag(off[: n - 1], -1)
+
+
+def advancing_initializer(seed=2024):
+    """tests/test_block_thick.py's init: a per-call-distinct draw from one
+    advancing generator (the same on every rank)."""
+    rng = np.random.default_rng(seed)
+    return lambda n: rng.uniform(-1.0, 1.0, n)
+
+
+def expm_state(n, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    return v / np.linalg.norm(v)
+
+
+def run_engines(make_dia, make_bsr, out, checkpoint_dir=None, jax_cases=True):
+    """Every engine case on operators from ``make_dia(offsets, diagonals, n,
+    dtype)`` and ``make_bsr(rows, cols, vals, n, dtype)`` (row-partitioned
+    over the world, or the port's one-device operators on the CPU), into
+    ``out``: values, gathered vectors, iteration counts, residuals;
+    ``jax_cases`` adds the JAX tests' cases (``JAX_CASES`` and the
+    Exponentiator's)."""
+    import torch
+
+    import lanczos_tpu_torch as tl
+
+    f64, f32 = torch.float64, torch.float32
+
+    def chain_dia(m, dtype=f64):
+        return make_dia([-1, 1], [np.full(m, -1.0)] * 2, m, dtype)
+
+    def solve(key, op, num_eigs, **attrs):
+        eng = tl.LambdaLanczos(op, find_maximum=attrs.pop("find_maximum", False), num_eigs=num_eigs,
+                               mode=attrs.pop("mode", "auto"))
+        for k, v in attrs.items():
+            setattr(eng, k, v)
+        vals, vecs = eng.run()
+        out[f"{key}.vals"] = np.asarray(vals)
+        out[f"{key}.vecs"] = vecs.cpu().numpy()
+        out[f"{key}.iters"] = np.asarray(eng.iteration_counts)
+        out[f"{key}.res"] = np.asarray(eng.residuals(vals, vecs))
+
+    pot, off, _dense = small_problem()
+    n = SMALL_N
+
+    def small_dia(dtype):
+        return make_dia([-1, 0, 1], [off, pot, off], n, dtype)
+
+    def small_bsr(dtype):
+        return make_bsr(*_chain(n, pot), n, dtype)
+
+    # two roots, no confirming round; a 12-row cap forces thick restarts
+    small = dict(num_eigs_per_iteration=2, stop_when_full=True, max_restarts=64, eps=1e-12)
+    thick = dict(small, restart_policy="thick", max_iteration=12, init_vector=tl.fixed_seed_initializer(np.float64, 3))
+    solve("eng.thick_hybrid.small", small_dia(f64), 2, mode="hybrid", **thick)
+    solve("eng.thick_fused.small", small_bsr(f64), 2, mode="fused", **thick)
+    solve("eng.pv_thick.small", small_bsr(f32), 2, **dict(thick, precise_vectors=True,
+                                                          init_vector=tl.fixed_seed_initializer(np.float32, 11)))
+    solve("eng.block.small", small_dia(f64), 2, block_size=2, **dict(small, init_vector=tl.fixed_seed_initializer(
+        np.float64, 8)))
+    bt = dict(small, block_size=2, restart_policy="thick", max_iteration=12)
+    solve("eng.block_thick.small", small_dia(f64), 2, **bt, init_vector=advancing_initializer())
+    solve("eng.pv_block_thick.small", small_dia(f32), 2, precise_vectors=True, **bt,
+          init_vector=advancing_initializer(5))
+
+    upper, lower, _dense = complex_hops()
+    cdia = make_dia([1, -1], [upper, lower], EXPM_N, torch.complex128)
+    solve("eng.complex.dia", cdia, 1, find_maximum=True, init_vector=tl.fixed_seed_initializer(np.complex128, seed=5))
+    i = np.arange(EXPM_N - 1)
+    cbsr = make_bsr(np.concatenate([i, i + 1]), np.concatenate([i + 1, i]),
+                    np.concatenate([upper[: EXPM_N - 1], lower[1:]]), EXPM_N, torch.complex128)
+    solve("eng.complex.bsr", cbsr, 1, find_maximum=True, init_vector=tl.fixed_seed_initializer(np.complex128, seed=5))
+    up48, lo48, _dense = complex_hops(48)
+    i = np.arange(47)
+    solve("eng.complex_block_thick.small", make_bsr(np.concatenate([i, i + 1]), np.concatenate([i + 1, i]),
+                                                    np.concatenate([up48[:47], lo48[1:]]), 48, torch.complex128), 3,
+          block_size=3, restart_policy="thick", max_iteration=24, eps=1e-12, max_restarts=32,
+          init_vector=advancing_initializer(7))
+
+    vals, vecs, info = tl.filtered_lanczos(chain_dia(SMALL_FILTER_N, f32), num_eigs=2, lo=-2.0, hi=2.0, precise=True)
+    out["eng.filtered_precise.small.vals"] = np.asarray(vals)
+    out["eng.filtered_precise.small.vecs"] = np.asarray(vecs)
+    vals, vecs, info = tl.filtered_lanczos(chain_dia(CHEBY_N), num_eigs=2, sigma=0.3, lo=-2.0, hi=2.0, mu=1e-3,
+                                           precise=True)
+    out["eng.filtered_sigma.vals"] = np.asarray(vals)
+    out["eng.filtered_sigma.vecs"] = np.asarray(vecs)
+    if checkpoint_dir is not None:
+        path = f"{checkpoint_dir}/filtered_ck.npz"
+        runs = [tl.filtered_lanczos(chain_dia(CHEBY_N), num_eigs=3, degree=64, mu=0.05, lo=-2.0, hi=2.0,
+                                    checkpoint_path=path)[0] for _ in range(2)]
+        out["eng.filtered_checkpoint.vals"] = np.stack(runs)
+    _expm_methods(make_dia, out, jax_cases)
+    if not jax_cases:
+        return
+
+    m = ENGINE_N
+    pv = dict(precise_vectors=True, restart_policy="thick", max_iteration=40, max_restarts=64, eps=1e-11,
+              eigenvalue_offset=-4.0, mode="fused", init_vector=tl.fixed_seed_initializer(np.float32, seed=11))
+    solve("eng.pv_thick.bsr", make_bsr(*_chain(m), m, f32), 1, **pv)
+    solve("eng.pv_thick.dia", chain_dia(m, f32), 1, **pv)
+    solve("eng.block.dia", chain_dia(m), 2, block_size=2, eigenvalue_offset=-4.0,
+          init_vector=tl.fixed_seed_initializer(np.float64, seed=8))
+    main, boff, _dense = block_thick_problem()
+    solve("eng.block_thick.dia", make_dia([-1, 0, 1], [boff, main, boff], BLOCK_THICK_N, f64), 4, block_size=2,
+          restart_policy="thick", max_iteration=64, eps=1e-11, max_restarts=24, init_vector=advancing_initializer())
+    vals, vecs, info = tl.filtered_lanczos(chain_dia(FILTER_N, f32), num_eigs=2, lo=-2.0, hi=2.0, precise=True)
+    out["eng.filtered_precise.vals"] = np.asarray(vals)
+    out["eng.filtered_precise.vecs"] = np.asarray(vecs)
+    out["eng.filtered_precise.res"] = np.asarray(info["residuals"])
+
+
+def _expm_methods(make_dia, out, jax_cases):
+    """Every Exponentiator method (both modes, real and complex, precise or
+    not) on the n = 128 chain; with ``jax_cases`` first
+    tests/test_sharded.py:201 and :417."""
+    import torch
+
+    import lanczos_tpu_torch as tl
+
+    n = EXPM_N
+    chain = make_dia([-1, 1], [np.full(n, -1.0)] * 2, n, torch.float64)
+    if jax_cases:
+        psi = np.zeros(n, complex)
+        psi[n // 2] = 1.0
+        o, it = tl.Exponentiator(chain, dtype=np.complex128).run(-1.5j, psi)
+        out["expm.run_complex"] = o.cpu().numpy()
+        out["expm.run_complex.iters"] = np.array(it)
+        cheb = make_dia([-1, 1], [np.full(CHEBY_N, -1.0, np.float32)] * 2, CHEBY_N, torch.float32)
+        v = expm_state(CHEBY_N, 0)
+        ex = tl.Exponentiator(cheb, dtype=np.float32)
+        (o_re, o_im), _ = ex.run_chebyshev(3j, v.real.astype(np.float32), v.imag.astype(np.float32), lo=-2.0, hi=2.0)
+        out["expm.cheby_f32"] = o_re.double().cpu().numpy() + 1j * o_im.double().cpu().numpy()
+        (p_re, p_im), _ = ex.run_chebyshev(3j, v.real, v.imag, lo=-2.0, hi=2.0, precise=True)
+        out["expm.cheby_precise"] = p_re + 1j * p_im
+
+    ex = tl.Exponentiator(chain)
+    w = expm_state(n, 3)
+    for mode in ("hybrid", "fused"):
+        ex.mode = mode
+        o, it = ex.run(-0.5, w.real)
+        out[f"expm.run_{mode}"] = o.cpu().numpy()
+        out[f"expm.run_{mode}.iters"] = np.array(it)
+    ex.mode = "hybrid"
+    o, _ = ex.run_grid([0.1, -0.3j, 0.5], w.real)
+    out["expm.run_grid"] = o.cpu().numpy()
+    (o_re, o_im), _ = ex.run_split(-0.4j, w.real, w.imag)
+    out["expm.run_split"] = (o_re + 1j * o_im).cpu().numpy()
+    o_re, o_im = ex.evolve(0.05j, w.real, w.imag, 4)
+    out["expm.evolve"] = (o_re + 1j * o_im).cpu().numpy()
+    o_re, o_im = ex.evolve(0.05j, w.real, w.imag, 4, krylov_dim=16, precise=True)
+    out["expm.evolve_precise"] = o_re + 1j * o_im
+    (o_re, o_im), _ = ex.run_chebyshev_grid([1j, 2j], w.real, w.imag, lo=-2.0, hi=2.0)
+    out["expm.cheby_grid"] = (o_re + 1j * o_im).cpu().numpy()
+    batch = np.stack([w.real, np.zeros(n), w.imag])
+    o, iters = ex.run_batch(-0.3j, batch)
+    out["expm.run_batch"] = o.cpu().numpy()
+    out["expm.run_batch.iters"] = np.asarray(iters)
+    o, _ = ex.taylor_run(0.2, w.real)
+    out["expm.taylor"] = o.cpu().numpy()
+
+    upper, lower, dense = complex_hops()
+    hc = tl.Exponentiator(make_dia([1, -1], [upper, lower], n, torch.complex128))
+    o, _ = hc.run(-0.7j, w)
+    out["expm.herm_run"] = o.cpu().numpy()
+    o_re, o_im = hc.evolve(0.05j, w.real, w.imag, 4)
+    out["expm.herm_evolve"] = (o_re + 1j * o_im).cpu().numpy()
+    (o_re, o_im), _ = hc.run_chebyshev(2j, w.real, w.imag, precise=True)
+    out["expm.herm_cheby_precise"] = o_re + 1j * o_im
+
+
+def _engine_checks(mesh, out, checkpoint_dir):
+    from lanczos_tpu_torch.parallel.sharded import ShardedBSROperator, ShardedDIAOperator
+
+    def make_dia(offsets, diags, n, dtype):
+        return ShardedDIAOperator.from_diagonals(offsets, [np.asarray(d) for d in diags], n, mesh, dtype=dtype)
+
+    def make_bsr(rows, cols, vals, n, dtype):
+        return ShardedBSROperator.from_coo(rows, cols, vals, n, mesh, bm=8, bk=8, dtype=dtype)
+
+    run_engines(make_dia, make_bsr, out, checkpoint_dir, jax_cases=mesh.size == 2)
+
+
+def one_process_ops():
+    """``(make_dia, make_bsr)`` of the port's one-device operators on the
+    CPU: the one-process solves the worlds are held to."""
+    import lanczos_tpu_torch as tl
+
+    def make_dia(offsets, diags, n, dtype):
+        return tl.DIAOperator.from_diagonals(offsets, [np.asarray(d) for d in diags], n, dtype=dtype, device="cpu")
+
+    def make_bsr(rows, cols, vals, n, dtype):
+        return tl.BSROperator.from_coo(rows, cols, vals, n, bm=8, bk=8, dtype=dtype, device="cpu")
+
+    return make_dia, make_bsr
+
+
+CHECKPOINT_N = 128
+
+
+def checkpoint_engine(op):
+    """The checkpointed solve: three pairs, one a round (several rounds)."""
+    import lanczos_tpu_torch as tl
+
+    eng = tl.LambdaLanczos(op, num_eigs=3, mode="hybrid")
+    eng.eps, eng.eigenvalue_offset, eng.num_eigs_per_iteration = 1e-12, -4.0, 1
+    eng.init_vector = tl.fixed_seed_initializer(np.float64, seed=3)
+    return eng
+
+
+def interrupted_checkpoint(op, path) -> None:
+    """Run :func:`checkpoint_engine` under ``CheckpointedRun`` and stop it
+    right after its first round's save: ``path`` then holds that round."""
+    from lanczos_tpu_torch.solvers import lanczos as tlz
+    from lanczos_tpu_torch.utils.checkpoint import CheckpointedRun
+
+    class Interrupt(Exception):
+        pass
+
+    driver = tlz.deflation_driver
+
+    def one_round(*args, after_round, **kwargs):
+        def save_then_stop(manager, counts, finished):
+            after_round(manager, counts, finished)
+            raise Interrupt
+
+        return driver(*args, after_round=save_then_stop, **kwargs)
+
+    tlz.deflation_driver = one_round
+    try:
+        CheckpointedRun(checkpoint_engine(op), path).run()
+    except Interrupt:
+        pass
+    finally:
+        tlz.deflation_driver = driver
+
+
+def _checkpoint_checks(mesh, out, tmpdir):
+    """A file written by a one-process run (the parent's ``ck_one.npz``)
+    resumed on the world's ranks, and a file written by the world
+    (``ck_world.npz``) for the parent to resume in one process."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from lanczos_tpu_torch.parallel.sharded import ShardedDIAOperator
+    from lanczos_tpu_torch.utils.checkpoint import CheckpointedRun
+
+    n = CHECKPOINT_N
+
+    def op():
+        return ShardedDIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0)] * 2, n, mesh)
+
+    resumed = f"{tmpdir}/ck_one_resumed.npz"
+    if mesh.rank == 0:
+        shutil.copy(f"{tmpdir}/ck_one.npz", resumed)
+    dist.barrier()
+    eng = checkpoint_engine(op())
+    vals, vecs = CheckpointedRun(eng, resumed).run()
+    out["ck.from_one.vals"] = np.asarray(vals)
+    out["ck.from_one.vecs"] = vecs.numpy()
+    out["ck.from_one.iters"] = np.asarray(eng.iteration_counts)
+    interrupted_checkpoint(op(), f"{tmpdir}/ck_world.npz")
+
+
 def _matvec_checks(mesh, inputs, out):
     import torch
 
@@ -172,20 +501,6 @@ def _api_checks(mesh, out):
     pmesh.initialize_distributed(backend="gloo", init_method="tcp://127.0.0.1:1", world_size=99, rank=98)
     out["noop.world"] = np.array(pmesh.make_mesh().size)
 
-    ops = solve_ops(mesh)
-    for name, attrs in (("thick", {"restart_policy": "thick"}), ("block", {"block_size": 2}),
-                        ("precise_thick", {"precise_vectors": True, "restart_policy": "thick"})):
-        eng2 = tl.LambdaLanczos(ops["bsr"], num_eigs=2)
-        for attr, value in attrs.items():
-            setattr(eng2, attr, value)
-        try:
-            eng2.run()
-        except NotImplementedError as e:
-            out[f"refused.{name}"] = np.array(str(e))
-    try:
-        tl.filtered_lanczos(ops["dia"], degree=32, mu=0.05, lo=-2.0, hi=2.0)
-    except NotImplementedError as e:
-        out["refused.filtered"] = np.array(str(e))
     # precise_vectors (ROADMAP item 10) on float32 slabs: the fused engine
     # over a float64 slab basis and the sharded float64 product.
     from lanczos_tpu_torch.parallel.sharded import ShardedBSROperator
@@ -221,10 +536,13 @@ def main(argv) -> int:
         with np.load(inputs_path) as f:
             inputs = {k: f[k] for k in f.files}
         _matvec_checks(mesh, inputs, out)
+        tmpdir = str(Path(inputs_path).parent)
         if world == 4:
             _solve_checks(mesh, out)
         else:
             _api_checks(mesh, out)
+            _checkpoint_checks(mesh, out, tmpdir)
+        _engine_checks(mesh, out, tmpdir)
     finally:
         dist.destroy_process_group()
     np.savez(out_path, **out)
