@@ -42,8 +42,15 @@ thick engine on complex input (K4 complex64 and complex128), and
 ``sharded_main_path``, the thick, block-thick, checkpointed, complex
 (K2 complex) and precise thick solves over the main path's sharded
 operator, and ``filtered_lanczos`` and the Exponentiator over a sharded
-DIA chain.  The launch counts are set to 0 just before each path and read
-just after it.
+DIA chain.  In the same world, phase ``grid_mesh`` runs the main path's
+chain over a 1 x 1 ``GridMesh``'s combined axes (a ShardedDIAOperator) and
+its n = 32768 construction stored dense through ``shard_dense_operator_2d``
+(K3 and K6), each beside its unsharded solve.  Phase ``pack_bsr`` times the
+host's numpy and native BSR packers once each on the main path's problem
+and checks that they give the same tiles, and phase
+``samples`` runs the port's twelve samples on the card and holds their
+printed errors to their bars.  The launch counts are set to 0 just before
+each path and read just after it.
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero and prints no result.  The last two lines are the kernel table and
 the device line.  It needs a CUDA device and fails at once without one; it
@@ -1312,11 +1319,10 @@ def phase_small_solves(torch, np, dev):
           "iteration_counts": eng.iteration_counts})
 
 
-def _main_path_coo(np):
+def _main_path_coo(np, n=MAIN_N):
     """The main path's problem: the n = 2**20 hopping chain with a random
     on-site potential and three deep sites (three bound states below the
-    band)."""
-    n = MAIN_N
+    band); ``n`` cuts it."""
     rng = np.random.default_rng(SEED)
     pot = rng.uniform(0.0, 1.0, n)
     pot[[n // 4, n // 2, 3 * n // 4]] = [-4.0, -3.5, -3.0]
@@ -1710,9 +1716,181 @@ def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref, thick, herm
         t0 = time.perf_counter()
         pv["engines"] = sharded_engines(torch, np, mesh, op, ref, thick, herm, pv_ref, chain)
         pv["engines_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grid_mesh(torch, np, dev, ref)
+        pv["grid_seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     return launches, op, pv
+
+
+GRID_DENSE_N = 32768  # the main path's chain stored dense: 4.3 GB of float32
+
+
+def _grid_solve(torch, tl, cgs, op):
+    """The main path's engine over ``op``, its launches counted from 0:
+    ``(values, vectors, engine, wall s, launches)``."""
+    eng = _main_path_engine(tl, torch, op)
+    cgs.cgs_pass.launches = 0
+    with counting_checks() as checks:
+        t0 = time.perf_counter()
+        evals, evecs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check_stats(checks)
+    return evals, evecs, eng, wall, {"k3": cgs.cgs_pass.launches, "k6": checks["k6_launches"]}
+
+
+def grid_mesh(torch, np, dev, ref):
+    """Phase ``grid_mesh``, in the one-rank NCCL world of
+    ``sharded_main_path``: a 1 x 1 GridMesh (``make_multislice_mesh``) on
+    the card.  (a) The main path's chain (f32, three pairs, eps 1e-6) as a
+    ShardedDIAOperator over the grid's combined axes, beside the unsharded
+    DIAOperator solve, against the main path's scipy values at its bar.
+    (b) The main path's construction at n = 32768 stored dense on the card
+    through ``shard_dense_operator_2d``, beside the unsharded DenseOperator
+    solve, against ``scipy.linalg.eigh_tridiagonal``.  K3 and K6 counted
+    from 0 for each solve.  One card holds only a 1 x 1 grid (NCCL puts no
+    two ranks on one device), so batched slices and a 2 x 2 grid run in the
+    CPU tests' gloo worlds only."""
+    import scipy.linalg
+
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import cgs, spmv
+    from lanczos_tpu_torch.parallel import mesh as pmesh
+    from lanczos_tpu_torch.parallel.sharded import ShardedDIAOperator
+
+    grid = pmesh.make_multislice_mesh(1)
+    if grid.shape != (1, 1) or grid.combined.device != dev:
+        raise AssertionError(f"grid {grid.shape} on {grid.combined.device}")
+    out = {"phase": "grid_mesh", "grid": list(grid.shape), "device": str(dev),
+           "not_on_the_card": "batched slices and a 2 x 2 grid need several ranks; one card holds one NCCL rank, so "
+                              "they run in the CPU tests' gloo worlds only"}
+
+    def held(evals, evecs, eng, want, label):
+        rel = np.abs(np.asarray(evals) - want) / np.abs(want)
+        residuals = eng.residuals(evals, evecs)
+        if not (np.all(np.isfinite(evals)) and bool(torch.isfinite(evecs).all()) and np.all(rel <= 1e-5)
+                and max(residuals) <= 1e-3):
+            raise AssertionError(f"grid_mesh {label}: {evals} vs {want} (relative {rel}), residuals {residuals}")
+        return float(rel.max()), residuals
+
+    n = MAIN_N
+    rows, cols, vals = _main_path_coo(np, n)
+    diags = [np.full(n, -1.0), vals[2 * (n - 1):], np.full(n, -1.0)]
+    cases = {"combined_dia": ShardedDIAOperator.from_diagonals([-1, 0, 1], diags, n, grid.combined, dtype=torch.float32),
+             "dia": tl.DIAOperator.from_diagonals([-1, 0, 1], diags, n, dtype=torch.float32, device=dev)}
+    for label, op in cases.items():
+        spmv.bsr_matvec.launches = 0
+        evals, evecs, eng, wall, launches = _grid_solve(torch, tl, cgs, op)
+        rel, residuals = held(evals, evecs, eng, ref, label)
+        if launches["k3"] == 0 or launches["k6"] == 0 or spmv.bsr_matvec.launches:
+            raise AssertionError(f"grid_mesh {label}: launches {launches}, K1 {spmv.bsr_matvec.launches}")
+        out[label] = {"n": n, "eigenvalues": list(map(float, evals)), "max_rel_err": rel, "residuals": residuals,
+                      "iteration_counts": eng.iteration_counts, "wall_s": wall, "launches": launches}
+    del cases, op, evecs
+    torch.cuda.empty_cache()
+
+    m = GRID_DENSE_N
+    rows, cols, vals = _main_path_coo(np, m)
+    pot = vals[2 * (m - 1):]
+    want = scipy.linalg.eigh_tridiagonal(pot, -np.ones(m - 1), eigvals_only=True, select="i", select_range=(0, 2))
+    a = torch.zeros((m, m), dtype=torch.float32, device=dev)
+    a[torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)] = torch.from_numpy(vals).to(dev, torch.float32)
+    t0 = time.perf_counter()
+    op2d = pmesh.shard_dense_operator_2d(a, grid)
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    # The grid column's first collective creates its NCCL communicator: a
+    # one-off cost of the process group, timed apart from the solve.
+    t0 = time.perf_counter()
+    op2d.matvec(torch.zeros(op2d.n_local, dtype=torch.float32, device=dev))
+    torch.cuda.synchronize()
+    first_collective_s = time.perf_counter() - t0
+    for label, op in (("dense_2d", op2d), ("dense", tl.DenseOperator(a, device=dev))):
+        evals, evecs, eng, wall, launches = _grid_solve(torch, tl, cgs, op)
+        rel, residuals = held(evals, evecs, eng, want, label)
+        if launches["k3"] == 0 or launches["k6"] == 0:
+            raise AssertionError(f"grid_mesh {label}: launches {launches}")
+        out[label] = {"n": m, "gb": m * m * 4 / 1e9, "eigenvalues": list(map(float, evals)),
+                      "eigh_tridiagonal": list(map(float, want)), "max_rel_err": rel, "residuals": residuals,
+                      "iteration_counts": eng.iteration_counts, "wall_s": wall, "launches": launches}
+    out["dense_2d"]["shard_s"] = shard_s
+    out["dense_2d"]["first_collective_s"] = first_collective_s
+    del a, op2d, op, evecs
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_pack_bsr(np):
+    """The COO -> BSR packing of the main path's problem on the host, timed
+    once each: the numpy packer (``_pack_bsr``, which ``BSROperator.from_coo``
+    uses) in the kernel's layout, and the host library's ``pack_bsr`` (the
+    JAX package's name; its tiles, not yet placed in a layout).  The numpy
+    packer's tiles, gathered in block-id order, must be ``pack_bsr``'s bit
+    for bit."""
+    from lanczos_tpu_torch.native import host_kernels
+    from lanczos_tpu_torch.ops.operators import _pack_bsr
+
+    n = MAIN_N
+    rows, cols, vals = _main_path_coo(np, n)
+    if not host_kernels.available():
+        raise AssertionError("the host library did not build")
+    t0 = time.perf_counter()
+    blocks, col_blocks = _pack_bsr(rows, cols, vals, n, 128, 128, np.float32, "rmsk")
+    t1 = time.perf_counter()
+    ids, tiles = host_kernels.pack_bsr(rows, cols, vals, n // 128, 128, 128, dtype=np.float32)
+    t2 = time.perf_counter()
+    rb = ids // (n // 128)
+    slot = np.arange(ids.shape[0]) - np.concatenate([[0], np.cumsum(np.bincount(rb, minlength=n // 128))])[rb]
+    equal = (np.array_equal(col_blocks[rb, slot], ids % (n // 128))
+             and blocks.transpose(0, 2, 1, 3)[rb, slot].tobytes() == tiles.tobytes())
+    if not equal:
+        raise AssertionError("pack_bsr: the numpy packer's tiles are not the host library's")
+    emit({"phase": "pack_bsr", "n": n, "nnz": int(rows.shape[0]), "dtype": "float32", "tiles": int(ids.shape[0]),
+          "numpy_pack_ms": (t1 - t0) * 1e3, "native_pack_bsr_ms": (t2 - t1) * 1e3, "equal": True})
+
+
+SAMPLE_TIMEOUT_S = 180
+SAMPLE_WORKERS = 4  # samples run side by side on the card, each in its own process
+
+
+def phase_samples():
+    """The port's twelve samples (``lanczos_tpu_torch/samples``) on the
+    card: each ``python -m lanczos_tpu_torch.samples.<name>`` with
+    ``LT_SAMPLE_DEVICE=cuda``, ``SAMPLE_WORKERS`` at a time, under a
+    ``SAMPLE_TIMEOUT_S`` timeout; every ``error`` line it prints is held to
+    ``lanczos_tpu_torch.samples.BARS``."""
+    import os
+    from pathlib import Path
+
+    from lanczos_tpu_torch.samples import BARS, SAMPLES, printed_errors
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, LT_SAMPLE_DEVICE="cuda", PYTHONPATH=str(root))
+
+    def run(name):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"lanczos_tpu_torch.samples.{name}"], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=SAMPLE_TIMEOUT_S)
+        return proc, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(SAMPLE_WORKERS) as pool:
+        runs = dict(zip(SAMPLES, pool.map(run, SAMPLES)))
+    out, failed = {}, []
+    for name, (proc, wall) in runs.items():
+        errors = printed_errors(proc.stdout)
+        over = {k: v for k, v in errors.items() if not v <= BARS[name].get(k, -1.0)}
+        ok = proc.returncode == 0 and set(errors) == set(BARS[name]) and not over
+        out[name] = {"rc": proc.returncode, "wall_s": wall, "errors": errors, "bars": BARS[name]}
+        if not ok:
+            failed.append(name)
+            print(f"sample {name} rc={proc.returncode} over={over}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}",
+                  file=sys.stderr)
+    emit({"phase": "samples", "device": "cuda", "workers": SAMPLE_WORKERS, "samples": out})
+    if failed:
+        raise AssertionError(f"samples failed on the card: {failed}")
 
 
 def phase_thick_scalar(torch, np, op, ref):
@@ -3898,6 +4076,7 @@ def main() -> int:
                                                          ref, main_iters, pv_main["ref32"], thick, herm_counts, chain)
     seconds["sharded_pv"] = sharded_pv_out["seconds"]  # inside sharded_main_path's seconds
     seconds["sharded_engines"] = sharded_pv_out["engines_seconds"]  # the same
+    seconds["grid_mesh"] = sharded_pv_out["grid_seconds"]  # the same
     sharded_eng = sharded_pv_out["engines"]
     k2 = timed("k2", phase_k2, torch, dev, sharded_op)
     del sharded_op
@@ -3912,6 +4091,9 @@ def main() -> int:
     cheby_launches = timed("cheby_flagship", phase_cheby_flagship, torch, np, dev, CHEBY_N)
     timed("precise_filter", phase_precise_filter, torch, np, dev)
     timed("expm_precise", phase_expm_precise, torch, np, dev)
+    torch.cuda.empty_cache()
+    timed("pack_bsr", phase_pack_bsr, np)
+    timed("samples", phase_samples)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "phase_seconds": seconds})
 
     def entry(name, source, replaces, n_launches, timed):

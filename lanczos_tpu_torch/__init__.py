@@ -15,7 +15,8 @@ instances), and ``eigsh``, ``expm_multiply`` and ``minres`` are the
 scipy-style facade.  ``filtered_lanczos`` is the Chebyshev-filtered solve and
 ``Exponentiator`` the exponentiation engine;
 ``lanczos_tpu_torch.parallel`` holds the row-partitioned operators over
-``torch.distributed``, and ``lanczos_tpu_torch.experiments`` the kernel
+``torch.distributed`` and its 2-D grids (``mesh``, exported here as in the
+JAX package), and ``lanczos_tpu_torch.experiments`` the kernel
 studies (three Gram-Schmidt pass variants, E2a-c, an in-place row write,
 E3, and three BSR SpMV variants, E1, in ``csrc/``).  This package imports
 PyTorch and never JAX.
@@ -47,6 +48,7 @@ from .ops.operators import (
     SumOperator,
     as_operator,
 )
+from .parallel import mesh
 from .scipy_compat import eigsh, expm_multiply
 from .solvers.exponentiator import ExponentiatorConfig
 from .solvers.filtered import filtered_lanczos
@@ -79,6 +81,7 @@ __all__ = [
     "ExponentiatorConfig",
     "minres",
     "filtered_lanczos",
+    "mesh",
     "eigsh",
     "expm_multiply",
     "RunStats",

@@ -48,7 +48,7 @@ from .core.types import default_exponentiator_eps, default_lanczos_eps, machine_
 from .diagnostics import BudgetExhaustedWarning
 from .ops.hermitian_split import HermitianSplitOperator
 from .ops.operators import LinearOperator, as_operator
-from .parallel.sharded import ShardedOperator
+from .parallel.sharded import ShardedOperator, draw_group
 from .solvers import block_lanczos, block_thick, cheby_expm, lanczos_fused, thick_restart
 from .solvers import exponentiator as _expm
 from .solvers import exponentiator_fused as _expm_fused
@@ -133,7 +133,7 @@ class LambdaLanczos:
     def _init_fn(self):
         iv = self.init_vector
         if iv is None:
-            return random_initializer(self.dtype)
+            return random_initializer(self.dtype, draw_group(self.operator))
         if callable(iv):
             return iv
         return lambda n: iv

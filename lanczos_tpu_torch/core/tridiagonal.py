@@ -44,6 +44,7 @@ import torch
 
 from ..native import host_kernels
 from ..ops import sturm_check
+from .types import machine_eps
 
 __all__ = [
     "eigh_tridiagonal_host",
@@ -54,6 +55,7 @@ __all__ = [
     "convergence_check",
     "convergence_check_reference",
     "eigenvectors_backward_device",
+    "machine_eps_value",
     "set_default_host_backend",
     "unconverged_total",
 ]
@@ -508,3 +510,9 @@ def eigenvectors_backward_device(alpha, beta, size, lams):
     ls_max = torch.where(torch.isfinite(ls_max), ls_max, 0.0)
     v = torch.where(in_range, u[:, jidx] * torch.exp(ls_p - ls_max), zero)
     return v / torch.sqrt(torch.sum(v * v, dim=1, keepdim=True)).clamp(min=eps)
+
+
+def machine_eps_value(dtype) -> float:
+    """Machine epsilon of ``dtype`` (a torch or numpy dtype; a complex
+    dtype's is its real part's), as a Python float."""
+    return machine_eps(dtype)

@@ -5,7 +5,8 @@ The JAX study timed candidate Pallas SpMV kernels against the XLA
 gather+einsum path on its 64 Mi-nnz operator (R = 512 row blocks, S = 8
 tiles each, 128 x 128 float32 tiles).  Its variants keep their names:
 
-  einsum  the plain gather+einsum (``ops.spmv.bsr_matvec_reference``);
+  einsum  the plain version, ``ops.spmv.bsr_matvec_reference`` (the
+          gather, then one product per tile, summed over the row block);
   v1      K2, ``ops.spmv.bsr_matvec_rsmk`` (the study's round-1 kernel);
   v2      :func:`spmv_v2`, one dot per tile row;
   v2vpu   :func:`spmv_v2` with ``vpu=True``: elementwise products of each

@@ -1,6 +1,7 @@
 """ctypes bindings of the port's host library (``host_kernels.cpp``, the
-JAX package's source): the implicit-shift QL tridiagonal eigensolver and
-Sturm bisection, with the signatures of ``lanczos_tpu.native.host_kernels``.
+JAX package's source): the implicit-shift QL tridiagonal eigensolver, Sturm
+bisection and the COO -> BSR packer, with the signatures of
+``lanczos_tpu.native.host_kernels``.
 
 The library is built at the first call, never at import
 (:mod:`.build`).  :func:`available` says whether it loads; every solver
@@ -22,6 +23,7 @@ __all__ = [
     "tridiagonal_eigvals_bisect",
     "tridiagonal_eigh_bisect",
     "consume_unconverged",
+    "pack_bsr",
 ]
 
 # Running total of small-solve blocks that hit the QL iteration cap (the
@@ -37,6 +39,8 @@ def consume_unconverged() -> int:
 
 _i64 = ctypes.c_int64
 _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+_f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 
 
 @functools.cache
@@ -53,6 +57,12 @@ def _load():
     lib.lt_tridiagonal_eigvals_bisect.argtypes = [_f64p, _f64p, _i64, _i64, _i64, _f64p]
     lib.lt_tridiagonal_eigh_bisect.restype = None
     lib.lt_tridiagonal_eigh_bisect.argtypes = [_f64p, _f64p, _i64, _i64, _i64, _f64p, _f64p]
+    lib.lt_bsr_count.restype = _i64
+    lib.lt_bsr_count.argtypes = [_i64p, _i64p, _i64, _i64, _i64, _i64, _i64p]
+    lib.lt_bsr_fill_f32.restype = None
+    lib.lt_bsr_fill_f32.argtypes = [_i64p, _i64p, _f32p, _i64, _i64, _i64, _i64, _i64p, _i64, _i64p, _f32p]
+    lib.lt_bsr_fill_f64.restype = None
+    lib.lt_bsr_fill_f64.argtypes = [_i64p, _i64p, _f64p, _i64, _i64, _i64, _i64, _i64p, _i64, _i64p, _f64p]
     return lib, None
 
 
@@ -118,3 +128,29 @@ def tridiagonal_eigh_bisect(alpha, beta, first: int, count: int):
     vecs = np.empty((count, m), dtype=np.float64)
     lib.lt_tridiagonal_eigh_bisect(alpha, beta, m, first, count, vals, vecs)
     return vals, vecs
+
+
+def pack_bsr(rows, cols, vals, n_col_blocks: int, bm: int, bk: int, *, dtype=np.float32):
+    """COO -> BSR packing, duplicates summed in input order.  Returns
+    ``(block_ids, blocks)``: ``block_ids[j] = row_block * n_col_blocks +
+    col_block``, sorted ascending, and ``blocks`` of shape (nblocks, bm,
+    bk) in ``dtype`` (float32 or float64)."""
+    lib = _require_lib()
+    dtype = np.dtype(dtype)
+    if dtype not in (np.float32, np.float64):
+        raise TypeError(f"pack_bsr packs float32 or float64 blocks, not {dtype}")
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=dtype)
+    nnz = rows.shape[0]
+    if rows.ndim != 1 or cols.shape != (nnz,) or vals.shape != (nnz,):
+        raise ValueError(f"rows, cols and vals must be 1-D of one length, got {rows.shape}, {cols.shape}, {vals.shape}")
+    if nnz and (min(rows.min(), cols.min()) < 0 or cols.max() >= n_col_blocks * bk):
+        raise ValueError(f"COO indices out of range for {n_col_blocks} column blocks of {bk}")
+    scratch = np.empty(nnz, dtype=np.int64)
+    nblocks = lib.lt_bsr_count(rows, cols, nnz, bm, bk, n_col_blocks, scratch)
+    block_ids = np.empty(nblocks, dtype=np.int64)
+    blocks = np.empty((nblocks, bm, bk), dtype=dtype)
+    fill = lib.lt_bsr_fill_f64 if dtype == np.float64 else lib.lt_bsr_fill_f32
+    fill(rows, cols, vals, nnz, bm, bk, n_col_blocks, scratch, nblocks, block_ids, blocks)
+    return block_ids, blocks

@@ -179,13 +179,14 @@ def solve_hermitian(op_r, op_i, num_eigs: int = 1, find_maximum: bool = False, *
     if method not in ("lanczos", "filtered"):
         raise ValueError(f"method must be 'lanczos' or 'filtered', got {method!r}")
     op = HermitianSplitOperator(op_r, op_i).complex_operator()
-    if precise:
-        op = float64_view(op)
     if method == "filtered":
         from ..solvers.filtered import filtered_lanczos
 
-        vals, vecs, _info = filtered_lanczos(op, num_eigs, find_maximum, configure=configure, **filtered_kwargs)
+        vals, vecs, _info = filtered_lanczos(op, num_eigs, find_maximum, precise=precise, configure=configure,
+                                             **filtered_kwargs)
     else:
+        if precise:
+            op = float64_view(op)
         eng = LambdaLanczos(op, find_maximum=find_maximum, num_eigs=num_eigs)
         if configure is not None:
             configure(eng)

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core import df64
 from ..core.types import to_numpy_dtype, to_torch_dtype
@@ -463,11 +462,11 @@ class DIAOperator(LinearOperator):
     ``lanczos_tpu.ops.operators.DIAOperator``).
 
     The matvec is plain PyTorch, as the JAX package's is XLA (no Pallas
-    kernel sits behind it): one zero-padded ``x`` and one shifted slice per
-    diagonal, summed in the order of ``offsets``.  Entries of a stored
-    diagonal that run off the matrix are zeroed once here, where the JAX
-    package masks them in every matvec (operators.py:590-595); the products
-    are the same.  ``matvec`` also takes a (b, n) block of rows, so the
+    kernel sits behind it): one shifted slice of ``x`` per diagonal, added
+    into the rows it reaches in the order of ``offsets``.  Entries of a
+    stored diagonal that run off the matrix are zeroed once here, where the
+    JAX package masks them in every matvec (operators.py:590-595); the
+    products are the same.  ``matvec`` also takes a (b, n) block of rows, so the
     block engines apply the operator in one call.
     """
 
@@ -519,14 +518,25 @@ class DIAOperator(LinearOperator):
     def abs_row_sums(self):
         return dia_abs_row_sums(self.data, self.dtype)
 
+    def _data_in(self, dtype):
+        """``data`` in ``dtype``, converted once for each dtype that a
+        matvec's ``x`` brings (float64 and complex vectors over float32
+        storage)."""
+        if dtype == self.data.dtype:
+            return self.data
+        cast = self.__dict__.setdefault("_cast", {})
+        if dtype not in cast:
+            cast[dtype] = self.data.to(dtype)
+        return cast[dtype]
+
     def matvec(self, x):
         n = self.n
-        lo = max([0] + [-d for d in self.offsets])
-        hi = max([0] + [d for d in self.offsets])
-        xp = F.pad(x, (lo, hi)) if (lo or hi) else x
+        data = self._data_in(x.dtype)
         y = torch.zeros_like(x)
         for j, d in enumerate(self.offsets):
-            y = y + self.data[j].to(x.dtype) * xp[..., lo + d : lo + d + n]
+            lo, hi = max(0, -d), n - max(0, d)  # the rows whose x[i + d] lies in the matrix
+            if hi > lo:
+                y[..., lo:hi] += data[j, lo:hi] * x[..., lo + d : hi + d]
         return y
 
     def matvec_rows(self, x):

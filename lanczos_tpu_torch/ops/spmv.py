@@ -66,16 +66,17 @@ def bsr_matvec_reference(blocks, col_blocks, x, layout: str = "rsmk"):
     JAX package; float32 tiles against a float64 ``x`` accumulate in
     float64), and returns ``x.dtype``.  ``x`` has the padded length R*bm.
     """
-    if layout == "rmsk":
-        spec = "rmsk,rsk->rm"
-    elif layout == "rsmk":
-        spec = "rsmk,rsk->rm"
-    else:
+    if layout not in ("rmsk", "rsmk"):
         raise ValueError(f"layout must be 'rmsk' or 'rsmk', got {layout!r}")
     bk = blocks.shape[3]
     xg = x.reshape(-1, bk)[col_blocks.long()]  # (R, S, bk) gather of needed segments
     acc = torch.promote_types(torch.promote_types(blocks.dtype, x.dtype), torch.float32)
-    y = torch.einsum(spec, blocks.to(acc), xg.to(acc))
+    if layout == "rmsk":
+        y = torch.einsum("rmsk,rsk->rm", blocks.to(acc), xg.to(acc))
+    else:
+        # one (bm, bk) tile product per (r, s), summed over s: einsum would
+        # copy the tiles into (r, m, s k) order on every call
+        y = torch.matmul(blocks.to(acc), xg.to(acc).unsqueeze(-1)).squeeze(-1).sum(dim=1)
     return y.reshape(-1).to(x.dtype)
 
 

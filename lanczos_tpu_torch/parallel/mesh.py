@@ -12,6 +12,13 @@ place in it and its device, and a vector of length ``n_pad`` is split into
 Bootstrap each process with :func:`initialize_distributed` (the arguments of
 ``torch.distributed.init_process_group``: backend, ``init_method``,
 ``world_size``, ``rank``, ``timeout``) before :func:`make_mesh`.
+
+The JAX package's 2-D meshes, a ``(slices, rows)`` multislice mesh and a
+``(rows, cols)`` tensor-parallel mesh laid out by GSPMD, are here a
+:class:`GridMesh`: a grid of ``torch.distributed`` subgroups, one per row
+and one per column of the grid, from :func:`make_multislice_mesh`.  NVLink
+inside a host takes the place of ICI and the network between hosts that of
+DCN.
 """
 
 from __future__ import annotations
@@ -24,10 +31,14 @@ import torch.distributed as dist
 
 __all__ = [
     "RowMesh",
+    "GridMesh",
     "initialize_distributed",
     "make_mesh",
+    "make_multislice_mesh",
     "pad_to_multiple",
     "shard_vector",
+    "shard_dense_operator",
+    "shard_dense_operator_2d",
     "gather_vector",
     "all_gather",
 ]
@@ -42,6 +53,31 @@ class RowMesh:
     rank: int
     size: int
     device: torch.device
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """The ranks of a process group laid out as a ``(slices, rows)`` grid,
+    slice-major: the rank ``r`` of ``world`` sits at ``(r // rows, r %
+    rows)``.
+
+    ``rows_mesh`` is the row mesh of this rank's slice (its ``rows`` ranks:
+    the per-iteration collectives of a solve sharded inside one slice),
+    ``slices_mesh`` that of the ranks with this rank's row index (one per
+    slice), and ``combined`` the row mesh of the whole grid in slice-major
+    order, the JAX package's combined ``("slices", "rows")`` axis: an
+    operator built on it splits n over every rank.  Laid out slice-major,
+    that order is ``world``'s own, so ``combined`` is ``world``."""
+
+    world: RowMesh
+    shape: tuple  # (slices, rows)
+    coords: tuple  # this rank's (slice, row)
+    rows_mesh: RowMesh
+    slices_mesh: RowMesh
+
+    @property
+    def combined(self) -> RowMesh:
+        return self.world
 
 
 def initialize_distributed(**kwargs) -> None:
@@ -71,6 +107,47 @@ def make_mesh(group=None) -> RowMesh:
     else:
         device = torch.device("cpu")
     return RowMesh(group, rank, size, device)
+
+
+def make_multislice_mesh(num_slices: int | None = None, group=None) -> GridMesh:
+    """The ``(slices, rows)`` grid of ``group`` (default: the whole world).
+
+    ``num_slices`` defaults to the number of hosts, ``world_size //
+    LOCAL_WORLD_SIZE`` when the launcher sets ``LOCAL_WORLD_SIZE`` (else
+    1): the counterpart of the JAX package's slice count from the devices'
+    ``slice_index``, so that a slice's ``rows`` ranks share a host's NVLink.
+    Raises ``ValueError`` when the group's ranks do not split into
+    ``num_slices`` equal slices.
+
+    Every rank of the world calls it: it creates the subgroups of every
+    slice and every row index in the same order on each rank, as
+    ``torch.distributed.new_group`` requires of every rank of the default
+    group.  So ``group``, when given, must hold every rank of the world."""
+    world = make_mesh(group)
+    if world.size != dist.get_world_size():
+        raise ValueError(f"the grid's group holds {world.size} of the world's {dist.get_world_size()} ranks; "
+                         "every rank of the world takes part in creating its subgroups")
+    if num_slices is None:
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", world.size))
+        if per_host < 1 or world.size % per_host:
+            raise ValueError(f"{world.size} ranks do not split into hosts of LOCAL_WORLD_SIZE={per_host}")
+        num_slices = world.size // per_host
+    num_slices = int(num_slices)
+    if num_slices < 1 or world.size % num_slices:
+        raise ValueError(f"{world.size} ranks do not split into {num_slices} equal slices")
+    rows = world.size // num_slices
+    ranks = [dist.get_global_rank(world.group, r) for r in range(world.size)]
+    slices_of = [ranks[s * rows:(s + 1) * rows] for s in range(num_slices)]
+    rows_of = [ranks[r::rows] for r in range(rows)]
+    s, r = divmod(world.rank, rows)
+    row_groups = [dist.new_group(members) for members in slices_of]
+    slice_groups = [dist.new_group(members) for members in rows_of]
+    return GridMesh(world, (num_slices, rows), (s, r), _sub_mesh(row_groups[s], world.device),
+                    _sub_mesh(slice_groups[r], world.device))
+
+
+def _sub_mesh(group, device) -> RowMesh:
+    return RowMesh(group, dist.get_rank(group), dist.get_world_size(group), device)
 
 
 def pad_to_multiple(n: int, mesh: RowMesh, lane: int = 128) -> int:
@@ -113,3 +190,25 @@ def gather_vector(x_local, mesh: RowMesh, n: int | None = None):
     (default: all of them); the same on every rank."""
     full = all_gather(x_local, mesh)
     return full if n is None else full[:n]
+
+
+def shard_dense_operator(a, mesh: RowMesh):
+    """Row-partition a dense operator over ``mesh``: a
+    :class:`~lanczos_tpu_torch.parallel.sharded.ShardedDenseOperator`, each
+    rank holding its row slab and all-gathering the input of every matvec
+    (the JAX package's ``P('rows', None)`` placement)."""
+    from .sharded import ShardedDenseOperator
+
+    return ShardedDenseOperator.from_dense(a, mesh)
+
+
+def shard_dense_operator_2d(a, grid: GridMesh):
+    """Split a dense operator over a ``(rows, cols)`` grid: a
+    :class:`~lanczos_tpu_torch.parallel.sharded.ShardedDenseOperator2D`,
+    rank ``(i, j)`` holding the block ``A[I_i, J_j]`` and summing its
+    partial products over the ranks ``(i, .)`` (the JAX package's
+    ``P('rows', 'cols')`` placement).  Build the grid with
+    :func:`make_multislice_mesh`, its first axis the row blocks."""
+    from .sharded import ShardedDenseOperator2D
+
+    return ShardedDenseOperator2D.from_dense(a, grid)

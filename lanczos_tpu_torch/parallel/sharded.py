@@ -35,6 +35,10 @@ Complex entries (complex64, complex128) take the same schedules: the
 gathers, ring and footprint exchanges and DIA halos carry complex slabs
 (``torch.distributed`` moves a complex tensor as its real view), and the
 local product is K2's complex instance on CUDA.
+
+:class:`ShardedDenseOperator2D` splits a dense operator over a 2-D
+:class:`~lanczos_tpu_torch.parallel.mesh.GridMesh` instead: row slabs of the
+vector over one axis, the partial products summed over the other.
 """
 
 from __future__ import annotations
@@ -43,18 +47,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core.linalg import reduce_sum
 from ..core.types import to_numpy_dtype
 from ..ops import spmv
 from ..ops.operators import DenseOperator, DIAOperator, LinearOperator, _pack_bsr, dia_abs_row_sums
-from .mesh import RowMesh, all_gather, gather_vector, shard_vector
+from .mesh import GridMesh, RowMesh, all_gather, gather_vector, shard_vector
 
 __all__ = [
     "ShardedOperator",
     "ShardedBSROperator",
     "ShardedDIAOperator",
     "ShardedDenseOperator",
+    "ShardedDenseOperator2D",
     "shard_operator",
     "sharded_base",
+    "draw_group",
 ]
 
 class ShardedOperator(LinearOperator):
@@ -70,6 +77,12 @@ class ShardedOperator(LinearOperator):
     def group(self):
         """The process group the engines' reductions all-reduce over."""
         return self.mesh.group
+
+    @property
+    def draw_group(self):
+        """The ranks that run one solve over this operator and so draw the
+        same random vectors (``utils/random.py``): ``group``."""
+        return self.group
 
     @property
     def n_local(self) -> int:
@@ -113,6 +126,14 @@ def sharded_base(op):
     while op is not None and not isinstance(op, ShardedOperator):
         op = getattr(op, "base", None) if hasattr(op, "base") else getattr(op, "op", None)
     return op
+
+
+def draw_group(op):
+    """The process group over which the random draws of a solve on ``op``
+    (start vectors, block repairs, the filter's probe) are made alike: its
+    row-partitioned operator's ``draw_group``, or None on one device."""
+    base = sharded_base(op)
+    return None if base is None else base.draw_group
 
 
 def _exchange(mesh: RowMesh, sends, recvs):
@@ -450,6 +471,63 @@ class ShardedDenseOperator(ShardedOperator):
     def matvec(self, x):
         self._check_slab(x)
         return self.a.to(x.dtype) @ all_gather(x, self.mesh)[: self.n]
+
+
+class ShardedDenseOperator2D(ShardedOperator):
+    """Dense operator split over a ``(rows, cols)`` grid (a
+    :class:`~lanczos_tpu_torch.parallel.mesh.GridMesh` whose first axis
+    indexes the row blocks ``I_i`` and whose second the column blocks
+    ``J_j``; n is zero-padded to a multiple of both): rank ``(i, j)`` holds
+    the block ``A[I_i, J_j]``.
+
+    Vectors are row slabs over the ``rows`` axis and the same on every rank
+    of a row of the grid: ``mesh`` is ``grid.slices_mesh``, the ranks
+    ``(., j)``, so ``group`` is a column of the grid and the engines run
+    unchanged over it, each column running an identical replica of them.
+    :meth:`matvec` all-gathers the input over that column, cuts ``x[J_j]``,
+    forms the partial product ``A[I_i, J_j] x[J_j]`` and sums the partials
+    over the ranks ``(i, .)``, ``grid.rows_mesh`` (the JAX package's partial
+    sum over ``cols``)."""
+
+    def __init__(self, a_local, n: int, grid: GridMesh):
+        self.a = a_local  # (n_padded / rows, n_padded / cols), the block A[I_i, J_j]
+        self.n = int(n)
+        self.grid = grid
+        self.mesh = grid.slices_mesh  # the ranks (., j): the vector's slabs
+        self.n_padded = a_local.shape[0] * self.mesh.size
+
+    @classmethod
+    def from_dense(cls, a, grid: GridMesh):
+        a = torch.as_tensor(a)
+        n = a.shape[0]
+        q = int(np.lcm(*grid.shape))
+        n_pad = -(-n // q) * q
+        nr, nc = n_pad // grid.shape[0], n_pad // grid.shape[1]
+        i, j = grid.coords
+        r0, r1, c0, c1 = min(i * nr, n), min((i + 1) * nr, n), min(j * nc, n), min((j + 1) * nc, n)
+        block = torch.zeros((nr, nc), dtype=a.dtype, device=grid.world.device)
+        block[: r1 - r0, : c1 - c0] = a[r0:r1, c0:c1]
+        return cls(block, n, grid)
+
+    @property
+    def dtype(self):
+        return self.a.dtype
+
+    @property
+    def draw_group(self):
+        """Every rank of the grid: each column's replica of the engines
+        draws the vectors the other columns draw."""
+        return self.grid.world.group
+
+    def abs_row_sums(self):
+        return self._real_rows(reduce_sum(self.a.abs().sum(dim=1), self.grid.rows_mesh.group))
+
+    def matvec(self, x):
+        self._check_slab(x)
+        nc = self.a.shape[1]
+        j = self.grid.coords[1]
+        x_j = all_gather(x, self.mesh)[j * nc:(j + 1) * nc]
+        return reduce_sum(self.a.to(x.dtype) @ x_j, self.grid.rows_mesh.group)
 
 
 def shard_operator(op: LinearOperator, mesh: RowMesh) -> LinearOperator:

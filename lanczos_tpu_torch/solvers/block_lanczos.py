@@ -34,6 +34,7 @@ import torch.distributed as dist
 
 from ..core import linalg
 from ..core.types import machine_eps, real_dtype
+from ..parallel.sharded import draw_group
 from ..utils.random import _fresh_rng
 from .lanczos import LanczosConfig, LanczosResult, _host_dtype, _rotate, _unit_rows, deflation_driver
 
@@ -167,9 +168,9 @@ def block_lanczos_iteration(op, v0_block, nroot: int, defl, defl_mask, cfg: Lanc
     max_blocks = max(min(cfg.max_iteration, -(-n // b)), 1)
     host_dtype = _host_dtype(dtype)
     group = getattr(op, "group", None)
-    # Fresh entropy by default (the same on every rank): a fixed seed would
+    # Fresh entropy by default (the same on every rank of the draw group): a fixed seed would
     # replay the same repair directions every deflated restart.
-    rng = rng if rng is not None else _fresh_rng()
+    rng = rng if rng is not None else _fresh_rng(draw_group(op))
 
     basis = torch.zeros((max_blocks * b, v0_block.shape[1]), dtype=dtype, device=v0_block.device)
 

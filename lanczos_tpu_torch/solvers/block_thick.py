@@ -64,6 +64,7 @@ import torch
 from ..core import linalg
 from ..core.types import is_complex_dtype, machine_eps, real_dtype
 from ..ops import cgs
+from ..parallel.sharded import draw_group
 from ..utils.random import _fresh_rng
 from .block_lanczos import _orthonormalize_block, _repair_block
 from .lanczos import LanczosConfig, _host_dtype, _rotate, deflation_driver
@@ -333,9 +334,9 @@ def block_thick_iteration_fused(op, v0_block, nroot: int, defl, defl_mask, cfg: 
     host_c = _host_dtype(dtype)
     group = getattr(op, "group", None)
     width = v0_block.shape[1]  # n, or this rank's slab
-    # Fresh entropy by default (the same on every rank): a fixed seed would
+    # Fresh entropy by default (the same on every rank of the draw group): a fixed seed would
     # replay the same repair directions every deflation round.
-    rng = rng if rng is not None else _fresh_rng()
+    rng = rng if rng is not None else _fresh_rng(draw_group(op))
     precise = bool(cfg.precise_reductions) and real_dtype(dtype) == torch.float32 and not is_complex_dtype(dtype)
     passes = max(int(cfg.reorth_passes), 1)
     offset = float(cfg.eigenvalue_offset)

@@ -1,6 +1,8 @@
 """The device-resident Krylov exponentiator (port of
 ``lanczos_tpu.solvers.exponentiator_fused``: ``krylov_expm_apply_fused`` and
-``krylov_expm_apply_batch``).
+``krylov_expm_apply_batch``; the module's split-complex names,
+``krylov_expm_apply_split``, ``evolve_split`` and ``evolve_hermitian_split``,
+are :mod:`.exponentiator`'s, exported here at the JAX module's path).
 
 The hybrid build (:func:`.exponentiator.krylov_expm_apply`) waits for the
 device once per iteration: the host needs alpha_k and beta_k for its
@@ -35,9 +37,15 @@ from .exponentiator import (
     _expm_update,
     _krylov_coefficients,
     _recombine,
+    evolve_hermitian_split,
+    evolve_split,
+    krylov_expm_apply_split,
 )
 
-__all__ = ["krylov_expm_apply_fused", "krylov_expm_apply_batch"]
+__all__ = [
+    "krylov_expm_apply_fused", "krylov_expm_apply_batch",
+    "krylov_expm_apply_split", "evolve_split", "evolve_hermitian_split",
+]
 
 
 @dataclasses.dataclass

@@ -52,8 +52,8 @@ from ..diagnostics import (
 )
 from ..ops.filters import ChebyshevFilterOperator
 from ..core import linalg
-from ..ops.operators import ShiftSquaredOperator, as_operator
-from ..parallel.sharded import sharded_base
+from ..ops.operators import ShiftSquaredOperator, as_operator, float64_view
+from ..parallel.sharded import draw_group, sharded_base
 from ..utils import checkpoint, estimate
 from ..utils.random import random_initializer
 from . import lanczos as _lanczos
@@ -280,7 +280,7 @@ def _missed_copy_probe(fop, V, vals_b, theta_worst, margin, find_maximum, num_ei
     steps = int(np.ceil(np.log(8.0 * np.sqrt(n)) / np.log(max(b_kept, 1.2))))
     steps = min(max(((steps + 3) // 4) * 4, 4), 32)
     # the global draw (the same on every rank), this rank's slab of it
-    w0 = linalg.slab(torch.as_tensor(random_initializer(V.dtype)(n), device=V.device), V.shape[1], fop.group)
+    w0 = linalg.slab(torch.as_tensor(random_initializer(V.dtype, draw_group(fop))(n), device=V.device), V.shape[1], fop.group)
     r = _probe_remaining_band(fop, V, w0, steps)
     a_probe = float(np.asarray(fop.invert_value(np.asarray(r, np.float64))))
     if not np.isfinite(a_probe):
@@ -416,7 +416,8 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
 
     ``precise=True`` returns reference-grade eigenvalues: the B-space solve
     runs with ``precise_vectors`` (a float64 basis over the filter's
-    float64 chain) to a drift eps that the filter's steepness attenuates on
+    float64 chain; for a complex operator a complex128 basis over its
+    float64 view) to a drift eps that the filter's steepness attenuates on
     the way back, and the values are the B Ritz values mapped through the
     filter's analytic inverse (``invert_value``); a value farther than 4 mu
     from its Rayleigh-Ritz value falls back to it with an
@@ -445,6 +446,10 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
     scout = auto_window if auto_window is not None else precise
 
     op = as_operator(op, device=device)
+    if precise and op.dtype.is_complex:
+        # precise_vectors takes real dtypes only: a complex operator reaches
+        # the same grade through a complex128 basis over its float64 view.
+        op = float64_view(op)
     lo, hi = _spectrum_bounds(op, lo, hi, find_maximum)
     if scout and mu is None:
         mu = _auto_mu(op, num_eigs, find_maximum, lo, hi, guard)
@@ -498,7 +503,7 @@ def filtered_lanczos(op, num_eigs: int = 1, find_maximum: bool = False, *,
         a_target = 1e-12
         e_half = 0.5 * ((hi - lo) - mu)  # window half-width
         theta_mu = float(np.arccosh(1.0 + mu / e_half))
-        eng.precise_vectors = True
+        eng.precise_vectors = not op.dtype.is_complex
         eng.eps = max(1e-13, a_target * degree**2 / (e_half * 8.0 * max(1.0, degree * theta_mu)))
         eng.max_iteration = int(max(96, min(512, (1 << 28) // max(op.n, 1))))
         eng.max_restarts = 64

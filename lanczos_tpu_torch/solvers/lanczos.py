@@ -40,13 +40,27 @@ __all__ = [
     "lanczos_iteration",
     "deflation_driver",
     "run_restarted",
+    "lanczos_run",
 ]
+
+
+TIE_TOL = 16 * float(np.finfo(np.float64).eps)  # relative: values this close rank as equal
 
 
 class EigenPairManager:
     """Keeps only the best ``num_eigs`` eigenpairs; insertion order follows
-    the reference multimap exactly (eigenpair_manager.hpp:52-71), including
-    the ``nothing_added`` fixed-point signal that ends the deflation loop."""
+    the reference multimap (eigenpair_manager.hpp:52-71), including the
+    ``nothing_added`` fixed-point signal that ends the deflation loop.
+
+    A candidate goes after the pairs whose values it equals, as the
+    multimap puts equal keys, and "equals" means within :data:`TIE_TOL`
+    relative, a few float64 roundings: a later round's copy of a degenerate
+    level, whose value differs from the accepted copies' only by the
+    rounding of the tridiagonal eigensolve, then never displaces an
+    accepted pair, while a value better by more than rounding still does.
+    (Exact comparison let such a copy, born of rounding inside one Krylov
+    space with a residual of ~1e-8, evict a converged pair of the same
+    level.)"""
 
     def __init__(self, find_maximum: bool, num_eigs: int):
         self.find_maximum = bool(find_maximum)
@@ -57,7 +71,8 @@ class EigenPairManager:
         return len(self.pairs)
 
     def _before(self, a: float, b: float) -> bool:
-        return a > b if self.find_maximum else a < b
+        margin = TIE_TOL * max(abs(a), abs(b))
+        return a > b + margin if self.find_maximum else a < b - margin
 
     def _upper_bound(self, val: float) -> int:
         lo, hi = 0, len(self.pairs)
@@ -427,3 +442,21 @@ def deflation_driver(
     else:  # pragma: no cover
         eigenvectors = torch.zeros((0, n), dtype=dtype, device=device)
     return LanczosResult(eigenvalues, eigenvectors, iter_counts, unconverged_rounds)
+
+
+def lanczos_run(op, cfg: LanczosConfig, init_vector: Callable[[int], object], dtype) -> LanczosResult:
+    """The hybrid engine under the shared deflation driver."""
+    return _run_engine(lanczos_iteration, op, cfg, init_vector, dtype)
+
+
+def _run_engine(engine, op, cfg: LanczosConfig, init_vector, dtype) -> LanczosResult:
+    """``engine(op, v0, nroot, defl, defl_mask, cfg)`` (a one-vector engine:
+    hybrid, fused, thick) under :func:`deflation_driver`, on ``op``'s
+    device and, for a row-partitioned ``op``, on its slabs."""
+    from ..parallel.sharded import ShardedOperator  # late import: the parallel package imports the ops
+
+    cfg = cfg.resolved(dtype)
+    return deflation_driver(
+        lambda v0, nroot, defl, mask: engine(op, v0, nroot, defl, mask, cfg), cfg, init_vector, dtype,
+        device=op.device, sharded=op if isinstance(op, ShardedOperator) else None,
+    )

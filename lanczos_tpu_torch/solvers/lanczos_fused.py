@@ -65,9 +65,9 @@ import torch
 from ..core import linalg, tridiagonal
 from ..core.types import machine_eps, real_dtype, to_numpy_dtype
 from ..ops.operators import float64_view
-from .lanczos import LanczosConfig, _prepare_init_vector, _ritz_combine
+from .lanczos import LanczosConfig, _prepare_init_vector, _ritz_combine, _run_engine
 
-__all__ = ["lanczos_iteration_fused", "fused_krylov", "precise_iteration", "reorth_total"]
+__all__ = ["lanczos_iteration_fused", "lanczos_run_fused", "fused_krylov", "precise_iteration", "reorth_total"]
 
 # Cumulative basis-reorthogonalization count across fused solves in this
 # process; api.run snapshots it around a run to fill RunStats.reorth_count.
@@ -344,3 +344,9 @@ def lanczos_iteration_fused(op, v0, nroot: int, defl, defl_mask, cfg: LanczosCon
     eigvecs = _ritz_combine(q, st.u[:m], group)
     eigenvalues = [float(tri_vals[s]) - cfg.eigenvalue_offset for s in sel]
     return eigenvalues, eigvecs, m, converged
+
+
+def lanczos_run_fused(op, cfg: LanczosConfig, init_vector, dtype):
+    """The fused engine under the shared deflation driver
+    (:func:`lanczos_tpu_torch.solvers.lanczos.deflation_driver`)."""
+    return _run_engine(lanczos_iteration_fused, op, cfg, init_vector, dtype)

@@ -8,7 +8,8 @@ the same vector on each call (test/lambda_lanczos_test.cpp:25-45).  Both are
 reproduced here.  Draws come from a ``numpy.random.Generator`` and are numpy
 arrays: the solver moves them to the operator's device, and the same seed
 gives the same vector as the JAX package.  Under ``torch.distributed`` the
-fresh draws are the same on every rank (:func:`_fresh_rng`).
+fresh draws are the same on every rank of a group, the operator's draw
+group in a solve (:func:`_fresh_rng`).
 """
 
 from __future__ import annotations
@@ -31,30 +32,42 @@ def _draw(rng: np.random.Generator, n: int, dtype) -> np.ndarray:
     return rng.uniform(-1.0, 1.0, size=n).astype(dtype)
 
 
-def _fresh_rng() -> np.random.Generator:
-    """A fresh-entropy generator that is the same on every rank.
+_WORLD = object()  # the default group: the whole world, when one is initialized
 
-    Every rank of a process group runs the same solve and draws the same
-    full-length start vector, keeping its own slab of it; a per-rank draw
-    would give each rank a slab of a different vector.  So rank 0's entropy
-    is broadcast over the default group, as the JAX package broadcasts
-    process 0's (lanczos_tpu/utils/random.py:30-50): each call still gives a
-    new vector, the same one everywhere."""
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        nccl = "nccl" in str(dist.get_backend())
+
+def _fresh_rng(group=_WORLD) -> np.random.Generator:
+    """A fresh-entropy generator that is the same on every rank of ``group``.
+
+    Every rank of a row-partitioned solve runs the same engine and draws the
+    same full-length start vector, keeping its own slab of it; a per-rank
+    draw would give each rank a slab of a different vector.  So the entropy
+    of ``group``'s first rank is broadcast over ``group``, as the JAX package
+    broadcasts process 0's (lanczos_tpu/utils/random.py:30-50): each call
+    still gives a new vector, the same one on all of them.  The engines pass
+    the operator's draw group
+    (:func:`lanczos_tpu_torch.parallel.sharded.draw_group`): the ranks of
+    one solve and no others, so solves that run side by side over their own
+    groups (the slices of a grid) draw as often as each needs, and ``None``
+    (an operator on one device) draws locally.  Left out, ``group`` is the
+    whole world when a process group is initialized."""
+    if group is _WORLD:
+        group = dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+    if group is not None and dist.get_world_size(group) > 1:
+        nccl = "nccl" in str(dist.get_backend(group))
         dev = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
         seed = torch.tensor([np.random.SeedSequence().entropy & ((1 << 63) - 1)], dtype=torch.int64, device=dev)
-        dist.broadcast(seed, src=0)
+        dist.broadcast(seed, src=dist.get_process_group_ranks(group)[0], group=group)
         return np.random.default_rng(int(seed.item()))
     return np.random.default_rng()
 
 
-def random_initializer(dtype):
+def random_initializer(dtype, group=_WORLD):
     """Fresh-entropy uniform [-1, 1] init, a new draw every call (the
-    reference default, lambda_lanczos.hpp:79-88)."""
+    reference default, lambda_lanczos.hpp:79-88), the same on every rank of
+    ``group`` (:func:`_fresh_rng`; by default the whole world)."""
 
     def init(n: int) -> np.ndarray:
-        return _draw(_fresh_rng(), n, dtype)
+        return _draw(_fresh_rng(group), n, dtype)
 
     return init
 

@@ -149,7 +149,7 @@ def test_minres_shift_invert_and_expm_multiply_match_jax():
 
 
 def test_reference_faults_are_repaired():
-    """R1, R2, R3 and R4 (ROADMAP.md queue 3) against numpy and scipy."""
+    """R1, R2, R3, R4 and R9 (ROADMAP.md queue 3) against numpy and scipy."""
     import scipy.linalg as sla
     import scipy.sparse.linalg as spla
 
@@ -184,6 +184,17 @@ def test_reference_faults_are_repaired():
         assert np.linalg.norm(tight - want) <= 1e-12 * np.linalg.norm(want)
     grid = tl.expm_multiply(h, psi, start=0.0, stop=1.0, num=3, device="cpu")
     assert np.linalg.norm(grid[2] - sla.expm(h) @ psi) <= 1e-7 * np.linalg.norm(grid[2])
+
+    # R9: a real operator and a complex b on the Krylov route, at a point
+    # and on a grid (the JAX facade casts b to the operator's real dtype).
+    for t in (-0.7, 0.5j):
+        want = spla.expm_multiply(t * a, psi)
+        got = tl.expm_multiply(a, psi, t=t, method="auto", device="cpu", eps=1e-28)
+        assert np.linalg.norm(got - want) <= 1e-9 * np.linalg.norm(want), t
+        assert _overlap_err(want, tl.expm_multiply(a, psi, t=t, device="cpu")) <= EPS_REF, t
+    want = spla.expm_multiply(a, psi, start=0.0, stop=1.0, num=3)
+    grid = tl.expm_multiply(a, psi, start=0.0, stop=1.0, num=3, device="cpu", eps=1e-28)
+    assert np.linalg.norm(grid - want) <= 1e-9 * np.linalg.norm(want)
 
     # R4: complex shift-invert, each sense.
     sigma = 0.5 * (wh[11] + wh[12]) + 0.05

@@ -481,7 +481,7 @@ def test_filtered_lanczos_warnings_and_refusals(tmp_path, monkeypatch):
     seeded = lambda eng: setattr(eng, "init_vector", fixed_seed_initializer(eng.dtype, seed=0))  # noqa: E731
     with warnings.catch_warnings(record=True) as caught, monkeypatch.context() as m:
         warnings.simplefilter("always")
-        m.setattr("lanczos_tpu_torch.utils.random._fresh_rng", lambda: np.random.default_rng(0))
+        m.setattr("lanczos_tpu_torch.utils.random._fresh_rng", lambda group=None: np.random.default_rng(0))
         vals, _, info = tl.filtered_lanczos(op, num_eigs=2, degree=80, mu=5e-4 * (w[-1] - w[0]), configure=seeded)
     assert any(issubclass(c.category, tl.BandCoverageWarning) and "OUTSIDE the amplified mu-band" in str(c.message)
                for c in caught)

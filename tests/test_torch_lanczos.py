@@ -160,6 +160,34 @@ def test_zoo_matches_jax_float64(case, mode):
         assert et.stats.reorth_count == ej.stats.reorth_count
 
 
+@pytest.mark.parametrize("engine", ["lanczos_run", "lanczos_run_fused"])
+def test_engine_runs_match_jax(engine):
+    # The JAX package's engine-under-the-deflation-driver entry points
+    # (solvers/lanczos.py:557, solvers/lanczos_fused.py:615) and
+    # core.tridiagonal.machine_eps_value.
+    from lanczos_tpu.core import tridiagonal as jtri
+    from lanczos_tpu.solvers import lanczos as jlz, lanczos_fused as jlf
+
+    from lanczos_tpu_torch.core import tridiagonal as ttri
+    from lanczos_tpu_torch.solvers import lanczos as tlz, lanczos_fused as tlf
+
+    for dtype in (np.float32, np.float64, np.complex64, np.complex128):
+        assert ttri.machine_eps_value(dtype) == jtri.machine_eps_value(dtype)
+    jax_op, torch_op = _random_symmetric()
+    v0 = np.random.default_rng(1).uniform(-1.0, 1.0, jax_op.n)
+    module = {"lanczos_run": (jlz, tlz), "lanczos_run_fused": (jlf, tlf)}[engine]
+    results = [
+        getattr(mod, engine)(op, cfg_type(matrix_size=op.n, num_eigs=3, tridiag_backend="lapack"), lambda n: v0,
+                             np.float64)
+        for mod, op, cfg_type in ((module[0], jax_op, jlz.LanczosConfig), (module[1], torch_op, tlz.LanczosConfig))
+    ]
+    (rj, rt) = results
+    assert list(rt.iteration_counts) == list(rj.iteration_counts)
+    np.testing.assert_allclose(np.asarray(rt.eigenvalues), np.asarray(rj.eigenvalues), rtol=0, atol=1e-12)
+    _assert_same_eigenpairs(np.asarray(rj.eigenvalues), np.asarray(rj.eigenvectors), np.asarray(rt.eigenvalues),
+                            np.asarray(rt.eigenvectors))
+
+
 def test_fused_float32_matches_jax():
     pytest.importorskip("jax")
     jax_op, torch_op = _bsr_chain(200, np.float32)

@@ -1,7 +1,10 @@
-"""Hygiene of the PyTorch port: no JAX behind it, the kernel build command,
-the CPU paths launching no kernel, the CUDA card as the default device, and
-the refusals of what is not ported."""
+"""Hygiene of the PyTorch port: no JAX behind it, every public name of the
+JAX package at its module path, the kernel build command, the CPU paths
+launching no kernel, the CUDA card as the default device, and the refusals
+of what is not ported."""
 
+import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -38,12 +41,87 @@ def test_import_pulls_in_no_jax():
         "from lanczos_tpu_torch import Exponentiator;"
         "import lanczos_tpu_torch.utils.checkpoint, lanczos_tpu_torch.ops.sturm_check, lanczos_tpu_torch.utils.stats;"
         "from lanczos_tpu_torch import COOOperator, CSROperator, SumOperator, ScaledOperator, DenseDFOperator;"
-        "import lanczos_tpu_torch.core.df64;"
+        "import lanczos_tpu_torch.core.df64, lanczos_tpu_torch.samples, lanczos_tpu_torch.solvers.exponentiator_precise;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lanczos_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    # Nor does any source of the package (the samples run when imported).
+    jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|lanczos_tpu)(\.|\s|$)", re.M)
+    assert not [p for p in (REPO / "lanczos_tpu_torch").rglob("*.py") if jax_import.search(p.read_text())]
+
+
+# The JAX package's Pallas modules became the CUDA kernels' wrappers, and
+# two of their functions carry the kernels' names.
+_PORTED_AS = {"ops/pallas_spmv.py": "ops/spmv.py", "ops/pallas_cgs.py": "ops/cgs.py", "ops/pallas_cheby.py": "ops/cheby.py"}
+_RENAMED = {("ops/pallas_spmv.py", "bsr_matvec_pallas_t"): "bsr_matvec",
+            ("ops/pallas_spmv.py", "bsr_matvec_pallas"): "bsr_matvec_rsmk"}
+# Deliberate non-ports ("*": the whole module).  The word pairs and the
+# engines built on them stand in for float64, which the card has (ROADMAP
+# item 10); the compilation cache is XLA's; the shardings are JAX objects;
+# pallas_cgs_fits is the TPU dispatch test (the wrappers dispatch on the
+# tensor's device).
+_NOT_PORTED = {
+    "__init__.py": {"enable_compilation_cache"},
+    "core/df64.py": {"two_sum", "two_prod", "df_add", "df_sub", "df_mul", "df_recip", "df_sqrt", "df_sum",
+                     "df_sum_axis", "dot_df", "df_matmul", "df_split", "df_join"},
+    "core/linalg.py": {"inner_prod_df", "inner_prod_df_df", "orthogonalize_cgs2_df", "orthogonalize_cgs2_df_coeffs",
+                       "orthogonalize_cgs2_dfdf_coeffs"},
+    "core/tridiagonal.py": {"extremal_eigenvalues_device_df"},
+    "ops/pallas_cgs.py": {"pallas_cgs_fits"},
+    "parallel/mesh.py": {"row_sharding", "replicated_sharding"},
+    "solvers/block_thick.py": {"block_thick_iteration_fused_pv"},
+    "solvers/thick_restart.py": {"thick_lanczos_iteration_fused_pv"},
+    "utils/compile_cache.py": {"*"},
+}
+
+
+def _public_names(path):
+    """A module's ``__all__``, else its top-level public functions and
+    classes, read from the source."""
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(isinstance(t, ast.Name) and t.id == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    return {n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef)) and not n.name.startswith("_")}
+
+
+def _bound_names(path):
+    """Every name a module binds at its top level (definitions, assignments,
+    imports), and a package's submodules."""
+    tree = ast.parse(path.read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    if path.name == "__init__.py":
+        names |= {p.stem for p in path.parent.glob("*.py")} | {p.name for p in path.parent.iterdir() if p.is_dir()}
+    return names
+
+
+def test_every_jax_public_name_has_a_counterpart():
+    jax_root, port_root = REPO / "lanczos_tpu", REPO / "lanczos_tpu_torch"
+    missing = []
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        skip = _NOT_PORTED.get(rel, set())
+        if skip == {"*"}:
+            continue
+        target = port_root / _PORTED_AS.get(rel, rel)
+        have = _bound_names(target) if target.exists() else set()
+        missing += [f"{rel}:{name}" for name in sorted(_public_names(path) - skip)
+                    if _RENAMED.get((rel, name), name) not in have]
+    assert not missing, missing
+    # The list of non-ports names only what the JAX package has.
+    for rel, names in _NOT_PORTED.items():
+        assert (jax_root / rel).exists() and names - {"*"} <= _public_names(jax_root / rel), rel
 
 
 def test_nvcc_command_targets_hopper_and_names_every_source():

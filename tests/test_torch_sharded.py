@@ -159,6 +159,7 @@ def _jax_refs(w):
                     val, _vec = eng.run_one()
                     refs[f"solve.{name}.{mode}.val"] = float(val)
                     refs[f"solve.{name}.{mode}.iters"] = list(eng.iteration_counts)
+            refs.update(_jax_grid_refs())
         else:
             eng = LambdaLanczos(shard_operator(DenseOperator(jnp.asarray(world_script.dense_problem())), mesh),
                                 find_maximum=True)
@@ -167,6 +168,49 @@ def _jax_refs(w):
         return refs
 
     return inputs, finish
+
+
+def _jax_grid_refs():
+    """The JAX package on the 2-D meshes of tests/test_sharded.py:254-335,
+    over the first four devices: the chain over the combined axes of a
+    (2, 2) multislice mesh, the batched fused solves over its slices and
+    the dense operator on a (2, 2) (rows, cols) mesh."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from lanczos_tpu import LambdaLanczos
+    from lanczos_tpu.ops.operators import DenseOperator
+    from lanczos_tpu.parallel.mesh import make_multislice_mesh, shard_dense_operator_2d
+    from lanczos_tpu.parallel.sharded import ShardedDIAOperator
+    from lanczos_tpu.solvers.lanczos_fused import fused_krylov
+    from lanczos_tpu.utils.random import fixed_seed_initializer
+
+    refs = {}
+    grid = make_multislice_mesh(2, devices=jax.devices()[:4])
+    n = world_script.GRID_CHAIN_N
+    op = ShardedDIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0)] * 2, n, grid, axis_name=("slices", "rows"))
+    refs["grid.chain.y"] = np.asarray(op.matvec(jnp.asarray(world_script.pattern_x(n))))
+    eng = LambdaLanczos(op, find_maximum=False)
+    eng.init_vector = fixed_seed_initializer(np.float64, seed=3)
+    refs["grid.chain.val"] = float(eng.run_one()[0])
+
+    a, v0 = world_script.slice_problems()
+    m = world_script.GRID_SLICE_N
+
+    def one(a_i, v_i):
+        return fused_krylov(DenseOperator(a_i, m), v_i, jnp.zeros((1, m)), jnp.zeros((1,)), 1e-10, 0.0, nroot=1,
+                            m_cap=m, find_maximum=True)[4]
+
+    a_s = jax.device_put(jnp.asarray(a), NamedSharding(grid, P("slices", "rows", None)))
+    v_s = jax.device_put(jnp.asarray(v0), NamedSharding(grid, P("slices", "rows")))
+    refs["grid.slice.vals"] = np.asarray(jax.jit(jax.vmap(one))(a_s, v_s))[:, 0]
+
+    a2, _x = world_script.dense_2d_problem()
+    mesh2 = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("rows", "cols"))
+    eng = LambdaLanczos(DenseOperator(shard_dense_operator_2d(jnp.asarray(a2), mesh2), a2.shape[0]), find_maximum=True)
+    eng.init_vector = fixed_seed_initializer(np.float64, seed=31)
+    refs["grid.dense.val"] = float(eng.run_one()[0])
+    return refs
 
 
 def _start_world(w, tmp: Path, inputs: dict):
@@ -364,6 +408,62 @@ def test_sharded_lanczos_four_ranks(world4, op, mode):
     assert list(_same_on_every_rank(outs, f"{key}.iters")) == refs[f"{key}.iters"]
     assert float(_same_on_every_rank(outs, f"{key}.residual")) < 1e-8  # through the sharded matvec
     assert abs(np.linalg.norm(vec) - 1.0) < 1e-12
+
+
+# ---------------------------------------------------------- 2-D grids
+
+
+@pytest.mark.parametrize("case", ["layout", "combined_axes", "slices", "slices_default_start", "dense_2d"])
+def test_grid_mesh(world4, case):
+    # The 4-rank world as a 2 x 2 GridMesh against the JAX package's 2-D
+    # meshes on four devices (tests/test_sharded.py:254-335), float64.
+    refs, outs = world4
+    if case == "layout":
+        assert [tuple(o["grid.coords"]) for o in outs] == [(0, 0), (0, 1), (1, 0), (1, 1)]  # slice-major
+        assert tuple(_same_on_every_rank(outs, "grid.shape")) == (2, 2)
+        assert tuple(_same_on_every_rank(outs, "grid.sizes")) == (2, 2, 4)  # rows, slices, combined
+        # (rank in rows_mesh, in slices_mesh, in combined) of each rank
+        assert [tuple(o["grid.ranks"]) for o in outs] == [(0, 0, 0), (1, 0, 1), (0, 1, 2), (1, 1, 3)]
+        # an uneven world raises: 3 slices, hosts of LOCAL_WORLD_SIZE=3
+        assert "do not split into 3 equal slices" in str(_same_on_every_rank(outs, "grid.uneven_raised"))
+        assert "LOCAL_WORLD_SIZE=3" in str(_same_on_every_rank(outs, "grid.uneven_hosts_raised"))
+    elif case == "combined_axes":
+        n = world_script.GRID_CHAIN_N
+        dense = np.diag(np.full(n - 1, -1.0), 1) + np.diag(np.full(n - 1, -1.0), -1)
+        y = _same_on_every_rank(outs, "grid.chain.y")
+        np.testing.assert_allclose(y, dense @ world_script.pattern_x(n), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(y, refs["grid.chain.y"], rtol=0, atol=1e-12)
+        val = float(_same_on_every_rank(outs, "grid.chain.val"))
+        assert abs(val + 2 * np.cos(np.pi / (n + 1))) < 1e-10
+        assert abs(val - refs["grid.chain.val"]) < 1e-12
+    elif case == "slices":
+        a, _v0 = world_script.slice_problems()
+        exact = np.linalg.eigvalsh(a)[:, -1]
+        for r, out in enumerate(outs):
+            s = r // 2  # the slice of rank r, each solving its own matrix over its two rows ranks
+            assert abs(float(out["grid.slice.val"]) - exact[s]) < 1e-10, (r, out["grid.slice.val"], exact[s])
+            assert abs(float(out["grid.slice.val"]) - refs["grid.slice.vals"][s]) < 1e-8  # JAX's bar (:310)
+        assert float(outs[0]["grid.slice.val"]) != float(outs[2]["grid.slice.val"])
+    elif case == "slices_default_start":
+        # Random starts drawn over each slice's own rows group: the slices
+        # draw a different number of times (one a round: one round in slice
+        # 0, three roots and a confirming round in slice 1), and the two
+        # ranks of a slice draw alike (bit-identical values).
+        a, _v0 = world_script.slice_problems()
+        exact = np.linalg.eigvalsh(a)[:, ::-1]
+        rounds = [int(o["grid.slice.default_rounds"]) for o in outs]
+        assert rounds[0] == rounds[1] == 1 and rounds[2] == rounds[3] > 3, rounds
+        for s in range(2):
+            o0, o1 = outs[2 * s], outs[2 * s + 1]
+            np.testing.assert_array_equal(o0["grid.slice.default_vals"], o1["grid.slice.default_vals"])
+            np.testing.assert_allclose(o0["grid.slice.default_vals"], exact[s, :1 + 2 * s], rtol=0, atol=1e-10)
+    else:
+        a2, x = world_script.dense_2d_problem()
+        np.testing.assert_allclose(_same_on_every_rank(outs, "grid.dense.y"), a2 @ x, rtol=0, atol=1e-11)
+        val = float(_same_on_every_rank(outs, "grid.dense.val"))
+        assert abs(val - np.linalg.eigvalsh(a2)[-1]) < 1e-10
+        assert abs(val - refs["grid.dense.val"]) < 1e-12
+        assert float(_same_on_every_rank(outs, "grid.dense.residual")) < 1e-8
 
 
 # -------------------------------------------------- API around the world

@@ -1,5 +1,6 @@
 """Tridiagonal layer of the PyTorch port against the JAX package: the Sturm
-multisection of the fused engine's convergence test and the host solvers."""
+multisection of the fused engine's convergence test and the host solvers;
+and the host library's other entry, the COO -> BSR packer."""
 
 import numpy as np
 import pytest
@@ -152,6 +153,41 @@ def test_eigenvectors_backward_device_matches_jax(dtype):
     one = ttri.eigenvectors_backward_device(torch.zeros(8, dtype=torch.float64).index_fill(0, torch.tensor([0]), 3.0),
                                             torch.zeros(8, dtype=torch.float64), 1, [3.0])
     np.testing.assert_allclose(one.numpy()[0], np.eye(8)[0], atol=1e-14)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pack_bsr_matches_jax_and_numpy(dtype):
+    # native.host_kernels.pack_bsr (lanczos_tpu/native/host_kernels.py:137)
+    # against the JAX package's and against the numpy packer, bit for bit,
+    # on a band with duplicates (summed in input order by all three).
+    from lanczos_tpu.native import host_kernels as jhk
+
+    from lanczos_tpu_torch.native import host_kernels as thk
+    from lanczos_tpu_torch.ops.operators import _pack_bsr
+
+    rng = np.random.default_rng(17)
+    n, bm, bk = 300, 16, 8
+    rows = rng.integers(0, n, 4000)
+    cols = np.clip(rows + rng.integers(-20, 21, rows.shape[0]), 0, n - 1)
+    rows, cols = np.concatenate([rows, rows[:700]]), np.concatenate([cols, cols[:700]])  # exact duplicates
+    vals = rng.standard_normal(rows.shape[0])
+    n_pad = 304  # lcm(bm, bk) = 16
+    ncb = n_pad // bk
+    ids, tiles = thk.pack_bsr(rows, cols, vals, ncb, bm, bk, dtype=dtype)
+    ids_j, tiles_j = jhk.pack_bsr(rows, cols, vals, ncb, bm, bk, dtype=dtype)
+    assert tiles.dtype == dtype and np.array_equal(ids, ids_j) and tiles.tobytes() == tiles_j.tobytes()
+    # the numpy packer's tiles, gathered in block-id order, are pack_bsr's
+    rb = ids // ncb
+    slot = np.arange(ids.shape[0]) - np.concatenate([[0], np.cumsum(np.bincount(rb, minlength=n_pad // bm))])[rb]
+    for layout in ("rmsk", "rsmk"):
+        blocks, col_blocks = _pack_bsr(rows, cols, vals, n, bm, bk, dtype, layout)
+        by_tile = blocks.transpose(0, 2, 1, 3) if layout == "rmsk" else blocks  # a view, (R, S, bm, bk)
+        assert blocks.dtype == dtype and by_tile[rb, slot].tobytes() == tiles.tobytes()
+        assert np.array_equal(col_blocks[rb, slot], ids % ncb)
+        by_tile[rb, slot] = 0
+        assert not blocks.any()  # no entry outside pack_bsr's tiles
+    with pytest.raises(ValueError, match="out of range"):
+        thk.pack_bsr([0, -1], [0, 0], [1.0, 1.0], ncb, bm, bk)
 
 
 def test_host_backend_resolution(monkeypatch, tmp_path):

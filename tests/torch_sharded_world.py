@@ -519,6 +519,93 @@ def _api_checks(mesh, out):
     out["pv.y64"] = pv_op.gather(pv_op.matvec_f64(pv_op.scatter(x))).numpy()
 
 
+# ------------------------------------------------------------ 2-D grids
+#
+# The 4-rank world as a 2 x 2 GridMesh: the JAX tests' cases of the
+# multislice and 2-D dense meshes (tests/test_sharded.py:254-335).
+
+GRID_CHAIN_N = 1024  # the chain over the combined axes (:254)
+GRID_SLICE_N = 32  # each slice's own symmetric matrix (:279)
+GRID_DENSE_N = 64  # the 2-D dense operator (:313)
+
+
+def slice_problems():
+    """tests/test_sharded.py:279's two symmetric matrices and unit start
+    vectors, one per slice."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((2, GRID_SLICE_N, GRID_SLICE_N))
+    a = (a + np.swapaxes(a, 1, 2)) / 2
+    v0 = rng.standard_normal((2, GRID_SLICE_N))
+    return a, v0 / np.linalg.norm(v0, axis=1, keepdims=True)
+
+
+def dense_2d_problem():
+    """tests/test_sharded.py:313's matrix and the vector of its matvec."""
+    rng = np.random.default_rng(21)
+    a = rng.standard_normal((GRID_DENSE_N, GRID_DENSE_N))
+    return (a + a.T) / 2, rng.standard_normal(GRID_DENSE_N)
+
+
+def _grid_checks(out):
+    import os
+
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.parallel import mesh as pmesh
+    from lanczos_tpu_torch.parallel.sharded import ShardedDenseOperator, ShardedDIAOperator
+
+    grid = pmesh.make_multislice_mesh(2)
+    out["grid.shape"] = np.array(grid.shape)
+    out["grid.coords"] = np.array(grid.coords)
+    out["grid.sizes"] = np.array([grid.rows_mesh.size, grid.slices_mesh.size, grid.combined.size])
+    out["grid.ranks"] = np.array([grid.rows_mesh.rank, grid.slices_mesh.rank, grid.combined.rank])
+    for key, call in (("uneven", lambda: pmesh.make_multislice_mesh(3)),
+                      ("uneven_hosts", lambda: pmesh.make_multislice_mesh())):
+        os.environ["LOCAL_WORLD_SIZE"] = "3"
+        try:
+            call()
+        except ValueError as e:
+            out[f"grid.{key}_raised"] = np.array(str(e))
+        finally:
+            del os.environ["LOCAL_WORLD_SIZE"]
+
+    # The chain over the combined axes: n split over all four ranks.
+    n = GRID_CHAIN_N
+    op = ShardedDIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0)] * 2, n, grid.combined)
+    out["grid.chain.y"] = op.gather(op.matvec(op.scatter(pattern_x(n)))).numpy()
+    eng = tl.LambdaLanczos(op, find_maximum=False)
+    eng.init_vector = tl.fixed_seed_initializer(np.float64, seed=3)
+    val, _vec = eng.run_one()
+    out["grid.chain.val"] = np.array(val)
+
+    # Independent solves over slices: each slice's own matrix over its rows.
+    a, v0 = slice_problems()
+    s = grid.coords[0]
+    op = ShardedDenseOperator.from_dense(a[s], grid.rows_mesh)
+    eng = tl.LambdaLanczos(op, find_maximum=True, mode="fused")
+    eng.init_vector = lambda _n: v0[s]
+    val, _vec = eng.run_one()
+    out["grid.slice.val"] = np.array(val)
+    out["grid.slice.iters"] = np.array(eng.iteration_counts)
+    # The same solves from the default random start, slice s finding 1 + 2s
+    # roots one a round: each slice draws a start a round over its own rows
+    # group, once in slice 0 and four times in slice 1.
+    eng = tl.LambdaLanczos(op, find_maximum=True, num_eigs=1 + 2 * s)
+    eng.num_eigs_per_iteration = 1
+    vals, _vecs = eng.run()
+    out["grid.slice.default_vals"] = np.asarray(vals, dtype=np.float64)
+    out["grid.slice.default_rounds"] = np.array(len(eng.iteration_counts))
+
+    # The 2-D dense operator: rank (i, j) holds A[I_i, J_j].
+    a2, x = dense_2d_problem()
+    op = pmesh.shard_dense_operator_2d(a2, grid)
+    out["grid.dense.y"] = op.gather(op.matvec(op.scatter(x))).numpy()
+    eng = tl.LambdaLanczos(op, find_maximum=True)
+    eng.init_vector = tl.fixed_seed_initializer(np.float64, seed=31)
+    val, vec = eng.run_one()
+    out["grid.dense.val"] = np.array(val)
+    out["grid.dense.residual"] = np.array(np.linalg.norm(a2 @ vec.numpy() - val * vec.numpy()))
+
+
 def main(argv) -> int:
     rank, world, rendezvous, inputs_path, out_path = int(argv[0]), int(argv[1]), argv[2], argv[3], argv[4]
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -539,6 +626,7 @@ def main(argv) -> int:
         tmpdir = str(Path(inputs_path).parent)
         if world == 4:
             _solve_checks(mesh, out)
+            _grid_checks(out)
         else:
             _api_checks(mesh, out)
             _checkpoint_checks(mesh, out, tmpdir)
