@@ -16,7 +16,8 @@ share are used:
   per call at k = 1 on a (2, 4096) basis beside two ``torch.mv``;
 - the main path's solve (n = 2**20, 176 iterations): its wall by host
   clock, then under ``torch.profiler`` K3's and K1's device time in it,
-  its busy time and idle share;
+  its busy time and idle share; with ``--bf16`` the same over its tiles in
+  bfloat16 (this checkout's side only: older checkouts refuse bfloat16);
 - ``cgs.cgs_pass_block`` at b = 3 on the block flagship's (258, 2**22)
   float32 buffer for k = 24, 96 and 255;
 - the Chebyshev flagship's filter apply (n = 2**22 chain, degree 400)
@@ -200,17 +201,19 @@ def profile_solve(torch, eng, iters) -> dict:
                                     key=lambda r: -r[1])[:6]}
 
 
-def main_path_profile(torch, np, dev) -> dict:
+def main_path_profile(torch, np, dev, tiles=None) -> dict:
     """The main path's solve (``chip_smoke.py`` phase main_path's problem
     and engine) run once, then again under ``torch.profiler``
     (:func:`profile_solve`): the warm solve's wall by host clock, K3's and
     K1's device milliseconds in the solve, its device busy time and idle
-    share."""
+    share.  ``tiles=torch.bfloat16`` packs the tiles in bfloat16 (phase
+    bf16_main_path's operator; float32 vectors)."""
     import lanczos_tpu_torch as tl
 
     rows, cols, vals = smoke._main_path_coo(np)
-    op = tl.BSROperator.from_coo(rows, cols, vals, smoke.MAIN_N, bm=128, bk=128, dtype=torch.float32, device=dev)
-    eng = smoke._main_path_engine(tl, torch, op)
+    op = tl.BSROperator.from_coo(rows, cols, vals, smoke.MAIN_N, bm=128, bk=128, dtype=tiles or torch.float32,
+                                 device=dev)
+    eng = smoke._main_path_engine(tl, torch, op, *([torch.float32] if tiles is not None else []))
     eng.run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -401,6 +404,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="checkout whose lanczos_tpu_torch is timed")
     ap.add_argument("--flagships", action="store_true", help="also run its chip_smoke.py flagship phases")
+    ap.add_argument("--bf16", action="store_true",
+                    help="also profile the main path's solve over bfloat16 tiles (a checkout whose port takes them)")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -426,6 +431,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     out["main_path_profiled"] = main_path_profile(torch, np, dev)
     torch.cuda.empty_cache()
+    if args.bf16:
+        out["bf16_main_path_profiled"] = main_path_profile(torch, np, dev, torch.bfloat16)
+        torch.cuda.empty_cache()
     out["k4_b3_ms_by_k"] = time_k4(torch, cgs, dev, gen)
     torch.cuda.empty_cache()
     out["k5_ms_per_apply"] = time_k5(torch, np, tl, dev, gen)

@@ -49,7 +49,16 @@ its n = 32768 construction stored dense through ``shard_dense_operator_2d``
 host's numpy and native BSR packers once each on the main path's problem
 and checks that they give the same tiles, and phase
 ``samples`` runs the port's twelve samples on the card and holds their
-printed errors to their bars.  The launch counts are set to 0 just before
+printed errors to their bars.  bfloat16 tiles (the JAX package's
+``BSROperator(dtype=bfloat16)``): phase ``bf16_main_path`` runs the main
+path's problem packed in bfloat16 through ``LambdaLanczos(op,
+dtype=torch.float32)`` (K1's bfloat16 instance, no float32 K1 launch),
+with ``precise_vectors`` (K1x bfloat16 x float64) and one
+``Exponentiator.run``, against scipy on the rounded entries; its one-rank
+NCCL twin (K2 bfloat16, K1x-rsmk bfloat16 x float64) runs in
+``sharded_main_path``'s world as ``bf16_sharded``; phases ``k1bf16`` and
+``k2bf16`` hold the four bfloat16 instances against their plain versions
+and their float32-tile twins and time them.  The launch counts are set to 0 just before
 each path and read just after it.
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero and prints no result.  The last two lines are the kernel table and
@@ -148,6 +157,14 @@ HOF_SIGMA = -1.85  # inside the spectrum, in the gap between its first two bands
 # round, 85 s on the H100, against 128-284 at 1e-5), with the same values.
 HOF_C64_TOL = 1e-5
 HERM_EVOLVE_BAR, HERM_CHEBY_BAR, HERM_PRECISE_BAR = EVOLVE_ANGLE_BAR, CHEBY_ANGLE_BAR, 1e-12
+# bfloat16 tiles (ROADMAP queue 2): K1 and K2 bfloat16 against their plain
+# versions and their float32-tile twins over the widened tiles, relative to
+# max |y| (float32 sums in another order), K1x's at K1X_TOL; the bfloat16
+# main path's bars are the main path's (values against scipy on the rounded
+# entries, residuals), its precise run's PV_MAIN_BAR; its Exponentiator run
+# against float32 tiles holding the same values, as a state angle.
+BF16_TOL = 1e-5
+BF16_MAIN_BAR, BF16_RES_BAR, BF16_EXPM_ANGLE_BAR = 1e-5, 1e-3, 1e-5
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 F64_FLOPS = 34e12  # float64 outside the tensor cores (the same data sheet)
@@ -1329,9 +1346,10 @@ def _main_path_coo(np, n=MAIN_N):
     return _chain_coo(np, n, pot)
 
 
-def _main_path_engine(tl, torch, op):
-    """LambdaLanczos over ``op`` as the main path configures it."""
-    eng = tl.LambdaLanczos(op, num_eigs=3, find_maximum=False)
+def _main_path_engine(tl, torch, op, dtype=None):
+    """LambdaLanczos over ``op`` as the main path configures it (vectors
+    in ``dtype``: the operator's by default, float32 for bfloat16 tiles)."""
+    eng = tl.LambdaLanczos(op, num_eigs=3, find_maximum=False, dtype=dtype)
     eng.eps = 1e-6
     eng.init_vector = tl.fixed_seed_initializer(torch.float32, seed=SEED)  # same start every run
     # The three bound states are checked independently (scipy and
@@ -1637,13 +1655,14 @@ def phase_k2(torch, dev, op):
     return main
 
 
-def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref, thick, herm, chain):
+def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref, thick, herm, chain, bf16):
     """The main path's problem over a ShardedBSROperator in a one-rank NCCL
     process group: the fused engine on the rank's slab (the whole vector),
     the all-gather and the all-reduces over NCCL, the local SpMV on K2;
     then, in the same group, with ``precise_vectors`` (:func:`sharded_pv`,
     its own line and seconds), and every other engine over row slabs
-    (:func:`sharded_engines`, its own lines and seconds)."""
+    (:func:`sharded_engines`, its own lines and seconds), the 2-D mesh
+    (:func:`grid_mesh`) and the bfloat16 main path (:func:`sharded_bf16`)."""
     import datetime
     import socket
 
@@ -1719,6 +1738,9 @@ def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref, thick, herm
         t0 = time.perf_counter()
         grid_mesh(torch, np, dev, ref)
         pv["grid_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pv["bf16"] = sharded_bf16(torch, np, mesh, bf16)
+        pv["bf16_seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     return launches, op, pv
@@ -2815,13 +2837,13 @@ def phase_k1x(torch, np, dev):
 
 
 def _pv_counts(torch, stage):
-    """Run ``stage()`` with the launch counts of K1, K1x (both forms), K2
-    and K4 from 0, and K3 and K6 launches recorded by dtype; returns its
-    result, the wall time and the counts."""
+    """Run ``stage()`` with the launch counts of K1, K1x (both forms, float32
+    and bfloat16 tiles), K2 and K4 from 0, and K3 and K6 launches recorded
+    by dtype; returns its result, the wall time and the counts."""
     from lanczos_tpu_torch.ops import cgs, spmv, sturm_check
 
     for fn in (spmv.bsr_matvec, spmv.bsr_matvec_f32x64, spmv.bsr_matvec_rsmk, spmv.bsr_matvec_rsmk_f32x64,
-               cgs.cgs_pass_block):
+               spmv.bsr_matvec_bf16x64, spmv.bsr_matvec_rsmk_bf16x64, cgs.cgs_pass_block):
         fn.launches = 0
     with counting_checks() as checks, recording_dtypes(cgs, "cgs_pass") as k3, \
             recording_dtypes(cgs, "cgs_pass_block") as k4, recording_dtypes(sturm_check, "sturm_check") as k6:
@@ -2832,6 +2854,8 @@ def _pv_counts(torch, stage):
         wall = time.perf_counter() - t0
     counts = {"k1": spmv.bsr_matvec.launches, "k1x": spmv.bsr_matvec_f32x64.launches,
               "k2": spmv.bsr_matvec_rsmk.launches, "k1x_rsmk": spmv.bsr_matvec_rsmk_f32x64.launches,
+              "k1x_bf16x64": spmv.bsr_matvec_bf16x64.launches,
+              "k1x_rsmk_bf16x64": spmv.bsr_matvec_rsmk_bf16x64.launches,
               "k3_by_dtype": dict(k3), "k4_by_dtype": dict(k4), "k6_by_dtype": dict(k6), "checks": checks}
     return result, wall, counts
 
@@ -3240,12 +3264,13 @@ def _gauge_chain(np):
 
 
 def _launch_counts(torch):
-    """Zero the launch counts of K1 and K2 (by dtype), K1x (every form)
-    and K3 and K4 (by dtype)."""
+    """Zero the launch counts of K1 and K2 (by dtype), K1x (every form and
+    tile dtype) and K3 and K4 (by dtype)."""
     from lanczos_tpu_torch.ops import cgs, spmv
 
-    for fn in (spmv.bsr_matvec, spmv.bsr_matvec_f32x64, spmv.bsr_matvec_c64x128, spmv.bsr_matvec_rsmk,
-               spmv.bsr_matvec_rsmk_f32x64, spmv.bsr_matvec_rsmk_c64x128, cgs.cgs_pass, cgs.cgs_pass_block):
+    for fn in (spmv.bsr_matvec, spmv.bsr_matvec_f32x64, spmv.bsr_matvec_c64x128, spmv.bsr_matvec_bf16x64,
+               spmv.bsr_matvec_rsmk, spmv.bsr_matvec_rsmk_f32x64, spmv.bsr_matvec_rsmk_c64x128,
+               spmv.bsr_matvec_rsmk_bf16x64, cgs.cgs_pass, cgs.cgs_pass_block):
         fn.launches = 0
     for by_dtype in (spmv.bsr_matvec.launches_by_dtype, spmv.bsr_matvec_rsmk.launches_by_dtype,
                      cgs.cgs_pass.launches_by_dtype, cgs.cgs_pass_block.launches_by_dtype):
@@ -3260,9 +3285,11 @@ def _read_counts():
 
     return {"k1_by_dtype": named(spmv.bsr_matvec.launches_by_dtype),
             "k1x_f32x64": spmv.bsr_matvec_f32x64.launches, "k1x_c64x128": spmv.bsr_matvec_c64x128.launches,
+            "k1x_bf16x64": spmv.bsr_matvec_bf16x64.launches,
             "k2_by_dtype": named(spmv.bsr_matvec_rsmk.launches_by_dtype),
             "k1x_rsmk_f32x64": spmv.bsr_matvec_rsmk_f32x64.launches,
             "k1x_rsmk_c64x128": spmv.bsr_matvec_rsmk_c64x128.launches,
+            "k1x_rsmk_bf16x64": spmv.bsr_matvec_rsmk_bf16x64.launches,
             "k3_by_dtype": named(cgs.cgs_pass.launches_by_dtype),
             "k4_by_dtype": named(cgs.cgs_pass_block.launches_by_dtype)}
 
@@ -4020,6 +4047,301 @@ def sharded_engines(torch, np, mesh, op, ref, thick, herm, pv_ref, chain):
             "k2_c64x128": out["complex_evolve_precise"]["launches"]["k1x_rsmk_c64x128"]}
 
 
+# ---- bfloat16 tiles (ROADMAP queue 2: K1 and K2 for bfloat16 tiles) --------
+
+
+def _bf16_entries(np, vals):
+    """The main path's COO values as its bfloat16 tiles hold them (packed in
+    float32, rounded to nearest even), in float64: scipy's reference matrix
+    of the bfloat16 solves."""
+    import torch
+
+    return torch.from_numpy(np.asarray(vals, np.float32)).to(torch.bfloat16).double().numpy()
+
+
+def check_bf16(torch, blocks, col_blocks, n_out, layout, label, gen, *, timing=False):
+    """The bfloat16 instances on ``blocks`` (bfloat16 tiles; 'rmsk': K1
+    against a float32 x and K1x against a float64 one, 'rsmk': K2 and
+    K1x-rsmk): each against its plain version and against its float32-tile
+    twin over the widened tiles (the same products in another order: a lane
+    reads 8 bfloat16 values where it reads 4 float32 ones), at BF16_TOL of
+    max |y| for a float32 x and K1X_TOL for a float64 one, a bit-for-bit
+    repeat and its own launch count; with ``timing`` its time by CUDA events
+    beside the bound (2 bytes a stored value; float64 operations at the
+    float64 rate for K1x), the plain version, the float32 twin, a read
+    stream of the bfloat16 tiles and ``torch.sparse_bsr_tensor`` over a
+    float32 (float64 for K1x) copy of the tiles @ x.  Returns the two
+    lines by x dtype."""
+    import torch.nn.functional as F
+
+    from lanczos_tpu_torch.ops import spmv
+
+    wide = blocks.float()  # the float32 twin's tiles: the same values, exactly
+    if layout == "rmsk":
+        r, bm, s, bk = blocks.shape
+        x_len = n_out  # K1 reads the unpadded vector
+
+        def call(b, x):
+            return spmv.bsr_matvec(b, col_blocks, x, n_out)
+
+        def plain(x):
+            return spmv.bsr_matvec_reference(blocks, col_blocks, F.pad(x, (0, r * bm - x.shape[0])), layout="rmsk")[:n_out]
+
+        counters = {torch.float32: spmv.bsr_matvec, torch.float64: spmv.bsr_matvec_bf16x64}
+        names = {torch.float32: "k1_bf16", torch.float64: "k1x_bf16x64"}
+    else:
+        r, s, bm, bk = blocks.shape
+        x_len = r * bm  # the whole vector as K2's table
+        c_rows = x_len // bk
+
+        def call(b, x):
+            return spmv.bsr_matvec_rsmk(b, col_blocks, x, n_out, col_bound=c_rows)
+
+        def plain(x):
+            return spmv.bsr_matvec_reference(blocks, col_blocks, x, layout="rsmk")[:n_out]
+
+        counters = {torch.float32: spmv.bsr_matvec_rsmk, torch.float64: spmv.bsr_matvec_rsmk_bf16x64}
+        names = {torch.float32: "k2_bf16", torch.float64: "k1x_rsmk_bf16x64"}
+    outs = {}
+    for xtype, tol in ((torch.float32, BF16_TOL), (torch.float64, K1X_TOL)):
+        x = torch.randn(x_len, generator=gen, device=blocks.device, dtype=xtype)
+        counter = counters[xtype]
+        before = counter.launches
+        got, again = call(blocks, x), call(blocks, x)
+        torch.cuda.synchronize()
+        if counter.launches != before + 2 or got.dtype != xtype:
+            raise AssertionError(f"{names[xtype]} {label}: {counter.launches - before} launches, output {got.dtype}")
+        err, rel = rel_err(got, plain(x))
+        twin_rel = rel_err(got, call(wide, x))[1]
+        out = {"phase": "bf16_kernel", "kernel": names[xtype], "case": label, "layout": layout,
+               "shape": list(blocks.shape), "n_out": n_out, "x_dtype": str(xtype), "max_abs_err": err,
+               "max_rel_err": rel, "f32_tiles_max_rel_err": twin_rel, "tol": tol,
+               "bitwise_repeat": bool(torch.equal(got, again))}
+        if not (rel <= tol and twin_rel <= tol and out["bitwise_repeat"]):
+            raise AssertionError(f"bfloat16 {names[xtype]} {label}: {out}")
+        if timing:
+            tiles = blocks.numel() * 2
+            # Each input read once (tiles, column indices, x), y written once;
+            # one multiply and one add a stored value in x's type.
+            bytes_moved = tiles + col_blocks.numel() * 4 + (x_len + n_out) * x.element_size()
+            bound_ms, bound_by = bound(bytes_moved, 2 * blocks.numel(),
+                                       F32_FLOPS if xtype == torch.float32 else F64_FLOPS)
+            ms = cuda_ms(torch, lambda: call(blocks, x))
+            plain_ms = cuda_ms(torch, lambda: plain(x))
+            f32_ms = cuda_ms(torch, lambda: call(wide, x))
+            stream_ms = cuda_ms(torch, lambda: torch.sum(blocks))
+            values = (wide.permute(0, 2, 1, 3) if layout == "rmsk" else wide).reshape(r * s, bm, bk).to(xtype)
+            crow = torch.arange(0, r * s + 1, s, dtype=torch.int64, device=blocks.device)
+            a = torch.sparse_bsr_tensor(crow, col_blocks.reshape(-1).to(torch.int64), values, size=(r * bm, r * bm))
+            xp = F.pad(x, (0, r * bm - x_len))
+            lib_rel = rel_err((a @ xp)[:n_out], got)[1]
+            library_ms = cuda_ms(torch, lambda: a @ xp)
+            del a, values
+            torch.cuda.empty_cache()
+            out.update(ms=ms, plain_ms=plain_ms, f32_kernel_ms=f32_ms, library_ms=library_ms,
+                       library_max_rel_err=lib_rel, bound_ms=bound_ms, bound_by=bound_by, tile_gb=tiles / 1e9,
+                       gbps=bytes_moved / ms / 1e6, stream_bound_ms=stream_ms * bytes_moved / tiles,
+                       fraction_of_bound=bound_ms / ms)
+        emit(out)
+        outs[xtype] = out
+    return outs
+
+
+def phase_k1bf16(torch, dev, op):
+    """K1 and K1x on bfloat16 tiles: small and ragged shapes (bk = 8, 12:
+    the vector and the scalar loop), the 64 Mi stored nnz case (R = 512,
+    S = 8, bm = bk = 128) and the main path's tiles in bfloat16 (``op``),
+    the last two timed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    for label, (r, bm, s, bk, n) in {
+        "small": (4, 8, 3, 8, 30),
+        "ragged_bk12": (37, 12, 5, 12, 37 * 12 - 5),
+        "bench_64Mi_nnz": (BENCH_R, 128, 8, 128, BENCH_R * 128),
+    }.items():
+        blocks, cb = _random_bsr(torch, dev, r, bm, s, bk, torch.float32, gen)
+        check_bf16(torch, blocks.to(torch.bfloat16), cb, n, "rmsk", label, gen, timing=label.startswith("bench"))
+        del blocks, cb
+        torch.cuda.empty_cache()
+    return check_bf16(torch, op.blocks, op.col_blocks, op.n, "rmsk", "main_path", gen, timing=True)
+
+
+def phase_k2bf16(torch, dev, op_rsmk, op_rmsk):
+    """K2 and K1x-rsmk on bfloat16 tiles: a small shape, the 64 Mi stored
+    nnz case and the main path's tiles in rsmk (``op_rsmk``, the one-rank
+    sharded operator's), the last two timed; K1 bfloat16 against K2
+    bfloat16 bit for bit on the same tiles in both layouts (lane q covers
+    the same flattened (s, k) of a row at bm = bk = 128)."""
+    from lanczos_tpu_torch.ops import spmv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    bits = {}
+    for label, (r, bm, s, bk) in {"small": (4, 8, 3, 8), "bench_64Mi_nnz": (BENCH_R, 128, 8, 128)}.items():
+        blocks, cb = _random_bsr(torch, dev, r, bm, s, bk, torch.float32, gen)
+        rmsk = blocks.to(torch.bfloat16)
+        rsmk = rmsk.permute(0, 2, 1, 3).contiguous()
+        check_bf16(torch, rsmk, cb, r * bm, "rsmk", label, gen, timing=label.startswith("bench"))
+        x = torch.randn(r * bm, generator=gen, device=dev)
+        bits[label] = bool(torch.equal(spmv.bsr_matvec(rmsk, cb, x), spmv.bsr_matvec_rsmk(rsmk, cb, x)))
+        del blocks, cb, rmsk, rsmk
+        torch.cuda.empty_cache()
+    timed = check_bf16(torch, op_rsmk.blocks, op_rsmk.col_blocks, op_rsmk.n, "rsmk", "main_path", gen, timing=True)
+    x = torch.randn(op_rsmk.n_padded, generator=gen, device=dev)
+    if not torch.equal(op_rmsk.blocks.permute(0, 2, 1, 3), op_rsmk.blocks):
+        raise AssertionError("k2bf16: the sharded operator's tiles are not the main path's in rsmk")
+    bits["main_path"] = bool(torch.equal(spmv.bsr_matvec(op_rmsk.blocks, op_rmsk.col_blocks, x),
+                                         spmv.bsr_matvec_rsmk(op_rsmk.blocks, op_rsmk.col_blocks, x)))
+    emit({"phase": "k2bf16", "k1_equals_k2_bitwise": bits})
+    if not all(bits.values()):
+        raise AssertionError(f"k2bf16: K1 and K2 bfloat16 differ: {bits}")
+    return timed
+
+
+def phase_bf16_main_path(torch, np, dev):
+    """The main path's problem with bfloat16 tiles: ``BSROperator.from_coo(
+    ..., dtype=torch.bfloat16)`` through ``LambdaLanczos(op, num_eigs=3,
+    dtype=torch.float32)``, fused (K1 bfloat16, K3 and K6 float32; no
+    float32 K1 launch), against scipy eigsh in float64 on the rounded
+    entries (BF16_MAIN_BAR relative, residuals BF16_RES_BAR); the same tiles
+    with ``precise_vectors`` (K1x bfloat16 x float64, PV_MAIN_BAR); one
+    ``Exponentiator.run(-0.5, v)`` from a seeded unit vector against the
+    same run over a float32 operator holding the rounded values (both at
+    eps 1e-12, state angle BF16_EXPM_ANGLE_BAR).  The one-rank NCCL part
+    runs in phase sharded_main_path's world (:func:`sharded_bf16`)."""
+    import scipy.sparse
+    import scipy.sparse.linalg
+
+    import lanczos_tpu_torch as tl
+
+    n = MAIN_N
+    rows, cols, vals = _main_path_coo(np)
+    t0 = time.perf_counter()
+    op = tl.BSROperator.from_coo(rows, cols, vals, n, bm=128, bk=128, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    a_bf = scipy.sparse.coo_matrix((_bf16_entries(np, vals), (rows, cols)), shape=(n, n)).tocsr()
+    t0 = time.perf_counter()
+    ref = np.sort(scipy.sparse.linalg.eigsh(a_bf, k=3, which="SA", tol=0)[0])
+    scipy_s = time.perf_counter() - t0
+
+    eng = _main_path_engine(tl, torch, op, dtype=torch.float32)
+    _launch_counts(torch)
+    with counting_checks() as checks:
+        t0 = time.perf_counter()
+        evals, evecs = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _read_counts()
+    counts["k6"] = checks["k6_launches"]
+    if not (counts["k1_by_dtype"].get("bfloat16", 0) > 0 and set(counts["k1_by_dtype"]) == {"bfloat16"}
+            and counts["k3_by_dtype"].get("float32", 0) > 0 and counts["k6"] > 0):
+        raise AssertionError(f"bf16 main path: launches {counts} (K1 bfloat16 only, K3 and K6 float32 expected)")
+    check_stats(checks)
+    rel = np.abs(np.sort(np.asarray(evals)) - ref) / np.abs(ref)
+    residuals = eng.residuals(evals, evecs)
+    if not (evecs.shape == (3, n) and evecs.dtype == torch.float32 and bool(torch.isfinite(evecs).all())):
+        raise AssertionError(f"bf16 main path: eigenvectors {evecs.dtype} {tuple(evecs.shape)}")
+    if not (np.all(rel <= BF16_MAIN_BAR) and max(residuals) <= BF16_RES_BAR):
+        raise AssertionError(f"bf16 main path: eigenvalues {evals} vs scipy {ref}: {rel}, residuals {residuals}")
+    line = {"phase": "bf16_main_path", "n": n, "storage": "bfloat16", "vectors": "float32", "mode": eng._resolve_mode(),
+            "tiles": list(op.blocks.shape), "tile_gb": op.blocks.numel() * 2 / 1e9, "pack_s": pack_s,
+            "eigenvalues": list(map(float, evals)), "scipy_eigsh_bf16_entries": ref.tolist(),
+            "max_rel_err": float(rel.max()), "bar": BF16_MAIN_BAR, "residuals": residuals,
+            "iteration_counts": eng.iteration_counts, "wall_s": wall,
+            "iterations_per_s": sum(eng.iteration_counts) / wall, "launches": counts, "checks": checks,
+            "scipy_s": scipy_s}
+
+    # The precise tier over the same tiles: K1x bfloat16 x float64.
+    pv = _main_path_engine(tl, torch, op, dtype=torch.float32)
+    pv.precise_vectors = True
+    pv.eps = 1e-12
+    (pvals, _pvecs), pv_wall, pv_counts = _pv_counts(torch, pv.run)
+    pv_err = np.abs(np.sort(np.asarray(pvals)) - ref)
+    if not (pv_counts["k1x_bf16x64"] > 0 and pv_counts["k1"] == 0 and pv_counts["k1x"] == 0
+            and _all_f64(pv_counts, "k3_by_dtype") and _all_f64(pv_counts, "k6_by_dtype")):
+        raise AssertionError(f"bf16 pv: launches {pv_counts} (K1x bfloat16, float64 K3 and K6 expected, no K1)")
+    if not np.all(pv_err <= PV_MAIN_BAR):
+        raise AssertionError(f"bf16 pv: eigenvalues {pvals} vs scipy {ref}: errors {pv_err}")
+    line["precise"] = {"eps": pv.eps, "eigenvalues": list(map(float, pvals)), "abs_errs": pv_err.tolist(),
+                       "bar": PV_MAIN_BAR, "iteration_counts": pv.iteration_counts, "wall_s": pv_wall,
+                       "launches": pv_counts}
+
+    # One Exponentiator.run over the bfloat16 tiles against float32 tiles
+    # holding the same values.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    v = torch.randn(n, generator=gen, device=dev, dtype=torch.float32)
+    v /= torch.linalg.vector_norm(v)
+    op32 = tl.BSROperator(op.blocks.float(), op.col_blocks, n)
+    expm = {}
+    for label, operator in (("bfloat16", op), ("float32", op32)):
+        ex = tl.Exponentiator(operator, dtype=torch.float32)
+        ex.max_iteration = EXPM_BSR_MAX_ITER
+        ex.eps = 1e-12
+        _launch_counts(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, itern = ex.run(-0.5, v)
+        torch.cuda.synchronize()
+        expm[label] = {"out": out, "iterations": itern, "ms": (time.perf_counter() - t0) * 1e3,
+                       "k1_by_dtype": _read_counts()["k1_by_dtype"]}
+    del op32
+    angle = _angle(np, expm["float32"]["out"].double().cpu().numpy(), expm["bfloat16"]["out"].double().cpu().numpy())
+    if not (expm["bfloat16"]["k1_by_dtype"] == {"bfloat16": expm["bfloat16"]["k1_by_dtype"].get("bfloat16", 0)}
+            and expm["bfloat16"]["k1_by_dtype"].get("bfloat16", 0) > 0 and angle <= BF16_EXPM_ANGLE_BAR
+            and max(r["iterations"] for r in expm.values()) < EXPM_BSR_MAX_ITER):
+        raise AssertionError(f"bf16 expm: angle {angle:.3e}, {[(k, r['iterations'], r['k1_by_dtype']) for k, r in expm.items()]}")
+    line["expm_run"] = {"a": -0.5, "eps": 1e-12, "angle_vs_float32_tiles": angle, "bar": BF16_EXPM_ANGLE_BAR,
+                        **{f"{k}_{key}": r[key] for k, r in expm.items() for key in ("iterations", "ms", "k1_by_dtype")}}
+    emit(line)
+    return {"op": op, "ref": ref, "iteration_counts": eng.iteration_counts, "wall_s": wall,
+            "k1_launches": counts["k1_by_dtype"]["bfloat16"], "k1x_launches": pv_counts["k1x_bf16x64"]}
+
+
+def sharded_bf16(torch, np, mesh, bf16):
+    """The bfloat16 main path over the one-rank NCCL ShardedBSROperator
+    (phase sharded_main_path's world): ``ShardedBSROperator.from_coo(...,
+    dtype=torch.bfloat16)``, fused over float32 slabs (K2 bfloat16; the
+    unsharded bfloat16 run's iteration counts, as K2 gives K1's bits), then
+    precise (K1x-rsmk bfloat16 x float64), against phase bf16_main_path's
+    scipy values.  Returns the operator for phase k2bf16 and the counts."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.parallel.sharded import ShardedBSROperator
+
+    n = MAIN_N
+    rows, cols, vals = _main_path_coo(np)
+    op = ShardedBSROperator.from_coo(rows, cols, vals, n, mesh, bm=128, bk=128, dtype=torch.bfloat16)
+    eng = _main_path_engine(tl, torch, op, dtype=torch.float32)
+    _launch_counts(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evals, evecs = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    rel = np.abs(np.sort(np.asarray(evals)) - bf16["ref"]) / np.abs(bf16["ref"])
+    if not (set(counts["k2_by_dtype"]) == {"bfloat16"} and counts["k2_by_dtype"]["bfloat16"] > 0
+            and not counts["k1_by_dtype"] and eng.iteration_counts == bf16["iteration_counts"]):
+        raise AssertionError(f"bf16 sharded: launches {counts}, iterations {eng.iteration_counts} against "
+                             f"{bf16['iteration_counts']} unsharded (K2 bfloat16 only expected)")
+    if not (evecs.shape == (3, n) and np.all(rel <= BF16_MAIN_BAR)):
+        raise AssertionError(f"bf16 sharded: eigenvalues {evals} vs scipy {bf16['ref']}: {rel}")
+    pv = _main_path_engine(tl, torch, op, dtype=torch.float32)
+    pv.precise_vectors = True
+    pv.eps = 1e-12
+    (pvals, _), pv_wall, pv_counts = _pv_counts(torch, pv.run)
+    pv_err = np.abs(np.sort(np.asarray(pvals)) - bf16["ref"])
+    if not (pv_counts["k1x_rsmk_bf16x64"] > 0 and pv_counts["k2"] == 0 and pv_counts["k1x_bf16x64"] == 0
+            and np.all(pv_err <= PV_MAIN_BAR)):
+        raise AssertionError(f"bf16 sharded pv: launches {pv_counts}, eigenvalues {pvals}: errors {pv_err}")
+    emit({"phase": "bf16_sharded", "n": n, "world_size": mesh.size, "comm": op.comm, "tiles": list(op.blocks.shape),
+          "eigenvalues": list(map(float, evals)), "max_rel_err": float(rel.max()), "bar": BF16_MAIN_BAR,
+          "iteration_counts": eng.iteration_counts, "unsharded_iteration_counts": bf16["iteration_counts"],
+          "wall_s": wall, "unsharded_wall_s": bf16["wall_s"], "launches": counts,
+          "precise": {"eigenvalues": list(map(float, pvals)), "abs_errs": pv_err.tolist(), "bar": PV_MAIN_BAR,
+                      "iteration_counts": pv.iteration_counts, "wall_s": pv_wall, "launches": pv_counts}})
+    return {"op": op, "k2_launches": counts["k2_by_dtype"]["bfloat16"],
+            "k1x_rsmk_launches": pv_counts["k1x_rsmk_bf16x64"]}
+
+
 def main() -> int:
     import torch
 
@@ -4054,6 +4376,8 @@ def main() -> int:
     timed("small_solves", phase_small_solves, torch, np, dev)
     launches, k1, k3, op, ref, main_iters, k3_seq, main_evecs = timed("main_path", phase_main_path, torch, np, dev)
     pv_main = timed("pv_main_path", phase_pv_main_path, torch, np, dev, op)
+    bf16 = timed("bf16_main_path", phase_bf16_main_path, torch, np, dev)
+    k1bf16 = timed("k1bf16", phase_k1bf16, torch, dev, bf16["op"])
     thick = timed("thick_scalar", phase_thick_scalar, torch, np, op, ref)
     timed("operators", phase_operators, torch, np, dev, ref)
     timed("expm_bsr", phase_expm_bsr, torch, np, dev, op)
@@ -4073,13 +4397,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("k3_path", phase_k3_path, torch, dev, k3_seq)
     sharded_launches, sharded_op, sharded_pv_out = timed("sharded_main_path", phase_sharded_main_path, torch, np, dev,
-                                                         ref, main_iters, pv_main["ref32"], thick, herm_counts, chain)
+                                                         ref, main_iters, pv_main["ref32"], thick, herm_counts, chain,
+                                                         bf16)
     seconds["sharded_pv"] = sharded_pv_out["seconds"]  # inside sharded_main_path's seconds
     seconds["sharded_engines"] = sharded_pv_out["engines_seconds"]  # the same
     seconds["grid_mesh"] = sharded_pv_out["grid_seconds"]  # the same
+    seconds["bf16_sharded"] = sharded_pv_out["bf16_seconds"]  # the same
     sharded_eng = sharded_pv_out["engines"]
     k2 = timed("k2", phase_k2, torch, dev, sharded_op)
     del sharded_op
+    bf16_sharded = sharded_pv_out["bf16"]
+    k2bf16 = timed("k2bf16", phase_k2bf16, torch, dev, bf16_sharded.pop("op"), bf16.pop("op"))
     torch.cuda.empty_cache()
     timed("k1x", phase_k1x, torch, np, dev)
     timed("pv_thick", phase_pv_thick, torch, np, dev, 1)
@@ -4134,7 +4462,14 @@ def main() -> int:
     # tiles in rsmk; K4's count theirs in phase block_hermitian (complex64:
     # the complex main path, block thick; complex128: the Hofstadter
     # lattice), their times phase k4c's at b = 3, k = 255 (with k = 24 and
-    # 96 beside them).
+    # 96 beside them).  The bfloat16 instances (K1, K2, K1x and K1x-rsmk over
+    # bfloat16 tiles) count their launches in phase bf16_main_path (K1, and
+    # K1x in its precise run) and in its one-rank sharded part (K2, and
+    # K1x-rsmk in its precise run), their times phases k1bf16's and
+    # k2bf16's on the main path's tiles in bfloat16, with the float32 twin
+    # over the widened tiles beside them (f32_kernel_ms); their library
+    # call is the BSR tensor product over a float32 (K1x: float64) copy of
+    # the tiles.
     emit({"kernels": [
         entry("bsr_matvec", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K1_REPLACES, launches["k1"], k1),
         entry("bsr_matvec_rsmk", "lanczos_tpu_torch/csrc/bsr_spmv.cu", K2_REPLACES, sharded_launches["k2"], k2),
@@ -4181,6 +4516,13 @@ def main() -> int:
            "two_read_stream_ms": k4c[(dtype, 255)]["two_read_stream_ms"],
            "ms_k24_k96": [k4c[(dtype, 24)]["ms"], k4c[(dtype, 96)]["ms"]]}
           for short, dtype in (("c64", torch.complex64), ("c128", torch.complex128))),
+        *({**entry(name, "lanczos_tpu_torch/csrc/bsr_spmv.cu", replaces, n_launches, line),
+           "f32_kernel_ms": line["f32_kernel_ms"], "stream_bound_ms": line["stream_bound_ms"]}
+          for name, replaces, n_launches, line in (
+              ("bsr_matvec_bf16", K1_REPLACES, bf16["k1_launches"], k1bf16[torch.float32]),
+              ("bsr_matvec_rsmk_bf16", K2_REPLACES, bf16_sharded["k2_launches"], k2bf16[torch.float32]),
+              ("bsr_matvec_bf16x64", K1X_REPLACES, bf16["k1x_launches"], k1bf16[torch.float64]),
+              ("bsr_matvec_rsmk_bf16x64", K1X_REPLACES, bf16_sharded["k1x_rsmk_launches"], k2bf16[torch.float64]))),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

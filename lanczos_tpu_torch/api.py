@@ -62,7 +62,8 @@ def _coerce_operator(mv_mul, matrix_size, dtype, device):
     """Operator/size/dtype resolution: a LinearOperator as it is (on its own
     device), a callable as a matrix-free operator (needs ``matrix_size`` and
     ``dtype``), anything else as a dense matrix; both on ``device`` (default:
-    the CUDA card)."""
+    the CUDA card).  The vectors' dtype is ``dtype``, else the operator's; a
+    bfloat16 one raises."""
     if isinstance(mv_mul, LinearOperator):
         op = mv_mul
     elif callable(mv_mul):
@@ -73,6 +74,10 @@ def _coerce_operator(mv_mul, matrix_size, dtype, device):
         op = as_operator(mv_mul, device=device)
     n = int(matrix_size if matrix_size is not None else op.n)
     dt = to_torch_dtype(dtype if dtype is not None else op.dtype)
+    if dt == torch.bfloat16:
+        # A storage dtype (bfloat16 BSR tiles): the JAX package raises too
+        # ("data type bfloat16 not inexact"); no engine builds a bfloat16 basis.
+        raise ValueError("bfloat16 is a storage dtype only: pass dtype=torch.float32 (or float64) for the vectors")
     return op, n, dt
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.types import from_numpy
 from .ops.filters import ChebyshevFilterOperator
 from .ops.hermitian_split import HermitianSplitOperator
 from .ops.operators import (
@@ -44,15 +45,16 @@ def bsr_operator_from_arrays(blocks, col_blocks, n: int, layout: str, device=Non
     """A :class:`BSROperator` from ``lanczos_tpu.BSROperator``'s ``blocks``,
     ``col_blocks``, ``n`` and ``layout``.  Canonical ``rsmk`` tiles
     (R, S, bm, bk) are transposed once to the ``rmsk`` layout the port
-    stores; the values are unchanged."""
+    stores; the values are unchanged (bfloat16 tiles too: their bits are
+    carried, :func:`~lanczos_tpu_torch.core.types.from_numpy`)."""
     blocks = np.asarray(blocks)
     if layout == "rsmk":
         blocks = np.moveaxis(blocks, 2, 1)
     elif layout != "rmsk":
         raise ValueError(f"layout must be 'rmsk' or 'rsmk', got {layout!r}")
-    # np.array copies: the arrays of a JAX package operator are read-only.
+    # from_numpy copies: the arrays of a JAX package operator are read-only.
     device = resolve_device(device)
-    blocks = torch.from_numpy(np.array(blocks, order="C"))
+    blocks = from_numpy(blocks)
     col_blocks = torch.from_numpy(np.array(col_blocks, dtype=np.int32, order="C"))
     return BSROperator(blocks.to(device), col_blocks.to(device), int(n))
 
@@ -132,7 +134,8 @@ def sharded_bsr_operator_from_arrays(blocks, col_blocks, n: int, mesh, comm: str
     ``blocks`` (canonical ``rsmk``) and ``col_blocks`` and its ``n``; the
     JAX operator's mesh has as many devices as ``mesh`` has ranks, so the
     padding and the row slabs are the same.  ``comm`` is resolved again
-    from the arrays, by the JAX package's rules."""
+    from the arrays, by the JAX package's rules; bfloat16 tiles keep their
+    bits."""
     return ShardedBSROperator.from_blocks(np.asarray(blocks), np.asarray(col_blocks), int(n), mesh, comm=comm)
 
 

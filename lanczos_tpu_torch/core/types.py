@@ -8,6 +8,13 @@ their first argument (reference: include/lambda_lanczos/util/common.hpp:80-134).
 Every function here takes a ``torch.dtype`` or anything ``numpy.dtype``
 accepts, so configurations carried over from the JAX package (numpy dtypes)
 and tensors' own dtypes go through one set of rules.
+
+bfloat16 is a *storage* dtype (BSR tiles): numpy has no counterpart for it
+unless ``ml_dtypes`` is installed, and the port never imports that.  Host
+packing runs in float32 (:func:`pack_dtype`) and casts once with
+``Tensor.to(torch.bfloat16)``, which rounds to nearest even as
+``ml_dtypes``' ``astype`` does; a numpy bfloat16 array (``np.asarray`` of a
+JAX one) is carried as its 16-bit words (:func:`from_numpy`).
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ __all__ = [
     "default_lanczos_eps",
     "default_exponentiator_eps",
     "typed_conj",
+    "is_bfloat16",
+    "pack_dtype",
+    "from_numpy",
 ]
 
 _NP_TO_TORCH = {
@@ -87,3 +97,29 @@ def typed_conj(x: torch.Tensor) -> torch.Tensor:
     """Conjugate that is a no-op for real tensors (``util::typed_conj``,
     reference common.hpp:112-134)."""
     return x.conj() if x.is_complex() else x
+
+
+def is_bfloat16(dtype) -> bool:
+    """True for ``torch.bfloat16`` and for a numpy bfloat16 dtype
+    (``ml_dtypes``', which JAX installs), known by its name and size."""
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.bfloat16
+    return getattr(dtype, "name", None) == "bfloat16" and getattr(dtype, "itemsize", None) == 2
+
+
+def pack_dtype(dtype) -> np.dtype:
+    """The numpy dtype host packing builds an array of storage ``dtype``
+    in: its own, float32 for bfloat16 (cast once after packing, with
+    ``Tensor.to``)."""
+    return np.dtype(np.float32) if is_bfloat16(dtype) else to_numpy_dtype(dtype)
+
+
+def from_numpy(a) -> torch.Tensor:
+    """``torch.from_numpy`` of a C-contiguous copy of ``a``; a numpy
+    bfloat16 array, which ``torch.from_numpy`` refuses, goes as its 16-bit
+    words and is viewed as ``torch.bfloat16``: the same bits, no
+    ``ml_dtypes`` import."""
+    a = np.asarray(a)
+    if is_bfloat16(a.dtype):
+        return torch.from_numpy(np.array(a.view(np.int16), order="C")).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a, order="C"))

@@ -9,6 +9,22 @@
 // a stored value, still bounds it; x's gathered pieces double in bytes
 // (bk * 8 a tile column), so a piece holds half the tiles it does in f32.
 //
+// The bfloat16 instances serve the JAX package's BSROperator(dtype=
+// bfloat16), whose docstring (lanczos_tpu/ops/operators.py:364-368) offers
+// half the tile stream at float32 accumulation; its matvec there is the
+// einsum path, the tiles promoted against a float32 x.  bfloat16 is a
+// storage type only: no engine builds a bfloat16 vector, so the tiles meet
+// a float32 x, y and accumulator (K1, K2) or a float64 one (K1x, the
+// precise tier's product).  A 16-byte tile vector holds 8 values; each is
+// widened exactly (bfloat16 -> float is a shift) and multiplied on the CUDA
+// cores with FMAs, as for float32 tiles.  No tensor cores: a bfloat16 mma
+// would round x to bfloat16, a different function from the JAX einsum's.
+// A lane reads 8 values where it reads 4 of float32 tiles, so K1 bfloat16
+// sums in another order than K1 float32 over the widened tiles; K1 and K2
+// bfloat16 still cover the same flattened (s, k) per lane at bm = bk = 128
+// and give the same bits.  The bytes bound them as they bound the float32
+// instances: 2 bytes a stored value halve the tile stream.
+//
 // The complex instances (complex64 and complex128 tiles against a vector of
 // their own type, and K1x's complex64 tiles against a complex128 vector)
 // are the same body over lt::cfloat / lt::cdouble: a stored value is one
@@ -71,9 +87,10 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // T is the tile type, X the type of x, y and the accumulator: X = T for
-// K1 and K2, and float (complex64) tiles against double (complex128)
-// vectors for K1x (each tile value converted exactly, every product and sum
-// a DFMA on the CUDA cores).
+// K1 and K2, float (complex64) tiles against double (complex128) vectors
+// for K1x (each tile value converted exactly, every product and sum a DFMA
+// on the CUDA cores), and bfloat16 tiles against float (K1, K2) or double
+// (K1x) vectors, each tile value widened exactly by lt::arith.
 template <typename T, typename X, bool RSMK>
 __global__ void __launch_bounds__(kThreads)
     bsr_spmv_kernel(const T* __restrict__ blocks, const int* __restrict__ col_blocks,
@@ -138,7 +155,7 @@ __global__ void __launch_bounds__(kThreads)
           const T* tt = reinterpret_cast<const T*>(&t);
           const X* uu = reinterpret_cast<const X*>(u);
 #pragma unroll
-          for (int c = 0; c < VN; ++c) sum = fma(A(tt[c]), A(uu[c]), sum);
+          for (int c = 0; c < VN; ++c) sum = fma(A(lt::arith(tt[c])), A(uu[c]), sum);
         }
       } else {
         for (int e = lane; e < len; e += 32) {
@@ -147,7 +164,7 @@ __global__ void __launch_bounds__(kThreads)
             const int s = e / bk;
             off = s * tile_stride + (e - s * bk);
           }
-          sum = fma(A(row[off]), A(xg[e]), sum);
+          sum = fma(A(lt::arith(row[off])), A(xg[e]), sum);
         }
       }
       sum = lt::warp_sum(sum);
@@ -316,6 +333,42 @@ int lt_bsr_spmv_rsmk_c64x128(const lt::cfloat* blocks, const int* col_blocks, co
   if (e != cudaSuccess) return int(e);
   return int(bsr_spmv<lt::cfloat, lt::cdouble, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
                                                      static_cast<cudaStream_t>(stream)));
+}
+
+// The bfloat16 instances: bfloat16 tiles against a float x, y and
+// accumulator (K1, and K2 in the rsmk form) and against a double one (K1x
+// and its rsmk form).
+int lt_bsr_spmv_bf16(const __nv_bfloat16* blocks, const int* col_blocks, const float* x, float* y, int R, int bm,
+                     int S, int bk, long long n_x, long long n_out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<__nv_bfloat16, float, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                   static_cast<cudaStream_t>(stream)));
+}
+
+int lt_bsr_spmv_rsmk_bf16(const __nv_bfloat16* blocks, const int* col_blocks, const float* x, float* y, int R,
+                          int bm, int S, int bk, long long n_x, long long n_out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<__nv_bfloat16, float, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                  static_cast<cudaStream_t>(stream)));
+}
+
+int lt_bsr_spmv_bf16x64(const __nv_bfloat16* blocks, const int* col_blocks, const double* x, double* y, int R,
+                        int bm, int S, int bk, long long n_x, long long n_out, int device, void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<__nv_bfloat16, double, false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                    static_cast<cudaStream_t>(stream)));
+}
+
+int lt_bsr_spmv_rsmk_bf16x64(const __nv_bfloat16* blocks, const int* col_blocks, const double* x, double* y,
+                             int R, int bm, int S, int bk, long long n_x, long long n_out, int device,
+                             void* stream) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  return int(bsr_spmv<__nv_bfloat16, double, true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out,
+                                                   static_cast<cudaStream_t>(stream)));
 }
 
 // The plan of a launch with x values of x_bytes bytes (4, 8 or 16: float,

@@ -1,6 +1,7 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -119,6 +120,21 @@ struct Vec<cdouble> {
   using type = double2;
   static constexpr int n = 1;
 };
+template <>
+struct Vec<__nv_bfloat16> {
+  using type = uint4;
+  static constexpr int n = 8;
+};
+
+// A stored value in the type its arithmetic runs in: bfloat16 (a storage
+// type: tiles only, never a vector) widens to float, which is exact, so a
+// product of widened values is the product of the stored ones; every other
+// type as it is.
+template <typename T>
+__device__ __forceinline__ T arith(T v) {
+  return v;
+}
+__device__ __forceinline__ float arith(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // The next lanes' value, o lanes down; a complex value moves as its two words.
 template <typename A>

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core import df64
-from ..core.types import to_numpy_dtype, to_torch_dtype
+from ..core.types import pack_dtype, to_numpy_dtype, to_torch_dtype
 from . import spmv
 
 __all__ = [
@@ -59,6 +59,12 @@ def wide_dtype(dtype) -> torch.dtype:
     """float64, or complex128 for a complex ``dtype``: the precise paths'
     dtype for an operator of storage ``dtype``."""
     return torch.complex128 if to_torch_dtype(dtype).is_complex else torch.float64
+
+
+def _sum_dtype(dtype):
+    """The dtype row sums of stored entries accumulate in: float32 for
+    bfloat16 tiles, else their own (None: ``sum``'s default)."""
+    return torch.float32 if dtype == torch.bfloat16 else None
 
 
 def _widened(t, x):
@@ -390,6 +396,11 @@ class BSROperator(LinearOperator):
     tiles is kernel K1x on the card (the tiles streamed once as stored,
     each value converted exactly, float64 accumulation) and the plain
     version accumulating in float64 on the CPU.
+
+    bfloat16 tiles (``dtype=torch.bfloat16``, the JAX package's half tile
+    stream) are storage only: engines over them take ``dtype=torch.float32``
+    (or float64) for their vectors, and ``matvec`` is K1's bfloat16 instance
+    against a float32 ``x``, ``matvec_f64`` K1x's against a float64 one.
     """
 
     def __init__(self, blocks, col_blocks, n: int):
@@ -420,28 +431,32 @@ class BSROperator(LinearOperator):
     def from_coo(cls, rows, cols, vals, n: int, *, bm: int = 128, bk: int = 128, dtype=torch.float32, device=None):
         """Pack COO triplets (duplicates summed) into the padded ``rmsk``
         layout with one vectorized numpy pass, then move the tiles to
-        ``device`` (default: the card)."""
+        ``device`` (default: the card).  bfloat16 tiles are packed in
+        float32 (duplicates summed there, as the JAX package's packer sums
+        them) and rounded once to nearest even."""
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
-        np_dtype = to_numpy_dtype(dtype)
+        np_dtype = pack_dtype(dtype)
         if np.iscomplexobj(vals) and not np.issubdtype(np_dtype, np.complexfloating):
             raise TypeError(
-                f"complex values with real block dtype {np_dtype} would silently drop the "
+                f"complex values with real block dtype {dtype} would silently drop the "
                 "imaginary parts; pass a complex dtype"
             )
         device = resolve_device(device)
         blocks, col_blocks = _pack_bsr(rows, cols, vals, int(n), bm, bk, np_dtype)
-        return cls(torch.from_numpy(blocks).to(device), torch.from_numpy(col_blocks).to(device), int(n))
+        blocks = torch.from_numpy(blocks).to(to_torch_dtype(dtype))  # a copy only for bfloat16
+        return cls(blocks.to(device), torch.from_numpy(col_blocks).to(device), int(n))
 
     def abs_row_sums(self):
         # The rmsk tiles (R, bm, S, bk) over (S, bk); padding tiles are zero.
-        return self.blocks.abs().sum(dim=(2, 3)).reshape(-1)[: self.n]
+        # bfloat16 tiles are summed in float32.
+        return self.blocks.abs().sum(dim=(2, 3), dtype=_sum_dtype(self.dtype)).reshape(-1)[: self.n]
 
     def matvec(self, x):
         return spmv.bsr_matvec(self.blocks, self.col_blocks, x, n_out=self.n)
 
-    matvec_f64 = matvec  # a float64 x takes K1x (float32 tiles) or K1 (float64 tiles)
+    matvec_f64 = matvec  # a float64 x takes K1x (float32 or bfloat16 tiles) or K1 (float64 tiles)
 
 
 def dia_abs_row_sums(data, dtype):

@@ -31,6 +31,14 @@ tiles against a complex128 ``x`` take K1x's complex instance,
 complex row-partitioned operators: :func:`bsr_matvec_rsmk` counts its
 launches by dtype in ``bsr_matvec_rsmk.launches_by_dtype``, and complex64
 tiles against a complex128 table go to :func:`bsr_matvec_rsmk_c64x128`.
+
+bfloat16 tiles (the JAX package's ``BSROperator(dtype=bfloat16)``: half the
+tile stream, float32 accumulation) are a storage type only: no engine builds
+a bfloat16 vector.  K1 and K2 take them against a float32 ``x`` (their
+bfloat16 instances, counted under ``torch.bfloat16`` in
+``launches_by_dtype``), and K1x against a float64 ``x``
+(:func:`bsr_matvec_bf16x64`, :func:`bsr_matvec_rsmk_bf16x64`); a bfloat16
+``x`` raises on CUDA.
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ __all__ = [
     "bsr_matvec_c64x128",
     "bsr_matvec_rsmk_f32x64",
     "bsr_matvec_rsmk_c64x128",
+    "bsr_matvec_bf16x64",
+    "bsr_matvec_rsmk_bf16x64",
     "bsr_matvec_reference",
     "plan",
 ]
@@ -87,11 +97,12 @@ def bsr_matvec(blocks, col_blocks, x, n_out: int | None = None):
     ``x`` may be shorter than R*bm (the unpadded vector): entries past its
     end read as zero, as the JAX package's zero padding does.  On CUDA
     tensors this launches ``csrc/bsr_spmv.cu`` (float32, float64, complex64
-    or complex128 tiles; bfloat16 raises) and counts the launch in
-    ``bsr_matvec.launches`` and, by tile dtype, in
-    ``bsr_matvec.launches_by_dtype``; float32 (complex64) tiles against a
-    float64 (complex128) ``x`` go to K1x.  On CPU tensors it runs
-    :func:`bsr_matvec_reference`.
+    or complex128 tiles against an ``x`` of their dtype, bfloat16 tiles
+    against a float32 ``x``; a bfloat16 ``x`` raises) and counts the launch
+    in ``bsr_matvec.launches`` and, by tile dtype, in
+    ``bsr_matvec.launches_by_dtype``; float32 (complex64, bfloat16) tiles
+    against a float64 (complex128, float64) ``x`` go to K1x.  On CPU tensors
+    it runs :func:`bsr_matvec_reference`.
     """
     r, bm, s, bk = blocks.shape
     n_pad = r * bm
@@ -103,9 +114,10 @@ def bsr_matvec(blocks, col_blocks, x, n_out: int | None = None):
         return bsr_matvec_reference(blocks, col_blocks, xp, layout="rmsk")[:n_out]
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matvec runs on CPU or CUDA tensors, got {x.device}")
-    if blocks.dtype not in _K1_ENTRY:
+    if blocks.dtype not in _K1_ENTRY or x.dtype == torch.bfloat16:
         raise NotImplementedError(
-            f"K1 takes float32/float64/complex64/complex128 tiles on CUDA, got {blocks.dtype}; see {_DTYPE_ITEM}")
+            f"K1 takes float32/float64/complex64/complex128 tiles and bfloat16 tiles against a float32 or float64 "
+            f"x on CUDA, got {blocks.dtype} tiles and a {x.dtype} x; see {_DTYPE_ITEM}")
     if (blocks.dtype, x.dtype) in _WIDENING:
         return _WIDENING[blocks.dtype, x.dtype](blocks, col_blocks, x, n_out)
     _check_cuda_args(blocks, col_blocks, x, (r, s), "bsr_matvec")
@@ -120,20 +132,24 @@ _K1_BY_DTYPE = collections.Counter()  # shared with the attribute below, as ops/
 bsr_matvec.launches = 0
 bsr_matvec.launches_by_dtype = _K1_BY_DTYPE
 
-# K1's entry point in csrc/bsr_spmv.cu by tile dtype (x of the same dtype).
+# K1's entry point in csrc/bsr_spmv.cu by tile dtype (x of _X_DTYPE's dtype).
 _K1_ENTRY = {
     torch.float32: "lt_bsr_spmv_f32",
     torch.float64: "lt_bsr_spmv_f64",
     torch.complex64: "lt_bsr_spmv_c64",
     torch.complex128: "lt_bsr_spmv_c128",
+    torch.bfloat16: "lt_bsr_spmv_bf16",
 }
+# The x dtype of K1's and K2's entries: the tiles' own, float32 for the
+# storage-only bfloat16.
+_X_DTYPE = {torch.bfloat16: torch.float32}
 # (tile dtype, x dtype) pairs of K1x: the precise paths' wider product.
-_WIDE_X = {(torch.float32, torch.float64), (torch.complex64, torch.complex128)}
+_WIDE_X = {(torch.float32, torch.float64), (torch.complex64, torch.complex128), (torch.bfloat16, torch.float64)}
 
 
 def _check_cuda_args(blocks, col_blocks, x, cb_shape, what: str) -> None:
     """The CUDA launch's conditions on its arguments, for K1, K2 and K1x."""
-    if x.dtype != blocks.dtype and (blocks.dtype, x.dtype) not in _WIDE_X:
+    if x.dtype != _X_DTYPE.get(blocks.dtype, blocks.dtype) and (blocks.dtype, x.dtype) not in _WIDE_X:
         raise TypeError(f"x dtype {x.dtype} differs from the tile dtype {blocks.dtype}")
     if col_blocks.dtype != torch.int32 or col_blocks.shape != cb_shape:
         raise TypeError(f"col_blocks must be int32 of shape {cb_shape}, got {col_blocks.dtype} {tuple(col_blocks.shape)}")
@@ -200,7 +216,22 @@ def bsr_matvec_c64x128(blocks, col_blocks, x, n_out: int | None = None):
 
 bsr_matvec_c64x128.launches = 0
 
-_WIDENING = {(torch.float32, torch.float64): bsr_matvec_f32x64, (torch.complex64, torch.complex128): bsr_matvec_c64x128}
+
+def bsr_matvec_bf16x64(blocks, col_blocks, x, n_out: int | None = None):
+    """K1x's bfloat16 instance: y = A x in float64 for bfloat16 ``rmsk``
+    tiles and a float64 ``x`` (the precise product of a bfloat16 operator,
+    ``float64_view(op).matvec``; each tile value widens exactly); the
+    arguments of :func:`bsr_matvec`, which routes such calls here.  Counts
+    its launches in ``bsr_matvec_bf16x64.launches``; CPU tensors take the
+    plain version."""
+    return _k1x(bsr_matvec_bf16x64, "lt_bsr_spmv_bf16x64", torch.bfloat16, torch.float64, blocks, col_blocks, x,
+                n_out)
+
+
+bsr_matvec_bf16x64.launches = 0
+
+_WIDENING = {(torch.float32, torch.float64): bsr_matvec_f32x64, (torch.complex64, torch.complex128): bsr_matvec_c64x128,
+             (torch.bfloat16, torch.float64): bsr_matvec_bf16x64}
 
 
 def bsr_matvec_rsmk(blocks, col_blocks, x, n_out: int | None = None, *, col_bound: int | None = None):
@@ -214,11 +245,14 @@ def bsr_matvec_rsmk(blocks, col_blocks, x, n_out: int | None = None, *, col_boun
     largest entry when the caller knows it (the sharded operators compute it
     when they pack), else it is read from ``col_blocks``, which waits for the
     device.  On CUDA tensors this launches ``csrc/bsr_spmv.cu`` in its
-    ``rsmk`` form (float32, float64, complex64 or complex128 tiles;
-    bfloat16 raises) and counts the launch in ``bsr_matvec_rsmk.launches``
-    and, by tile dtype, in ``bsr_matvec_rsmk.launches_by_dtype``; float32
-    (complex64) tiles against a float64 (complex128) table go to K1x-rsmk,
-    counted by :func:`bsr_matvec_rsmk_f32x64` (:func:`bsr_matvec_rsmk_c64x128`).
+    ``rsmk`` form (float32, float64, complex64 or complex128 tiles against
+    a table of their dtype, bfloat16 tiles against a float32 table; a
+    bfloat16 table raises) and counts the launch in
+    ``bsr_matvec_rsmk.launches`` and, by tile dtype, in
+    ``bsr_matvec_rsmk.launches_by_dtype``; float32 (complex64, bfloat16)
+    tiles against a float64 (complex128, float64) table go to K1x-rsmk,
+    counted by :func:`bsr_matvec_rsmk_f32x64` (:func:`bsr_matvec_rsmk_c64x128`,
+    :func:`bsr_matvec_rsmk_bf16x64`).
     On CPU tensors it runs :func:`bsr_matvec_reference`.
     """
     if blocks.ndim != 4:
@@ -239,13 +273,14 @@ def bsr_matvec_rsmk(blocks, col_blocks, x, n_out: int | None = None, *, col_boun
         return bsr_matvec_reference(blocks, col_blocks, x, layout="rsmk")[:n_out]
     if x.device.type != "cuda":
         raise ValueError(f"bsr_matvec_rsmk runs on CPU or CUDA tensors, got {x.device}")
-    if blocks.dtype not in _K2_ENTRY:
+    if blocks.dtype not in _K2_ENTRY or x.dtype == torch.bfloat16:
         raise NotImplementedError(
-            f"K2 takes float32/float64/complex64/complex128 tiles on CUDA, got {blocks.dtype}; see {_RSMK_DTYPE_ITEM}")
+            f"K2 takes float32/float64/complex64/complex128 tiles and bfloat16 tiles against a float32 or float64 "
+            f"table on CUDA, got {blocks.dtype} tiles and a {x.dtype} table; see {_RSMK_DTYPE_ITEM}")
     _check_cuda_args(blocks, col_blocks, x, (r, s), "bsr_matvec_rsmk")
     lib = _build.library()
     if (blocks.dtype, x.dtype) in _WIDE_X:
-        counter = bsr_matvec_rsmk_f32x64 if blocks.dtype == torch.float32 else bsr_matvec_rsmk_c64x128
+        counter = _K2X_COUNTER[blocks.dtype]
         y = _launch(getattr(lib, _K2X_ENTRY[blocks.dtype]), blocks, col_blocks, x, n_out, (r, bm, s, bk),
                     f"{counter.__name__} (K1x, rsmk)")
         counter.launches += 1
@@ -267,8 +302,10 @@ _K2_ENTRY = {
     torch.float64: "lt_bsr_spmv_rsmk_f64",
     torch.complex64: "lt_bsr_spmv_rsmk_c64",
     torch.complex128: "lt_bsr_spmv_rsmk_c128",
+    torch.bfloat16: "lt_bsr_spmv_rsmk_bf16",
 }
-_K2X_ENTRY = {torch.float32: "lt_bsr_spmv_rsmk_f32x64", torch.complex64: "lt_bsr_spmv_rsmk_c64x128"}
+_K2X_ENTRY = {torch.float32: "lt_bsr_spmv_rsmk_f32x64", torch.complex64: "lt_bsr_spmv_rsmk_c64x128",
+              torch.bfloat16: "lt_bsr_spmv_rsmk_bf16x64"}
 
 
 def bsr_matvec_rsmk_f32x64(blocks, col_blocks, x, n_out: int | None = None, *, col_bound: int | None = None):
@@ -295,6 +332,22 @@ def bsr_matvec_rsmk_c64x128(blocks, col_blocks, x, n_out: int | None = None, *, 
 
 
 bsr_matvec_rsmk_c64x128.launches = 0
+
+
+def bsr_matvec_rsmk_bf16x64(blocks, col_blocks, x, n_out: int | None = None, *, col_bound: int | None = None):
+    """K1x-rsmk's bfloat16 instance (K2's body with bfloat16 tiles and a
+    float64 ``x``), the precise product of a bfloat16 sharded operator: the
+    arguments of :func:`bsr_matvec_rsmk`, which routes such calls here and
+    counts them in ``bsr_matvec_rsmk_bf16x64.launches``."""
+    if blocks.dtype != torch.bfloat16 or x.dtype != torch.float64:
+        raise TypeError(f"K1x takes bfloat16 tiles and a float64 x, got {blocks.dtype} and {x.dtype}")
+    return bsr_matvec_rsmk(blocks, col_blocks, x, n_out, col_bound=col_bound)
+
+
+bsr_matvec_rsmk_bf16x64.launches = 0
+# K1x-rsmk's counter by tile dtype.
+_K2X_COUNTER = {torch.float32: bsr_matvec_rsmk_f32x64, torch.complex64: bsr_matvec_rsmk_c64x128,
+                torch.bfloat16: bsr_matvec_rsmk_bf16x64}
 
 # csrc/bsr_spmv.cu's launch constants.
 X_PIECE_BYTES = 32 * 1024

@@ -36,6 +36,10 @@ gathers, ring and footprint exchanges and DIA halos carry complex slabs
 (``torch.distributed`` moves a complex tensor as its real view), and the
 local product is K2's complex instance on CUDA.
 
+bfloat16 tiles (storage only, as :class:`~lanczos_tpu_torch.ops.operators.
+BSROperator`'s) are regrouped on the host as their 16-bit words and meet
+float32 slabs: K2's bfloat16 instance, and K1x-rsmk's against float64 ones.
+
 :class:`ShardedDenseOperator2D` splits a dense operator over a 2-D
 :class:`~lanczos_tpu_torch.parallel.mesh.GridMesh` instead: row slabs of the
 vector over one axis, the partial products summed over the other.
@@ -48,9 +52,9 @@ import torch
 import torch.distributed as dist
 
 from ..core.linalg import reduce_sum
-from ..core.types import to_numpy_dtype
+from ..core.types import is_bfloat16, pack_dtype
 from ..ops import spmv
-from ..ops.operators import DenseOperator, DIAOperator, LinearOperator, _pack_bsr, dia_abs_row_sums
+from ..ops.operators import DenseOperator, DIAOperator, LinearOperator, _pack_bsr, _sum_dtype, dia_abs_row_sums
 from .mesh import GridMesh, RowMesh, all_gather, gather_vector, shard_vector
 
 __all__ = [
@@ -171,6 +175,15 @@ def _tile_group(blocks, cb, sel, cb_of, bm, bk):
     return tiles, cbg
 
 
+def _tiles_tensor(tiles, device):
+    """Host tiles on ``device``: a numpy array, or bfloat16 tiles held as
+    their uint16 words (viewed back as ``torch.bfloat16``)."""
+    tiles = np.ascontiguousarray(tiles)
+    if tiles.dtype == np.uint16:
+        return torch.from_numpy(tiles.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(tiles).to(device)
+
+
 class ShardedBSROperator(ShardedOperator):
     """BSR operator row-partitioned over a :class:`RowMesh`: this rank holds
     its slab of ``R / size`` row blocks in the canonical ``rsmk`` layout.
@@ -227,7 +240,9 @@ class ShardedBSROperator(ShardedOperator):
     @classmethod
     def from_coo(cls, rows, cols, vals, n: int, mesh: RowMesh, *, bm: int = 128, bk: int = 128, dtype=torch.float32,
                  use_pallas: bool = False, comm: str = "gather"):
-        """Pack COO triplets (duplicates summed) and keep this rank's slab.
+        """Pack COO triplets (duplicates summed) and keep this rank's slab;
+        bfloat16 tiles are packed in float32 and rounded once, as
+        :meth:`BSROperator.from_coo` packs them.
 
         n is padded so that the row blocks split evenly over the ranks and
         each slab is a whole number of column blocks: ``q = lcm(lcm(bk,
@@ -241,12 +256,14 @@ class ShardedBSROperator(ShardedOperator):
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
-        np_dtype = to_numpy_dtype(dtype)
+        np_dtype = pack_dtype(dtype)
         if np.iscomplexobj(vals) and not np.issubdtype(np_dtype, np.complexfloating):
-            raise TypeError(f"complex values with real block dtype {np_dtype} would silently drop the imaginary parts")
+            raise TypeError(f"complex values with real block dtype {dtype} would silently drop the imaginary parts")
         q = int(np.lcm(np.lcm(bk, mesh.size * bm), mesh.size * bk))
         n_pad = -(-max(int(n), 1) // q) * q
         blocks, cb = _pack_bsr(rows, cols, vals, n_pad, bm, bk, np_dtype, layout="rsmk")
+        if is_bfloat16(dtype):
+            blocks = torch.from_numpy(blocks).to(torch.bfloat16)
         return cls.from_blocks(blocks, cb, n, mesh, use_pallas=use_pallas, comm=comm)
 
     @classmethod
@@ -254,12 +271,17 @@ class ShardedBSROperator(ShardedOperator):
                     comm: str = "gather"):
         """This rank's operator from the global packed arrays: ``blocks``
         (R, S, bm, bk) in the ``rsmk`` layout and ``col_blocks`` (R, S), R*bm
-        padded as :meth:`from_coo` pads it (numpy arrays; the JAX package's
-        ``ShardedBSROperator`` holds the same).  ``comm`` as in
-        :meth:`from_coo`."""
+        padded as :meth:`from_coo` pads it (numpy arrays, the JAX package's
+        ``ShardedBSROperator`` holds the same, or CPU tensors).  ``comm`` as
+        in :meth:`from_coo`.  bfloat16 tiles (a tensor, or numpy's
+        ``ml_dtypes`` array of a JAX operator) are regrouped as their 16-bit
+        words and keep their bits."""
         if comm not in ("gather", "ring", "footprint", "auto"):
             raise ValueError("comm must be 'gather', 'ring', 'footprint' or 'auto'")
-        blocks = np.asarray(blocks)
+        bf16 = is_bfloat16(getattr(blocks, "dtype", None))
+        if isinstance(blocks, torch.Tensor):
+            blocks = (blocks.view(torch.int16) if bf16 else blocks).numpy()
+        blocks = np.asarray(blocks).view(np.uint16) if bf16 else np.asarray(blocks)
         cb = np.asarray(col_blocks, dtype=np.int32)
         r, s, bm, bk = blocks.shape
         ndev, rank = mesh.size, mesh.rank
@@ -274,7 +296,8 @@ class ShardedBSROperator(ShardedOperator):
         ring_groups = footprint = None
         words = 0
         if ndev > 1 and comm != "gather":
-            nonzero = np.abs(blocks).reshape(r, s, -1).max(axis=-1) > 0
+            magnitude = blocks & 0x7FFF if bf16 else np.abs(blocks)  # a bfloat16 word without its sign
+            nonzero = magnitude.reshape(r, s, -1).max(axis=-1) > 0
             hop = cb // cpd - (np.arange(r) // rpd)[:, None]  # owner hop of every tile
         if comm in ("ring", "auto") and ndev > 1:
             if np.any(nonzero & (np.abs(hop) > 1)):
@@ -299,14 +322,14 @@ class ShardedBSROperator(ShardedOperator):
         if ndev <= 1 or comm not in ("ring", "footprint"):
             comm, ring_groups, footprint, words = "gather", None, None, 0
         dev = mesh.device
-        return cls(torch.from_numpy(np.ascontiguousarray(blocks[mine])).to(dev),
+        return cls(_tiles_tensor(blocks[mine], dev),
                    torch.from_numpy(np.ascontiguousarray(cb[mine])).to(dev),
                    int(n), mesh, use_pallas, comm, ring_groups, footprint, words)
 
     @staticmethod
     def _group(mesh, tiles, cbg):
         bound = int(cbg.max(initial=0)) + 1
-        return torch.from_numpy(tiles).to(mesh.device), torch.from_numpy(cbg).to(mesh.device), bound
+        return _tiles_tensor(tiles, mesh.device), torch.from_numpy(cbg).to(mesh.device), bound
 
     @classmethod
     def _pack_footprint(cls, mesh, blocks, cb, nonzero, hop, rpd, cpd, bm, bk):
@@ -343,8 +366,9 @@ class ShardedBSROperator(ShardedOperator):
         return spmv.bsr_matvec_rsmk(tiles, cbg, xtab, col_bound=bound)
 
     def abs_row_sums(self):
-        # The rsmk tiles (R, S, bm, bk) over (S, bk), this rank's real rows.
-        return self._real_rows(self.blocks.abs().sum(dim=(1, 3)).reshape(-1))
+        # The rsmk tiles (R, S, bm, bk) over (S, bk), this rank's real rows;
+        # bfloat16 tiles are summed in float32.
+        return self._real_rows(self.blocks.abs().sum(dim=(1, 3), dtype=_sum_dtype(self.dtype)).reshape(-1))
 
     def matvec(self, x):
         """``A x`` on slabs: this rank's rows of A times the global x, from

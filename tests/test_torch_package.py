@@ -42,14 +42,17 @@ def test_import_pulls_in_no_jax():
         "import lanczos_tpu_torch.utils.checkpoint, lanczos_tpu_torch.ops.sturm_check, lanczos_tpu_torch.utils.stats;"
         "from lanczos_tpu_torch import COOOperator, CSROperator, SumOperator, ScaledOperator, DenseDFOperator;"
         "import lanczos_tpu_torch.core.df64, lanczos_tpu_torch.samples, lanczos_tpu_torch.solvers.exponentiator_precise;"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lanczos_tpu')];"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lanczos_tpu', 'ml_dtypes')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    # Nor does any source of the package (the samples run when imported).
-    jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|lanczos_tpu)(\.|\s|$)", re.M)
-    assert not [p for p in (REPO / "lanczos_tpu_torch").rglob("*.py") if jax_import.search(p.read_text())]
+    # Nor does any source of the package (the samples run when imported), nor
+    # chip_smoke.py: the card's machine has no JAX and no ml_dtypes (bfloat16
+    # tiles are carried as their bits, core/types.from_numpy).
+    jax_import = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|lanczos_tpu|ml_dtypes)(\.|\s|$)", re.M)
+    sources = [*(REPO / "lanczos_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]
+    assert not [p for p in sources if jax_import.search(p.read_text())]
 
 
 # The JAX package's Pallas modules became the CUDA kernels' wrappers, and

@@ -478,6 +478,27 @@ def test_shard_operator_dense(world2):
     assert "cannot auto-shard BSROperator" in str(_same_on_every_rank(outs, "dense.bsr_refused"))
 
 
+def test_bfloat16_tiles_over_two_ranks(world2):
+    # bfloat16 tiles (storage only) over 2 gloo ranks against the port's
+    # one-process operator on the same tiles: the product in the gather and
+    # ring schedules within 1e-6 of max |y| and the fused solve's values
+    # (over the ring operator) within 1e-6 relative (float32 sums in
+    # another order, the reductions over the ranks).
+    import lanczos_tpu_torch as tl
+
+    _refs, outs = world2
+    rows, cols, vals, n = world_script.bf16_problem()
+    one = tl.BSROperator.from_coo(rows, cols, vals, n, bm=8, bk=8, dtype=torch.bfloat16, device="cpu")
+    want_y = one.matvec(torch.from_numpy(world_script.pattern_x(n)).float()).numpy()
+    want_vals, _ = world_script.bf16_solve(one)
+    for comm, resolved in (("gather", "gather"), ("auto", "ring")):
+        assert str(_same_on_every_rank(outs, f"bf16.{comm}.comm")) == resolved
+        assert str(_same_on_every_rank(outs, f"bf16.{comm}.dtype")) == "torch.bfloat16"
+        y = _same_on_every_rank(outs, f"bf16.{comm}.y")
+        np.testing.assert_allclose(y, want_y, rtol=0, atol=1e-6 * np.abs(want_y).max())
+    np.testing.assert_allclose(_same_on_every_rank(outs, "bf16.vals"), want_vals, rtol=1e-6)
+
+
 def test_seed_broadcast_and_second_initialization(world2):
     _refs, outs = world2
     draws = _same_on_every_rank(outs, "seed.draws")  # rank 0's entropy, broadcast

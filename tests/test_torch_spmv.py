@@ -213,11 +213,56 @@ def _check_k1x_on_cuda(cuda, blocks, col_blocks, x64, n):
 
 @pytest.mark.gpu
 def test_kernel_refuses_unsupported_dtype_on_cuda(cuda):
-    # bfloat16 tiles only: K1 has complex instances; the heading is quoted.
+    # A bfloat16 x only: K1 has complex instances and takes bfloat16 tiles
+    # against a float32 or float64 x, but no engine builds a bfloat16
+    # vector, so bfloat16 tiles against a bfloat16 x still raise; the
+    # heading is quoted.
     blocks = torch.zeros((1, 8, 1, 8), dtype=torch.bfloat16, device=cuda)
     cb = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError, match="K1 for complex and bfloat16 tiles"):
         spmv.bsr_matvec(blocks, cb, torch.zeros(8, dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(NotImplementedError, match="K2 for complex and bfloat16 tiles"):
+        spmv.bsr_matvec_rsmk(blocks.view(1, 1, 8, 8), cb, torch.zeros(8, dtype=torch.bfloat16, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,bm,s,bk,n", [(3, 128, 3, 128, 300), (64, 8, 5, 8, 509), (17, 16, 300, 16, 272),
+                                         (4, 6, 2, 6, 24), (9, 12, 4, 12, 100)])
+def test_bf16_kernels_match_plain_on_cuda(cuda, r, bm, s, bk, n):
+    # bfloat16 tiles: K1 and K2 against a float32 x, K1x and K1x-rsmk
+    # against a float64 one, each against its plain version (float32: 1e-5
+    # of max |y|, float64: 1e-13), repeating bit for bit, with its own
+    # launch count; bk = 6 and 12 take the scalar loop (bk % 8 != 0), n < R*bm
+    # leaves a tail of padded rows unwritten.  K1 against K1 float32 over
+    # the widened tiles (another order: 8 values a lane, not 4), and K1
+    # against K2 bit for bit at bm = bk = 128.
+    g = torch.Generator().manual_seed(r * s + 1)
+    blocks = torch.randn((r, bm, s, bk), generator=g).to(torch.bfloat16)
+    col_blocks = torch.randint(0, (r * bm) // bk, (r, s), generator=g, dtype=torch.int32)
+    rsmk = blocks.permute(0, 2, 1, 3).contiguous()
+    on = (blocks.to(cuda), col_blocks.to(cuda))
+    for xtype, k1, k2, tol in ((torch.float32, spmv.bsr_matvec, spmv.bsr_matvec_rsmk, 1e-5),
+                               (torch.float64, spmv.bsr_matvec_bf16x64, spmv.bsr_matvec_rsmk_bf16x64, 1e-13)):
+        x = torch.randn(n, generator=g, dtype=xtype)
+        want = spmv.bsr_matvec(blocks, col_blocks, x, n_out=n)  # CPU: plain version
+        before, by_dtype = k1.launches, spmv.bsr_matvec.launches_by_dtype[torch.bfloat16]
+        got, again = (spmv.bsr_matvec(*on, x.to(cuda), n_out=n) for _ in range(2))
+        torch.cuda.synchronize()
+        assert k1.launches == before + 2 and got.dtype == xtype and torch.equal(got, again)
+        if xtype == torch.float32:
+            assert spmv.bsr_matvec.launches_by_dtype[torch.bfloat16] == by_dtype + 2
+            f32 = spmv.bsr_matvec(on[0].float(), on[1], x.to(cuda), n_out=n)
+            torch.testing.assert_close(got, f32, rtol=0, atol=tol * float(f32.abs().max()))
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=tol * float(want.abs().max()))
+        xp = torch.nn.functional.pad(x, (0, r * bm - n))
+        want_r = spmv.bsr_matvec_rsmk(rsmk, col_blocks, xp, n_out=n)
+        before_r = k2.launches
+        got_r, again_r = (spmv.bsr_matvec_rsmk(rsmk.to(cuda), on[1], xp.to(cuda), n_out=n) for _ in range(2))
+        torch.cuda.synchronize()
+        assert k2.launches == before_r + 2 and got_r.dtype == xtype and torch.equal(got_r, again_r)
+        torch.testing.assert_close(got_r.cpu(), want_r, rtol=0, atol=tol * float(want_r.abs().max()))
+        if bm == bk == 128 and xtype == torch.float32:
+            assert torch.equal(got, got_r)
 
 
 # ---- the remaining operators (COO, CSR, Sum, Scaled): plain PyTorch ----------

@@ -61,6 +61,28 @@ def pattern_x(n: int) -> np.ndarray:
     return np.random.default_rng(7).standard_normal(n)
 
 
+BF16_N = 256
+
+
+def bf16_problem():
+    """The bfloat16 solve's problem: the chain with a seeded potential
+    (its tiles stored in bfloat16, its vectors float32)."""
+    return (*_chain(BF16_N, np.random.default_rng(0).random(BF16_N)), BF16_N)
+
+
+def bf16_solve(op):
+    """The three lowest eigenvalues of ``op`` (bfloat16 tiles) by the fused
+    engine over float32 vectors at eps 1e-6, from a fixed start."""
+    import torch
+
+    import lanczos_tpu_torch as tl
+
+    eng = tl.LambdaLanczos(op, num_eigs=3, dtype=torch.float32, mode="fused")
+    eng.eps = 1e-6
+    eng.init_vector = tl.fixed_seed_initializer(np.float32, seed=11)
+    return np.asarray(eng.run()[0]), np.array(eng.iteration_counts)
+
+
 def dia_problem():
     rng = np.random.default_rng(9)
     return list(DIA_OFFSETS), [rng.standard_normal(DIA_N) for _ in DIA_OFFSETS], DIA_N
@@ -492,6 +514,20 @@ def _api_checks(mesh, out):
         shard_operator(tl.BSROperator.from_coo(*_chain(16), 16, bm=8, bk=8, dtype=torch.float64, device="cpu"), mesh)
     except TypeError as e:
         out["dense.bsr_refused"] = np.array(str(e))
+
+    # bfloat16 tiles over the ranks (K2's bfloat16 instance on the card):
+    # a product in the gather and ring schedules, one fused solve over
+    # float32 slabs.
+    from lanczos_tpu_torch.parallel.sharded import ShardedBSROperator
+
+    rows, cols, vals, n = bf16_problem()
+    x = torch.from_numpy(pattern_x(n)).float()
+    for comm in ("gather", "auto"):  # auto: the chain's ring groups, regrouped as bfloat16 words
+        op = ShardedBSROperator.from_coo(rows, cols, vals, n, mesh, bm=8, bk=8, dtype=torch.bfloat16, comm=comm)
+        out[f"bf16.{comm}.comm"] = np.array(op.comm)
+        out[f"bf16.{comm}.dtype"] = np.array(str(op.blocks.dtype))
+        out[f"bf16.{comm}.y"] = op.gather(op.matvec(op.scatter(x))).numpy()
+    out["bf16.vals"], out["bf16.iters"] = bf16_solve(op)
 
     # Fresh draws: the same vector on every rank, a new one per call.
     init = tl.random_initializer(np.float64)
