@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times kernels K3, K4, K5, E2a, E2b, E3 and E1's v2 forms of one checkout
 of lanczos_tpu_torch on one NVIDIA GPU, so that two commits can be compared
-on the same card: ``python3 chip_ab.py --root DIR [--flagships]``.
+on the same card: ``python3 chip_ab.py --root DIR [--flagships] [--bf16]
+[--spmv-only]``.
 
 DIR holds the checkout (``.`` for this one, or a parent commit unpacked by
 ``git archive`` into a git-ignored directory); its ``lanczos_tpu_torch``
@@ -17,7 +18,10 @@ share are used:
 - the main path's solve (n = 2**20, 176 iterations): its wall by host
   clock, then under ``torch.profiler`` K3's and K1's device time in it,
   its busy time and idle share; with ``--bf16`` the same over its tiles in
-  bfloat16 (this checkout's side only: older checkouts refuse bfloat16);
+  bfloat16 and the precise solve over them (K1x's device time), and K1x
+  and K1x-rsmk over those tiles beside K1 bfloat16, K1x on the widened
+  tiles and a read of the tiles (checkouts whose port takes bfloat16
+  tiles: older ones refuse them);
 - ``cgs.cgs_pass_block`` at b = 3 on the block flagship's (258, 2**22)
   float32 buffer for k = 24, 96 and 255;
 - the Chebyshev flagship's filter apply (n = 2**22 chain, degree 400)
@@ -43,7 +47,8 @@ share are used:
 
 ``digests`` holds the SHA-256 of K3's (at (258, 2**22) k = 256, (257,
 2**20) k = 128 and float64 (129, 70001) k = 129), K4's, E2b's, E2c's and
-E1's three variants' outputs on fixed inputs; those of the kernels a change
+E1's three variants' outputs on fixed inputs, ``spmv_digests`` those of
+every BSR matvec instance in both layouts; those of the kernels a change
 leaves alone must not differ between the two sides, and every one must
 repeat from run to run of one side.  Times are medians of
 CUDA-event timings after a warm-up.  ``--flagships``
@@ -118,6 +123,97 @@ def digests(torch, cgs, dev) -> dict:
     basis = torch.randn((129, 70001), generator=gen, device=dev, dtype=torch.float64)
     v = torch.randn(70001, generator=gen, device=dev, dtype=torch.float64)
     out["k3_f64_k129_n70001"] = digest(torch, cgs.cgs_pass(v, basis, 129))
+    return out
+
+
+def spmv_digests(torch, dev) -> dict:
+    """SHA-256 of every instance of ``csrc/bsr_spmv.cu`` in both layouts
+    (K1 and K2 in float32, float64, complex64, complex128 and bfloat16
+    tiles against a float32 x; K1x and K1x-rsmk in float32 x float64,
+    complex64 x complex128 and bfloat16 x float64) on inputs drawn from a
+    fixed seed: the main path's tile shape over 1024 row blocks and a
+    scalar-loop shape (bk = 12)."""
+    from lanczos_tpu_torch.ops import spmv
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    instances = (("f32", torch.float32, torch.float32), ("f64", torch.float64, torch.float64),
+                 ("c64", torch.complex64, torch.complex64), ("c128", torch.complex128, torch.complex128),
+                 ("bf16", torch.bfloat16, torch.float32), ("f32x64", torch.float32, torch.float64),
+                 ("c64x128", torch.complex64, torch.complex128), ("bf16x64", torch.bfloat16, torch.float64))
+    out = {}
+    for label, (r, bm, s, bk) in {"main_tiles": (1024, 128, 3, 128), "bk12": (64, 12, 5, 12)}.items():
+        re = torch.randn((r, bm, s, bk), generator=gen, device=dev)
+        im = torch.randn((r, bm, s, bk), generator=gen, device=dev)
+        cb = torch.randint(0, r * bm // bk, (r, s), generator=gen, device=dev, dtype=torch.int32)
+        for name, tiles, xtype in instances:
+            rmsk = torch.complex(re, im).to(tiles) if tiles.is_complex else re.to(tiles)
+            x = torch.randn(r * bm, generator=gen, device=dev, dtype=xtype)
+            out[f"k1_{name}_{label}"] = digest(torch, spmv.bsr_matvec(rmsk, cb, x))
+            out[f"k2_{name}_{label}"] = digest(torch, spmv.bsr_matvec_rsmk(rmsk.permute(0, 2, 1, 3).contiguous(), cb, x))
+        del re, im, cb, rmsk
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_bf16x64(torch, np, dev) -> dict:
+    """K1x and K1x-rsmk over the main path's tiles in bfloat16 (phase
+    bf16_main_path's operator, a float64 x) by CUDA events, beside K1
+    bfloat16 (a float32 x), K1x float32 x float64 on the widened tiles and a
+    ``torch.sum`` read of the bfloat16 tiles, each timed twice in turns."""
+    import lanczos_tpu_torch as tl
+    from lanczos_tpu_torch.ops import spmv
+
+    rows, cols, vals = smoke._main_path_coo(np)
+    op = tl.BSROperator.from_coo(rows, cols, vals, smoke.MAIN_N, bm=128, bk=128, dtype=torch.bfloat16, device=dev)
+    blocks, cb, n = op.blocks, op.col_blocks, op.n
+    rsmk = blocks.permute(0, 2, 1, 3).contiguous()
+    wide = blocks.float()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(op.n_padded, generator=gen, device=dev, dtype=torch.float64)
+    x32 = x.float()
+    calls = {"k1x_bf16x64": lambda: spmv.bsr_matvec(blocks, cb, x, n),
+             "k1x_rsmk_bf16x64": lambda: spmv.bsr_matvec_rsmk(rsmk, cb, x, n, col_bound=op.n_padded // 128),
+             "k1_bf16": lambda: spmv.bsr_matvec(blocks, cb, x32, n),
+             "k1x_f32x64_widened": lambda: spmv.bsr_matvec(wide, cb, x, n),
+             "bf16_tile_sum": lambda: torch.sum(blocks)}
+    out = {name: [] for name in calls}
+    for _ in range(2):
+        for name, fn in calls.items():
+            out[name].append(smoke.cuda_ms(torch, fn))
+    out["tile_gb"] = blocks.numel() * 2 / 1e9
+    out["plan_study"] = bf16x64_plan_study(torch, blocks, cb, x, n, calls["k1x_bf16x64"]())
+    return out
+
+
+def bf16x64_plan_study(torch, blocks, cb, x, n, want) -> dict | None:
+    """K1x's bfloat16 body on ``blocks`` (rmsk) with other lanes a row and
+    vectors a lane forced in place of ``spmv.bf16x64_plan``'s choice
+    (``lt_bsr_spmv_bf16x64_forced``): each one's ms by CUDA events and its
+    error against the wrapper's result ``want`` (another order of the same
+    products), the plan's own choice bit for bit.  None for a checkout
+    without the study entry (``lt_bsr_spmv_bf16x64_forced``)."""
+    from lanczos_tpu_torch import _build
+    from lanczos_tpu_torch.ops import spmv
+
+    lib = _build.library()
+    if not hasattr(lib, "lt_bsr_spmv_bf16x64_forced"):
+        return None
+    r, bm, s, bk = blocks.shape
+    plan = spmv.bf16x64_plan(bm, s, bk)
+    out = {"plan": [plan["lanes_per_row"], plan["vectors_per_lane"]]}
+    for lanes, vpl in ((16, 3), (32, 2), (32, 1), (8, 3), (8, 2), (4, 4)):
+
+        def forced(lanes=lanes, vpl=vpl):
+            y = torch.empty(n, dtype=torch.float64, device=x.device)
+            _build.check(lib.lt_bsr_spmv_bf16x64_forced(
+                blocks.data_ptr(), cb.data_ptr(), x.data_ptr(), y.data_ptr(), r, bm, s, bk, x.numel(), n, 0,
+                lanes.bit_length() - 1, vpl, x.device.index, torch.cuda.current_stream(x.device).cuda_stream),
+                "lt_bsr_spmv_bf16x64_forced")
+            return y
+
+        y = forced()
+        out[f"{lanes}x{vpl}"] = {"ms": smoke.cuda_ms(torch, forced), "max_rel_err": smoke.rel_err(y, want)[1],
+                                 "bitwise_as_wrapper": bool(torch.equal(y, want))}
     return out
 
 
@@ -201,19 +297,24 @@ def profile_solve(torch, eng, iters) -> dict:
                                     key=lambda r: -r[1])[:6]}
 
 
-def main_path_profile(torch, np, dev, tiles=None) -> dict:
+def main_path_profile(torch, np, dev, tiles=None, precise=False) -> dict:
     """The main path's solve (``chip_smoke.py`` phase main_path's problem
     and engine) run once, then again under ``torch.profiler``
     (:func:`profile_solve`): the warm solve's wall by host clock, K3's and
-    K1's device milliseconds in the solve, its device busy time and idle
-    share.  ``tiles=torch.bfloat16`` packs the tiles in bfloat16 (phase
-    bf16_main_path's operator; float32 vectors)."""
+    K1's device milliseconds in the solve (K1x's in a precise solve), its
+    device busy time and idle share.  ``tiles=torch.bfloat16`` packs the
+    tiles in bfloat16 (phase bf16_main_path's operator; float32 vectors);
+    ``precise`` runs ``precise_vectors`` at eps 1e-12, as phase
+    bf16_main_path's precise run does."""
     import lanczos_tpu_torch as tl
 
     rows, cols, vals = smoke._main_path_coo(np)
     op = tl.BSROperator.from_coo(rows, cols, vals, smoke.MAIN_N, bm=128, bk=128, dtype=tiles or torch.float32,
                                  device=dev)
     eng = smoke._main_path_engine(tl, torch, op, *([torch.float32] if tiles is not None else []))
+    if precise:
+        eng.precise_vectors = True
+        eng.eps = 1e-12
     eng.run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -406,6 +507,8 @@ def main(argv=None) -> int:
     ap.add_argument("--flagships", action="store_true", help="also run its chip_smoke.py flagship phases")
     ap.add_argument("--bf16", action="store_true",
                     help="also profile the main path's solve over bfloat16 tiles (a checkout whose port takes them)")
+    ap.add_argument("--spmv-only", action="store_true",
+                    help="only the BSR matvec digests and, with --bf16, the bfloat16 parts")
     args = ap.parse_args(argv)
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -425,15 +528,25 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {"root": str(root), "nvidia_smi": smi, "device": torch.cuda.get_device_name(0)}
-    out["digests"] = digests(torch, cgs, dev)
-    torch.cuda.empty_cache()
-    out["k3"] = time_k3(torch, cgs, dev, gen)
-    torch.cuda.empty_cache()
-    out["main_path_profiled"] = main_path_profile(torch, np, dev)
+    if not args.spmv_only:
+        out["digests"] = digests(torch, cgs, dev)
+        torch.cuda.empty_cache()
+        out["k3"] = time_k3(torch, cgs, dev, gen)
+        torch.cuda.empty_cache()
+        out["main_path_profiled"] = main_path_profile(torch, np, dev)
+        torch.cuda.empty_cache()
+    out["spmv_digests"] = spmv_digests(torch, dev)
     torch.cuda.empty_cache()
     if args.bf16:
         out["bf16_main_path_profiled"] = main_path_profile(torch, np, dev, torch.bfloat16)
         torch.cuda.empty_cache()
+        out["bf16_precise_profiled"] = main_path_profile(torch, np, dev, torch.bfloat16, precise=True)
+        torch.cuda.empty_cache()
+        out["bf16x64_ms"] = time_bf16x64(torch, np, dev)
+        torch.cuda.empty_cache()
+    if args.spmv_only:
+        print(json.dumps(out), flush=True)
+        return 0
     out["k4_b3_ms_by_k"] = time_k4(torch, cgs, dev, gen)
     torch.cuda.empty_cache()
     out["k5_ms_per_apply"] = time_k5(torch, np, tl, dev, gen)

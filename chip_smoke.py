@@ -58,7 +58,9 @@ with ``precise_vectors`` (K1x bfloat16 x float64) and one
 NCCL twin (K2 bfloat16, K1x-rsmk bfloat16 x float64) runs in
 ``sharded_main_path``'s world as ``bf16_sharded``; phases ``k1bf16`` and
 ``k2bf16`` hold the four bfloat16 instances against their plain versions
-and their float32-tile twins and time them.  The launch counts are set to 0 just before
+and their float32-tile twins, each rmsk instance against its rsmk twin bit
+for bit, and time them; ``k1bf16`` first prints K1x bfloat16's plans,
+registers and spills (line ``bf16x64_plan``).  The launch counts are set to 0 just before
 each path and read just after it.
 Every phase prints one JSON line; any failure raises, so the script exits
 non-zero and prints no result.  The last two lines are the kernel table and
@@ -4147,16 +4149,55 @@ def check_bf16(torch, blocks, col_blocks, n_out, layout, label, gen, *, timing=F
     return outs
 
 
+# Shapes of the bfloat16 kernel checks beyond the small one: the scalar
+# loop (bk = 12), K1x's body with an odd row count and a partial chunk (9
+# rows, 40 vectors a row against 16 lanes of 3), pieces wider than their
+# register chunk (bk = 1024: four tiles a piece, four chunks of 32 lanes of
+# 4, then a piece of one tile), and the 64 Mi stored nnz case.
+BF16_SHAPES = {
+    "ragged_bk12": (37, 12, 5, 12),
+    "odd_rows_partial_chunk": (64, 9, 5, 64),
+    "wide_piece": (128, 16, 5, 1024),
+    "bench_64Mi_nnz": (BENCH_R, 128, 8, 128),
+}
+
+
+def bf16x64_plans(torch):
+    """K1x's bfloat16 body at the shapes phases k1bf16 and k2bf16 run, in
+    both layouts: the plan the library makes (``lt_bsr_spmv_bf16x64_info``)
+    against ``spmv.bf16x64_plan``, with the selected kernel's registers,
+    local (spill) bytes a thread and resident CTAs a multiprocessor."""
+    import ctypes
+
+    from lanczos_tpu_torch import _build
+    from lanczos_tpu_torch.ops import spmv
+
+    shapes = {"small": (4, 8, 3, 8), **BF16_SHAPES, "main_path": (MAIN_N // 128, 128, 3, 128)}
+    out = {}
+    for label, (_r, bm, s, bk) in shapes.items():
+        want = spmv.bf16x64_plan(bm, s, bk)
+        for layout, rsmk in (("rmsk", 0), ("rsmk", 1)):
+            info = (ctypes.c_int * 8)()
+            _build.check(_build.library().lt_bsr_spmv_bf16x64_info(bm, s, bk, rsmk, info), "lt_bsr_spmv_bf16x64_info")
+            got = {"lanes_per_row": info[0], "vectors_per_lane": info[1], "s_piece": info[2], "smem": info[3],
+                   "opt_in": bool(info[4])}
+            if got != want:
+                raise AssertionError(f"bf16x64 plan {label} {layout}: the library's {got}, the Python plan's {want}")
+            out[f"{label}_{layout}"] = {**got, "registers": info[5], "local_bytes": info[6], "ctas_per_sm": info[7]}
+    emit({"phase": "bf16x64_plan", "plans": out})
+    return out
+
+
 def phase_k1bf16(torch, dev, op):
-    """K1 and K1x on bfloat16 tiles: small and ragged shapes (bk = 8, 12:
-    the vector and the scalar loop), the 64 Mi stored nnz case (R = 512,
-    S = 8, bm = bk = 128) and the main path's tiles in bfloat16 (``op``),
-    the last two timed."""
+    """K1 and K1x on bfloat16 tiles: a small shape, :data:`BF16_SHAPES`
+    (the last of them, the 64 Mi stored nnz case, timed) and the main path's
+    tiles in bfloat16 (``op``, timed); first K1x's plans and registers
+    (:func:`bf16x64_plans`)."""
+    bf16x64_plans(torch)
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     for label, (r, bm, s, bk, n) in {
         "small": (4, 8, 3, 8, 30),
-        "ragged_bk12": (37, 12, 5, 12, 37 * 12 - 5),
-        "bench_64Mi_nnz": (BENCH_R, 128, 8, 128, BENCH_R * 128),
+        **{k: (r, bm, s, bk, r * bm - (5 if k == "ragged_bk12" else 0)) for k, (r, bm, s, bk) in BF16_SHAPES.items()},
     }.items():
         blocks, cb = _random_bsr(torch, dev, r, bm, s, bk, torch.float32, gen)
         check_bf16(torch, blocks.to(torch.bfloat16), cb, n, "rmsk", label, gen, timing=label.startswith("bench"))
@@ -4166,33 +4207,44 @@ def phase_k1bf16(torch, dev, op):
 
 
 def phase_k2bf16(torch, dev, op_rsmk, op_rmsk):
-    """K2 and K1x-rsmk on bfloat16 tiles: a small shape, the 64 Mi stored
-    nnz case and the main path's tiles in rsmk (``op_rsmk``, the one-rank
-    sharded operator's), the last two timed; K1 bfloat16 against K2
-    bfloat16 bit for bit on the same tiles in both layouts (lane q covers
-    the same flattened (s, k) of a row at bm = bk = 128)."""
+    """K2 and K1x-rsmk on bfloat16 tiles: a small shape, :data:`BF16_SHAPES`
+    (the 64 Mi stored nnz case timed) and the main path's tiles in rsmk
+    (``op_rsmk``, the one-rank sharded operator's, timed); on the same tiles
+    in both layouts K1 bfloat16 against K2 bfloat16 (a float32 x) and K1x
+    bfloat16 against K1x-rsmk bfloat16 (a float64 x) bit for bit: at bm =
+    bk = 128 lane q of K1 and K2 covers the same flattened (s, k) of a row,
+    and K1x's body maps its lanes to the same (s, k) in both layouts at
+    every shape it takes (bk % 8 == 0)."""
     from lanczos_tpu_torch.ops import spmv
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 29)
-    bits = {}
-    for label, (r, bm, s, bk) in {"small": (4, 8, 3, 8), "bench_64Mi_nnz": (BENCH_R, 128, 8, 128)}.items():
+    bits = {torch.float32: {}, torch.float64: {}}
+
+    def same_bits(label, rmsk, cb_rmsk, rsmk, cb_rsmk, n_pad):
+        for xtype, table in bits.items():
+            if xtype == torch.float32 and rmsk.shape[1] != 128 and label != "small":
+                continue  # K1 = K2 in float32 is claimed at bm = bk = 128 (and the small shape) only
+            x = torch.randn(n_pad, generator=gen, device=dev, dtype=xtype)
+            table[label] = bool(torch.equal(spmv.bsr_matvec(rmsk, cb_rmsk, x), spmv.bsr_matvec_rsmk(rsmk, cb_rsmk, x)))
+
+    for label, (r, bm, s, bk) in {"small": (4, 8, 3, 8), **BF16_SHAPES}.items():
+        if bk % 8:
+            continue  # the scalar loop: phase k1bf16 holds it in rmsk
         blocks, cb = _random_bsr(torch, dev, r, bm, s, bk, torch.float32, gen)
         rmsk = blocks.to(torch.bfloat16)
         rsmk = rmsk.permute(0, 2, 1, 3).contiguous()
         check_bf16(torch, rsmk, cb, r * bm, "rsmk", label, gen, timing=label.startswith("bench"))
-        x = torch.randn(r * bm, generator=gen, device=dev)
-        bits[label] = bool(torch.equal(spmv.bsr_matvec(rmsk, cb, x), spmv.bsr_matvec_rsmk(rsmk, cb, x)))
+        same_bits(label, rmsk, cb, rsmk, cb, r * bm)
         del blocks, cb, rmsk, rsmk
         torch.cuda.empty_cache()
     timed = check_bf16(torch, op_rsmk.blocks, op_rsmk.col_blocks, op_rsmk.n, "rsmk", "main_path", gen, timing=True)
-    x = torch.randn(op_rsmk.n_padded, generator=gen, device=dev)
     if not torch.equal(op_rmsk.blocks.permute(0, 2, 1, 3), op_rsmk.blocks):
         raise AssertionError("k2bf16: the sharded operator's tiles are not the main path's in rsmk")
-    bits["main_path"] = bool(torch.equal(spmv.bsr_matvec(op_rmsk.blocks, op_rmsk.col_blocks, x),
-                                         spmv.bsr_matvec_rsmk(op_rsmk.blocks, op_rsmk.col_blocks, x)))
-    emit({"phase": "k2bf16", "k1_equals_k2_bitwise": bits})
-    if not all(bits.values()):
-        raise AssertionError(f"k2bf16: K1 and K2 bfloat16 differ: {bits}")
+    same_bits("main_path", op_rmsk.blocks, op_rmsk.col_blocks, op_rsmk.blocks, op_rsmk.col_blocks, op_rsmk.n_padded)
+    emit({"phase": "k2bf16", "k1_equals_k2_bitwise": bits[torch.float32],
+          "k1x_equals_k1x_rsmk_bitwise": bits[torch.float64]})
+    if not all(v for table in bits.values() for v in table.values()):
+        raise AssertionError(f"k2bf16: the rmsk and rsmk bfloat16 instances differ: {bits}")
     return timed
 
 

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "lt_bsr_spmv_bf16x64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
     "lt_bsr_spmv_rsmk_bf16x64": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _P]),
     "lt_bsr_spmv_info": (_INT, [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)]),
+    "lt_bsr_spmv_bf16x64_info": (_INT, [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)]),
+    "lt_bsr_spmv_bf16x64_forced": (_INT, [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _I64, _I64, _INT, _INT, _INT, _INT, _P]),
     "lt_cgs_pass_f32": (_INT, [_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _P]),
     "lt_cgs_pass_f64": (_INT, [_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _P]),
     "lt_cgs_pass_c64": (_INT, [_P, _P, _P, _I64, _I64, _INT, _INT, _INT, _INT, _P]),

@@ -25,6 +25,21 @@
 // and give the same bits.  The bytes bound them as they bound the float32
 // instances: 2 bytes a stored value halve the tile stream.
 //
+// K1x over bfloat16 tiles (and its rsmk form) has a body of its own,
+// bsr_spmv_bf16x64_kernel below.  In the shared template a 16-byte tile
+// vector of 8 values needs 64 bytes of float64 x, read from shared memory
+// for every row as four 16-byte loads with lanes 64 bytes apart: sixteen
+// lanes of a warp meet in one bank group, 16 wavefronts a load, 64 for
+// 512 bytes of tiles.  At the main path's 402 M stored values that is
+// ~100 M wavefronts, ~0.4 ms at one a clock on 132 SMs: shared memory, not
+// the 0.245 ms tile stream, bound it.  The new body gives each lane fixed
+// (s, k) positions for a whole chunk of the row, loads their x values into
+// registers once (from a swizzled piece, so each quarter-warp's loads hit
+// eight distinct 16-byte bank groups) and then streams every row it owns
+// with no shared-memory read in the inner loop; lanes per row and vectors
+// per lane are planned so that every lane works (16 lanes of 3 vectors, two
+// rows a warp step, at the main path's 384 values a row).
+//
 // The complex instances (complex64 and complex128 tiles against a vector of
 // their own type, and K1x's complex64 tiles against a complex128 vector)
 // are the same body over lt::cfloat / lt::cdouble: a stored value is one
@@ -75,6 +90,20 @@
 //     so results are the same from run to run.  For bm = bk = 128 in f32,
 //     lane q of a row reads element (s, 4q..4q+3) in both layouts, so K1 and
 //     K2 sum in the same order and give the same bits.
+// The bfloat16 x float64 body keeps these rules (one CTA per row block,
+// pieces of x in shared memory, evict-first 16-byte tile loads, DFMAs on
+// the CUDA cores, a fixed order with no atomics) and differs in who reads
+// what: a row belongs to a group of lpr lanes (a power of two), lane l of
+// the group holds the x of vectors q = c0 + j*lpr + l, j < VPL, of chunk c0
+// in registers, and the group's rows follow one another under that x, two
+// at a time so that 2*VPL tile loads a lane are in flight.  Both layouts
+// map q to the same flattened (s, k), so K1x and K1x-rsmk over bfloat16
+// tiles give the same bits at any shape the body takes (bk % 8 == 0 and
+// 16-byte aligned tiles; the shared template's scalar loop takes the rest).
+#include <climits>
+#include <tuple>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -196,6 +225,187 @@ inline Plan plan(int bm, int S, int bk, size_t x_bytes) {
   return p;
 }
 
+// ---- K1x over bfloat16 tiles: x in registers across the block row ----------
+
+// Vectors of x a lane holds in registers at most (8 float64 values each).
+constexpr int kMaxVpl = 4;
+
+// Where element e of a gathered piece lies in shared memory: the four
+// 16-byte chunks of each 64-byte vector q are permuted by q's bits 1-2, so
+// that the eight lanes of a quarter-warp reading chunk h of vectors q0 ..
+// q0+7 (q0 a multiple of 8) hit eight distinct 16-byte bank groups.
+__device__ __forceinline__ int x_swizzle(int e) {
+  const int c = e >> 1;
+  return ((c ^ ((c >> 3) & 3)) << 1) | (e & 1);
+}
+
+// Element c (0..7) of a 16-byte vector of bfloat16 values, widened exactly
+// to float64 (bfloat16 -> float is a shift, float -> double is exact).
+__device__ __forceinline__ double bf16_at(const uint4& t, int c) {
+  const unsigned w = c < 2 ? t.x : c < 4 ? t.y : c < 6 ? t.z : t.w;
+  return double(__uint_as_float((c & 1) ? (w & 0xffff0000u) : (w << 16)));
+}
+
+// One CTA per row block, kThreads threads in groups of lpr = 1 << lpr_log2
+// lanes; group g owns rows g, g + G, g + 2G, ... (G = kThreads / lpr).  Per
+// piece of s_piece tiles the x segments are gathered into xg (swizzled),
+// then per chunk of lpr*VPL 16-byte tile vectors each lane loads the x of
+// its VPL vectors into registers and streams its group's rows two at a
+// time: VPL evict-first loads a row, 8 DFMAs a vector in order j, then c,
+// the group's partial sums reduced by an xor butterfly and added to the
+// row's accumulator by the group's first lane.  Needs bk % 8 == 0 and
+// 16-byte aligned tiles.
+template <int VPL, bool RSMK>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsr_spmv_bf16x64_kernel(const __nv_bfloat16* __restrict__ blocks, const int* __restrict__ col_blocks,
+                            const double* __restrict__ x, double* __restrict__ y, int bm, int S, int bk,
+                            int64_t n_x, int64_t n_out, int s_piece, size_t acc_bytes, int lpr_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* acc = reinterpret_cast<double*>(smem);
+  double* xg = reinterpret_cast<double*>(smem + acc_bytes);
+  const double2* xg2 = reinterpret_cast<const double2*>(xg);
+
+  const int r = blockIdx.x;
+  const int lpr = 1 << lpr_log2;
+  const int l = threadIdx.x & (lpr - 1);
+  const int g = threadIdx.x >> lpr_log2;
+  const int groups = kThreads >> lpr_log2;
+  const int steps = (bm + groups - 1) / groups;  // the same for every group: shuffles stay warp-wide
+  const int64_t row_len = int64_t(S) * bk;
+  const uint4* slab = reinterpret_cast<const uint4*>(blocks + int64_t(r) * bm * row_len);
+  const int* cb = col_blocks + int64_t(r) * S;
+  const int vpt = bk / 8;  // 16-byte vectors per tile row
+  // Vectors between tile s and s + 1 of one row: none apart (rmsk, one run)
+  // or a whole (bm, bk) tile (rsmk).
+  const int64_t vstride = RSMK ? int64_t(bm) * vpt : int64_t(vpt);
+  const int cw = lpr * VPL;
+
+  for (int i = threadIdx.x; i < bm; i += kThreads) acc[i] = 0.0;
+
+  for (int s0 = 0; s0 < S; s0 += s_piece) {
+    const int len = min(s_piece, S - s0) * bk;
+    __syncthreads();  // the previous piece's readers are done with xg
+    for (int e = threadIdx.x; e < len; e += kThreads) {
+      const int s = e / bk;
+      const int64_t col = int64_t(cb[s0 + s]) * bk + (e - s * bk);
+      xg[x_swizzle(e)] = uint64_t(col) < uint64_t(n_x) ? x[col] : 0.0;  // also refuses col < 0
+    }
+    __syncthreads();
+    // Vector 0 of this piece in row i: row i's run from tile s0 on (rmsk),
+    // or row i of tile s0 (rsmk).
+    const int64_t piece0 = RSMK ? int64_t(s0) * bm * vpt : int64_t(s0) * vpt;
+    const int64_t row_step = RSMK ? int64_t(vpt) : row_len / 8;
+    const int nv = len / 8;
+    for (int c0 = 0; c0 < nv; c0 += cw) {
+      double xr[VPL][8];
+      int64_t off[VPL];
+      bool ok[VPL];
+#pragma unroll
+      for (int j = 0; j < VPL; ++j) {
+        const int q = c0 + j * lpr + l;
+        ok[j] = q < nv;
+        const int s = q / vpt;
+        off[j] = ok[j] ? piece0 + s * vstride + (q - s * vpt) : 0;
+        const int sw = (q >> 1) & 3;
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const double2 u = ok[j] ? xg2[4 * q + (h ^ sw)] : make_double2(0.0, 0.0);
+          xr[j][2 * h] = u.x;
+          xr[j][2 * h + 1] = u.y;
+        }
+      }
+      for (int k = 0; k < steps; k += 2) {
+        const int ia = k * groups + g, ib = ia + groups;
+        const bool va = ia < bm, vb = ib < bm;
+        const uint4* ra = slab + int64_t(ia) * row_step;
+        const uint4* rb = slab + int64_t(ib) * row_step;
+        uint4 ta[VPL], tb[VPL];
+#pragma unroll
+        for (int j = 0; j < VPL; ++j) ta[j] = va && ok[j] ? __ldcs(ra + off[j]) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int j = 0; j < VPL; ++j) tb[j] = vb && ok[j] ? __ldcs(rb + off[j]) : make_uint4(0, 0, 0, 0);
+        double sa = 0.0, sb = 0.0;
+#pragma unroll
+        for (int j = 0; j < VPL; ++j) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) sa = fma(bf16_at(ta[j], c), xr[j][c], sa);
+        }
+#pragma unroll
+        for (int j = 0; j < VPL; ++j) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c) sb = fma(bf16_at(tb[j], c), xr[j][c], sb);
+        }
+        for (int o = lpr >> 1; o > 0; o >>= 1) {
+          sa += __shfl_xor_sync(0xffffffffu, sa, o);
+          sb += __shfl_xor_sync(0xffffffffu, sb, o);
+        }
+        if (l == 0) {
+          if (va) acc[ia] += sa;
+          if (vb) acc[ib] += sb;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < bm; i += kThreads) {
+    const int64_t gi = int64_t(r) * bm + i;
+    if (gi < n_out) y[gi] = acc[i];
+  }
+}
+
+// The bfloat16 x float64 plan: lanes per row (a power of two, 1..32) and
+// 16-byte vectors per lane (1..kMaxVpl) for rows of nv vectors (a full
+// piece) in row blocks of bm rows.  It minimises the vector slots a lane
+// walks (steps x chunks x VPL, steps = ceil(bm / groups)), then the chunks
+// (each reloads x and reduces every row), then VPL (registers), and takes
+// the most lanes a row on a tie.
+struct XPlan {
+  int lpr_log2, vpl;
+};
+
+inline XPlan x_plan(int bm, int nv) {
+  XPlan best{5, 1};
+  std::tuple<long long, long long, int> best_key{LLONG_MAX, 0, 0};
+  for (int lg = 5; lg >= 0; --lg) {
+    const long long groups = kThreads >> lg, steps = (bm + groups - 1) / groups;
+    for (int vpl = 1; vpl <= kMaxVpl; ++vpl) {
+      const long long chunks = (nv + (vpl << lg) - 1) / (vpl << lg);
+      const std::tuple<long long, long long, int> key{steps * chunks * vpl, chunks, vpl};
+      if (key < best_key) {
+        best_key = key;
+        best = XPlan{lg, vpl};
+      }
+    }
+  }
+  return best;
+}
+
+// The instance of a plan's VPL, as a function pointer.
+template <bool RSMK>
+const void* bf16x64_kernel(int vpl) {
+  switch (vpl) {
+    case 1: return reinterpret_cast<const void*>(bsr_spmv_bf16x64_kernel<1, RSMK>);
+    case 2: return reinterpret_cast<const void*>(bsr_spmv_bf16x64_kernel<2, RSMK>);
+    case 3: return reinterpret_cast<const void*>(bsr_spmv_bf16x64_kernel<3, RSMK>);
+    default: return reinterpret_cast<const void*>(bsr_spmv_bf16x64_kernel<4, RSMK>);
+  }
+}
+
+template <bool RSMK>
+cudaError_t launch_bf16x64(const __nv_bfloat16* blocks, const int* col_blocks, const double* x, double* y, int R,
+                           int bm, int S, int bk, int64_t n_x, int64_t n_out, const Plan& p, XPlan xp,
+                           cudaStream_t stream) {
+  const void* fn = bf16x64_kernel<RSMK>(xp.vpl);
+  if (p.smem > kDefaultSmem) {
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(p.smem));
+    if (e != cudaSuccess) return e;
+  }
+  int s_piece = p.s_piece, lpr_log2 = xp.lpr_log2;
+  size_t acc_bytes = p.acc_bytes;
+  void* args[] = {&blocks, &col_blocks, &x, &y, &bm, &S, &bk, &n_x, &n_out, &s_piece, &acc_bytes, &lpr_log2};
+  return cudaLaunchKernel(fn, dim3(R), dim3(kThreads), args, p.smem, stream);
+}
+
 template <typename T, typename X, bool RSMK>
 cudaError_t bsr_spmv(const T* blocks, const int* col_blocks, const X* x, X* y, int R, int bm,
                      int S, int bk, int64_t n_x, int64_t n_out, cudaStream_t stream) {
@@ -204,12 +414,17 @@ cudaError_t bsr_spmv(const T* blocks, const int* col_blocks, const X* x, X* y, i
   if (R <= 0 || bm <= 0 || S <= 0 || bk <= 0) return cudaErrorInvalidValue;
   const Plan p = plan(bm, S, bk, sizeof(X));
   if (p.smem > kMaxSmem) return cudaErrorInvalidValue;
+  const bool vec_ok = bk % VN == 0 && lt::aligned16(blocks);
+  if constexpr (std::is_same_v<T, __nv_bfloat16> && std::is_same_v<X, double>) {
+    if (vec_ok)
+      return launch_bf16x64<RSMK>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out, p, x_plan(bm, p.s_piece * bk / VN),
+                                  stream);
+  }
   if (p.smem > kDefaultSmem) {
     cudaError_t e = cudaFuncSetAttribute(bsr_spmv_kernel<T, X, RSMK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(p.smem));
     if (e != cudaSuccess) return e;
   }
-  const bool vec_ok = bk % VN == 0 && lt::aligned16(blocks);
   bsr_spmv_kernel<T, X, RSMK><<<R, kThreads, p.smem, stream>>>(
       blocks, col_blocks, x, y, bm, S, bk, n_x, n_out, p.s_piece, p.acc_bytes, vec_ok);
   return cudaGetLastError();
@@ -385,6 +600,61 @@ int lt_bsr_spmv_info(int bm, int S, int bk, int x_bytes, int* out) {
   out[1] = int(p.smem);
   out[2] = p.smem > kDefaultSmem ? 1 : 0;
   out[3] = int(attr.sharedSizeBytes);
+  return 0;
+}
+
+// A study of the bfloat16 x float64 body's plan: one launch with 1 <<
+// lpr_log2 lanes a row and vpl vectors a lane forced in place of x_plan's
+// choice (rsmk != 0: the rsmk form).  chip_ab.py times it beside the plan;
+// the wrappers never call it.
+int lt_bsr_spmv_bf16x64_forced(const __nv_bfloat16* blocks, const int* col_blocks, const double* x, double* y, int R,
+                               int bm, int S, int bk, long long n_x, long long n_out, int rsmk, int lpr_log2, int vpl,
+                               int device, void* stream) {
+  if (R <= 0 || bm <= 0 || S <= 0 || bk <= 0 || bk % 8 || !lt::aligned16(blocks) || lpr_log2 < 0 || lpr_log2 > 5 ||
+      vpl < 1 || vpl > kMaxVpl)
+    return int(cudaErrorInvalidValue);
+  const Plan p = plan(bm, S, bk, sizeof(double));
+  if (p.smem > kMaxSmem) return int(cudaErrorInvalidValue);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return int(e);
+  const XPlan xp{lpr_log2, vpl};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return int(rsmk ? launch_bf16x64<true>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out, p, xp, st)
+                  : launch_bf16x64<false>(blocks, col_blocks, x, y, R, bm, S, bk, n_x, n_out, p, xp, st));
+}
+
+// The bfloat16 x float64 body's plan and attributes for tiles of bm rows,
+// S tiles a row block and bk columns (rsmk != 0: the rsmk form): out =
+// {lanes a row, vectors a lane, s_piece, dynamic shared bytes, whether it
+// opts in past 48 KB, registers a thread, local (spill) bytes a thread,
+// resident CTAs a multiprocessor}.  bk % 8 != 0 takes the shared
+// template's scalar loop: lanes and vectors 0, that kernel's attributes.
+int lt_bsr_spmv_bf16x64_info(int bm, int S, int bk, int rsmk, int* out) {
+  if (bm <= 0 || S <= 0 || bk <= 0) return int(cudaErrorInvalidValue);
+  const Plan p = plan(bm, S, bk, sizeof(double));
+  if (p.smem > kMaxSmem) return int(cudaErrorInvalidValue);
+  const bool vec = bk % 8 == 0;
+  const XPlan xp = x_plan(bm, p.s_piece * bk / 8);
+  const void* fn = !vec ? (rsmk ? reinterpret_cast<const void*>(bsr_spmv_kernel<__nv_bfloat16, double, true>)
+                                : reinterpret_cast<const void*>(bsr_spmv_kernel<__nv_bfloat16, double, false>))
+                        : (rsmk ? bf16x64_kernel<true>(xp.vpl) : bf16x64_kernel<false>(xp.vpl));
+  cudaError_t e = cudaSuccess;
+  if (p.smem > kDefaultSmem) e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, int(p.smem));
+  if (e != cudaSuccess) return int(e);
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return int(e);
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, kThreads, p.smem);
+  if (e != cudaSuccess) return int(e);
+  out[0] = vec ? 1 << xp.lpr_log2 : 0;
+  out[1] = vec ? xp.vpl : 0;
+  out[2] = p.s_piece;
+  out[3] = int(p.smem);
+  out[4] = p.smem > kDefaultSmem ? 1 : 0;
+  out[5] = attr.numRegs;
+  out[6] = int(attr.localSizeBytes);
+  out[7] = ctas;
   return 0;
 }
 

@@ -38,7 +38,8 @@ a bfloat16 vector.  K1 and K2 take them against a float32 ``x`` (their
 bfloat16 instances, counted under ``torch.bfloat16`` in
 ``launches_by_dtype``), and K1x against a float64 ``x``
 (:func:`bsr_matvec_bf16x64`, :func:`bsr_matvec_rsmk_bf16x64`); a bfloat16
-``x`` raises on CUDA.
+``x`` raises on CUDA.  Those two run a body of their own, which holds a
+chunk of x in registers across the block row (:func:`bf16x64_plan`).
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ __all__ = [
     "bsr_matvec_rsmk_bf16x64",
     "bsr_matvec_reference",
     "plan",
+    "bf16x64_plan",
 ]
 
 # ROADMAP.md names the work that would lift each refusal below.
@@ -368,3 +370,34 @@ def plan(bm: int, s: int, bk: int, x_itemsize: int) -> dict:
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"bm={bm}, bk={bk} need {smem} bytes of shared memory, past the {MAX_SMEM_BYTES} an SM offers")
     return {"s_piece": s_piece, "smem": smem, "opt_in": smem > DEFAULT_SMEM_BYTES}
+
+
+# csrc/bsr_spmv.cu's bfloat16 x float64 body: threads a CTA, x vectors a lane.
+THREADS = 256
+MAX_VECTORS_PER_LANE = 4
+
+
+def bf16x64_plan(bm: int, s: int, bk: int) -> dict:
+    """The launch plan of K1x and K1x-rsmk over bfloat16 tiles: :func:`plan`
+    with a float64 x, and the lanes a row (``lanes_per_row``, a power of two)
+    and 16-byte tile vectors a lane (``vectors_per_lane``) whose x the lane
+    holds in registers across the block row.  Among 1..32 lanes and
+    1..``MAX_VECTORS_PER_LANE`` vectors it takes the fewest vector slots a
+    lane walks (row steps x chunks x vectors, a chunk being lanes x vectors
+    of a piece's ``s_piece * bk / 8`` vectors), then the fewest chunks, then
+    the fewest vectors, then the most lanes.  ``bk % 8 != 0`` runs the
+    shared template's scalar loop: lanes and vectors 0."""
+    p = plan(bm, s, bk, 8)
+    if bk % 8:
+        return {**p, "lanes_per_row": 0, "vectors_per_lane": 0}
+    nv = p["s_piece"] * bk // 8
+    best = None
+    for lg in range(5, -1, -1):
+        lanes = 1 << lg
+        steps = -(-bm // (THREADS // lanes))
+        for vpl in range(1, MAX_VECTORS_PER_LANE + 1):
+            chunks = -(-nv // (lanes * vpl))
+            key = (steps * chunks * vpl, chunks, vpl)
+            if best is None or key < best[0]:
+                best = (key, lanes, vpl)
+    return {**p, "lanes_per_row": best[1], "vectors_per_lane": best[2]}

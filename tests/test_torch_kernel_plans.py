@@ -250,6 +250,37 @@ def test_e2a_plan_forced_routes():
         spmv.plan(128, 1, 1 << 15, 8)
 
 
+def test_bf16x64_plan_keeps_every_lane_working():
+    """K1x's bfloat16 body (``spmv.bf16x64_plan``): the lanes a row and the
+    x vectors a lane holds in registers.  At the main path's tiles (bm = bk
+    = 128, S = 3: 48 vectors a row) 16 lanes of 3 vectors, two rows a warp
+    step, so each lane walks 128 * 48 / 256 = 24 vector slots, every lane
+    busy (32 lanes of 2, the shared template's split, walk 32); at 64 Mi
+    stored nnz (S = 8) 32 lanes of 4 in one chunk.  A piece wider than a
+    register chunk takes several chunks; bk % 8 != 0 runs the scalar loop."""
+    main = spmv.bf16x64_plan(128, 3, 128)
+    assert (main["lanes_per_row"], main["vectors_per_lane"]) == (16, 3)
+    assert {k: main[k] for k in ("s_piece", "smem", "opt_in")} == spmv.plan(128, 3, 128, 8)
+    assert (spmv.bf16x64_plan(128, 8, 128)["lanes_per_row"], spmv.bf16x64_plan(128, 8, 128)["vectors_per_lane"]) == (32, 4)
+    for (bm, s, bk), want in {(9, 5, 64): (16, 3), (40, 5, 64): (16, 3), (17, 6, 64): (32, 2), (24, 5, 64): (8, 1),
+                              (8, 3, 8): (32, 1), (16, 300, 16): (32, 4), (16, 5, 1024): (32, 4),
+                              (12, 5, 12): (0, 0), (6, 2, 6): (0, 0)}.items():
+        p = spmv.bf16x64_plan(bm, s, bk)
+        assert (p["lanes_per_row"], p["vectors_per_lane"]) == want, (bm, s, bk, p)
+
+    def slots(bm, nv, lanes, vpl):
+        return -(-bm // (spmv.THREADS // lanes)) * -(-nv // (lanes * vpl)) * vpl
+
+    # No other choice walks fewer slots, at any shape.
+    for bm in (1, 7, 8, 9, 16, 24, 40, 64, 128, 200):
+        for s, bk in ((1, 8), (3, 64), (3, 128), (8, 128), (300, 16), (5, 1024)):
+            p = spmv.bf16x64_plan(bm, s, bk)
+            nv = p["s_piece"] * bk // 8
+            best = min(slots(bm, nv, 1 << lg, v) for lg in range(6) for v in range(1, spmv.MAX_VECTORS_PER_LANE + 1))
+            assert slots(bm, nv, p["lanes_per_row"], p["vectors_per_lane"]) == best, (bm, s, bk, p)
+            assert p["lanes_per_row"] * p["vectors_per_lane"] <= 32 * spmv.MAX_VECTORS_PER_LANE
+
+
 def test_k6_plan_spreads_a_root_over_one_cluster():
     """K6's plan (``ops/sturm_check.py``): a cluster of eight CTAs per root,
     cut p to CTA p mod 8, so a CTA holds ``ceil(points / 8)`` columns; a

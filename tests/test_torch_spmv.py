@@ -227,7 +227,9 @@ def test_kernel_refuses_unsupported_dtype_on_cuda(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,bm,s,bk,n", [(3, 128, 3, 128, 300), (64, 8, 5, 8, 509), (17, 16, 300, 16, 272),
-                                         (4, 6, 2, 6, 24), (9, 12, 4, 12, 100)])
+                                         (4, 6, 2, 6, 24), (9, 12, 4, 12, 100), (64, 9, 5, 64, 570),
+                                         (128, 16, 5, 1024, 2040), (8, 40, 5, 64, 317),
+                                         (64, 17, 6, 64, 1080), (8, 24, 5, 64, 190)])
 def test_bf16_kernels_match_plain_on_cuda(cuda, r, bm, s, bk, n):
     # bfloat16 tiles: K1 and K2 against a float32 x, K1x and K1x-rsmk
     # against a float64 one, each against its plain version (float32: 1e-5
@@ -235,7 +237,25 @@ def test_bf16_kernels_match_plain_on_cuda(cuda, r, bm, s, bk, n):
     # launch count; bk = 6 and 12 take the scalar loop (bk % 8 != 0), n < R*bm
     # leaves a tail of padded rows unwritten.  K1 against K1 float32 over
     # the widened tiles (another order: 8 values a lane, not 4), and K1
-    # against K2 bit for bit at bm = bk = 128.
+    # against K2 bit for bit at bm = bk = 128.  K1x's own body
+    # (``spmv.bf16x64_plan``, held to the library's plan here) at every
+    # branch: bm = 128 with 16 lanes of 3 vectors a row (the main path's
+    # plan), 9 and 40 rows against 2 rows a warp step with 40 vectors a row
+    # against 16 lanes of 3 (an odd row count, a partial chunk), bk = 1024
+    # and S = 300 at bk = 16 (pieces wider than one register chunk, and a
+    # second, shorter piece), bm = 8 (32 lanes of 1 vector), 17 rows (32
+    # lanes of 2) and 24 rows (8 lanes of 1, four rows a warp step); K1x and
+    # K1x-rsmk bit for bit wherever the body runs (bk % 8 == 0).
+    import ctypes
+
+    from lanczos_tpu_torch import _build
+
+    info = (ctypes.c_int * 8)()
+    want_plan = spmv.bf16x64_plan(bm, s, bk)
+    for rsmk_form in (0, 1):
+        _build.check(_build.library().lt_bsr_spmv_bf16x64_info(bm, s, bk, rsmk_form, info), "lt_bsr_spmv_bf16x64_info")
+        assert {"lanes_per_row": info[0], "vectors_per_lane": info[1], "s_piece": info[2], "smem": info[3],
+                "opt_in": bool(info[4])} == want_plan
     g = torch.Generator().manual_seed(r * s + 1)
     blocks = torch.randn((r, bm, s, bk), generator=g).to(torch.bfloat16)
     col_blocks = torch.randint(0, (r * bm) // bk, (r, s), generator=g, dtype=torch.int32)
@@ -261,7 +281,7 @@ def test_bf16_kernels_match_plain_on_cuda(cuda, r, bm, s, bk, n):
         torch.cuda.synchronize()
         assert k2.launches == before_r + 2 and got_r.dtype == xtype and torch.equal(got_r, again_r)
         torch.testing.assert_close(got_r.cpu(), want_r, rtol=0, atol=tol * float(want_r.abs().max()))
-        if bm == bk == 128 and xtype == torch.float32:
+        if (bm == bk == 128 and xtype == torch.float32) or (bk % 8 == 0 and xtype == torch.float64):
             assert torch.equal(got, got_r)
 
 
