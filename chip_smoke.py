@@ -1339,29 +1339,21 @@ def phase_small_solves(torch, np, dev):
 
 
 def _main_path_coo(np, n=MAIN_N):
-    """The main path's problem: the n = 2**20 hopping chain with a random
-    on-site potential and three deep sites (three bound states below the
-    band); ``n`` cuts it."""
-    rng = np.random.default_rng(SEED)
-    pot = rng.uniform(0.0, 1.0, n)
-    pot[[n // 4, n // 2, 3 * n // 4]] = [-4.0, -3.5, -3.0]
-    return _chain_coo(np, n, pot)
+    """The main path's problem (``multichip.main_path_coo``): the n = 2**20
+    hopping chain with a random on-site potential and three deep sites
+    (three bound states below the band); ``n`` cuts it."""
+    from lanczos_tpu_torch.parallel.multichip import main_path_coo
+
+    return main_path_coo(n)
 
 
 def _main_path_engine(tl, torch, op, dtype=None):
-    """LambdaLanczos over ``op`` as the main path configures it (vectors
-    in ``dtype``: the operator's by default, float32 for bfloat16 tiles)."""
-    eng = tl.LambdaLanczos(op, num_eigs=3, find_maximum=False, dtype=dtype)
-    eng.eps = 1e-6
-    eng.init_vector = tl.fixed_seed_initializer(torch.float32, seed=SEED)  # same start every run
-    # The three bound states are checked independently (scipy and
-    # residuals), so the confirming deflation round — which would resolve
-    # the gap-less band edge to eps — is skipped.
-    eng.stop_when_full = True
-    mode = eng._resolve_mode()
-    if mode != "fused":
-        raise AssertionError(f"mode='auto' resolved to {mode} on {op.device}")
-    return eng
+    """LambdaLanczos over ``op`` as the main path configures it
+    (``multichip.main_path_engine``; vectors in ``dtype``: the operator's
+    by default, float32 for bfloat16 tiles)."""
+    from lanczos_tpu_torch.parallel.multichip import main_path_engine
+
+    return main_path_engine(op, dtype)
 
 
 def phase_main_path(torch, np, dev):
@@ -1664,7 +1656,8 @@ def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref, thick, herm
     then, in the same group, with ``precise_vectors`` (:func:`sharded_pv`,
     its own line and seconds), and every other engine over row slabs
     (:func:`sharded_engines`, its own lines and seconds), the 2-D mesh
-    (:func:`grid_mesh`) and the bfloat16 main path (:func:`sharded_bf16`)."""
+    (:func:`grid_mesh`), the bfloat16 main path (:func:`sharded_bf16`) and
+    the port's dryrun (:func:`phase_multichip`)."""
     import datetime
     import socket
 
@@ -1743,9 +1736,26 @@ def phase_sharded_main_path(torch, np, dev, ref, main_iters, pv_ref, thick, herm
         t0 = time.perf_counter()
         pv["bf16"] = sharded_bf16(torch, np, mesh, bf16)
         pv["bf16_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_multichip()
+        pv["multichip_seconds"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     return launches, op, pv
+
+
+def phase_multichip():
+    """Phase ``multichip``, in the one-rank NCCL world of
+    ``sharded_main_path``: the port's ``dryrun_multichip``, the JAX
+    package's dryrun regimes with their shapes, seeds and bars (3 and 6 need
+    an even world above one rank and are skipped, as the JAX dryrun skips
+    them on one device).  It raises on a missed bar.  Its four-card run is
+    ``python3 -m lanczos_tpu_torch.parallel.multichip --ranks 4 [--full]``."""
+    from lanczos_tpu_torch.parallel import multichip
+
+    t0 = time.perf_counter()
+    records = multichip.dryrun_multichip(1, emit=None)
+    emit({"phase": "multichip", "world": 1, "seconds": time.perf_counter() - t0, "regimes": records})
 
 
 GRID_DENSE_N = 32768  # the main path's chain stored dense: 4.3 GB of float32
@@ -4455,6 +4465,7 @@ def main() -> int:
     seconds["sharded_engines"] = sharded_pv_out["engines_seconds"]  # the same
     seconds["grid_mesh"] = sharded_pv_out["grid_seconds"]  # the same
     seconds["bf16_sharded"] = sharded_pv_out["bf16_seconds"]  # the same
+    seconds["multichip"] = sharded_pv_out["multichip_seconds"]  # the same
     sharded_eng = sharded_pv_out["engines"]
     k2 = timed("k2", phase_k2, torch, dev, sharded_op)
     del sharded_op

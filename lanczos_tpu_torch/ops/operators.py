@@ -423,9 +423,29 @@ class BSROperator(LinearOperator):
     def device(self):
         return self.blocks.device
 
+    layout = "rmsk"  # the only tile layout of this operator (the sharded one holds rsmk)
+
+    @property
+    def bm(self):
+        return self.blocks.shape[1]
+
+    @property
+    def bk(self):
+        return self.blocks.shape[3]
+
+    @property
+    def s_max(self):
+        """Stored tiles per row block (padding included)."""
+        return self.blocks.shape[2]
+
     @property
     def n_padded(self):
-        return self.blocks.shape[0] * self.blocks.shape[1]
+        return self.blocks.shape[0] * self.bm
+
+    @property
+    def nnz_dense(self):
+        """Stored (padded) values: what the kernel streams."""
+        return self.blocks.numel()
 
     @classmethod
     def from_coo(cls, rows, cols, vals, n: int, *, bm: int = 128, bk: int = 128, dtype=torch.float32, device=None):
@@ -529,6 +549,18 @@ class DIAOperator(LinearOperator):
     @property
     def device(self):
         return self.data.device
+
+    @property
+    def ndiag(self):
+        return len(self.offsets)
+
+    def to_dense(self):
+        """The (n, n) matrix on the operator's device."""
+        a = torch.zeros((self.n, self.n), dtype=self.dtype, device=self.device)
+        for j, d in enumerate(self.offsets):
+            i = torch.arange(max(0, -d), self.n - max(0, d), device=self.device)
+            a[i, i + d] = self.data[j, i]
+        return a
 
     def abs_row_sums(self):
         return dia_abs_row_sums(self.data, self.dtype)

@@ -95,8 +95,12 @@ def initialize_distributed(**kwargs) -> None:
 def make_mesh(group=None) -> RowMesh:
     """The row mesh of ``group`` (default: the whole world).  Under NCCL the
     device is ``cuda:<local rank>`` (``LOCAL_RANK`` when the launcher sets
-    it, else the rank modulo the cards on the host); under gloo it is the
-    CPU."""
+    it, else the rank modulo the cards on the host), made the current
+    device: NCCL's batched point-to-point transfers and the seed broadcast
+    of ``utils/random.py`` run on the current device, and a rank that left
+    it at card 0 would put them there.  Set it before
+    :func:`initialize_distributed` as well (``torch.cuda.set_device``), as
+    ``multichip`` and ``mp_demo`` do.  Under gloo the device is the CPU."""
     if not dist.is_initialized():
         raise RuntimeError("no process group: call initialize_distributed(...) before make_mesh()")
     group = dist.group.WORLD if group is None else group
@@ -104,6 +108,7 @@ def make_mesh(group=None) -> RowMesh:
     if "nccl" in str(dist.get_backend(group)):
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank() % max(torch.cuda.device_count(), 1)))
         device = torch.device("cuda", local)
+        torch.cuda.set_device(device)
     else:
         device = torch.device("cpu")
     return RowMesh(group, rank, size, device)

@@ -144,7 +144,10 @@ def _exchange(mesh: RowMesh, sends, recvs):
     """Start the point-to-point transfers ``sends`` and ``recvs``, lists of
     ``(tensor, peer rank in the mesh, tag)``, together; returns the works to
     wait on.  Peers outside the mesh are skipped, so a receive buffer whose
-    sender does not exist keeps its zeros."""
+    sender does not exist keeps its zeros.  NCCL ignores the tags and pairs
+    the transfers between two ranks in the order they are issued; every
+    caller sends at most one tensor to each peer, so the pairs match on
+    both backends (four cards of one host, ``parallel/multichip.py``)."""
     ops = [
         dist.P2POp(fn, t, dist.get_global_rank(mesh.group, peer), mesh.group, tag)
         for fn, items in ((dist.isend, sends), (dist.irecv, recvs))

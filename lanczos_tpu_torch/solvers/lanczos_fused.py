@@ -263,16 +263,26 @@ def _run_stage(op, st: _Build, defl, defl_mask, *, eps, offset, nroot, find_maxi
             _check(st, k, nroot, find_maximum, eps, breakdown_eps)
 
 
-def fused_krylov(op, v0, defl, defl_mask, eps, offset, *, nroot: int, m_cap: int, find_maximum: bool, check_every: int = 1, reorth_policy: str = "full"):
+def fused_krylov(op, v0, defl, defl_mask, eps, offset, *, nroot: int, m_cap: int, find_maximum: bool, check_every: int = 1, reorth_policy: str = "full", precise_vectors: bool = False):
     """Fixed-capacity Krylov build (no staging, one classical pass, no
-    float64 reductions): returns ``(u_buf, alpha, beta, itern, evs)``."""
+    float64 reductions): returns ``(u_buf, alpha, beta, itern, evs)``.
+
+    ``precise_vectors`` builds over a float64 basis and ``float64_view(op)``
+    (as :func:`precise_iteration` does, real dtypes only): ``u_buf`` comes
+    back in the storage dtype of ``v0``, alpha, beta and the values in
+    float64 (the JAX build's word pairs, summed)."""
+    storage = v0.dtype
+    if precise_vectors:
+        if v0.is_complex():
+            raise TypeError("precise_vectors supports real dtypes only")
+        op, v0, defl, defl_mask = float64_view(op), v0.double(), defl.double(), defl_mask.double()
     st = _Build(v0, m_cap, nroot, precise=False)
     _run_stage(
         op, st, defl, defl_mask, eps=float(eps), offset=float(offset), nroot=nroot,
         find_maximum=find_maximum, check_every=max(int(check_every), 1), passes=1,
         selective=reorth_policy == "selective", k_lim=m_cap,
     )
-    return st.u, st.alpha, st.beta, st.done, st.evs_prev
+    return st.u.to(storage), st.alpha, st.beta, st.done, st.evs_prev
 
 
 def precise_iteration(engine, op, v0, nroot: int, defl, defl_mask, cfg: LanczosConfig, *args):

@@ -32,7 +32,7 @@ def test_import_pulls_in_no_jax():
         "import lanczos_tpu_torch.ops.cheby, lanczos_tpu_torch.ops.filters, lanczos_tpu_torch.utils.estimate;"
         "from lanczos_tpu_torch import filtered_lanczos;"
         "import lanczos_tpu_torch.parallel, lanczos_tpu_torch.parallel.mesh, lanczos_tpu_torch.parallel.sharded;"
-        "import lanczos_tpu_torch.parallel.mp_demo;"
+        "import lanczos_tpu_torch.parallel.mp_demo, lanczos_tpu_torch.parallel.multichip;"
         "import lanczos_tpu_torch.experiments, lanczos_tpu_torch.experiments._timing;"
         "import lanczos_tpu_torch.experiments.bcgs_kernel, lanczos_tpu_torch.experiments.bcgs_kernel2;"
         "import lanczos_tpu_torch.experiments.bcgs_kernel3, lanczos_tpu_torch.experiments.bcgs_k2_tiny;"
@@ -60,23 +60,55 @@ def test_import_pulls_in_no_jax():
 _PORTED_AS = {"ops/pallas_spmv.py": "ops/spmv.py", "ops/pallas_cgs.py": "ops/cgs.py", "ops/pallas_cheby.py": "ops/cheby.py"}
 _RENAMED = {("ops/pallas_spmv.py", "bsr_matvec_pallas_t"): "bsr_matvec",
             ("ops/pallas_spmv.py", "bsr_matvec_pallas"): "bsr_matvec_rsmk"}
-# Deliberate non-ports ("*": the whole module).  The word pairs and the
-# engines built on them stand in for float64, which the card has (ROADMAP
-# item 10); the compilation cache is XLA's; the shardings are JAX objects;
-# pallas_cgs_fits is the TPU dispatch test (the wrappers dispatch on the
-# tensor's device).
+# Deliberate non-ports, each with its reason: a module-level name, "*"
+# (the whole module), "Class.member", "*.member" (every class of the
+# module) or "function(keyword=)" / "Class.method(keyword=)".
+_DF64 = "double-float words stand in for float64, which the card has (ROADMAP item 10)"
+_PYTREE = "JAX pytree registration: the port's operators are plain Python objects"
+_PALLAS = "the TPU's Pallas/XLA choice: the wrappers dispatch on the tensor's device"
+_INTERPRET = "Pallas interpret mode: the plain versions run on CPU tensors"
+_VMEM = "the TPU's VMEM tiling: the CUDA kernels plan their own tiles"
+_AXES = "jax.sharding mesh axes and device lists: a process group has ranks, not named axes or devices"
 _NOT_PORTED = {
-    "__init__.py": {"enable_compilation_cache"},
-    "core/df64.py": {"two_sum", "two_prod", "df_add", "df_sub", "df_mul", "df_recip", "df_sqrt", "df_sum",
-                     "df_sum_axis", "dot_df", "df_matmul", "df_split", "df_join"},
-    "core/linalg.py": {"inner_prod_df", "inner_prod_df_df", "orthogonalize_cgs2_df", "orthogonalize_cgs2_df_coeffs",
-                       "orthogonalize_cgs2_dfdf_coeffs"},
-    "core/tridiagonal.py": {"extremal_eigenvalues_device_df"},
-    "ops/pallas_cgs.py": {"pallas_cgs_fits"},
-    "parallel/mesh.py": {"row_sharding", "replicated_sharding"},
-    "solvers/block_thick.py": {"block_thick_iteration_fused_pv"},
-    "solvers/thick_restart.py": {"thick_lanczos_iteration_fused_pv"},
-    "utils/compile_cache.py": {"*"},
+    "__init__.py": {"enable_compilation_cache": "XLA's compilation cache"},
+    "core/df64.py": dict.fromkeys(("two_sum", "two_prod", "df_add", "df_sub", "df_mul", "df_recip", "df_sqrt",
+                                   "df_sum", "df_sum_axis", "dot_df", "df_matmul", "df_split", "df_join"), _DF64),
+    "core/linalg.py": {**dict.fromkeys(("inner_prod_df", "inner_prod_df_df", "orthogonalize_cgs2_df",
+                                        "orthogonalize_cgs2_df_coeffs", "orthogonalize_cgs2_dfdf_coeffs"), _DF64),
+                       "orthogonalize_bcgs_dyn(chunk=)": _VMEM, "orthogonalize_bcgs_dyn(use_pallas=)": _PALLAS,
+                       "orthogonalize_bcgs_dyn_coeffs(chunk=)": _VMEM},
+    "core/tridiagonal.py": {"extremal_eigenvalues_device_df": _DF64},
+    "native/build.py": {"shared_object_path(build=)": "the port builds a missing library at first use; "
+                                                      "library_path() names it without building"},
+    "ops/filters.py": {"*.tree_flatten": _PYTREE, "*.tree_unflatten": _PYTREE},
+    "ops/hermitian_split.py": {"*.tree_flatten": _PYTREE, "*.tree_unflatten": _PYTREE},
+    "ops/operators.py": {"*.tree_flatten": _PYTREE, "*.tree_unflatten": _PYTREE, "BSROperator.use_pallas": _PALLAS,
+                         "BSROperator.from_coo(use_pallas=)": _PALLAS},
+    "ops/pallas_cgs.py": {"pallas_cgs_fits": "the TPU dispatch test: the wrappers dispatch on the tensor's device",
+                          "cgs_pass(chunk=)": _VMEM, "cgs_pass(interpret=)": _INTERPRET,
+                          "cgs_pass_block(chunk=)": _VMEM, "cgs_pass_block(interpret=)": _INTERPRET},
+    "ops/pallas_cheby.py": {"cheby_chain_apply(interpret=)": _INTERPRET, "cheby_chain_apply(s=)": _VMEM,
+                            "cheby_chain_fits(s=)": _VMEM, "cheby_chain_fits(itemsize=)": _VMEM},
+    "ops/pallas_spmv.py": {"bsr_matvec_pallas(interpret=)": _INTERPRET, "bsr_matvec_pallas_t(interpret=)": _INTERPRET,
+                           "bsr_matvec_pallas_t(blocks_t=)": "the Pallas kernel's pre-transposed tiles: K1 streams "
+                                                             "the rmsk tiles it is given as blocks"},
+    "parallel/mesh.py": {"row_sharding": _AXES, "replicated_sharding": _AXES, "make_mesh(axis_name=)": _AXES,
+                         "make_mesh(devices=)": _AXES, "make_multislice_mesh(devices=)": _AXES,
+                         "make_multislice_mesh(dcn_axis=)": _AXES, "make_multislice_mesh(ici_axis=)": _AXES,
+                         "pad_to_multiple(axis_name=)": _AXES, "shard_vector(axis_name=)": _AXES,
+                         "shard_dense_operator(axis_name=)": _AXES, "shard_dense_operator_2d(mesh=)": _AXES,
+                         "shard_dense_operator_2d(row_axis=)": _AXES, "shard_dense_operator_2d(col_axis=)": _AXES},
+    "parallel/mp_demo.py": {"launch(local_devices=)": "virtual CPU devices per JAX process: a rank holds one device"},
+    "parallel/sharded.py": {"*.tree_flatten": _PYTREE, "*.tree_unflatten": _PYTREE, "*.axis_name": _AXES,
+                            "ShardedBSROperator.from_coo(axis_name=)": _AXES,
+                            "ShardedDIAOperator.from_diagonals(axis_name=)": _AXES,
+                            "shard_operator(axis_name=)": _AXES},
+    "solvers/block_thick.py": {"block_thick_iteration_fused_pv": _DF64},
+    "solvers/cheby_expm.py": dict.fromkeys(("chebyshev_expm_apply_hermitian(split_op=)",
+                                            "chebyshev_expm_grid_hermitian(split_op=)"),
+                                           "the port's first argument is op, a complex operator or a split one"),
+    "solvers/thick_restart.py": {"thick_lanczos_iteration_fused_pv": _DF64},
+    "utils/compile_cache.py": {"*": "XLA's compilation cache"},
 }
 
 
@@ -109,22 +141,115 @@ def _bound_names(path):
     return names
 
 
+def _definitions(path):
+    return {n.name: n for n in ast.parse(path.read_text()).body if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+
+
+def _keywords(fn):
+    """A function's parameter names but self and cls, and whether it takes
+    ``**kwargs``."""
+    a = fn.args
+    return {x.arg for x in a.posonlyargs + a.args + a.kwonlyargs} - {"self", "cls"}, a.kwarg is not None
+
+
+def _members(cls, classes=None):
+    """A class's public members (and ``__init__``): methods and properties
+    (not their setters), class attributes and dataclass fields, each with
+    its function or None.  Given ``classes`` (the port's classes by name),
+    also what its methods store on ``self`` and what it inherits."""
+    out = {}
+    for node in cls.body:
+        if isinstance(node, ast.FunctionDef):
+            if not any(isinstance(d, ast.Attribute) and d.attr in ("setter", "deleter") for d in node.decorator_list):
+                out[node.name] = node
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            out[node.target.id] = None
+        elif isinstance(node, ast.Assign):
+            out.update({t.id: None for t in node.targets if isinstance(t, ast.Name)})
+    if classes is not None:
+        for node in ast.walk(cls):
+            if (isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name) and node.value.id == "self"
+                    and isinstance(node.ctx, ast.Store)):
+                out.setdefault(node.attr, None)
+        for base in cls.bases:
+            base = classes.get(getattr(base, "id", getattr(base, "attr", None)))
+            if base is not None and base is not cls:
+                for name, fn in _members(base, classes).items():
+                    out.setdefault(name, fn)
+    return {k: v for k, v in out.items() if not k.startswith("_") or k == "__init__"}
+
+
+def _member_gaps(jax_root, port_root):
+    """The public members and keyword arguments of the JAX package's public
+    classes and functions that their counterparts in the port lack, as
+    ``rel:Class.member``, ``rel:function(kw=)`` and
+    ``rel:Class.method(kw=)``."""
+    classes = {}
+    for path in port_root.rglob("*.py"):
+        for name, node in _definitions(path).items():
+            if isinstance(node, ast.ClassDef):
+                classes.setdefault(name, node)
+    gaps = []
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        target = port_root / _PORTED_AS.get(rel, rel)
+        if not target.exists():
+            continue
+        jax_defs, port_defs = _definitions(path), _definitions(target)
+        for name in sorted(_public_names(path)):
+            j, p = jax_defs.get(name), port_defs.get(_RENAMED.get((rel, name), name))
+            pairs = []
+            if isinstance(j, ast.ClassDef) and isinstance(p, ast.ClassDef):
+                jm, pm = _members(j), _members(p, classes)
+                gaps += [f"{rel}:{name}.{m}" for m in sorted(set(jm) - set(pm))]
+                pairs = [(f"{name}.{m}", jm[m], pm[m]) for m in sorted(set(jm) & set(pm))
+                         if jm[m] is not None and isinstance(pm[m], ast.FunctionDef)]
+            elif isinstance(j, ast.FunctionDef) and isinstance(p, ast.FunctionDef):
+                pairs = [(name, j, p)]
+            for label, jf, pf in pairs:
+                (want, _), (have, var) = _keywords(jf), _keywords(pf)
+                if not var:
+                    gaps += [f"{rel}:{label}({k}=)" for k in sorted(want - have)]
+    return gaps
+
+
+def _listed(gap):
+    """The entry of ``_NOT_PORTED`` that covers a member gap, else None."""
+    rel, name = gap.split(":", 1)
+    entries = _NOT_PORTED.get(rel, {})
+    if name in entries:
+        return name
+    if "(" not in name and f"*.{name.split('.', 1)[-1]}" in entries:
+        return f"*.{name.split('.', 1)[-1]}"
+    return None
+
+
 def test_every_jax_public_name_has_a_counterpart():
+    # Every public name of every JAX module at its path in the port, and
+    # every public member and keyword argument of its public classes and
+    # functions, but the deliberate non-ports.
     jax_root, port_root = REPO / "lanczos_tpu", REPO / "lanczos_tpu_torch"
     missing = []
     for path in sorted(jax_root.rglob("*.py")):
         rel = path.relative_to(jax_root).as_posix()
-        skip = _NOT_PORTED.get(rel, set())
-        if skip == {"*"}:
+        skip = _NOT_PORTED.get(rel, {})
+        if "*" in skip:
             continue
         target = port_root / _PORTED_AS.get(rel, rel)
         have = _bound_names(target) if target.exists() else set()
-        missing += [f"{rel}:{name}" for name in sorted(_public_names(path) - skip)
+        missing += [f"{rel}:{name}" for name in sorted(_public_names(path) - set(skip))
                     if _RENAMED.get((rel, name), name) not in have]
+    gaps = _member_gaps(jax_root, port_root)
+    missing += [gap for gap in gaps if _listed(gap) is None]
     assert not missing, missing
-    # The list of non-ports names only what the JAX package has.
+    # The list of non-ports names only what the JAX package has and the
+    # port lacks: JAX public names, and members and keywords that are gaps.
+    used = {(gap.split(":", 1)[0], _listed(gap)) for gap in gaps}
     for rel, names in _NOT_PORTED.items():
-        assert (jax_root / rel).exists() and names - {"*"} <= _public_names(jax_root / rel), rel
+        assert (jax_root / rel).exists(), rel
+        plain = {n for n in names if n != "*" and "." not in n and "(" not in n}
+        assert plain <= _public_names(jax_root / rel), rel
+        assert {(rel, n) for n in set(names) - plain - {"*"}} <= used, (rel, sorted(set(names) - plain - {"*"}))
 
 
 def test_nvcc_command_targets_hopper_and_names_every_source():
@@ -257,6 +382,60 @@ def test_unported_options_raise(setting):
                 setattr(eng, name, value)
             with pytest.raises(error):
                 eng.run()
+
+
+@pytest.mark.parametrize("member", ["bsr_sizes", "dia_ndiag", "dia_to_dense", "fused_krylov_precise_vectors"])
+def test_members_match_the_jax_package(member):
+    # The members the parity check found missing, ported: each against the
+    # JAX package's on the same numpy data.
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    import lanczos_tpu
+    from lanczos_tpu.solvers.lanczos_fused import fused_krylov as jax_fused
+
+    from lanczos_tpu_torch.solvers.lanczos_fused import fused_krylov
+
+    n = 70
+    rng = np.random.default_rng(8)
+    if member == "bsr_sizes":  # rectangular tiles tell bm from bk
+        rows, cols = rng.integers(0, n, 300), rng.integers(0, n, 300)
+        vals = rng.standard_normal(300)
+        ours = tl.BSROperator.from_coo(rows, cols, vals, n, bm=8, bk=16, dtype=torch.float32, device="cpu")
+        theirs = lanczos_tpu.BSROperator.from_coo(rows, cols, vals, n, bm=8, bk=16, dtype=jnp.float32)
+        names = ("bm", "bk", "s_max", "n_padded", "nnz_dense", "layout")
+        assert [getattr(ours, k) for k in names] == [getattr(theirs, k) for k in names]
+        return
+    diags = [rng.standard_normal(n) for _ in range(3)]
+    ours = tl.DIAOperator.from_diagonals([-2, 0, 3], diags, n, device="cpu")
+    theirs = lanczos_tpu.DIAOperator.from_diagonals([-2, 0, 3], diags, n)
+    if member == "dia_ndiag":
+        assert ours.ndiag == theirs.ndiag == 3
+    elif member == "dia_to_dense":
+        dense = ours.to_dense()
+        assert dense.dtype == torch.float64 and dense.device.type == "cpu"
+        np.testing.assert_array_equal(dense.numpy(), np.asarray(theirs.to_dense()))
+    else:  # the full space (eps < 0: never stop) of a float32 chain with a potential, over a float64 basis
+        n = 64
+        pot = rng.uniform(0.0, 1.0, n).astype(np.float32)
+        off = np.full(n, -1.0, np.float32)
+        v0 = rng.choice([-0.125, 0.125], n).astype(np.float32)  # a unit norm in float32 and float64 alike
+        exact = np.linalg.eigvalsh(np.diag(pot.astype(np.float64)) - np.eye(n, k=1) - np.eye(n, k=-1))[:2]
+        evs = []
+        for pkg, fused, conv in ((lanczos_tpu, jax_fused, jnp.asarray),
+                                 (tl, fused_krylov, lambda a: torch.from_numpy(np.asarray(a)))):
+            kw = {"device": "cpu"} if pkg is tl else {}
+            op = pkg.DIAOperator.from_diagonals([-1, 0, 1], [off, pot, off], n, **kw)
+            u, alpha, beta, itern, ev = fused(op, conv(v0), conv(np.zeros((1, n), np.float32)),
+                                              conv(np.zeros(1, np.float32)), -1.0, 0.0, nroot=2, m_cap=n,
+                                              find_maximum=False, precise_vectors=True)
+            assert np.asarray(u).dtype == np.float32  # the storage dtype, as in JAX
+            evs.append(np.sort(np.asarray(ev, np.float64)))
+        # The check's values (a multisection's resolution) in both packages,
+        # and the port's float64 tridiagonal exact to float64's rounding.
+        assert np.max(np.abs(np.asarray(evs) - exact)) < 1e-7
+        m = int(itern)
+        t = np.diag(alpha[:m].numpy()) + np.diag(beta[: m - 1].numpy(), 1) + np.diag(beta[: m - 1].numpy(), -1)
+        assert alpha.dtype == torch.float64 and np.max(np.abs(np.linalg.eigvalsh(t)[:2] - exact)) < 1e-12
 
 
 def test_tridiagonal_native_backend_solves():

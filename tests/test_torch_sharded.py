@@ -12,9 +12,11 @@ marker) run K2 against its plain version and a one-rank NCCL solve.
 """
 
 import datetime
+import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -28,7 +30,7 @@ from torch_jax_release import release_jax_executables  # noqa: E402,F401
 import torch_sharded_world as world_script  # noqa: E402
 
 from lanczos_tpu_torch.ops import spmv  # noqa: E402
-from lanczos_tpu_torch.parallel import mp_demo  # noqa: E402
+from lanczos_tpu_torch.parallel import mp_demo, multichip  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
@@ -661,6 +663,55 @@ def test_mp_demo_two_ranks():
     assert {k: results[0][k] for k in keys} == {k: results[1][k] for k in keys}  # the same bits
 
 
+# ------------------------------------------- dryrun_multichip in the worlds
+
+
+def _dryrun_truths():
+    """Each regime of the JAX dryrun (``__graft_entry__.dryrun_multichip``):
+    its values' truths and bars, recomputed here from its seeds; both worlds
+    hold two slices of the batch axis."""
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((2, 64, 64))
+    a = (a + np.swapaxes(a, 1, 2)) / 2
+    chain = {m: -2.0 * np.cos(np.pi / (m + 1)) for m in (128, 256)}
+    return {  # regime: (truth of each value, bar, relative?)
+        1: (np.linalg.eigvalsh(a.astype(np.float32).astype(np.float64))[:, -1], 5e-2, True),
+        2: ([chain[128]], 5e-2, False), 3: ([chain[256]], 5e-2, False), 4: ([chain[256]], 5e-2, False),
+        5: ([chain[128]], 5e-2, False), 6: ([chain[256]] * 2, 5e-2, False), 7: ([chain[256]], 1e-8, False),
+        8: ([chain[128]], 1e-8, False), 10: ([1.0, 1.0], np.array([1e-4, 1e-10]), False),
+    }
+
+
+@pytest.mark.parametrize("regime", [1, 2, 3, 4, 5, 6, 7, 8, 10])
+@pytest.mark.parametrize("w", [2, 4])
+def test_dryrun_multichip_regime(request, w, regime):
+    # The port's dryrun_multichip inside the gloo world of w ranks: each
+    # regime's values against the JAX dryrun's truth at its bar, and every
+    # rank of a solve with the same bits.  Regimes 9 and 11 are left out
+    # there (world_script.DRYRUN_SKIP) and recorded as skipped.
+    _refs, outs = request.getfixturevalue(f"world{w}")
+    by_rank = [{rec["regime"]: rec for rec in json.loads(str(o["dryrun"]))} for o in outs]
+    assert all(set(recs) == set(range(1, 12)) for recs in by_rank)
+    assert all(by_rank[0][k]["skipped"] for k in world_script.DRYRUN_SKIP)
+    rec = by_rank[0][regime]
+    assert rec["ok"] and rec["same_bits"] and rec["world"] == w, rec
+    # every rank printed the same values (each slice's rows under regimes 1 and 6)
+    assert all(recs[regime]["values"] == rec["values"] for recs in by_rank)
+    truth, bar, relative = _dryrun_truths()[regime]
+    got = np.ravel(rec["values"])
+    err = np.abs(got - np.asarray(truth)) / (np.abs(truth) if relative else 1.0)
+    assert np.all(err < bar), (regime, got, truth)
+
+
+def test_multichip_launch_ends_a_world_with_a_dead_rank():
+    # The launcher's drill: rank 1 exits once the world is up, rank 0 blocks
+    # in the dryrun's first collective; the launch kills it and raises.
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"rank\(s\) \[.*\b1\b.*\] failed"):
+        multichip.launch(2, device="cpu", timeout=WORLD_TIMEOUT_S, abort_rank=1)
+    assert time.monotonic() - t0 < 60
+
+
 def test_initialize_distributed_fails_loudly():
     script = (
         "import datetime\n"
@@ -757,3 +808,63 @@ def test_sharded_solve_nccl_world_of_one(cuda, tmp_path):
         assert eng.residuals([val], vec[None])[0] < 1e-8
     finally:
         dist.destroy_process_group()
+
+
+_MESH_DEVICE_RANK = """
+import datetime, sys
+import numpy as np, torch, torch.distributed as dist
+from lanczos_tpu_torch.parallel import mesh as pmesh
+from lanczos_tpu_torch.utils.random import random_initializer
+rank = int(sys.argv[1])
+# No set_device first: a launcher that leaves card 0 current on every rank.
+pmesh.initialize_distributed(backend="nccl", init_method=sys.argv[2], world_size=2, rank=rank,
+                             timeout=datetime.timedelta(seconds=60))
+m = pmesh.make_mesh()
+draw = random_initializer(np.float64)(4)  # the seed broadcast, on the current device
+print(torch.cuda.current_device(), m.device.index, *draw.tolist(), flush=True)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.gpu
+def test_make_mesh_makes_the_rank_card_current(cuda, tmp_path):
+    # Two NCCL ranks whose launcher sets no card: make_mesh makes each
+    # rank's card current, so the seed broadcast runs on two cards (on one
+    # card NCCL fails or hangs) and both ranks draw the same vector.
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards, this host has {torch.cuda.device_count()}")
+    env = dict(os.environ, PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.pop("LOCAL_RANK", None)
+    procs = [subprocess.Popen([sys.executable, "-c", _MESH_DEVICE_RANK, str(r), f"file://{tmp_path / 'rdv'}"],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), outs
+    lines = [o.strip().splitlines()[-1].split() for o in outs]
+    assert [(int(ln[0]), int(ln[1])) for ln in lines] == [(0, 0), (1, 1)], outs
+    assert lines[0][2:] == lines[1][2:]
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_four(cuda):
+    # The dryrun over four NCCL ranks, one a card, through the module's
+    # launcher: every regime at its JAX bar with the same bits on every
+    # rank; then the drill, a rank that dies with the world running, ends
+    # the launch with an error.
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs four cards, this host has {torch.cuda.device_count()}")
+    records = multichip.launch(4, timeout=900)
+    assert records[0]["phase"] == "world" and records[0]["backend"] == "nccl" and records[0]["world"] == 4
+    regimes = {rec["regime"]: rec for rec in records[1:]}
+    assert set(regimes) == set(range(1, 12))
+    for rec in regimes.values():
+        assert rec["ok"] and rec["same_bits"] and "skipped" not in rec, rec
+    with pytest.raises(RuntimeError, match=r"rank\(s\) \[.*\b2\b.*\] failed"):
+        multichip.launch(4, timeout=300, abort_rank=2)
