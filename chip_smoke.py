@@ -42,7 +42,9 @@ thick engine on complex input (K4 complex64 and complex128), and
 ``sharded_main_path``, the thick, block-thick, checkpointed, complex
 (K2 complex) and precise thick solves over the main path's sharded
 operator, and ``filtered_lanczos`` and the Exponentiator over a sharded
-DIA chain.  In the same world, phase ``grid_mesh`` runs the main path's
+DIA chain (``lanczos_tpu_torch.parallel.engine_set``, the set that
+``python3 -m lanczos_tpu_torch.parallel.multichip --ranks 4 --engines``
+runs on four cards).  In the same world, phase ``grid_mesh`` runs the main path's
 chain over a 1 x 1 ``GridMesh``'s combined axes (a ShardedDIAOperator) and
 its n = 32768 construction stored dense through ``shard_dense_operator_2d``
 (K3 and K6), each beside its unsharded solve.  Phase ``pack_bsr`` times the
@@ -2464,11 +2466,10 @@ def phase_expm_chain(torch, np, dev):
         raise AssertionError("Chebyshev grid: misshapen or non-finite output")
     # The states phase sharded_engines holds its one-rank ShardedDIAOperator
     # to: 100 steps of exp(0.05i H) and the chain for exp(5i H).
+    from lanczos_tpu_torch.parallel.engine_set import chain_states
+
     t0 = time.perf_counter()
-    evolve_state = _to_np(np, *ex.evolve(0.05j, v_re, v_im, 100))
-    evolve_100_s = time.perf_counter() - t0  # the host copy waits for the device
-    states = {"evolve_100x0.05i": evolve_state,
-              "chebyshev_5i": _to_np(np, *ex.run_chebyshev(5j, v_re, v_im, lo=-2.0, hi=2.0)[0])}
+    states = chain_states(ex, v_re, v_im, 100)
     states_s = time.perf_counter() - t0
     emit({"phase": "expm_chain", "n": n, "dtype": "float32", "k_mode": k_mode, "a_step": str(a_step), "steps": steps,
           "krylov_dim": 12, "evolve_s": evolve_s, "evolve_ms_per_step": evolve_s / steps * 1e3,
@@ -2478,8 +2479,8 @@ def phase_expm_chain(torch, np, dev):
           "grid_s": grid_s,
           "grid_terms": grid_terms, "grid_angles": grid_angles,
           "bars": {"evolve": EVOLVE_ANGLE_BAR, "chebyshev": CHEBY_ANGLE_BAR}, "sharded_reference_states_s": states_s,
-          "evolve_100x0.05i_s": evolve_100_s})
-    return {"k3": k3, "states": states, "v0": v0, "evolve_100_s": evolve_100_s}
+          "evolve_100x0.05i_s": states["evolve_s"]})
+    return {"k3": k3, "states": states, "v0": v0}
 
 
 def host_waits(torch, fn):
@@ -3257,53 +3258,27 @@ def phase_k3c(torch, dev):
 
 
 def _gauge_chain(np):
-    """The main path's chain with a gauge phase on every hop: H' = U H U^H,
-    U = diag(exp(i phi)), hop (j, j+1) times exp(i theta_j), theta_j uniform
-    [0, 2 pi) from default_rng(1).  Returns the COO triplets (complex128)
-    and phi of the STORED complex64 entries (their phases), with the
-    float64 magnitudes of the stored hops (1 to ~1e-8): the stored operator
-    is exactly U' R U'^H for the real chain R with those hops."""
-    n = MAIN_N
-    rows, cols, vals = _main_path_coo(np)
-    theta = np.random.default_rng(1).uniform(0.0, 2.0 * np.pi, n - 1)
-    vals = vals.astype(np.complex128)
-    vals[: n - 1] *= np.exp(1j * theta)  # (j, j+1)
-    vals[n - 1 : 2 * (n - 1)] *= np.exp(-1j * theta)  # (j+1, j)
-    stored = vals[: n - 1].astype(np.complex64).astype(np.complex128)
-    theta_s = np.angle(-stored)
-    phi = np.concatenate([[0.0], -np.cumsum(theta_s)])
-    return rows, cols, vals, phi, np.abs(stored)
+    """The main path's chain with a gauge phase on every hop
+    (``engine_set.gauge_chain`` at n = MAIN_N): the COO triplets
+    (complex128), phi of the stored complex64 entries and their hops'
+    magnitudes."""
+    from lanczos_tpu_torch.parallel.engine_set import gauge_chain
+
+    return gauge_chain(MAIN_N)
 
 
 def _launch_counts(torch):
     """Zero the launch counts of K1 and K2 (by dtype), K1x (every form and
-    tile dtype) and K3 and K4 (by dtype)."""
-    from lanczos_tpu_torch.ops import cgs, spmv
+    tile dtype), K3 and K4 (by dtype) and K6 (``engine_set``)."""
+    from lanczos_tpu_torch.parallel.engine_set import zero_launch_counts
 
-    for fn in (spmv.bsr_matvec, spmv.bsr_matvec_f32x64, spmv.bsr_matvec_c64x128, spmv.bsr_matvec_bf16x64,
-               spmv.bsr_matvec_rsmk, spmv.bsr_matvec_rsmk_f32x64, spmv.bsr_matvec_rsmk_c64x128,
-               spmv.bsr_matvec_rsmk_bf16x64, cgs.cgs_pass, cgs.cgs_pass_block):
-        fn.launches = 0
-    for by_dtype in (spmv.bsr_matvec.launches_by_dtype, spmv.bsr_matvec_rsmk.launches_by_dtype,
-                     cgs.cgs_pass.launches_by_dtype, cgs.cgs_pass_block.launches_by_dtype):
-        by_dtype.clear()
+    zero_launch_counts()
 
 
 def _read_counts():
-    from lanczos_tpu_torch.ops import cgs, spmv
+    from lanczos_tpu_torch.parallel.engine_set import launch_counts
 
-    def named(counter):
-        return {str(k).replace("torch.", ""): v for k, v in counter.items()}
-
-    return {"k1_by_dtype": named(spmv.bsr_matvec.launches_by_dtype),
-            "k1x_f32x64": spmv.bsr_matvec_f32x64.launches, "k1x_c64x128": spmv.bsr_matvec_c64x128.launches,
-            "k1x_bf16x64": spmv.bsr_matvec_bf16x64.launches,
-            "k2_by_dtype": named(spmv.bsr_matvec_rsmk.launches_by_dtype),
-            "k1x_rsmk_f32x64": spmv.bsr_matvec_rsmk_f32x64.launches,
-            "k1x_rsmk_c64x128": spmv.bsr_matvec_rsmk_c64x128.launches,
-            "k1x_rsmk_bf16x64": spmv.bsr_matvec_rsmk_bf16x64.launches,
-            "k3_by_dtype": named(cgs.cgs_pass.launches_by_dtype),
-            "k4_by_dtype": named(cgs.cgs_pass_block.launches_by_dtype)}
+    return launch_counts()
 
 
 def phase_hermitian_main_path(torch, np, dev, op_real, ref, real_evecs, main_wall, main_iters):
@@ -3815,260 +3790,48 @@ def phase_block_hermitian(torch, np, dev, herm_op, ref):
 
 
 def _angle(np, truth, out):
-    """The state angle between two complex vectors (each normalized, the
-    global phase taken out)."""
-    t = truth / np.linalg.norm(truth)
-    o = out / np.linalg.norm(out)
-    ip = np.vdot(t, o)
-    return float(np.linalg.norm(o - (ip / abs(ip)) * t))
+    """The state angle between two complex vectors (``engine_set.angle``)."""
+    from lanczos_tpu_torch.parallel.engine_set import angle
+
+    return angle(truth, out)
 
 
 def sharded_engines(torch, np, mesh, op, ref, thick, herm, pv_ref, chain):
     """Every engine of ROADMAP item 13 over the one-rank NCCL world of
-    phase sharded_main_path.  Over its ShardedBSROperator ``op`` (the main
-    path's problem): thick (against phase thick_scalar's run ``thick``),
-    block thick (b = 3, K4 at world size 1), a CheckpointedRun stopped
-    after its first round and resumed, the complex main path (K2
-    complex64, against phase hermitian_main_path's run ``herm``) with a
-    precise evolution (K1x-rsmk complex64 x complex128) and a complex128
-    run (K2 complex128), and precise thick (K1x-rsmk).  Over a
-    ShardedDIAOperator of the n = 2**20 chain: filtered_lanczos at degree
-    400 (the unfused chain over the sharded matvec), evolve and
-    run_chebyshev against phase expm_chain's unsharded states ``chain``,
-    and the fused run against the hybrid.  Returns K2's complex launches
-    by instance."""
-    import tempfile
+    phase sharded_main_path: ``engine_set.engine_set``'s f32, pv, dia and
+    complex groups, the set that ``multichip --engines`` runs on four
+    cards.  Over its ShardedBSROperator ``op`` (the main path's problem):
+    thick (beside phase thick_scalar's run ``thick``), block thick (b = 3,
+    K4 at world size 1), a CheckpointedRun stopped after its first round
+    and resumed, precise thick (K1x-rsmk); over a ShardedDIAOperator of the
+    n = 2**20 chain: filtered_lanczos at degree 400 (the unfused chain over
+    the sharded matvec), evolve and run_chebyshev against phase
+    expm_chain's unsharded states ``chain``, the fused run against the
+    hybrid; the complex main path (K2 complex64, beside phase
+    hermitian_main_path's run ``herm``) with a precise evolution (K1x-rsmk
+    complex64 x complex128), a complex128 run (K2 complex128) and a
+    complex128 run over DIA slabs.  One ``sharded_engines_case`` line a
+    case.  Returns K2's complex launches by instance."""
+    from lanczos_tpu_torch.parallel.engine_set import engine_set
 
-    import lanczos_tpu_torch as tl
-    from lanczos_tpu_torch.parallel.sharded import ShardedBSROperator, ShardedDIAOperator
-    from lanczos_tpu_torch.solvers import lanczos as tlz
-    from lanczos_tpu_torch.utils import checkpoint
-
-    dev = mesh.device
-    out = {"phase": "sharded_engines", "world_size": mesh.size, "n": op.n}
-
-    def run(label, fn, check):
-        _launch_counts(torch)
-        with counting_checks() as checks:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        counts = _read_counts()
-        counts["k6"] = checks["k6_launches"]
-        rec = {"wall_s": wall, "launches": counts, **check(res, counts)}
-        out[label] = rec
-        emit({"phase": "sharded_engines_case", "case": label, **rec})
-        return res, rec
-
-    def engine(target, **attrs):
-        """The main path's configuration (hermitian_main_path's for a
-        complex operator) with ``attrs`` on top."""
-        if target.dtype == torch.complex64:
-            eng = tl.LambdaLanczos(target, num_eigs=3, find_maximum=False)
-            eng.eps, eng.stop_when_full = 1e-6, True
-            eng.init_vector = tl.fixed_seed_initializer(torch.complex64, seed=SEED)
-        else:
-            eng = _main_path_engine(tl, torch, target)
-        for k, v in attrs.items():
-            setattr(eng, k, v)
-        return eng
-
-    def values(eng, evals, evecs, want, bar, res_bar=1e-3):
-        rel = np.abs(np.sort(np.asarray(evals)) - want) / np.abs(want)
-        residuals = eng.residuals(evals, evecs)
-        if not (evecs.shape == (3, op.n) and np.all(rel <= bar) and max(residuals) <= res_bar):
-            raise AssertionError(f"sharded_engines: eigenvalues {evals} vs {want} ({rel}), residuals {residuals}")
-        return {"eigenvalues": list(map(float, evals)), "max_rel_err": float(rel.max()), "residuals": residuals,
-                "iteration_counts": eng.iteration_counts}
-
-    eng = engine(op, restart_policy="thick", max_iteration=128)
-
-    def thick_check(res, counts):
-        rec = values(eng, *res, ref, 1e-5)
-        if not (counts["k2_by_dtype"].get("float32", 0) > 0 and counts["k1_by_dtype"] == {}):
-            raise AssertionError(f"sharded thick: K2 expected, launches {counts}")
-        rec.update(unsharded_iteration_counts=thick["iteration_counts"], unsharded_wall_s=thick["wall_s"],
-                   max_abs_diff_unsharded=float(np.max(np.abs(np.sort(np.asarray(res[0]))
-                                                              - np.sort(thick["eigenvalues"])))))
-        return rec
-
-    run("thick", eng.run, thick_check)
-
-    eng_b = engine(op, restart_policy="thick", block_size=3, max_iteration=128, max_restarts=32)
-    rng = np.random.default_rng(SEED)
-    eng_b.init_vector = lambda n_: rng.uniform(-1.0, 1.0, n_).astype(np.float32)
-
-    def block_check(res, counts):
-        rec = values(eng_b, *res, ref, 1e-5)
-        if not (counts["k4_by_dtype"].get("float32", 0) > 0 and counts["k2_by_dtype"].get("float32", 0) > 0):
-            raise AssertionError(f"sharded block thick: K4 and K2 expected, launches {counts}")
-        return rec
-
-    run("block_thick", eng_b.run, block_check)
-
-    def ck_engine():
-        return engine(op, num_eigs_per_iteration=1)
-
-    class Interrupt(Exception):
-        pass
-
-    driver = tlz.deflation_driver
-
-    def one_round(*args, after_round, **kwargs):
-        def save_then_stop(manager, counts, finished):
-            after_round(manager, counts, finished)
-            raise Interrupt
-        return driver(*args, after_round=save_then_stop, **kwargs)
-
-    whole = ck_engine()
-    vals_whole, _ = whole.run()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = f"{tmp}/sharded.npz"
-        tlz.deflation_driver = one_round
-        try:
-            checkpoint.CheckpointedRun(ck_engine(), path).run()
-            raise AssertionError("the interrupted sharded run was not interrupted")
-        except Interrupt:
-            pass
-        finally:
-            tlz.deflation_driver = driver
-        saved, saved_counts = checkpoint.load_state(path, sharded=op)
-        resumed = ck_engine()
-
-        def ck_check(res, counts):
-            if not (len(saved) == 1 and saved_counts == whole.iteration_counts[:1]
-                    and resumed.iteration_counts == whole.iteration_counts
-                    and np.array_equal(np.asarray(res[0]), np.asarray(vals_whole))):
-                raise AssertionError(f"sharded checkpoint: saved {len(saved)} / {saved_counts}, resumed "
-                                     f"{resumed.iteration_counts} {res[0]} against {whole.iteration_counts} {vals_whole}")
-            return {**values(resumed, *res, ref, 1e-5), "whole_iteration_counts": whole.iteration_counts,
-                    "saved_counts": saved_counts}
-
-        run("checkpoint_resumed", lambda: checkpoint.CheckpointedRun(resumed, path).run(), ck_check)
-
-    rows, cols, cvals, phi, _mags = _gauge_chain(np)
-    cop = ShardedBSROperator.from_coo(rows, cols, cvals, op.n, mesh, bm=128, bk=128, dtype=torch.complex64)
-    eng_c = engine(cop)
-
-    def complex_check(res, counts):
-        rec = values(eng_c, *res, ref, HERM_MAIN_BAR, HERM_RES_BAR)
-        if not (set(counts["k2_by_dtype"]) == {"complex64"} and set(counts["k3_by_dtype"]) == {"complex64"}):
-            raise AssertionError(f"sharded complex main path: K2 and K3 complex64 alone expected, launches {counts}")
-        rec["unsharded_iteration_counts"] = herm["iteration_counts"]
-        return rec
-
-    run("complex_main_path", eng_c.run, complex_check)
-    psi = np.random.default_rng(7).standard_normal(op.n) + 1j * np.random.default_rng(8).standard_normal(op.n)
-    psi /= np.linalg.norm(psi)
-    one = tl.Exponentiator(tl.BSROperator.from_coo(rows, cols, cvals, op.n, dtype=torch.complex64, device=dev))
-
-    def precise_check(res, counts):
-        want = one.evolve(0.05j, psi.real, psi.imag, 4, krylov_dim=16, precise=True)
-        a = _angle(np, want[0] + 1j * want[1], res[0] + 1j * res[1])
-        if not (counts["k1x_rsmk_c64x128"] > 0 and a <= HERM_PRECISE_BAR):
-            raise AssertionError(f"sharded precise complex evolve: angle {a}, launches {counts}")
-        return {"steps": 4, "angle_to_unsharded": a, "bar": HERM_PRECISE_BAR}
-
-    ex_c = tl.Exponentiator(cop)
-    run("complex_evolve_precise", lambda: ex_c.evolve(0.05j, psi.real, psi.imag, 4, krylov_dim=16, precise=True),
-        precise_check)
-    c128 = ShardedBSROperator(cop.blocks.to(torch.complex128), cop.col_blocks, cop.n, mesh)
-    del cop, eng_c, ex_c, one
-    torch.cuda.empty_cache()
-
-    def c128_check(res, counts):
-        # the same entries (the complex64 values, exact in complex128) on one device
-        one128 = tl.BSROperator.from_coo(rows, cols, cvals.astype(np.complex64), op.n, dtype=torch.complex128,
-                                         device=dev)
-        want, it = tl.Exponentiator(one128).run(-0.5j, psi)
-        a = _angle(np, want.cpu().numpy(), res[0].cpu().numpy())
-        if not (counts["k2_by_dtype"].get("complex128", 0) > 0 and a <= 1e-12 and res[1] == it):
-            raise AssertionError(f"sharded complex128 run: angle {a}, iterations {res[1]} vs {it}, launches {counts}")
-        return {"iterations": res[1], "angle_to_unsharded": a}
-
-    run("complex128_run", lambda: tl.Exponentiator(c128).run(-0.5j, psi), c128_check)
-    del c128
-    torch.cuda.empty_cache()
-
-    eng_p = engine(op, precise_vectors=True, restart_policy="thick", max_iteration=128, eps=1e-11, max_restarts=64)
-
-    def pv_check(res, counts):
-        err = np.abs(np.sort(np.asarray(res[0])) - pv_ref)
-        if not (counts["k1x_rsmk_f32x64"] > 0 and counts["k2_by_dtype"] == {} and np.all(err <= PV_THICK_BAR)):
-            raise AssertionError(f"sharded pv thick: errors {err}, launches {counts}")
-        return {"eigenvalues": list(map(float, res[0])), "abs_errs": err.tolist(), "bar": PV_THICK_BAR,
-                "iteration_counts": eng_p.iteration_counts}
-
-    run("pv_thick", eng_p.run, pv_check)
-
-    n = EXPM_CHAIN_N
-    dia = ShardedDIAOperator.from_diagonals([-1, 1], [np.full(n, -1.0, np.float32)] * 2, n, mesh)
-    exact = np.array([-2.0 * np.cos((k + 1) * np.pi / (n + 1)) for k in range(3)])
-    f_rng = np.random.default_rng(SEED)
-
-    def cfg(eng_f):
-        eng_f.max_restarts, eng_f.max_iteration = 2, 48
-        eng_f.init_vector = lambda n_: f_rng.uniform(-1.0, 1.0, n_).astype(np.float32)
-
-    def filtered_check(res, counts):
-        vals, vecs, info = res
-        errs = np.abs(np.sort(np.asarray(vals)) - exact)
-        if not (vecs.shape == (3, n) and np.all(errs <= 2e-6) and counts["k3_by_dtype"].get("float32", 0) > 0):
-            raise AssertionError(f"sharded filtered: {vals} vs {exact} ({errs}), launches {counts}")
-        return {"degree": info["filter_degree"], "mu": info["mu"], "eigenvalues": list(map(float, vals)),
-                "abs_errs": errs.tolist(), "residuals": info["residuals"], "iteration_counts": info["iteration_counts"],
-                "matvecs": info["matvecs"]}
-
-    run("filtered_degree400", lambda: tl.filtered_lanczos(dia, num_eigs=3, degree=CHEBY_DEGREE, mu=1e-5, lo=-2.0,
-                                                          hi=2.0, configure=cfg), filtered_check)
-    ex = tl.Exponentiator(dia)
-    v_re = torch.from_numpy(chain["v0"]).to(dev)
-    v_im = torch.zeros_like(v_re)
-
-    def state_check(key, bar):
-        def check(res, counts):
-            a = _angle(np, chain["states"][key], _to_np(np, *(res[0] if key.startswith("cheb") else res)))
-            if not a <= bar:
-                raise AssertionError(f"sharded {key}: angle {a} to the unsharded state above {bar}")
-            rec = {"angle_to_unsharded": a, "bar": bar}
-            if key.startswith("evolve"):
-                rec["unsharded_wall_s"] = chain["evolve_100_s"]  # phase expm_chain, one device
-            return rec
-        return check
-
-    run("evolve_100x0.05i", lambda: ex.evolve(0.05j, v_re, v_im, 100),
-        state_check("evolve_100x0.05i", EVOLVE_ANGLE_BAR))
-    run("chebyshev_5i", lambda: ex.run_chebyshev(5j, v_re, v_im, lo=-2.0, hi=2.0),
-        state_check("chebyshev_5i", CHEBY_ANGLE_BAR))
-    w = torch.as_tensor(np.random.default_rng(SEED + 22).standard_normal(n), dtype=torch.float32, device=dev)
-    hybrid, it_h = ex.run(-0.5, w)
-    ex.mode = "fused"
-
-    def fused_check(res, counts):
-        rel = float(torch.linalg.vector_norm((res[0] - hybrid).double()) / torch.linalg.vector_norm(hybrid.double()))
-        if not (rel <= EXPM_MODE_TOL["float32"] and res[1] == it_h):
-            raise AssertionError(f"sharded fused run: {rel} against the hybrid, iterations {res[1]} vs {it_h}")
-        return {"iterations": res[1], "hybrid_iterations": it_h, "rel_err_to_hybrid": rel}
-
-    run("expm_fused_vs_hybrid", lambda: ex.run(-0.5, w), fused_check)
-    emit(out)
-    return {"k2_c64": out["complex_main_path"]["launches"]["k2_by_dtype"]["complex64"],
-            "k2_c128": out["complex128_run"]["launches"]["k2_by_dtype"]["complex128"],
-            "k2_c64x128": out["complex_evolve_precise"]["launches"]["k1x_rsmk_c64x128"]}
+    refs = {"ref": ref, "ref32": pv_ref, "thick": thick, "herm": herm, "chain": chain}
+    records = engine_set(mesh, groups=("f32", "pv", "dia", "complex"), refs=refs, op=op, emit=emit,
+                         phase="sharded_engines_case", counting=counting_checks)
+    emit({"phase": "sharded_engines", "world_size": mesh.size, "n": op.n, **records})
+    return {"k2_c64": records["complex_main_path"]["launches"]["k2_by_dtype"]["complex64"],
+            "k2_c128": records["complex128_run"]["launches"]["k2_by_dtype"]["complex128"],
+            "k2_c64x128": records["complex_evolve_precise"]["launches"]["k1x_rsmk_c64x128"]}
 
 
 # ---- bfloat16 tiles (ROADMAP queue 2: K1 and K2 for bfloat16 tiles) --------
 
 
 def _bf16_entries(np, vals):
-    """The main path's COO values as its bfloat16 tiles hold them (packed in
-    float32, rounded to nearest even), in float64: scipy's reference matrix
-    of the bfloat16 solves."""
-    import torch
+    """The main path's COO values as its bfloat16 tiles hold them, in
+    float64 (``engine_set.bf16_entries``)."""
+    from lanczos_tpu_torch.parallel.engine_set import bf16_entries
 
-    return torch.from_numpy(np.asarray(vals, np.float32)).to(torch.bfloat16).double().numpy()
+    return bf16_entries(vals)
 
 
 def check_bf16(torch, blocks, col_blocks, n_out, layout, label, gen, *, timing=False):
@@ -4361,47 +4124,28 @@ def phase_bf16_main_path(torch, np, dev):
 def sharded_bf16(torch, np, mesh, bf16):
     """The bfloat16 main path over the one-rank NCCL ShardedBSROperator
     (phase sharded_main_path's world): ``ShardedBSROperator.from_coo(...,
-    dtype=torch.bfloat16)``, fused over float32 slabs (K2 bfloat16; the
-    unsharded bfloat16 run's iteration counts, as K2 gives K1's bits), then
-    precise (K1x-rsmk bfloat16 x float64), against phase bf16_main_path's
-    scipy values.  Returns the operator for phase k2bf16 and the counts."""
-    import lanczos_tpu_torch as tl
+    dtype=torch.bfloat16)`` through ``engine_set.engine_set``'s bf16 group,
+    fused over float32 slabs (K2 bfloat16; the unsharded bfloat16 run's
+    iteration counts, as K2 gives K1's bits), then precise (K1x-rsmk
+    bfloat16 x float64), against phase bf16_main_path's scipy values.
+    Returns the operator for phase k2bf16 and the counts."""
+    from lanczos_tpu_torch.parallel.engine_set import engine_set
     from lanczos_tpu_torch.parallel.sharded import ShardedBSROperator
 
     n = MAIN_N
     rows, cols, vals = _main_path_coo(np)
     op = ShardedBSROperator.from_coo(rows, cols, vals, n, mesh, bm=128, bk=128, dtype=torch.bfloat16)
-    eng = _main_path_engine(tl, torch, op, dtype=torch.float32)
-    _launch_counts(torch)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    evals, evecs = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _read_counts()
-    rel = np.abs(np.sort(np.asarray(evals)) - bf16["ref"]) / np.abs(bf16["ref"])
-    if not (set(counts["k2_by_dtype"]) == {"bfloat16"} and counts["k2_by_dtype"]["bfloat16"] > 0
-            and not counts["k1_by_dtype"] and eng.iteration_counts == bf16["iteration_counts"]):
-        raise AssertionError(f"bf16 sharded: launches {counts}, iterations {eng.iteration_counts} against "
-                             f"{bf16['iteration_counts']} unsharded (K2 bfloat16 only expected)")
-    if not (evecs.shape == (3, n) and np.all(rel <= BF16_MAIN_BAR)):
-        raise AssertionError(f"bf16 sharded: eigenvalues {evals} vs scipy {bf16['ref']}: {rel}")
-    pv = _main_path_engine(tl, torch, op, dtype=torch.float32)
-    pv.precise_vectors = True
-    pv.eps = 1e-12
-    (pvals, _), pv_wall, pv_counts = _pv_counts(torch, pv.run)
-    pv_err = np.abs(np.sort(np.asarray(pvals)) - bf16["ref"])
-    if not (pv_counts["k1x_rsmk_bf16x64"] > 0 and pv_counts["k2"] == 0 and pv_counts["k1x_bf16x64"] == 0
-            and np.all(pv_err <= PV_MAIN_BAR)):
-        raise AssertionError(f"bf16 sharded pv: launches {pv_counts}, eigenvalues {pvals}: errors {pv_err}")
+    refs = {"ref_bf16": bf16["ref"], "bf16_iteration_counts": bf16["iteration_counts"]}
+    records = engine_set(mesh, groups=("bf16",), refs=refs, bf16_op=op, emit=None)
+    fused, pv = records["bf16_fused"], records["bf16_precise"]
     emit({"phase": "bf16_sharded", "n": n, "world_size": mesh.size, "comm": op.comm, "tiles": list(op.blocks.shape),
-          "eigenvalues": list(map(float, evals)), "max_rel_err": float(rel.max()), "bar": BF16_MAIN_BAR,
-          "iteration_counts": eng.iteration_counts, "unsharded_iteration_counts": bf16["iteration_counts"],
-          "wall_s": wall, "unsharded_wall_s": bf16["wall_s"], "launches": counts,
-          "precise": {"eigenvalues": list(map(float, pvals)), "abs_errs": pv_err.tolist(), "bar": PV_MAIN_BAR,
-                      "iteration_counts": pv.iteration_counts, "wall_s": pv_wall, "launches": pv_counts}})
-    return {"op": op, "k2_launches": counts["k2_by_dtype"]["bfloat16"],
-            "k1x_rsmk_launches": pv_counts["k1x_rsmk_bf16x64"]}
+          "eigenvalues": fused["values"], "max_rel_err": fused["max_err"], "bar": fused["bar"],
+          "iteration_counts": fused["iteration_counts"], "unsharded_iteration_counts": bf16["iteration_counts"],
+          "wall_s": fused["wall_s"], "unsharded_wall_s": bf16["wall_s"], "launches": fused["launches"],
+          "precise": {"eigenvalues": pv["values"], "abs_errs": pv["max_err"], "bar": pv["bar"],
+                      "iteration_counts": pv["iteration_counts"], "wall_s": pv["wall_s"], "launches": pv["launches"]}})
+    return {"op": op, "k2_launches": fused["launches"]["k2_by_dtype"]["bfloat16"],
+            "k1x_rsmk_launches": pv["launches"]["k1x_rsmk_bf16x64"]}
 
 
 def main() -> int:

@@ -15,6 +15,12 @@ of each solve holds the same bits (the values all-gathered and compared as
 int64 words); rank 0 prints it as one JSON line.  A missed bar or a rank
 with other bits raises, on every rank alike.
 
+:func:`engines` (``--engines``) runs the row-partitioned engines' set
+(:func:`.engine_set.engine_set`: thick, block thick, a resumed checkpoint,
+precise thick, the footprint exchange, bfloat16 and complex slabs, the
+filter and the Exponentiator over DIA slabs) at the one-card phases'
+widths, in place of the dryrun; over gloo ranks at its CPU size.
+
 :func:`full_width` (``--full``) runs the full-width set beside the one-card
 phases of ``chip_smoke.py``: the main path's n = 2**20 operator as a
 :class:`~.sharded.ShardedBSROperator` under ``comm='gather'`` and
@@ -25,7 +31,7 @@ chain over its combined axes and a 2-D dense operator).
 
 On a host with N cards::
 
-    python3 -m lanczos_tpu_torch.parallel.multichip --ranks N [--full]
+    python3 -m lanczos_tpu_torch.parallel.multichip --ranks N [--full] [--engines]
 
 builds the kernel library once, then starts one process per card.  Each
 rank sets its card (``torch.cuda.set_device``) before it joins the NCCL
@@ -37,6 +43,7 @@ outlives it.  ``--device cpu`` runs gloo ranks on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import json
 import os
@@ -50,7 +57,7 @@ import warnings
 
 import numpy as np
 
-__all__ = ["dryrun_multichip", "full_width", "launch", "main"]
+__all__ = ["dryrun_multichip", "full_width", "engines", "launch", "main"]
 
 # The JAX dryrun's bars (__graft_entry__.py:112, :140, :174, :203, :214,
 # :234, :253, :268, :289-291, :307-308, :330).
@@ -348,26 +355,26 @@ def main_path_coo(n: int = MAIN_N):
             np.concatenate([np.full(2 * (n - 1), -1.0), pot]))
 
 
-def main_path_engine(op, dtype=None):
+def main_path_engine(op, dtype=None, mode: str = "auto"):
     """``LambdaLanczos`` over ``op`` as the main path configures it (three
     pairs, eps 1e-6, a fixed float32 start; vectors in ``dtype``: the
     operator's by default, float32 for bfloat16 tiles).  The three bound
     states are checked on their own (scipy and residuals), so the
     confirming deflation round, which would resolve the gap-less band edge
-    to eps, is skipped.  Raises unless ``mode='auto'`` takes the fused
-    engine (as it does on the card)."""
+    to eps, is skipped.  Raises unless ``mode`` resolves to the fused
+    engine (``'auto'`` does on the card; the CPU tests pass ``'fused'``)."""
     import torch
 
     from ..api import LambdaLanczos
     from ..utils.random import fixed_seed_initializer
 
-    eng = LambdaLanczos(op, num_eigs=3, find_maximum=False, dtype=dtype)
+    eng = LambdaLanczos(op, num_eigs=3, find_maximum=False, dtype=dtype, mode=mode)
     eng.eps = 1e-6
     eng.init_vector = fixed_seed_initializer(torch.float32, seed=SEED)  # the same start every run
     eng.stop_when_full = True
-    mode = eng._resolve_mode()
-    if mode != "fused":
-        raise AssertionError(f"mode='auto' resolved to {mode} on {op.device}")
+    resolved = eng._resolve_mode()
+    if resolved != "fused":
+        raise AssertionError(f"mode={mode!r} resolved to {resolved} on {op.device}")
     return eng
 
 
@@ -674,12 +681,59 @@ def full_width(emit=print) -> list[dict]:
     return records
 
 
+# ------------------------------------------------------------ engines
+
+
+def engines(emit=print, workdir: str | None = None) -> dict:
+    """The row-partitioned engines' set over the current world (every rank
+    calls it): first every collective kind in every vector dtype
+    (:func:`.engine_set.collectives`, recorded; one refused or wrong raises
+    once the set has run), then :data:`.engine_set.FULL` over NCCL ranks, its CPU size
+    :data:`.engine_set.SMALL` over gloo; rank 0 passes each record, then a
+    summary, to ``emit`` as JSON lines.  ``workdir`` is a directory
+    every rank sees (the checkpoint case's file).  Raises on a missed bar,
+    a kernel that did not launch on some rank, or ranks that disagree in a
+    bit."""
+    from . import mesh as pmesh
+    from .engine_set import FULL, SMALL, collectives, engine_set
+
+    world = pmesh.make_mesh()
+    sizes = FULL if world.device.type == "cuda" else SMALL
+    t0 = time.perf_counter()
+    kinds = collectives(world)
+    refused = {k: {d: r for d, r in by.items() if r != "ok"} for k, by in kinds.items()}
+    refused = {k: v for k, v in refused.items() if v}
+    if emit is not None and world.rank == 0:
+        emit(json.dumps({"phase": "multichip_collectives", "world": world.size, "results": kinds,
+                         "ok": not refused}))
+    records = engine_set(world, sizes=sizes, emit=None if emit is None else (lambda rec: emit(json.dumps(rec))),
+                         workdir=workdir)
+    if refused:  # the cases that need a refused kind raise on their own; the rest ran
+        raise AssertionError(f"collectives refused or wrong over {world.size} ranks: {refused}")
+    if emit is not None and world.rank == 0:
+        emit(json.dumps({"phase": "multichip_engines_done", "world": world.size, "sizes": dataclasses.asdict(sizes),
+                         "seconds": time.perf_counter() - t0, "cases": list(records)}))
+    return records
+
+
+def _card_names() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``:
+    every card's name and power limit, one a line (the error text when the
+    tool fails)."""
+    try:
+        return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e}"
+
+
 # ------------------------------------------------------------- launcher
 
 
 def _rank_main(args) -> int:
-    """One rank: set the card, join the world, run the dryrun (and the
-    full-width set); a failure ends the process at once with code 1."""
+    """One rank: set the card, join the world, run the dryrun (or, with
+    ``--engines``, the engines' set; and with ``--full`` the full-width
+    set); a failure ends the process at once with code 1."""
     import torch
     import torch.distributed as dist
 
@@ -704,10 +758,14 @@ def _rank_main(args) -> int:
         if world.rank == 0:
             print(json.dumps({"phase": "world", "backend": str(dist.get_backend()), "world": world.size,
                               "device": str(world.device), "first_collective_s": first_s,
-                              "sum_of_ones": float(probe[0])}), flush=True)
-        dryrun_multichip(args.ranks, emit=lambda line: print(line, flush=True))
+                              "sum_of_ones": float(probe[0]), **({"cards": _card_names()} if cuda else {})}),
+                  flush=True)
+        if not args.engines or args.full:
+            dryrun_multichip(args.ranks, emit=lambda line: print(line, flush=True))
         if args.full:
             full_width(emit=lambda line: print(line, flush=True))
+        if args.engines:
+            engines(emit=lambda line: print(line, flush=True), workdir=args.workdir)
         dist.destroy_process_group()
     except Exception:
         traceback.print_exc()
@@ -717,10 +775,12 @@ def _rank_main(args) -> int:
     return 0
 
 
-def launch(ranks: int, *, full: bool = False, device: str = "cuda", timeout: float = 1200.0,
+def launch(ranks: int, *, full: bool = False, engines: bool = False, device: str = "cuda", timeout: float = 1200.0,
            log_dir: str | None = None, abort_rank: int | None = None) -> list[dict]:
     """Run the dryrun (and with ``full`` the full-width set) over ``ranks``
-    processes at a local rendezvous and return rank 0's records.
+    processes at a local rendezvous and return rank 0's records;
+    ``engines`` runs the engines' set instead of the dryrun (beside both
+    with ``full``), its checkpoint in ``log_dir``.
 
     ``device='cuda'`` puts rank i on card i over NCCL, after building the
     kernel library once here; ``'cpu'`` runs gloo ranks.  Each rank's
@@ -756,7 +816,8 @@ def launch(ranks: int, *, full: bool = False, device: str = "cuda", timeout: flo
             with open(logs[i], "w") as f:
                 cmd = [sys.executable, "-m", "lanczos_tpu_torch.parallel.multichip", "--rank", str(i), "--ranks",
                        str(ranks), "--init-method", f"tcp://127.0.0.1:{port}", "--device", device, "--timeout",
-                       str(timeout), *(["--full"] if full else []),
+                       str(timeout), "--workdir", log_dir, *(["--full"] if full else []),
+                       *(["--engines"] if engines else []),
                        *(["--abort-rank", str(abort_rank)] if abort_rank is not None else [])]
                 procs.append(subprocess.Popen(cmd, env=dict(env, LOCAL_RANK=str(i)), stdout=f,
                                               stderr=subprocess.STDOUT))
@@ -790,6 +851,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--ranks", type=int, required=True, help="ranks of the world, one a card under NCCL")
     ap.add_argument("--full", action="store_true", help="also run the full-width set (NCCL only)")
+    ap.add_argument("--engines", action="store_true",
+                    help="run the row-partitioned engines' set instead of the dryrun (beside both with --full)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda: one card per rank over NCCL (default); cpu: gloo")
     ap.add_argument("--timeout", type=float, default=1200.0, help="seconds for the whole world")
@@ -798,11 +861,12 @@ def main(argv=None) -> int:
                     help="the drill: this rank exits after the first collective, and the launch must fail")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)  # set by the launcher
     ap.add_argument("--init-method", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.rank is not None:
         return _rank_main(args)
     try:
-        records = launch(args.ranks, full=args.full, device=args.device, timeout=args.timeout,
+        records = launch(args.ranks, full=args.full, engines=args.engines, device=args.device, timeout=args.timeout,
                          log_dir=args.log_dir, abort_rank=args.abort_rank)
     except RuntimeError as e:
         print(str(e), file=sys.stderr, flush=True)

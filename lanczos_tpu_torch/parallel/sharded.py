@@ -373,38 +373,40 @@ class ShardedBSROperator(ShardedOperator):
         # bfloat16 tiles are summed in float32.
         return self._real_rows(self.blocks.abs().sum(dim=(1, 3), dtype=_sum_dtype(self.dtype)).reshape(-1))
 
+    def start_halo(self, x):
+        """Start the ring's or the footprint's exchange of this rank's slab
+        ``x``: ``(works, buffers)``, the received payloads once the works
+        are waited on (the ring's left and right slabs; one a hop for the
+        footprint).  The edge ranks' missing peers leave zeros."""
+        rank = self.mesh.rank
+        if self.comm == "ring":
+            from_left, from_right = torch.zeros_like(x), torch.zeros_like(x)
+            return _exchange(self.mesh, [(x, rank + 1, 0), (x, rank - 1, 1)],
+                             [(from_left, rank - 1, 0), (from_right, rank + 1, 1)]), (from_left, from_right)
+        hops = self.footprint[1]
+        x2 = x.view(-1, self.bk)
+        # hop t: ship the blocks rank - h needs from this rank, receive those
+        # this rank needs from rank + h (tag t)
+        recvs = [torch.zeros((send.shape[0], self.bk), dtype=x.dtype, device=x.device) for _h, _g, send in hops]
+        return _exchange(self.mesh, [(x2.index_select(0, send), rank - h, t) for t, (h, _g, send) in enumerate(hops)],
+                         [(buf, rank + h, t) for t, (buf, (h, _g, _s)) in enumerate(zip(recvs, hops))]), recvs
+
     def matvec(self, x):
         """``A x`` on slabs: this rank's rows of A times the global x, from
         this rank's slab ``x`` of ``n_local`` rows."""
         self._check_slab(x)
-        rank = self.mesh.rank
-        if self.comm == "ring":
-            own, left, right = self.ring_groups
-            from_left, from_right = torch.zeros_like(x), torch.zeros_like(x)
-            # Both exchanges start before the self-group SpMV they overlap;
-            # the edge ranks keep zeros, which their all-zero edge groups
-            # multiply.
-            works = _exchange(self.mesh, [(x, rank + 1, 0), (x, rank - 1, 1)],
-                              [(from_left, rank - 1, 0), (from_right, rank + 1, 1)])
-            y = self._spmv(own, x)
-            _wait(works)
-            y = y + self._spmv(left, from_left)
-            return y + self._spmv(right, from_right)
-        if self.comm == "footprint":
-            own, hops = self.footprint
-            x2 = x.view(-1, self.bk)
-            # hop t: ship the blocks rank - h needs from this rank, receive
-            # those this rank needs from rank + h (tag t)
-            recvs = [torch.zeros((send.shape[0], self.bk), dtype=x.dtype, device=x.device) for _h, _g, send in hops]
-            works = _exchange(self.mesh,
-                              [(x2.index_select(0, send), rank - h, t) for t, (h, _g, send) in enumerate(hops)],
-                              [(buf, rank + h, t) for t, (buf, (h, _g, _s)) in enumerate(zip(recvs, hops))])
-            y = self._spmv(own, x)
-            _wait(works)
-            for buf, (_h, group, _s) in zip(recvs, hops):
-                y = y + self._spmv(group, buf)
-            return y
-        return self._spmv((self.blocks, self.col_blocks, self._col_bound), all_gather(x, self.mesh))
+        if self.comm not in ("ring", "footprint"):
+            return self._spmv((self.blocks, self.col_blocks, self._col_bound), all_gather(x, self.mesh))
+        # The exchange starts before the self-group SpMV it overlaps; the
+        # edge ranks' all-zero edge groups multiply the zeros they keep.
+        works, bufs = self.start_halo(x)
+        own, groups = (self.ring_groups[0], self.ring_groups[1:]) if self.comm == "ring" else (
+            self.footprint[0], [group for _h, group, _s in self.footprint[1]])
+        y = self._spmv(own, x)
+        _wait(works)
+        for buf, group in zip(bufs, groups):
+            y = y + self._spmv(group, buf)
+        return y
 
 
 class ShardedDIAOperator(ShardedOperator):

@@ -703,6 +703,80 @@ def test_dryrun_multichip_regime(request, w, regime):
     assert np.all(err < bar), (regime, got, truth)
 
 
+# ------------------------------------------- the engines' set in the worlds
+
+# Its cases by group (engine_set.GROUPS) at engine_set.SMALL.
+ENGINE_SET_CASES = {
+    "f32": ("thick", "block_thick", "checkpoint_resumed"),
+    "pv": ("pv_thick",),
+    "footprint": ("footprint_main_path", "scattered_gather", "scattered_footprint", "scattered_auto"),
+    "bf16": ("bf16_fused", "bf16_precise"),
+    "dia": ("filtered_degree64", "evolve_4x0.05i", "chebyshev_5i", "expm_fused_vs_hybrid"),
+    "complex": ("complex_main_path", "complex_main_path_auto", "complex_evolve_precise", "complex128_run",
+                "complex128_dia_run"),
+}
+
+
+@pytest.fixture(scope="module")
+def engine_set_one(tmp_path_factory):
+    """``multichip --engines``' set at its CPU size in a one-rank gloo world
+    in this process: the one-process run the four ranks are held to."""
+    import torch.distributed as dist
+
+    from lanczos_tpu_torch.parallel import mesh as pmesh
+    from lanczos_tpu_torch.parallel.engine_set import SMALL, engine_set
+
+    assert not dist.is_initialized()
+    tmp = tmp_path_factory.mktemp("engine_set_one")
+    pmesh.initialize_distributed(backend="gloo", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
+    try:
+        return engine_set(pmesh.make_mesh(), sizes=SMALL, emit=None, workdir=str(tmp))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("group", list(ENGINE_SET_CASES))
+def test_engine_set_four_ranks(world4, engine_set_one, group):
+    # The engines' set (engine_set.engine_set, multichip --engines on the
+    # cards) at engine_set.SMALL inside the 4-rank gloo world over the plain
+    # kernels: every case met its bar inside the set, every rank holds the
+    # same bits and recorded the same values, and the values equal the
+    # one-process run's: within 1e-12 of their scale for the float64-grade
+    # cases (bars <= 1e-10: the precise and complex128 ones), within 1e-6
+    # for the float32 ones (float32 sums in another order: four partial
+    # sums where one rank makes one).
+    _refs, outs = world4
+    by_rank = [json.loads(str(o["engine_set"])) for o in outs]
+    assert list(by_rank[0]) == [c for cases in ENGINE_SET_CASES.values() for c in cases]
+    for case in ENGINE_SET_CASES[group]:
+        recs = [r[case] for r in by_rank]
+        rec = recs[0]
+        assert rec["world"] == 4 and all(r["same_bits"] and r["values"] == rec["values"] for r in recs), case
+        one = engine_set_one["complex_main_path" if case == "complex_main_path_auto" else case]
+        assert one["world"] == 1 and one["same_bits"]
+        got, want = np.asarray(rec["values"]), np.asarray(one["values"])
+        tol = 1e-12 if rec["bar"] <= 1e-10 else 1e-6
+        assert got.shape == want.shape and np.max(np.abs(got - want)) <= tol * max(np.abs(want).max(), 1.0), (
+            case, got, want)
+        if "max_err" in rec:
+            assert rec["max_err"] <= rec["bar"], rec
+        else:
+            assert rec.get("angle_to_one_device", rec.get("rel_err_to_hybrid")) <= rec["bar"], rec
+    if group == "f32":
+        ck = by_rank[0]["checkpoint_resumed"]
+        assert ck["saved_counts"] == ck["whole_iteration_counts"][:1] == ck["iteration_counts"][:1]
+    if group == "footprint":
+        recs = by_rank[0]
+        assert recs["footprint_main_path"]["comm"] == "footprint" and recs["footprint_main_path"]["hops"] == [-1, 1]
+        assert recs["scattered_gather"]["comm"] == "gather"
+        for case in ("scattered_footprint", "scattered_auto"):
+            assert recs[case]["comm"] == "footprint" and recs[case]["hops"] == [-2, -1, 1, 2], recs[case]
+            assert 4 * recs[case]["words_received_per_matvec"] <= recs[case]["gather_words_received"]
+        assert all(engine_set_one[c]["comm"] == "gather" for c in ENGINE_SET_CASES["footprint"])
+    if group == "complex":
+        assert by_rank[0]["complex_main_path_auto"]["comm"] == "ring"
+
+
 def test_multichip_launch_ends_a_world_with_a_dead_rank():
     # The launcher's drill: rank 1 exits once the world is up, rank 0 blocks
     # in the dryrun's first collective; the launch kills it and raises.
@@ -868,3 +942,32 @@ def test_nccl_world_of_four(cuda):
         assert rec["ok"] and rec["same_bits"] and "skipped" not in rec, rec
     with pytest.raises(RuntimeError, match=r"rank\(s\) \[.*\b2\b.*\] failed"):
         multichip.launch(4, timeout=300, abort_rank=2)
+
+
+@pytest.mark.gpu
+def test_nccl_engines_world_of_four(cuda, tmp_path):
+    # multichip --engines over four NCCL ranks, one a card: every collective
+    # kind in every vector dtype, then every case of the engines' set at the
+    # one-card phases' widths, each at its bar with the same bits on every
+    # rank and its kernel instances launched on every rank; the footprint
+    # cases resolve to the footprint.  Apart from test_nccl_world_of_four so
+    # that each stays inside its launcher's timeout.  Records print (-s).
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs four cards, this host has {torch.cuda.device_count()}")
+    from lanczos_tpu_torch.parallel.engine_set import FULL
+
+    records = multichip.launch(4, engines=True, timeout=1500, log_dir=str(tmp_path))
+    for rec in records:
+        print(json.dumps(rec))
+    assert records[0]["phase"] == "world" and records[0]["backend"] == "nccl" and records[0]["world"] == 4
+    assert records[1]["phase"] == "multichip_collectives" and records[1]["ok"], records[1]
+    cases = {rec["case"]: rec for rec in records if rec.get("phase") == "multichip_engines"}
+    want = [c.replace("64", str(FULL.degree)).replace("4x", f"{FULL.steps}x") if c.startswith(("filtered", "evolve"))
+            else c for cs in ENGINE_SET_CASES.values() for c in cs]
+    assert list(cases) == want and records[-1]["phase"] == "multichip_engines_done"
+    for rec in cases.values():
+        assert rec["world"] == 4 and rec["same_bits"], rec
+        assert all(n > 0 for counts in rec["need"].values() for n in counts), rec
+    for case in ("footprint_main_path", "scattered_footprint", "scattered_auto"):
+        assert cases[case]["comm"] == "footprint", cases[case]
+    assert cases["complex_main_path_auto"]["comm"] == "ring"

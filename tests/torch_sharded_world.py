@@ -677,6 +677,10 @@ def main(argv) -> int:
             _api_checks(mesh, out)
             _checkpoint_checks(mesh, out, tmpdir)
         _engine_checks(mesh, out, tmpdir)
+        if world == 4:  # the engines' set of multichip --engines at its CPU size
+            from lanczos_tpu_torch.parallel.engine_set import SMALL, engine_set
+
+            out["engine_set"] = np.array(json.dumps(engine_set(mesh, sizes=SMALL, emit=None, workdir=tmpdir)))
     finally:
         dist.destroy_process_group()
     np.savez(out_path, **out)
