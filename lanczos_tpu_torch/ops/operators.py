@@ -794,24 +794,31 @@ def float64_view(op) -> LinearOperator:
     return Float64View(op)
 
 
-def _pack_bsr(rows, cols, vals, n: int, bm: int, bk: int, dtype, layout: str = "rmsk"):
+def _pack_bsr(rows, cols, vals, n: int, bm: int, bk: int, dtype, layout: str = "rmsk", *, n_cols=None, s=None):
     """COO -> (blocks, col_blocks (R, S) int32), blocks (R, bm, S, bk) for
     the ``rmsk`` layout and (R, S, bm, bk) for the canonical ``rsmk``.
 
     Tiles of a row block are ordered by ascending column block, as the JAX
     package packs them.  Duplicates are summed in ``dtype`` (``np.add.at``).
+    ``n`` rows and ``n_cols`` columns (default n) are each padded to whole
+    tiles; a slab of a wider operator's rows passes its rows from 0 and the
+    operator's ``n_cols``.  ``s`` is the tiles a row block holds (default:
+    the most any of these row blocks needs).
     """
     # n_pad must be divisible by both tile dims.
     q = int(np.lcm(bm, bk))
-    n_pad = -(-n // q) * q
-    n_row_blocks = n_pad // bm
-    n_col_blocks = n_pad // bk
+    n_row_blocks = -(-n // q) * q // bm
+    n_col_blocks = -(-(n if n_cols is None else n_cols) // q) * q // bk
 
     ids = (rows // bm) * n_col_blocks + cols // bk
     block_ids, inv = np.unique(ids, return_inverse=True)
     rb = block_ids // n_col_blocks
     counts = np.bincount(rb, minlength=n_row_blocks)
     s_max = max(int(counts.max(initial=0)), 1)
+    if s is not None:
+        if s < s_max:
+            raise ValueError(f"a row block needs {s_max} tiles, more than s={s}")
+        s_max = int(s)
     first = np.concatenate([[0], np.cumsum(counts)[:-1]])
     slot = np.arange(block_ids.shape[0]) - first[rb]  # position within its row block
 

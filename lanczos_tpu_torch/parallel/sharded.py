@@ -187,6 +187,40 @@ def _tiles_tensor(tiles, device):
     return torch.from_numpy(tiles).to(device)
 
 
+def _tile_pattern(rows, cols, vals, n_pad, bm, bk, np_dtype, bf16, nonzero=True):
+    """The pattern of the tiles that ``_pack_bsr`` packs from these COO
+    triplets over ``n_pad`` rows, without packing a tile: the column blocks
+    ``cb`` (R, S) int32 and, with ``nonzero``, which tiles hold a nonzero
+    entry (R, S) once duplicates are summed in ``np_dtype`` in the input
+    order (``np.add.at``, as the packer sums them) and, for bfloat16 tiles,
+    rounded to their 16-bit words; else None."""
+    span = bm * bk
+    ncb, r = n_pad // bk, n_pad // bm
+    # entry keys ordered by tile id (row block * ncb + column block) first
+    key = ((rows // bm) * ncb + cols // bk) * span + (rows % bm) * bk + cols % bk
+    entries, inv = np.unique(key, return_inverse=True)
+    tile = entries // span
+    first = np.flatnonzero(np.r_[True, tile[1:] != tile[:-1]]) if tile.size else np.zeros(0, np.int64)
+    block_ids = tile[first]
+    rb = block_ids // ncb
+    counts = np.bincount(rb, minlength=r)
+    slot = np.arange(block_ids.shape[0]) - np.r_[0, np.cumsum(counts)[:-1]][rb]
+    cb = np.zeros((r, max(int(counts.max(initial=0)), 1)), np.int32)
+    cb[rb, slot] = block_ids % ncb
+    if not nonzero:
+        return cb, None
+    sums = np.zeros(entries.shape[0], np_dtype)
+    np.add.at(sums, inv.reshape(-1), vals.astype(np_dtype, copy=False))
+    if bf16:  # a bfloat16 word without its sign
+        magnitude = torch.from_numpy(sums).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16) & 0x7FFF
+    else:
+        magnitude = np.abs(sums)
+    mask = np.zeros(cb.shape, bool)
+    if first.size:
+        mask[rb, slot] = np.maximum.reduceat(magnitude, first) > 0
+    return cb, mask
+
+
 class ShardedBSROperator(ShardedOperator):
     """BSR operator row-partitioned over a :class:`RowMesh`: this rank holds
     its slab of ``R / size`` row blocks in the canonical ``rsmk`` layout.
@@ -243,9 +277,12 @@ class ShardedBSROperator(ShardedOperator):
     @classmethod
     def from_coo(cls, rows, cols, vals, n: int, mesh: RowMesh, *, bm: int = 128, bk: int = 128, dtype=torch.float32,
                  use_pallas: bool = False, comm: str = "gather"):
-        """Pack COO triplets (duplicates summed) and keep this rank's slab;
-        bfloat16 tiles are packed in float32 and rounded once, as
-        :meth:`BSROperator.from_coo` packs them.
+        """Pack this rank's row blocks of the COO triplets (duplicates
+        summed); bfloat16 tiles are packed in float32 and rounded once, as
+        :meth:`BSROperator.from_coo` packs them.  Every rank holds the whole
+        COO but packs only its own rows: the other ranks' tiles enter only
+        as the pattern (their column blocks and which of them hold a
+        nonzero), which the schedules read.
 
         n is padded so that the row blocks split evenly over the ranks and
         each slab is a whole number of column blocks: ``q = lcm(lcm(bk,
@@ -260,14 +297,23 @@ class ShardedBSROperator(ShardedOperator):
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
         np_dtype = pack_dtype(dtype)
+        bf16 = is_bfloat16(dtype)
         if np.iscomplexobj(vals) and not np.issubdtype(np_dtype, np.complexfloating):
             raise TypeError(f"complex values with real block dtype {dtype} would silently drop the imaginary parts")
-        q = int(np.lcm(np.lcm(bk, mesh.size * bm), mesh.size * bk))
+        ndev = mesh.size
+        q = int(np.lcm(np.lcm(bk, ndev * bm), ndev * bk))
         n_pad = -(-max(int(n), 1) // q) * q
-        blocks, cb = _pack_bsr(rows, cols, vals, n_pad, bm, bk, np_dtype, layout="rsmk")
-        if is_bfloat16(dtype):
-            blocks = torch.from_numpy(blocks).to(torch.bfloat16)
-        return cls.from_blocks(blocks, cb, n, mesh, use_pallas=use_pallas, comm=comm)
+        cb = nonzero = s = None
+        if ndev > 1:  # every rank's tiles have the global S
+            cb, nonzero = _tile_pattern(rows, cols, vals, n_pad, bm, bk, np_dtype, bf16, nonzero=comm != "gather")
+            s = cb.shape[1]
+        lo, hi = mesh.rank * (n_pad // ndev), (mesh.rank + 1) * (n_pad // ndev)
+        mine = (rows >= lo) & (rows < hi)  # keeps the input order: duplicates sum as in the whole pack
+        tiles, cb_mine = _pack_bsr(rows[mine] - lo, cols[mine], vals[mine], hi - lo, bm, bk, np_dtype, layout="rsmk",
+                                   n_cols=n_pad, s=s)
+        if bf16:
+            tiles = torch.from_numpy(tiles).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+        return cls._from_slab(tiles, cb_mine if cb is None else cb, nonzero, n, mesh, use_pallas, comm)
 
     @classmethod
     def from_blocks(cls, blocks, col_blocks, n: int, mesh: RowMesh, *, use_pallas: bool = False,
@@ -279,8 +325,6 @@ class ShardedBSROperator(ShardedOperator):
         in :meth:`from_coo`.  bfloat16 tiles (a tensor, or numpy's
         ``ml_dtypes`` array of a JAX operator) are regrouped as their 16-bit
         words and keep their bits."""
-        if comm not in ("gather", "ring", "footprint", "auto"):
-            raise ValueError("comm must be 'gather', 'ring', 'footprint' or 'auto'")
         bf16 = is_bfloat16(getattr(blocks, "dtype", None))
         if isinstance(blocks, torch.Tensor):
             blocks = (blocks.view(torch.int16) if bf16 else blocks).numpy()
@@ -292,6 +336,25 @@ class ShardedBSROperator(ShardedOperator):
         if cb.shape != (r, s) or n_pad % bk or r % ndev or (n_pad // bk) % ndev or n_pad < n:
             raise ValueError(f"tiles {blocks.shape} / col_blocks {cb.shape} do not split into {ndev} row slabs "
                              f"of whole column blocks holding n={n}")
+        nonzero = None
+        if ndev > 1 and comm != "gather":
+            magnitude = blocks & 0x7FFF if bf16 else np.abs(blocks)  # a bfloat16 word without its sign
+            nonzero = magnitude.reshape(r, s, -1).max(axis=-1) > 0
+        rpd = r // ndev
+        return cls._from_slab(blocks[rank * rpd:(rank + 1) * rpd], cb, nonzero, n, mesh, use_pallas, comm)
+
+    @classmethod
+    def _from_slab(cls, tiles, cb, nonzero, n: int, mesh: RowMesh, use_pallas: bool, comm: str):
+        """This rank's operator from its own tiles (rpd, S, bm, bk) (bfloat16
+        as uint16 words) and the global pattern: ``cb`` (R, S) and
+        ``nonzero`` (R, S), which only the ring and footprint schedules
+        read (None under gather or on one rank)."""
+        if comm not in ("gather", "ring", "footprint", "auto"):
+            raise ValueError("comm must be 'gather', 'ring', 'footprint' or 'auto'")
+        r = cb.shape[0]
+        bm, bk = tiles.shape[2], tiles.shape[3]
+        ndev, rank = mesh.size, mesh.rank
+        n_pad = r * bm
         requested = comm
         rpd = r // ndev  # row blocks per rank
         cpd = (n_pad // bk) // ndev  # column blocks per rank
@@ -299,8 +362,6 @@ class ShardedBSROperator(ShardedOperator):
         ring_groups = footprint = None
         words = 0
         if ndev > 1 and comm != "gather":
-            magnitude = blocks & 0x7FFF if bf16 else np.abs(blocks)  # a bfloat16 word without its sign
-            nonzero = magnitude.reshape(r, s, -1).max(axis=-1) > 0
             hop = cb // cpd - (np.arange(r) // rpd)[:, None]  # owner hop of every tile
         if comm in ("ring", "auto") and ndev > 1:
             if np.any(nonzero & (np.abs(hop) > 1)):
@@ -310,13 +371,13 @@ class ShardedBSROperator(ShardedOperator):
                 comm = "footprint"  # the auto ladder: ring > footprint > gather
             else:
                 ring_groups = tuple(
-                    cls._group(mesh, *_tile_group(blocks[mine], cb[mine], (nonzero & (hop == h))[mine],
+                    cls._group(mesh, *_tile_group(tiles, cb[mine], (nonzero & (hop == h))[mine],
                                                   lambda i, j, h=h: cb[mine][i, j] - (rank + h) * cpd, bm, bk))
                     for h in (0, -1, 1)
                 )
                 comm = "ring"
         if comm == "footprint" and ndev > 1:
-            footprint, words = cls._pack_footprint(mesh, blocks, cb, nonzero, hop, rpd, cpd, bm, bk)
+            footprint, words = cls._pack_footprint(mesh, tiles, cb, nonzero, hop, rpd, cpd, bm, bk)
             # Each hop costs one exchange and one grouped SpMV, so auto takes
             # the footprint only for a >= 4x cut of the gather's words; an
             # explicit request falls back only when it saves nothing.
@@ -325,8 +386,7 @@ class ShardedBSROperator(ShardedOperator):
         if ndev <= 1 or comm not in ("ring", "footprint"):
             comm, ring_groups, footprint, words = "gather", None, None, 0
         dev = mesh.device
-        return cls(_tiles_tensor(blocks[mine], dev),
-                   torch.from_numpy(np.ascontiguousarray(cb[mine])).to(dev),
+        return cls(_tiles_tensor(tiles, dev), torch.from_numpy(np.ascontiguousarray(cb[mine])).to(dev),
                    int(n), mesh, use_pallas, comm, ring_groups, footprint, words)
 
     @staticmethod
@@ -335,7 +395,7 @@ class ShardedBSROperator(ShardedOperator):
         return _tiles_tensor(tiles, mesh.device), torch.from_numpy(cbg).to(mesh.device), bound
 
     @classmethod
-    def _pack_footprint(cls, mesh, blocks, cb, nonzero, hop, rpd, cpd, bm, bk):
+    def _pack_footprint(cls, mesh, tiles, cb, nonzero, hop, rpd, cpd, bm, bk):
         """The footprint schedule of this rank: its self group (local column
         ids) and, for every hop h != 0 that occurs anywhere, the tiles of its
         rows owned by rank + h (column ids into the received payload) and
@@ -344,8 +404,8 @@ class ShardedBSROperator(ShardedOperator):
         computes the same words ``sum_h F_h * bk``."""
         ndev, rank = mesh.size, mesh.rank
         mine = slice(rank * rpd, (rank + 1) * rpd)
-        blk_m, cb_m = blocks[mine], cb[mine]
-        self_group = cls._group(mesh, *_tile_group(blk_m, cb_m, (nonzero & (hop == 0))[mine],
+        cb_m = cb[mine]
+        self_group = cls._group(mesh, *_tile_group(tiles, cb_m, (nonzero & (hop == 0))[mine],
                                                    lambda i, j: cb_m[i, j] - rank * cpd, bm, bk))
         hops = []
         words = 0
@@ -354,7 +414,7 @@ class ShardedBSROperator(ShardedOperator):
             need = [np.unique(cb[d * rpd:(d + 1) * rpd][sel[d * rpd:(d + 1) * rpd]]) for d in range(ndev)]
             f_h = max(max(len(ids) for ids in need), 1)
             mine_need = need[rank]
-            group = cls._group(mesh, *_tile_group(blk_m, cb_m, sel[mine],
+            group = cls._group(mesh, *_tile_group(tiles, cb_m, sel[mine],
                                                   lambda i, j: np.searchsorted(mine_need, cb_m[i, j]), bm, bk))
             send = np.zeros(f_h, np.int64)
             d = rank - h  # the receiver of this rank's payload on hop h

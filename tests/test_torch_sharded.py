@@ -6,9 +6,11 @@ mode.  The multi-rank checks run in spawned gloo worlds of 2 and 4 ranks on
 the CPU (``tests/torch_sharded_world.py``, one spawn per world size, each
 under a timeout) and are compared with the JAX package's sharded operators
 and solves on meshes of as many of the conftest's virtual devices, built
-once per module from the same numpy inputs.  Everything is float64; the
-tolerances are stated where they are used.  The card's tests (``gpu``
-marker) run K2 against its plain version and a one-rank NCCL solve.
+once per test run from the same numpy inputs (``tests/torch_run_once.py``:
+one world of each size, whichever xdist workers run the items).  Everything
+is float64; the tolerances are stated where they are used.  The card's
+tests (``gpu`` marker) run K2 against its plain version and a one-rank NCCL
+solve.
 """
 
 import datetime
@@ -28,6 +30,7 @@ torch.set_num_threads(1)
 from torch_jax_release import release_jax_executables  # noqa: E402,F401
 
 import torch_sharded_world as world_script  # noqa: E402
+from torch_run_once import once  # noqa: E402
 
 from lanczos_tpu_torch.ops import spmv  # noqa: E402
 from lanczos_tpu_torch.parallel import mp_demo, multichip  # noqa: E402
@@ -251,11 +254,10 @@ def _join_world(procs, tmp: Path, started) -> list[dict]:
     return outs
 
 
-def _world(w, tmp_path_factory):
-    """The JAX references and the outputs of a world of ``w`` ranks; the
-    references are computed while the world runs."""
+def _world(w, tmp: Path):
+    """The JAX references and the outputs of a world of ``w`` ranks, run in
+    ``tmp``; the references are computed while the world runs."""
     inputs, jax_refs = _jax_refs(w)
-    tmp = tmp_path_factory.mktemp(f"world{w}")
     if w == 2:  # a one-process checkpoint for the world to resume
         make_dia, _make_bsr = world_script.one_process_ops()
         n = world_script.CHECKPOINT_N
@@ -276,28 +278,36 @@ def _world(w, tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
-    return _world(2, tmp_path_factory)
+    return once("torch_sharded.world2", tmp_path_factory, lambda tmp: _world(2, tmp))
 
 
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
-    return _world(4, tmp_path_factory)
+    return once("torch_sharded.world4", tmp_path_factory, lambda tmp: _world(4, tmp))
+
+
+def _one_process(tmp: Path):
+    out = {}
+    make_dia, make_bsr = world_script.one_process_ops()
+    world_script.run_engines(make_dia, make_bsr, out, str(tmp), jax_cases=False)
+    return out
 
 
 @pytest.fixture(scope="module")
 def one_process(tmp_path_factory):
     """The engine cases of both worlds run by the port in one process on the
     CPU (the solves each world is held to at 1e-12)."""
-    out = {}
-    make_dia, make_bsr = world_script.one_process_ops()
-    world_script.run_engines(make_dia, make_bsr, out, str(tmp_path_factory.mktemp("one_process")), jax_cases=False)
-    return out
+    return once("torch_sharded.one_process", tmp_path_factory, _one_process)
 
 
 @pytest.fixture(scope="module")
-def jax_engines():
+def jax_engines(tmp_path_factory):
     """The JAX package's engines on the JAX tests' cases, on one device (its
-    own tests hold its sharded runs to these at 1e-11): once per module."""
+    own tests hold its sharded runs to these at 1e-11): once per run."""
+    return once("torch_sharded.jax_engines", tmp_path_factory, lambda _tmp: _jax_engines())
+
+
+def _jax_engines():
     import jax.numpy as jnp
     from lanczos_tpu import Exponentiator, LambdaLanczos, filtered_lanczos
     from lanczos_tpu.ops.operators import DIAOperator
@@ -391,6 +401,57 @@ def test_sharded_dia_matvec(request, w):
         y = _same_on_every_rank(outs, key)
         np.testing.assert_allclose(y, refs["dia.y"], rtol=TOL, atol=TOL * scale, err_msg=key)
         np.testing.assert_allclose(y, refs["dia.dense_y"], rtol=TOL, atol=TOL * scale, err_msg=key)
+
+
+# ------------------------------------------------------ per-rank packing
+
+
+@pytest.mark.parametrize("w", [2, 4])
+def test_rank_packs_only_its_rows(request, w):
+    # ShardedBSROperator.from_coo packs each rank's row blocks alone: on
+    # every pattern, comm and tile dtype each rank's tiles, col_blocks,
+    # resolved comm, footprint words and schedule groups, and its product,
+    # equal bit for bit those of from_blocks over the whole pack; the
+    # packer was handed exactly the rank's entries, once, for its rows.
+    _refs, outs = request.getfixturevalue(f"world{w}")
+    patterns = world_script.pack_patterns()
+    by_rank = [json.loads(str(o["pack"])) for o in outs]
+    keys = [(x["pattern"], x["dtype"], x["comm_requested"]) for x in by_rank[0]]
+    assert set(keys) == {(name, dt, comm) for name in patterns for dt in world_script.PACK_DTYPES
+                         for comm in world_script.COMMS}
+    for i, (name, _dt, _comm) in enumerate(keys):
+        rows, _cols, _vals, n, bm, bk = patterns[name]
+        q = int(np.lcm(np.lcm(bk, w * bm), w * bk))
+        recs = [by_rank[r][i] for r in range(w)]
+        for r, rec in enumerate(recs):
+            assert rec["same"] and rec.get("same_product", True), (r, rec)
+            assert len(rec["calls"]) == 1 and rec["calls"][0][0] == -(-n // q) * q // w and rec["calls"][0][2], (r, rec)
+            assert rec["comm"] == recs[0]["comm"], (r, rec, recs[0])  # every rank resolves alike
+        assert sum(rec["calls"][0][1] for rec in recs) == len(rows)  # every entry packed once, by its row's rank
+    resolved = {key: x["comm"] for key, x in zip(keys, by_rank[0])}
+    if w == 4:  # the far tiles' sums decide: 1e-45 survives in float32, rounds away in bfloat16
+        assert resolved[("cancel", "bfloat16", "auto")] == "ring"
+        assert resolved[("cancel", "float32", "auto")] == "footprint"
+        assert resolved[("scatter", "float64", "ring")] == "raised"
+
+
+def test_rank_pack_matches_whole_pack():
+    # The same cases in this process for every rank of 1 to 4 (a RowMesh
+    # without a process group: packing runs no collective), every tile
+    # dtype in one item (the suite's item count decides how xdist's load
+    # scheduler deals the JAX package's tests: ROADMAP.md, Tier-1 facts).
+    from lanczos_tpu_torch.parallel.mesh import RowMesh
+
+    for size in (1, 2, 3, 4):
+        for rank in range(size):
+            mesh = RowMesh(None, rank, size, torch.device("cpu"))
+            for name, (rows, cols, vals, n, bm, bk) in world_script.pack_patterns().items():
+                for dtype in world_script.PACK_DTYPES:
+                    for comm in world_script.COMMS:
+                        rec, _op, _ref = world_script.pack_case(rows, cols, vals, n, bm, bk, dtype, comm, mesh)
+                        case = (size, rank, name, dtype, comm, rec)
+                        assert rec["same"], case
+                        assert len(rec["calls"]) == 1 and rec["calls"][0][2], case
 
 
 # ----------------------------------------------------------------- solves
@@ -721,13 +782,16 @@ ENGINE_SET_CASES = {
 def engine_set_one(tmp_path_factory):
     """``multichip --engines``' set at its CPU size in a one-rank gloo world
     in this process: the one-process run the four ranks are held to."""
+    return once("torch_sharded.engine_set_one", tmp_path_factory, _engine_set_one)
+
+
+def _engine_set_one(tmp: Path):
     import torch.distributed as dist
 
     from lanczos_tpu_torch.parallel import mesh as pmesh
     from lanczos_tpu_torch.parallel.engine_set import SMALL, engine_set
 
     assert not dist.is_initialized()
-    tmp = tmp_path_factory.mktemp("engine_set_one")
     pmesh.initialize_distributed(backend="gloo", init_method=f"file://{tmp}/rendezvous", world_size=1, rank=0)
     try:
         return engine_set(pmesh.make_mesh(), sizes=SMALL, emit=None, workdir=str(tmp))

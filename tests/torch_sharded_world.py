@@ -471,6 +471,118 @@ def _matvec_checks(mesh, inputs, out):
     out["dia.y_from_arrays"] = op2.gather(op2.matvec(op2.scatter(x))).numpy()
 
 
+# ------------------------------------------------- per-rank packing
+#
+# ShardedBSROperator.from_coo packs only this rank's row blocks; each case
+# holds the result, bit for bit, to from_blocks over the whole pack (the
+# packer on every row), and a spy on the packer records what it was handed.
+
+PACK_DTYPES = ("float32", "float64", "complex64", "complex128", "bfloat16")
+CANCEL_N = 512
+
+
+def pack_patterns() -> dict:
+    """``patterns()`` and a chain whose far tiles hold pairs that cancel
+    and values that bfloat16 rounds to zero (1e-45, a float32 subnormal):
+    the nonzero mask then depends on the sum in the tiles' dtype."""
+    n = CANCEL_N
+    rows, cols, vals = ([a] for a in _chain(n))
+    pos = np.random.default_rng(3).choice(n - 300, 6, replace=False)
+    rows += [pos, pos, pos + 300]
+    cols += [pos + 300, pos + 300, pos]
+    vals += [np.full(6, 1.5), np.full(6, -1.5), np.full(6, 1e-45)]
+    return {**patterns(), "cancel": (np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n, 8, 8)}
+
+
+def pack_values(vals, dtype_name):
+    """The pattern's values for tiles of ``dtype_name``: complex for the
+    complex dtypes."""
+    return vals * (1 + 0.5j) if dtype_name.startswith("complex") else vals
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if not isinstance(b, torch.Tensor) or a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        return bool(torch.equal(a.view(torch.int16), b.view(torch.int16)) if a.dtype == torch.bfloat16
+                    else torch.equal(a, b))
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def pack_case(rows, cols, vals, n, bm, bk, dtype_name, comm, mesh):
+    """One case on this rank: ``(record, from_coo's operator, from_blocks'
+    operator)``, the operators None where both raised.  The record has the
+    resolved ``comm`` (or the text ``raised``), ``same``: the tiles,
+    ``col_blocks``, comm, ``footprint_words``, ring and footprint groups of
+    the two operators equal bit for bit, and ``calls``: per packer call, the
+    row extent it packed, the entries it was handed and whether they are
+    exactly this rank's rows of the COO in their order, less the slab's
+    first row."""
+    import torch
+
+    from lanczos_tpu_torch.core.types import pack_dtype
+    from lanczos_tpu_torch.ops.operators import _pack_bsr
+    from lanczos_tpu_torch.parallel import sharded
+
+    dtype = getattr(torch, dtype_name)
+    vals = pack_values(vals, dtype_name)
+    q = int(np.lcm(np.lcm(bk, mesh.size * bm), mesh.size * bk))
+    n_pad = -(-n // q) * q
+    lo, hi = mesh.rank * n_pad // mesh.size, (mesh.rank + 1) * n_pad // mesh.size
+    keep = (rows >= lo) & (rows < hi)
+    calls = []
+
+    def spy(r, c, v, extent, *args, **kwargs):
+        exact = (r.shape == rows[keep].shape and np.array_equal(r + lo, rows[keep])
+                 and np.array_equal(c, cols[keep]) and np.array_equal(v, vals[keep]))
+        calls.append([int(extent), int(r.shape[0]), bool(exact)])
+        return _pack_bsr(r, c, v, extent, *args, **kwargs)
+
+    sharded._pack_bsr = spy
+    try:
+        try:
+            op = sharded.ShardedBSROperator.from_coo(rows, cols, vals, n, mesh, bm=bm, bk=bk, dtype=dtype, comm=comm)
+        except ValueError as e:
+            op = str(e)
+    finally:
+        sharded._pack_bsr = _pack_bsr
+    whole, cb = _pack_bsr(rows, cols, vals, n_pad, bm, bk, pack_dtype(dtype), layout="rsmk")
+    try:
+        ref = sharded.ShardedBSROperator.from_blocks(torch.from_numpy(whole).to(dtype), cb, n, mesh, comm=comm)
+    except ValueError as e:
+        ref = str(e)
+    rec = {"calls": calls}
+    if isinstance(op, str) or isinstance(ref, str):
+        rec.update(comm="raised", same=op == ref)
+        return rec, None, None
+    rec.update(comm=op.comm, words=op.footprint_words, same=all(
+        _same_bits(getattr(op, k), getattr(ref, k))
+        for k in ("blocks", "col_blocks", "comm", "footprint_words", "ring_groups", "footprint", "n_padded")))
+    return rec, op, ref
+
+
+def _pack_checks(mesh, out):
+    """Every pack pattern, comm and tile dtype on this rank (``pack_case``),
+    and both operators' products, bit for bit; into ``out["pack"]``."""
+    import torch
+
+    recs = []
+    for name, (rows, cols, vals, n, bm, bk) in pack_patterns().items():
+        for dtype_name in PACK_DTYPES:
+            for comm in COMMS:
+                rec, op, ref = pack_case(rows, cols, vals, n, bm, bk, dtype_name, comm, mesh)
+                if op is not None:
+                    vec = torch.float32 if dtype_name == "bfloat16" else getattr(torch, dtype_name)
+                    x = torch.from_numpy(pack_values(pattern_x(n), dtype_name)).to(vec)
+                    rec["same_product"] = _same_bits(op.matvec(op.scatter(x)), ref.matvec(ref.scatter(x)))
+                recs.append({"pattern": name, "dtype": dtype_name, "comm_requested": comm, **rec})
+    out["pack"] = np.array(json.dumps(recs))
+
+
 def solve_ops(mesh):
     """The two sharded stencils of the solves, by name."""
     import torch
@@ -664,6 +776,7 @@ def main(argv) -> int:
         with np.load(inputs_path) as f:
             inputs = {k: f[k] for k in f.files}
         _matvec_checks(mesh, inputs, out)
+        _pack_checks(mesh, out)
         # The port's dryrun_multichip in this world, less the two regimes
         # that take seconds over gloo (other items hold them here).
         from lanczos_tpu_torch.parallel import multichip
